@@ -1,0 +1,63 @@
+"""JAX indexing and selection semantics, written out for torch.
+
+The reference leans on XLA behaviours that torch does not share:
+
+- `x.at[idx].set(v)` with repeated indices: on XLA's CPU backend the
+  LAST update wins (checked against jax 0.9). torch's `index_put_`
+  leaves the winner undefined, and on CUDA it is a race. `scatter_set`
+  makes every duplicate write the last writer's row, so the result is
+  deterministic on both devices and equal to the reference on the CPU.
+- `jax.lax.top_k` puts the lower index first among equal values;
+  `torch.topk` promises no order. `top_k` sorts stably instead.
+- `jnp.unique(size=, fill_value=)` has no torch form, and `torch.unique`
+  on CUDA syncs for its output size. `unique_fixed` sorts, keeps the
+  first of each run and compacts into a fixed-size buffer, keeping the
+  smallest ids as the reference does.
+
+Gathers and scatters here never see an out-of-range index: callers clamp
+and mask explicitly (an out-of-range index is a device assert on CUDA).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def scatter_set(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Functional `dst.at[idx].set(src)` along dim 0 with last-write-wins
+    on duplicate indices. `idx` [N] int in [0, dst.shape[0]); `src` [N, ...]."""
+    n = idx.shape[0]
+    pos = torch.arange(n, device=idx.device)
+    idx = idx.long()
+    last = torch.full((dst.shape[0],), -1, dtype=torch.long, device=idx.device)
+    last = last.scatter_reduce(0, idx, pos, reduce="amax", include_self=True)
+    out = dst.clone()
+    out[idx] = src[last[idx]].to(dst.dtype)
+    return out
+
+
+def scatter_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Functional `dst.at[idx].add(src)` along dim 0."""
+    return dst.index_add(0, idx.long(), src.to(dst.dtype))
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` over the last axis: largest first, lower index first
+    among ties. Returns (values, int64 indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def unique_fixed(ids: torch.Tensor, size: int, fill_value: int) -> torch.Tensor:
+    """`jnp.unique(ids, size=size, fill_value=fill_value)` for a 1-D int
+    tensor: the `size` smallest distinct values, ascending, padded with
+    `fill_value`."""
+    s, _ = torch.sort(ids)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    pos = torch.cumsum(first.long(), 0) - 1
+    keep = first & (pos < size)
+    out = torch.full((size + 1,), fill_value, dtype=ids.dtype, device=ids.device)
+    # rows not kept all land in the spare slot `size`, which is dropped
+    out = out.scatter(0, torch.where(keep, pos, torch.full_like(pos, size)), s)
+    return out[:size]

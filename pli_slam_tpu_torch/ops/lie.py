@@ -1,0 +1,155 @@
+"""SO(3) / SE(3) Lie-group operations in torch (port of pli_slam_tpu.ops.lie).
+
+Same conventions as the reference: rotations `[..., 3, 3]`, vectors
+`[..., 3]`, SE(3) as (R, t) with T x = R x + t, twists [rho, phi]
+(translation first). Taylor fallbacks near theta = 0 keep float32 safe.
+Only the SO(3)/SE(3) half is on the stereo visual path; Sim(3) and the
+quaternion helpers come with the loop-closing slice.
+
+TF32 is off (package `__init__`), so `_mm` / `_einsum` are full float32
+like the reference's `Precision.HIGHEST`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-6
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a, b)
+
+
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, *ops)
+
+
+def _eye3(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=like.dtype, device=like.device)
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of w: hat(w) @ v == cross(w, v). [...,3] -> [...,3,3]."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack(
+        [
+            torch.stack([z, -wz, wy], dim=-1),
+            torch.stack([wz, z, -wx], dim=-1),
+            torch.stack([-wy, wx, z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def _sinc_coeffs(theta2: torch.Tensor):
+    """(sin t/t, (1-cos t)/t^2, (t - sin t)/t^3) given t^2, Taylor near 0."""
+    small = theta2 < _EPS
+    t2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(t2_safe)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / t2_safe)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - torch.sin(theta)) / (t2_safe * theta))
+    return a, b, c
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    theta2 = torch.sum(w * w, dim=-1)
+    a, b, _ = _sinc_coeffs(theta2)
+    W = hat(w)
+    I = _eye3(w).expand(W.shape)
+    return I + a[..., None, None] * W + b[..., None, None] * _mm(W, W)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [...,3,3] -> axis-angle [...,3] (near 0 and near pi safe)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    w_asym = vee(R - R.transpose(-1, -2)) * 0.5
+    sin_norm2 = torch.sum(w_asym * w_asym, dim=-1)
+    small_s = sin_norm2 < 1e-12
+    sin_t = torch.sqrt(torch.where(small_s, torch.ones_like(sin_norm2), sin_norm2))
+    sin_t = torch.where(small_s, torch.zeros_like(sin_t), sin_t)
+    theta = torch.atan2(sin_t, cos_t)
+    small_th = theta < 1e-3
+    scale = torch.where(
+        small_th,
+        1.0 + theta * theta / 6.0,
+        theta / torch.where(small_th, torch.ones_like(sin_t), torch.clamp(sin_t, min=1e-12)),
+    )
+    w_generic = w_asym * scale[..., None]
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    k = torch.argmax(diag, dim=-1)
+    diag_k = torch.gather(diag, -1, k[..., None])[..., 0]
+    a_k = torch.sqrt(torch.clamp((diag_k + 1.0) * 0.5, min=1e-12))
+    one_minus_cos = torch.clamp(1.0 - cos_t, min=1e-6)
+    S = (R + R.transpose(-1, -2)) * 0.5
+    rows = torch.gather(S, -2, k[..., None, None].expand(S.shape[:-2] + (1, 3)))[..., 0, :]
+    axis_unnorm = rows / (one_minus_cos * a_k)[..., None]
+    onehot_k = torch.nn.functional.one_hot(k, 3).to(torch.bool)
+    axis_unnorm = torch.where(onehot_k, a_k[..., None].expand(axis_unnorm.shape), axis_unnorm)
+    norm = torch.linalg.norm(axis_unnorm, dim=-1, keepdim=True)
+    axis_pi = axis_unnorm / torch.clamp(norm, min=1e-12)
+    sin_norm = torch.linalg.norm(w_asym, dim=-1)
+    theta_pi = math.pi - torch.asin(torch.clamp(sin_norm, 0.0, 1.0))
+    dot = torch.sum(axis_pi * w_asym, dim=-1)
+    axis_pi = torch.where((dot < -1e-9)[..., None], -axis_pi, axis_pi)
+    w_pi = axis_pi * theta_pi[..., None]
+    near_pi = (math.pi - theta) < 1e-3
+    return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Closest rotation via SVD (reference NormalizeRotation)."""
+    u, _, vt = torch.linalg.svd(R, full_matrices=False)
+    det = torch.linalg.det(_mm(u, vt))
+    u = torch.cat([u[..., :, :2], u[..., :, 2:] * torch.sign(det)[..., None, None]], dim=-1)
+    return _mm(u, vt)
+
+
+def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Twist [...,6] = [rho, phi] -> (R, t) with t = V(phi) rho."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(phi * phi, dim=-1)
+    _, b, c = _sinc_coeffs(theta2)
+    W = hat(phi)
+    I = _eye3(xi).expand(W.shape)
+    R = so3_exp(phi)
+    V = I + b[..., None, None] * W + c[..., None, None] * _mm(W, W)
+    t = _einsum("...ij,...j->...i", V, rho)
+    return R, t
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    phi = so3_log(R)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    small = theta2 < _EPS
+    W = hat(phi)
+    I = _eye3(R).expand(W.shape)
+    half_t = theta * 0.5
+    cot_half = torch.where(
+        small,
+        1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half_t * torch.cos(half_t) / torch.clamp(torch.sin(half_t), min=1e-12))
+        / torch.clamp(theta2, min=1e-24),
+    )
+    Vinv = I - 0.5 * W + cot_half[..., None, None] * _mm(W, W)
+    rho = _einsum("...ij,...j->...i", Vinv, t)
+    return torch.cat([rho, phi], dim=-1)
+
+
+def se3_inverse(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -_einsum("...ij,...j->...i", Rt, t)
+
+
+def se3_apply(R, t, x):
+    return _einsum("...ij,...j->...i", R, x) + t
