@@ -8,7 +8,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. build   -- compiles every kernel of the main path from `pli_slam_tpu_torch/csrc/`;
   3. kernels -- each kernel against its plain PyTorch version on the card at
                the main path's shapes (planted matches, duplicate rows, radius
-               boundary, ragged store), exact equality required, both timed
+               boundary, ragged store) and at shapes that stress its tiling
+               (a store below one tile, one row past a chunk, 37 frame rows,
+               a store gated out entirely, arbitrary int8 and zero rows, an
+               exact duplicate in another tile and chunk), idx, best, second
+               and ok exactly equal at both of the main path's acceptance
+               settings; the kernel's device time per launch (50 launches in
+               one CUDA graph), the whole call and the plain version timed
                with CUDA events;
   4. main path -- first its stages on a 128x96 input (build_frame, keyframe
                insertion, one tracking step) on the card against the CPU,
@@ -51,47 +57,36 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _match_case(rng, n, p, radius, n_dup=64, n_edge=16):
-    """Frame/store inputs like the main path's: planted noisy copies of the
-    frame descriptors near the frame uv, exact duplicate store rows (ties),
-    store points exactly on the radius, invalid rows on both sides."""
+def _special_cases(rng):
+    """Inputs that stress the kernel's tiling rather than the main path's
+    shapes: (label, arrays, radius, what must hold besides equality)."""
     import numpy as np
 
-    fdesc = rng.choice(np.array([-1, 1], np.int8), size=(n, 256))
-    sdesc = rng.choice(np.array([-1, 1], np.int8), size=(p, 256))
-    fuv = rng.uniform(0, 752, size=(n, 2)).astype(np.float32)
-    suv = rng.uniform(0, 752, size=(p, 2)).astype(np.float32)
-    perm = rng.permutation(p)[:n]
-    noisy = fdesc.copy()
-    for i in range(n):
-        noisy[i, rng.choice(256, size=int(rng.integers(0, 40)), replace=False)] *= -1
-    sdesc[perm] = noisy
-    suv[perm] = fuv + rng.normal(size=(n, 2)).astype(np.float32) * (radius / 3)
-    src = perm[:n_dup]
-    dst = rng.choice(np.setdiff1d(np.arange(p), perm), size=n_dup, replace=False)
-    sdesc[dst] = sdesc[src]
-    suv[dst] = suv[src]
-    fuv[:n_edge] = np.round(fuv[:n_edge])
-    edge_rows = perm[:n_edge]
-    suv[edge_rows] = fuv[:n_edge] + np.float32(radius) * np.array([0.6, 0.8], np.float32)
-    fvalid = rng.random(n) > 0.05
-    svalid = rng.random(p) > 0.1
-    return fdesc, fuv, fvalid, sdesc, suv, svalid
+    from pli_slam_tpu_torch.utils.kernel_bench import match_case
 
-
-def _time_ms(fn, iters=50):
-    import torch
-
-    for _ in range(5):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    out = [
+        ("small_store", match_case(rng, 1200, 100, 15.0, n_dup=0), 15.0, None),  # a store smaller than one tile
+        # one row past a chunk boundary: the kernel cuts 4096 rows into 16 chunks of 256, 256 rows into 2 of 128
+        ("past_chunk", match_case(rng, 1200, 4097, 15.0), 15.0, None),
+        ("past_small_chunk", match_case(rng, 130, 257, 15.0, n_dup=0), 15.0, None),
+        ("small_n", match_case(rng, 37, 4096, 15.0, n_dup=16), 15.0, None),  # fewer frame rows than one tile
+    ]
+    fdesc, fuv, fvalid, sdesc, suv, svalid = match_case(rng, 1200, 4096, 15.0)
+    out.append(("all_gated", (fdesc, fuv, fvalid, sdesc, suv + np.float32(5000.0), svalid), 15.0, "none"))
+    # arbitrary int8 values and rows of zeros on both sides: distances negative and half-integer
+    fdesc, fuv, fvalid, sdesc, suv, svalid = match_case(rng, 1200, 4096, 45.0)
+    fdesc = rng.integers(-128, 128, size=fdesc.shape).astype(np.int8)
+    sdesc = rng.integers(-128, 128, size=sdesc.shape).astype(np.int8)
+    fdesc[::7], sdesc[::5] = 0, 0
+    out.append(("any_int8", (fdesc, fuv, fvalid, sdesc, suv, svalid), 45.0, None))
+    # every feature's exact copy at store row i and again 8 tiles of 128 rows on: another tile and another chunk
+    fdesc, fuv, fvalid, sdesc, suv, svalid = match_case(rng, 1200, 4096, 15.0, n_dup=0)
+    far = 8 * 128 * -(-1200 // (8 * 128))
+    sdesc[:1200], sdesc[far:far + 1200] = fdesc, fdesc
+    suv[:1200], suv[far:far + 1200] = fuv, fuv
+    svalid[:1200], svalid[far:far + 1200] = True, True
+    out.append(("far_duplicate", (fdesc, fuv, fvalid, sdesc, suv, svalid), 15.0, "lowest"))
+    return out
 
 
 def phase_kernels(dev):
@@ -99,46 +94,58 @@ def phase_kernels(dev):
     import torch
 
     from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.utils.kernel_bench import eager_ms, graph_ms, match_case
 
-    cases = [  # (label, N, P, radius, max_dist, ratio): the main path's calls
-        ("track_r15", 1200, 4096, 15.0, 100.0, 0.9),
-        ("track_wide_r45", 1200, 4096, 45.0, 100.0, 0.9),
-        ("track_r6", 1200, 4096, 6.0, 100.0, 0.9),
-        ("fuse", 1200, 16384, float(np.float32(0.05) * np.float32(435.2)), 64.0, 1.0),
-        ("ragged_store", 1200, 4096 + 77, 15.0, 100.0, 0.9),
+    main_cases = [  # (label, N, P, radius): the main path's calls
+        ("track_r15", 1200, 4096, 15.0),
+        ("track_wide_r45", 1200, 4096, 45.0),
+        ("track_r6", 1200, 4096, 6.0),
+        ("fuse", 1200, 16384, float(np.float32(0.05) * np.float32(435.2))),
+        ("ragged_store", 1200, 4096 + 77, 15.0),
     ]
     rng = np.random.default_rng(0)
+    cases = [(label, match_case(rng, n, p, radius), radius, None) for label, n, p, radius in main_cases]
+    cases += _special_cases(rng)
     max_err = 0.0
     times = {}
-    for label, n, p, radius, max_dist, ratio in cases:
-        arrays = _match_case(rng, n, p, radius)
-        fdesc, fuv, fvalid, sdesc, suv, svalid = (torch.as_tensor(a, device=dev) for a in arrays)
+    for label, arrays, radius, expect in cases:
+        fdesc, fuv, fvalid, sdesc, suv, svalid = args = tuple(torch.as_tensor(a, device=dev) for a in arrays)
+        n, p = fdesc.shape[0], sdesc.shape[0]
         r_dev = torch.tensor(radius, dtype=torch.float32, device=dev)
-        k_idx, k_best, k_second = hamming.gated_match_cuda(fdesc, fuv, fvalid, sdesc, suv, svalid, r_dev)
-        p_idx, p_best, p_second = hamming.gated_match_reference(fdesc, fuv, fvalid, sdesc, suv, svalid, r_dev)
-        torch.cuda.synchronize()
-        if not torch.equal(k_idx, p_idx):
-            raise AssertionError(f"{label}: idx differs in {(k_idx != p_idx).sum().item()} rows")
-        err = max((k_best - p_best).abs().max().item(), (k_second - p_second).abs().max().item())
-        if err != 0.0:
-            raise AssertionError(f"{label}: best/second differ by up to {err}")
-        k_ok = hamming.gated_match(fdesc, fuv, fvalid, sdesc, suv, svalid, r_dev, max_dist, ratio)[2]
-        ok_ref = fvalid & (p_best <= max_dist) & (p_idx >= 0)
-        if ratio < 1.0:
-            ok_ref = ok_ref & (p_best < ratio * p_second)
-        if not torch.equal(k_ok, ok_ref):
-            raise AssertionError(f"{label}: ok differs")
+        p_idx, p_best, p_second = hamming.gated_match_reference(*args, r_dev)
+        # the main path's two settings: tracking (100, 0.9) and the fuse (64, no ratio test)
+        for max_dist, ratio in ((100.0, 0.9), (64.0, 1.0)):
+            k_idx, k_best, k_second, k_ok = hamming.gated_match_cuda(*args, r_dev, max_dist, ratio)
+            w_idx, w_best, w_ok = hamming.gated_match(*args, radius, max_dist, ratio)  # a Python-float radius
+            torch.cuda.synchronize()
+            if not (torch.equal(k_idx, p_idx) and torch.equal(w_idx, p_idx)):
+                raise AssertionError(f"{label}: idx differs in {(k_idx != p_idx).sum().item()} rows")
+            err = max((k_best - p_best).abs().max().item(), (k_second - p_second).abs().max().item(),
+                      (w_best - p_best).abs().max().item())
+            if err != 0.0:
+                raise AssertionError(f"{label}: best/second differ by up to {err}")
+            ok_ref = hamming.accept_reference(fvalid, p_idx, p_best, p_second, max_dist, ratio)
+            if not (torch.equal(k_ok, ok_ref) and torch.equal(w_ok, ok_ref)):
+                raise AssertionError(f"{label}: ok differs at max_dist {max_dist}, ratio {ratio}")
+            max_err = max(max_err, err)
         n_tie = int((k_second == k_best).sum().item())
         n_match = int((k_idx >= 0).sum().item())
-        max_err = max(max_err, err)
+        if expect == "none" and (n_match or not bool(((k_best == 1e9) & (k_second == 1e9)).all())):
+            raise AssertionError(f"{label}: {n_match} rows matched in a store gated out entirely")
+        if expect == "lowest":
+            rows = torch.arange(n, device=dev, dtype=torch.int32)
+            if not (torch.equal(k_idx[fvalid], rows[fvalid]) and bool((k_second[fvalid] == 0).all())):
+                raise AssertionError(f"{label}: the lower of two exact copies must win with second == best == 0")
         if label in ("track_r15", "fuse"):
-            args = (fdesc, fuv, fvalid, sdesc, suv, svalid, r_dev)
-            t_plain_a = _time_ms(lambda: hamming.gated_match_reference(*args))
-            t_kern_a = _time_ms(lambda: hamming.gated_match_cuda(*args))
-            t_kern_b = _time_ms(lambda: hamming.gated_match_cuda(*args))
-            t_plain_b = _time_ms(lambda: hamming.gated_match_reference(*args))
-            times[label] = (0.5 * (t_kern_a + t_kern_b), 0.5 * (t_plain_a + t_plain_b))
-            log(f"kernels: {label} N={n} P={p} kernel {times[label][0]:.4f} ms, plain {times[label][1]:.4f} ms")
+            max_dist, ratio = (100.0, 0.9) if label == "track_r15" else (64.0, 1.0)
+            t_plain_a = eager_ms(lambda: hamming.gated_match_reference(*args, r_dev))
+            t_kern_a = graph_ms(lambda: hamming.gated_match_cuda(*args, r_dev, max_dist, ratio))
+            t_call = eager_ms(lambda: hamming.gated_match(*args, r_dev, max_dist, ratio))
+            t_kern_b = graph_ms(lambda: hamming.gated_match_cuda(*args, r_dev, max_dist, ratio))
+            t_plain_b = eager_ms(lambda: hamming.gated_match_reference(*args, r_dev))
+            times[label] = (0.5 * (t_kern_a + t_kern_b), 0.5 * (t_plain_a + t_plain_b), t_call)
+            log(f"kernels: {label} N={n} P={p} kernel {times[label][0]:.4f} ms per launch (50 launches in a CUDA "
+                f"graph), whole call {t_call:.4f} ms (eager), plain {times[label][1]:.4f} ms")
         log(f"kernels: {label} N={n} P={p} r={radius:.3f}: idx/best/second/ok exactly equal "
             f"({n_match} matched rows, {n_tie} rows with second == best)")
     return max_err, times
@@ -277,7 +284,7 @@ def phase_main_path(dev, smi):
         raise AssertionError(f"ATE {ate} m >= 0.10 m (divergence guard)")
     if launches < 2 * n_fused:
         raise AssertionError(f"gated_match launched {launches} times for {n_fused} fused frames")
-    return launches
+    return launches, N_FRAMES
 
 
 def main() -> int:
@@ -303,14 +310,19 @@ def main() -> int:
 
     max_err, times = phase_kernels(dev)
     phase_small_reference(dev)
-    launches = phase_main_path(dev, smi)
+    launches, n_frames = phase_main_path(dev, smi)
 
-    k_ms, p_ms = times["track_r15"]
-    kf_ms, pf_ms = times["fuse"]
+    from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
+
+    k_ms, p_ms, c_ms = times["track_r15"]
+    kf_ms, pf_ms, cf_ms = times["fuse"]
+    (b_ms, b_by), (bf_ms, _) = bound_ms(1200, 4096), bound_ms(1200, 16384)
     log(json.dumps({"kernels": [{
         "name": "gated_match", "route": "cuda", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-        "shape": "N=1200 x P=4096", "ms_fuse": kf_ms, "plain_ms_fuse": pf_ms, "shape_fuse": "N=1200 x P=16384",
+        "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "call_ms": c_ms, "shape": "N=1200 x P=4096",
+        "ms_fuse": kf_ms, "plain_ms_fuse": pf_ms, "bound_ms_fuse": bf_ms, "call_ms_fuse": cf_ms,
+        "shape_fuse": "N=1200 x P=16384", "launches_per_frame": launches / (n_frames - 1),
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from pli_slam_tpu.utils.config import SlamConfig
+from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.ops import lines as line_ops
 from pli_slam_tpu_torch.ops import orb, stereo
 from pli_slam_tpu_torch.ops.camera import Camera

@@ -35,7 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pli_slam_tpu.utils.config import SlamConfig
+from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.frontend.frame import FrameData
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import lie, matching

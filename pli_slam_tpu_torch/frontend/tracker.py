@@ -22,7 +22,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from pli_slam_tpu.utils.config import SlamConfig
+from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.frontend import step as step_mod
 from pli_slam_tpu_torch.frontend.frame import FrameData, build_frame
 from pli_slam_tpu_torch.ops import lie

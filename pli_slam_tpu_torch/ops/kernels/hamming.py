@@ -19,7 +19,8 @@ Semantics (both paths, bit for bit with the Pallas kernel):
 - ties go to the lowest store row; `second` is the minimum over every
   other row, so an exact duplicate of the winner gives second == best;
 - no passing row: idx = -1, best = 1e9.
-The ok / ratio epilogue is shared torch code (hamming.py:141-143).
+The acceptance flag (hamming.py:141-143) is written by the kernel on the
+card and by `accept_reference` on the CPU.
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 launches = 0  # kernel launches made through `gated_match` in this process
 _lib = None
+_block_rows = 0  # frame rows per block, a constant of the source
+_tickets: dict = {}  # (device index, stream) -> the kernel's zeroed row-tile counters
+_chunks: dict = {}  # (device index, N, P) -> chunks of the store, as the source plans them
 
 
 def reset_launches() -> None:
@@ -60,34 +64,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the gated-match kernel is built from source on first use")
 
 
-def build() -> float:
-    """Compile (if needed) and load the kernel library. Returns the seconds spent."""
-    global _lib
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
+def compile_library(src: Path = _SRC, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile `src` with nvcc for sm_90a (once per content and flags) and load it."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libgated_match_{digest}.so"
+    so = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if not so.exists():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SRC)]
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", *flags,
+               "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gated_match_launch.argtypes = [vp] * 7 + [ci, ci] + [vp] * 7
+    return ctypes.CDLL(str(so))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' types: without them ctypes cuts pointers to 32 bits."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gated_match_launch.argtypes = [vp] * 7 + [cf, cf, cf, ci, ci, ci] + [vp] * 5
     lib.gated_match_launch.restype = ci
-    lib.gated_match_chunk_rows.argtypes = []
-    lib.gated_match_chunk_rows.restype = ci
-    _lib = lib
+    lib.gated_match_chunks.argtypes = [ci, ci]
+    lib.gated_match_chunks.restype = ci
+    lib.gated_match_block_rows.argtypes = []
+    lib.gated_match_block_rows.restype = ci
+    return lib
+
+
+def build() -> float:
+    """Compile (if needed) and load the kernel library. Returns the seconds spent."""
+    if _lib is not None:
+        return 0.0
+    t0 = time.perf_counter()
+    use_library(bind(compile_library()))
     return time.perf_counter() - t0
+
+
+def use_library(lib: ctypes.CDLL) -> None:
+    """Make `lib` (a bound build of the source) the one the wrapper launches."""
+    global _lib, _block_rows
+    _lib, _block_rows = lib, lib.gated_match_block_rows()
+    _tickets.clear()
+    _chunks.clear()
 
 
 def _r2(radius, device) -> torch.Tensor:
@@ -140,11 +161,48 @@ def gated_match_reference(fdesc, fuv, fvalid, sdesc, suv, svalid, radius):
     return idx, best, second
 
 
-def gated_match_cuda(fdesc, fuv, fvalid, sdesc, suv, svalid, radius):
-    """Launch the CUDA kernel: returns (idx [N] int32, best [N], second [N])."""
+def accept_reference(fvalid, idx, best, second, max_dist: float = 100.0, ratio: float = 1.0):
+    """Plain PyTorch version of the acceptance flag: a valid feature whose best
+    row is near enough and, below ratio 1, clearly better than the second."""
+    ok = fvalid & (best <= max_dist) & (idx >= 0)
+    if ratio < 1.0:
+        ok = ok & (best < ratio * second)
+    return ok
+
+
+def merge_partials_reference(pbest, pidx, psecond):
+    """Merge partial results over the leading axis: [C, N] -> (idx, best, second) [N].
+
+    Each partial is a `gated_match_reference` result on a subset of the store,
+    with `pidx` already in rows of the whole store. The rule is order-free
+    (associative and commutative), which is what lets the CUDA kernel fold
+    columns, quads, tiles and chunks in whatever order they come: the winner
+    is the lexicographic minimum of (best, idx), and second is the minimum of
+    the losers' bests and of every partial's second."""
+    dev = pbest.device
+    big = torch.full((1, pbest.shape[1]), BIG, dtype=torch.float32, device=dev)
+    # the merge's identity element first: an empty stack of partials stays well-defined
+    pbest, psecond = torch.cat([big, pbest]), torch.cat([big, psecond])
+    pidx = torch.cat([torch.full_like(big, -1, dtype=torch.int32), pidx.to(torch.int32)])
+    best = pbest.amin(dim=0)
+    tied = torch.where(pbest == best[None], pidx, torch.iinfo(torch.int32).max)
+    idx, winner = tied.min(dim=0)
+    others = torch.where(torch.arange(pbest.shape[0], device=dev)[:, None] == winner[None], big, pbest)
+    second = torch.minimum(others.amin(dim=0), psecond.amin(dim=0))
+    return torch.where(best < BIG, idx, torch.full_like(idx, -1)), best, second
+
+
+def gated_match_cuda(fdesc, fuv, fvalid, sdesc, suv, svalid, radius, max_dist: float = 100.0, ratio: float = 1.0):
+    """Launch the CUDA kernel: returns (idx [N] int32, best [N], second [N], ok [N] bool).
+
+    One launch and three allocations; a `radius` that is a device tensor is
+    read by the kernel, so nothing here makes the host wait."""
     global launches
     build()
     dev = fdesc.device
+    if dev.index != torch.cuda.current_device():
+        raise RuntimeError(
+            f"gated_match launches on the current device ({torch.cuda.current_device()}), inputs are on {dev}")
     n, p = fdesc.shape[0], sdesc.shape[0]
 
     def dense(t):
@@ -153,23 +211,28 @@ def gated_match_cuda(fdesc, fuv, fvalid, sdesc, suv, svalid, radius):
 
     fdesc, sdesc, fuv, suv = dense(fdesc), dense(sdesc), dense(fuv), dense(suv)
     fvalid, svalid = fvalid.contiguous(), svalid.contiguous()
-    r2 = _r2(radius, dev)
-    n_chunks = -(-p // _lib.gated_match_chunk_rows())
-    pbest = torch.empty((max(n_chunks, 1), n), dtype=torch.float32, device=dev)
-    psecond = torch.empty_like(pbest)
-    pidx = torch.empty((max(n_chunks, 1), n), dtype=torch.int32, device=dev)
-    best = torch.empty(n, dtype=torch.float32, device=dev)
-    second = torch.empty_like(best)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    r_dev = radius.to(device=dev, dtype=torch.float32).reshape(1) if isinstance(radius, torch.Tensor) else None
     stream = torch.cuda.current_stream(dev).cuda_stream
+    n_tiles = -(-n // _block_rows)
+    tickets = _tickets.get((dev.index, stream))
+    if tickets is None or tickets.numel() < n_tiles:
+        # one counter per tile of frame rows; the kernel leaves them at zero
+        tickets = _tickets[(dev.index, stream)] = torch.zeros(max(n_tiles, 64), dtype=torch.int32, device=dev)
+    n_chunks = _chunks.get((dev.index, n, p))  # the kernel's split of the store for this shape and card
+    if n_chunks is None:
+        n_chunks = _chunks[(dev.index, n, p)] = _lib.gated_match_chunks(n, p)
+    scratch = torch.empty(3 * n_chunks * n, dtype=torch.float32, device=dev)  # partial best, second, idx
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
     err = _lib.gated_match_launch(
-        fdesc.data_ptr(), fuv.data_ptr(), fvalid.data_ptr(), sdesc.data_ptr(), suv.data_ptr(),
-        svalid.data_ptr(), r2.data_ptr(), n, p, pbest.data_ptr(), psecond.data_ptr(),
-        pidx.data_ptr(), best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream)
+        fdesc.data_ptr(), fuv.data_ptr(), fvalid.data_ptr(), sdesc.data_ptr(), suv.data_ptr(), svalid.data_ptr(),
+        None if r_dev is None else r_dev.data_ptr(), 0.0 if r_dev is not None else float(radius),
+        float(max_dist), float(ratio), int(ratio < 1.0), n, p,
+        scratch.data_ptr(), tickets.data_ptr(), out.data_ptr(), ok.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"gated_match kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"gated_match kernel launch failed: error {err} (cudaError, or 100000 + CUresult)")
     launches += 1
-    return idx, best, second
+    return out[2].view(torch.int32), out[0], out[1], ok
 
 
 def gated_match(fdesc, fuv, fvalid, sdesc, suv, svalid, radius, max_dist: float = 100.0, ratio: float = 1.0):
@@ -178,12 +241,9 @@ def gated_match(fdesc, fuv, fvalid, sdesc, suv, svalid, radius, max_dist: float 
     `radius` is a float or a 0-d float32 tensor on the inputs' device."""
     _, _, dev = _check(fdesc, fuv, fvalid, sdesc, suv, svalid)
     if dev.type == "cuda":
-        idx, best, second = gated_match_cuda(fdesc, fuv, fvalid, sdesc, suv, svalid, radius)
-    elif dev.type == "cpu":
-        idx, best, second = gated_match_reference(fdesc, fuv, fvalid, sdesc, suv, svalid, radius)
-    else:
+        idx, best, _, ok = gated_match_cuda(fdesc, fuv, fvalid, sdesc, suv, svalid, radius, max_dist, ratio)
+        return idx, best, ok
+    if dev.type != "cpu":
         raise RuntimeError(f"gated_match has no path for device {dev}")
-    ok = fvalid & (best <= max_dist) & (idx >= 0)
-    if ratio < 1.0:
-        ok = ok & (best < ratio * second)
-    return idx, best, ok
+    idx, best, second = gated_match_reference(fdesc, fuv, fvalid, sdesc, suv, svalid, radius)
+    return idx, best, accept_reference(fvalid, idx, best, second, max_dist, ratio)

@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from pli_slam_tpu.utils.config import LineConfig
+from pli_slam_tpu_torch.utils.config import LineConfig
 from pli_slam_tpu_torch.ops import image as image_ops
 from pli_slam_tpu_torch.ops.fast import max_pool_same
 from pli_slam_tpu_torch.ops.indexing import top_k

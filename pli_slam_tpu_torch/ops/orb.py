@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pli_slam_tpu.utils.config import OrbConfig
+from pli_slam_tpu_torch.utils.config import OrbConfig
 from pli_slam_tpu_torch.ops import fast as fast_ops
 from pli_slam_tpu_torch.ops import image as image_ops
 from pli_slam_tpu_torch.ops.indexing import top_k

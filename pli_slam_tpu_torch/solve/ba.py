@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from pli_slam_tpu.utils.config import OptimizerConfig
+from pli_slam_tpu_torch.utils.config import OptimizerConfig
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import lie, robust
 

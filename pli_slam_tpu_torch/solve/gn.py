@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from pli_slam_tpu.utils.config import OptimizerConfig
+from pli_slam_tpu_torch.utils.config import OptimizerConfig
 from pli_slam_tpu_torch.ops import lie, robust
 from pli_slam_tpu_torch.solve import residuals as res
 

@@ -21,8 +21,29 @@ from pli_slam_tpu_torch.frontend.frame import FrameData
 from pli_slam_tpu_torch.ops.camera import Camera
 from pli_slam_tpu_torch.ops.lines import LineFeatures
 from pli_slam_tpu_torch.ops.orb import Features
+from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.worldmap.stores import KeyFrameStore, LineStore, PointStore
 from pli_slam_tpu_torch.worldmap.vocab import BowDatabase, Vocabulary
+
+
+def _dataclass_from_dict(cls, d: dict, where: str):
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown, missing = sorted(set(d) - set(fields)), sorted(set(fields) - set(d))
+    if unknown or missing:
+        raise ValueError(f"{where}: unknown fields {unknown}, missing fields {missing}")
+    kw = {}
+    for name, f in fields.items():
+        sub = type(f.default)  # every nested config is a dataclass-typed default
+        kw[name] = _dataclass_from_dict(sub, d[name], f"{where}.{name}") if dataclasses.is_dataclass(sub) else d[name]
+    return cls(**kw)
+
+
+def config_from_reference(d: dict) -> SlamConfig:
+    """The port's SlamConfig from `dataclasses.asdict` of the JAX package's:
+    a plain dict goes in, so no object of that package comes across. Every
+    field must be there and none besides: a field that one package has and
+    the other lacks raises."""
+    return _dataclass_from_dict(SlamConfig, d, "SlamConfig")
 
 
 def tensor(x, device=None) -> torch.Tensor:

@@ -39,7 +39,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from pli_slam_tpu.utils.config import SlamConfig
+from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.ops.camera import Camera
 
 N_FRAMES = 40

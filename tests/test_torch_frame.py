@@ -11,6 +11,7 @@ segments must appear in the port's output with equal descriptors, and
 stereo line verdicts must agree on those.
 """
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -31,6 +32,7 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def frames():
     cfg = SlamConfig.tiny_test()
+    tcfg = convert.config_from_reference(dataclasses.asdict(cfg))
     jcam = JCamera.pinhole(fx=120.0, fy=120.0, cx=64.0, cy=48.0, bf=0.11 * 120.0, width=128, height=96)
     tcam = convert.camera(jax.tree_util.tree_map(np.asarray, jcam))
     traj = jsyn.Trajectory(amp=(0.5, 0.35, 0.2), freq=(0.15, 0.19, 0.11), yaw_amp=0.25)
@@ -39,7 +41,7 @@ def frames():
     for fr in jsyn.make_sequence(jcam, 2, fps=cfg.fps, traj=traj, room_half=2.55):
         il, ir = np.array(fr["img_l"]), np.array(fr["img_r"])
         jf = convert.to_numpy(jax.tree_util.tree_map(np.asarray, build_j(il, ir)))
-        tf = convert.to_numpy(tframe.build_frame(tcam, cfg, torch.as_tensor(il), torch.as_tensor(ir)))
+        tf = convert.to_numpy(tframe.build_frame(tcam, tcfg, torch.as_tensor(il), torch.as_tensor(ir)))
         out.append((jf, tf))
     return out
 

@@ -8,6 +8,7 @@ arrays go through both packages. Tolerances, where not exact:
 - exact for integer outputs, masks, keypoints and ORB descriptors.
 """
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -54,7 +55,7 @@ def stereo_pair():
     cam = jcam.Camera.pinhole(fx=120.0, fy=120.0, cx=64.0, cy=48.0, bf=0.11 * 120.0, width=128, height=96)
     traj = jsyn.Trajectory(amp=(0.5, 0.35, 0.2), freq=(0.15, 0.19, 0.11), yaw_amp=0.25)
     fr = next(jsyn.make_sequence(cam, 1, traj=traj, room_half=2.55))
-    return cfg, np.array(fr["img_l"]), np.array(fr["img_r"])
+    return (cfg, convert.config_from_reference(dataclasses.asdict(cfg))), np.array(fr["img_l"]), np.array(fr["img_r"])
 
 
 # ---------------------------------------------------------------------------
@@ -145,9 +146,9 @@ def test_orb_parity(stereo_pair):
     Equal FAST scores at the per-level top-K cut are counted: the port
     breaks them by the lower candidate index like jax.lax.top_k, so
     keypoints agree even when ties sit at the cut."""
-    cfg, img, _ = stereo_pair
+    (cfg, tcfg), img, _ = stereo_pair
     jf = jax.tree_util.tree_map(np.asarray, jax.jit(partial(jorb.extract, cfg=cfg.orb))(img))
-    tf = convert.to_numpy(torb.extract(T(img), cfg.orb))
+    tf = convert.to_numpy(torb.extract(T(img), tcfg.orb))
     for k in ("uv", "octave", "scale", "desc", "valid"):
         np.testing.assert_array_equal(tf[k], getattr(jf, k), err_msg=k)
     close(tf["response"], jf.response, rtol=1e-4, atol=1e-3)  # fused pyramid arithmetic
@@ -196,7 +197,7 @@ def test_matching_parity():
 
 
 def test_stereo_parity(stereo_pair):
-    cfg, il, ir = stereo_pair
+    (cfg, _), il, ir = stereo_pair
     ext = jax.jit(partial(jorb.extract, cfg=cfg.orb))
     fl = jax.tree_util.tree_map(np.asarray, ext(il))
     fr = jax.tree_util.tree_map(np.asarray, ext(ir))
@@ -214,14 +215,14 @@ def test_stereo_parity(stereo_pair):
 
 
 def test_line_stages_parity(stereo_pair):
-    cfg, img, _ = stereo_pair
+    (cfg, tcfg), img, _ = stereo_pair
     lc = cfg.lines
     je = jlines._edge_map(img, lc.grad_threshold)
     te = tlines._edge_map(T(img), lc.grad_threshold)
     np.testing.assert_array_equal(te[0].numpy(), np.asarray(je[0]))
     h, w = img.shape
     ja, _, _ = jlines._hough_vote(*je, lc, h, w)
-    ta, _, _ = tlines._hough_vote(*te, lc, h, w)
+    ta, _, _ = tlines._hough_vote(*te, tcfg.lines, h, w)
     close(ta, ja, rtol=1e-5, atol=1e-3)  # |grad| via sqrt differs by an ulp on a few pixels
     jp = jlines._hough_peaks(ja, lc.n_candidates)
     tp = tlines._hough_peaks(T(np.asarray(ja)), lc.n_candidates)
@@ -243,9 +244,9 @@ def test_line_detect_and_stereo_parity(stereo_pair):
     segments must appear in the port's output within 1e-3 px with the
     same LBD descriptor bits (<= 2% of bits may flip: a projection within
     float rounding of 0)."""
-    cfg, il, ir = stereo_pair
+    (cfg, tcfg), il, ir = stereo_pair
     jl = jax.tree_util.tree_map(np.asarray, jax.jit(partial(jlines.detect, cfg=cfg.lines))(il))
-    tl = convert.to_numpy(tlines.detect(T(il), cfg.lines))
+    tl = convert.to_numpy(tlines.detect(T(il), tcfg.lines))
     assert tl["valid"].sum() == jl.valid.sum()
     a = np.concatenate([jl.p0, jl.p1], 1)[jl.valid]
     b = np.concatenate([tl["p0"], tl["p1"]], 1)[tl["valid"]]
@@ -257,7 +258,7 @@ def test_line_detect_and_stereo_parity(stereo_pair):
     assert flips <= 0.02, flips
 
     # descriptor and stereo association on identical segments
-    lbd_t = tlines.lbd_descriptor(T(il), T(jl.p0), T(jl.p1), T(jl.valid), cfg.lines)
+    lbd_t = tlines.lbd_descriptor(T(il), T(jl.p0), T(jl.p1), T(jl.valid), tcfg.lines)
     assert (lbd_t.numpy() != jl.desc).mean() <= 0.02
     jr = jax.tree_util.tree_map(np.asarray, jax.jit(partial(jlines.detect, cfg=cfg.lines, with_desc=False))(ir))
     jout = jax.jit(jlines.match_stereo_lines_geom)(jl, jr, il, ir)

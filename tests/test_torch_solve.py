@@ -11,6 +11,8 @@ Same numpy inputs through both packages. Tolerances:
 """
 
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,11 @@ JC, TC = jcam.Camera.pinhole(**CAM_ARGS), tcam.Camera.pinhole(**CAM_ARGS)
 def close(t, j, rtol=1e-4, atol=1e-4):
     np.testing.assert_allclose(t.detach().numpy() if isinstance(t, torch.Tensor) else t, np.asarray(j),
                                rtol=rtol, atol=atol)
+
+
+def _topt(opt):
+    """The port's twin of a JAX-package OptimizerConfig."""
+    return convert.config_from_reference(dataclasses.asdict(SlamConfig(opt=opt))).opt
 
 
 def _scene(rng, P=96, L=16):
@@ -94,7 +101,7 @@ def test_solve_pose_parity():
     R0, t0 = dR @ R_true, dR @ t_true + dt
     cfg = OptimizerConfig()
     rj = jax.jit(lambda o, R, t: jgn.solve_pose(JC, o, R, t, cfg))(jgn.PoseObservations(**obs), R0, t0)
-    rt = tgn.solve_pose(TC, tgn.PoseObservations(**{k: T(v) for k, v in obs.items()}), T(R0), T(t0), cfg)
+    rt = tgn.solve_pose(TC, tgn.PoseObservations(**{k: T(v) for k, v in obs.items()}), T(R0), T(t0), _topt(cfg))
     close(rt.R_cw, rj.R_cw, atol=1e-5)
     close(rt.t_cw, rj.t_cw, atol=1e-4)
     np.testing.assert_array_equal(rt.inlier_pt.numpy(), np.asarray(rj.inlier_pt))
@@ -186,7 +193,7 @@ def test_ba_parity():
     close(tba._inv3x3(T(spd[:, :3, :3])), jba._inv3x3(spd[:, :3, :3]), rtol=1e-4, atol=1e-5)
 
     rj = jax.jit(lambda p: jba.solve_ba(JC, p, cfg))(jp)
-    rt = tba.solve_ba(TC, tp, cfg)
+    rt = tba.solve_ba(TC, tp, _topt(cfg))
     close(rt.R, rj.R, atol=1e-4)
     close(rt.t, rj.t, atol=1e-4)
     # landmark depth along the viewing ray is the weakly observed direction
@@ -210,7 +217,7 @@ def test_ba_parity():
     keep_j = np.asarray(rj.po_chi2) < cfg.prune_chi2_pt
     agree = (rt.po_chi2.numpy() < cfg.prune_chi2_pt) == keep_j
     assert agree.mean() > 0.995  # the outlier verdicts agree (chi2 within rounding of the gate may flip)
-    ec_t = tba.evaluate_cost(TC, tp, *(T(np.asarray(x)) for x in (rj.R, rj.t, rj.pts, rj.lns)), cfg)
+    ec_t = tba.evaluate_cost(TC, tp, *(T(np.asarray(x)) for x in (rj.R, rj.t, rj.pts, rj.lns)), _topt(cfg))
     ec_j = jba.evaluate_cost(JC, jp, rj.R, rj.t, rj.pts, rj.lns, cfg)
     close(ec_t[0], ec_j[0], rtol=1e-4)
 

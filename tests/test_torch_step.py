@@ -52,6 +52,11 @@ def _cfg():
                                map=dataclasses.replace(cfg.map, max_points=2048, local_map_points=2048))
 
 
+def port_cfg(cfg):
+    """The port's twin of a JAX-package config: the port never sees that package's objects."""
+    return convert.config_from_reference(dataclasses.asdict(cfg))
+
+
 def np_tree(x):
     return jax.tree_util.tree_map(np.asarray, x)
 
@@ -100,7 +105,7 @@ def _insert_kf0(cfg, jcam, tcam, frame, empty, kf_slot=0):
     jout = jax.jit(partial(jtr.insert_keyframe, jcam, cfg))(frame, eye, zero, 0.0, neg, fm, negl, lm, kf_slot,
                                                             *empty)
     T = torch.as_tensor
-    tout = tstep.insert_keyframe(tcam, cfg, convert.frame_data(frame), T(eye), T(zero), 0.0, T(neg), T(fm),
+    tout = tstep.insert_keyframe(tcam, port_cfg(cfg), convert.frame_data(frame), T(eye), T(zero), 0.0, T(neg), T(fm),
                                  T(negl), T(lm), kf_slot, convert.point_store(empty[0]),
                                  convert.line_store(empty[1]), convert.keyframe_store(empty[2]))
     return jout, tout
@@ -135,12 +140,12 @@ def test_track_step_parity(env):
     jout, _ = _insert_kf0(cfg, jcam, tcam, frames[0], empty)
     ps, ls, ks = (np_tree(x) for x in jout[:3])
     local = np.asarray(jtr._local_map_ids(cfg, ks, ps, 0))
-    local_t = tstep._local_map_ids(cfg, convert.keyframe_store(ks), convert.point_store(ps), 0)
+    local_t = tstep._local_map_ids(port_cfg(cfg), convert.keyframe_store(ks), convert.point_store(ps), 0)
     np.testing.assert_array_equal(local_t.numpy(), local)
     eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
     jr = jax.jit(partial(jtr.track_step, jcam, cfg))(frames[1], eye, zero, ps, ls, jnp.asarray(True), local)
     T = torch.as_tensor
-    tr = tstep.track_step(tcam, cfg, convert.frame_data(frames[1]), T(eye), T(zero), convert.point_store(ps),
+    tr = tstep.track_step(tcam, port_cfg(cfg), convert.frame_data(frames[1]), T(eye), T(zero), convert.point_store(ps),
                           convert.line_store(ls), torch.tensor(True), local_t)
     np.testing.assert_allclose(tr[0].numpy(), np.asarray(jr[0]), atol=1e-4)
     np.testing.assert_allclose(tr[1].numpy(), np.asarray(jr[1]), atol=1e-4)
@@ -168,6 +173,7 @@ def _ba_objective(cfg, cam, jo, solution, kf_slot):
     ps = dataclasses.replace(convert.point_store(np_tree(jo[6])), x=solution[0].x)
     ls = dataclasses.replace(convert.line_store(np_tree(jo[7])), seg=solution[1].seg)
     ks = dataclasses.replace(convert.keyframe_store(np_tree(jo[8])), R=solution[2].R, t=solution[2].t)
+    cfg = port_cfg(cfg)
     window, fixed = tstep._covis_window(cfg, ks, kf_slot, kf_slot + 1)
     prob, _, _ = tstep.window_problem(ks, ps, ls, window, fixed, pt_cap=cfg.opt.ba_pt_cap, ln_cap=cfg.opt.ba_ln_cap)
     return float(tba.evaluate_cost(cam, prob, prob.R, prob.t, prob.pts, prob.lns, cfg.opt)[0])
@@ -222,7 +228,7 @@ def test_make_step_visual_parity(env):
     voc_j = (jvoc.Vocabulary(seed=17), jvoc.Vocabulary(seed=23))
     voc_t = tuple(convert.vocabulary(v) for v in voc_j)
     jstep = jtr.make_step_visual(jcam, cfg, *voc_j, lambda fd: fd)
-    tstep_fn = tstep.make_step_visual(tcam, cfg, *voc_t, lambda fd: fd)
+    tstep_fn = tstep.make_step_visual(tcam, port_cfg(cfg), *voc_t, lambda fd: fd)
     K, n_words = cfg.map.max_keyframes, voc_j[0].n_words
 
     n_stereo = int((frames[0].stereo_ok & frames[0].feats.valid).sum())
@@ -295,11 +301,11 @@ def test_window_helpers_parity(env):
     ps = dataclasses.replace(empty[0], n_obs=rng.integers(0, 6, 2048).astype(np.int32))
     for kf_slot in (2, 8):
         jw, jf = jtr._covis_window(cfg, ks, kf_slot, kf_slot + 1)
-        tw, tf = tstep._covis_window(cfg, convert.keyframe_store(ks), kf_slot, kf_slot + 1)
+        tw, tf = tstep._covis_window(port_cfg(cfg), convert.keyframe_store(ks), kf_slot, kf_slot + 1)
         np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
         np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     jc = jtr._device_cull_keyframes(cfg, ks, ps, 20)
-    tc = tstep._device_cull_keyframes(cfg, convert.keyframe_store(ks), convert.point_store(ps), 20)
+    tc = tstep._device_cull_keyframes(port_cfg(cfg), convert.keyframe_store(ks), convert.point_store(ps), 20)
     np.testing.assert_array_equal(tc.valid.numpy(), np.asarray(jc.valid))
     obs = ks.obs_pt[:8].reshape(-1)
     mask = obs >= 0

@@ -49,7 +49,7 @@ def _run_both(cfg, jcam, n_frames, room_half):
     try:
         tcam = convert.camera(jax.tree_util.tree_map(np.asarray, jcam))
         jt = jtr.Tracker(jcam, cfg)
-        tt = Tracker(tcam, cfg, "cpu")
+        tt = Tracker(tcam, convert.config_from_reference(dataclasses.asdict(cfg)), "cpu")
         infos, gt = [], []
         for fr in jsyn.make_sequence(jcam, n_frames, fps=cfg.fps, traj=jsyn.Trajectory(**TRAJ), room_half=room_half):
             il, ir = np.array(fr["img_l"]), np.array(fr["img_r"])
@@ -102,7 +102,8 @@ def test_trajectory(run):
 def test_streaming_matches_blocking():
     """Lag-1 stats consumption changes when the host reads the stats, not
     what the device computes: same trajectory, stats one frame late."""
-    cfg = dataclasses.replace(SlamConfig.tiny_test(), loop=LoopConfig(enabled=False))
+    cfg = convert.config_from_reference(dataclasses.asdict(
+        dataclasses.replace(SlamConfig.tiny_test(), loop=LoopConfig(enabled=False))))
     cam = convert.camera(jax.tree_util.tree_map(
         np.asarray, JCamera.pinhole(fx=120.0, fy=120.0, cx=64.0, cy=48.0, bf=0.11 * 120.0, width=128, height=96)))
     frames = list(tsyn.make_sequence(cam, 6, "cpu", fps=cfg.fps, traj=tsyn.Trajectory(**TRAJ), room_half=2.55))
