@@ -17,13 +17,38 @@ Phases (each prints one line; any failure raises and exits non-zero):
                one CUDA graph), the whole call and the plain version timed
                with CUDA events;
   4. main path -- first its stages on a 128x96 input (build_frame, keyframe
-               insertion, one tracking step) on the card against the CPU,
-               where every kernel runs its plain version; then
+               insertion, one tracking step; IMU preintegration and
+               composition, one inertial pose solve, one visual-inertial
+               windowed BA) on the card against the CPU, where every kernel
+               runs its plain version; then
                the port's `Tracker.process` in streaming mode over the
                40-frame synthetic stereo sequence of bench.py's visual run,
                at SlamConfig.euroc_stereo() with loop closing off (752x480,
                1200 ORB x 8 levels, 256 lines, 16384/4096/512 stores), and a
-               check that the main path launched every kernel.
+               check that the main path launched every kernel;
+  5. stereo-inertial path -- `Tracker.process(..., imu=...)` in streaming mode
+               at SlamConfig.euroc_stereo_inertial() with loop closing off and
+               bench.py's IMU settings (init after 1.5 s, 16-sample batches),
+               same widths, over 52 frames of the same room trajectory with
+               200 Hz IMU under ImuNoiseModel.euroc(): the host-orchestrated
+               frames, the IMU initialization, then the fused stereo-inertial
+               step. Guards on the part that is healthy: initialization
+               accepted, gravity within 8 degrees and 15% of the truth, the
+               initialized velocity within 0.8 m/s of the truth (it moves at
+               2.7 m/s; measured 0.53 m/s off), ATE of the frames up to the
+               initialization under 0.10 m. From the first
+               keyframe after the initialization, visual-inertial BA drives
+               the accelerometer bias and the velocity off on this scene, in
+               the reference as in the port (PERF.md, section 6, the stereo-inertial path: the
+               reference on these images reaches an ATE of 1.70 m by frame 51
+               and loses tracking at frame 57, the port 0.81-0.97 m and frame
+               59 or later), and the loss leads to relocalization, which is
+               not ported yet; so the run stops at 52 frames and the guards on
+               the whole run are set from what both packages do: at least 20
+               fused frames and one keyframe with visual-inertial BA among
+               them, 90% of frames tracked, finite positions, ATE under 2.0 m,
+               and at least two gated-match launches per tracked frame,
+               counted for this phase alone.
 Then one JSON line describing the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -221,6 +246,102 @@ def phase_small_reference(dev):
     log(f"reference: 128x96 input, card vs CPU plain path: {same.float().mean().item():.4f} of keypoints and "
         f"{bits:.4f} of descriptor bits equal, keyframe stores equal, tracking pose diff {err:.2e}, "
         f"{int(rc[6])} inliers on both")
+    phase_small_reference_inertial(dev, cam, traj)
+
+
+def phase_small_reference_inertial(dev, cam, traj):
+    """The inertial stages on the 128x96 scene, on the card against the CPU,
+    each from identical input. A CPU tracker (stereo-inertial, IMU
+    initialization after 1.0 s and 5 keyframes) runs 24 frames, which takes
+    it through the initialization into the fused step; from its state and the
+    next frame: `preintegrate` + `compose` (deltas within 1e-5, covariance
+    1e-4 relative), one `solve_pose_inertial` on the CPU's own matches (pose
+    within 1e-4, velocity 1e-3 m/s, biases 1e-3, the same inliers but for at
+    most two), and one `local_inertial_ba` over the last keyframes (poses
+    within 2e-3, velocities 2e-2 m/s: visual-inertial BA on this small map
+    is as ill-conditioned in float32 as the visual one, and the card's
+    sums run in another order)."""
+    import torch
+
+    from pli_slam_tpu_torch import SlamConfig
+    from pli_slam_tpu_torch.frontend import step
+    from pli_slam_tpu_torch.frontend.frame import build_frame
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.ops import imu as imu_ops
+    from pli_slam_tpu_torch.solve import inertial as inr
+    from pli_slam_tpu_torch.utils import synthetic
+    from pli_slam_tpu_torch.utils.profile import loop_off
+
+    cfg = loop_off(SlamConfig.tiny_test())
+    cfg = dataclasses.replace(cfg, sensor="stereo_imu", imu=dataclasses.replace(
+        cfg.imu, init_time_sec=1.0, max_samples_per_frame=16, init_min_kfs=5))
+    tr = Tracker(cam, cfg, "cpu")
+    seq = list(synthetic.make_sequence(cam, 25, "cpu", fps=cfg.fps, traj=traj, room_half=2.55))
+    for fr in seq[:24]:
+        tr.process(fr["img_l"], fr["img_r"], fr["t"],
+                   imu={"gyro": fr["imu_gyro"], "acc": fr["imu_acc"], "stamps": fr["imu_stamps"]})
+    if not (tr.imu_ready and tr._vi_fused_active):
+        raise AssertionError("the small stereo-inertial run did not reach the fused step")
+    fr = seq[24]
+    packed = tr._imu_batch_arrays({"gyro": fr["imu_gyro"], "acc": fr["imu_acc"], "stamps": fr["imu_stamps"]},
+                                  packed=True)
+
+    def preint(device):
+        b, bg, ba = packed.to(device), tr.bg.to(device), tr.ba.to(device)
+        p = imu_ops.preintegrate(b[:, 0:3], b[:, 3:6], b[:, 6], b[:, 7] > 0.5, bg, ba, cfg.imu)
+        return p, imu_ops.compose(_to(tr._preint_acc, device), p)
+
+    (pc, ac), (pg, ag) = preint("cpu"), preint(dev)
+    for name in ("dt", "dR", "dV", "dP", "JRg", "JVg", "JVa", "JPg", "JPa"):
+        for c, g in ((pc, pg), (ac, ag)):
+            if (getattr(g, name).cpu() - getattr(c, name)).abs().max().item() > 1e-5:
+                raise AssertionError(f"preintegrate/compose: {name} differs between card and CPU")
+    cov_err = ((ag.cov.cpu() - ac.cov).abs().max() / ac.cov.abs().max()).item()
+    if cov_err > 1e-4:
+        raise AssertionError(f"compose: covariance differs by {cov_err} of its largest entry")
+
+    frame = build_frame(cam, cfg, fr["img_l"], fr["img_r"])
+    prev = inr.body_state_from_camera(tr.R, tr.t, tr.v_w, tr.bg, tr.ba, tr.ext)
+    Rp, vp, pp = imu_ops.predict_state(prev.R_wb, prev.v_w, prev.p_w, pc, tr.bg, tr.ba, tr.gravity_w)
+    init = inr.BodyState(R_wb=Rp, p_w=pp, v_w=vp, bg=tr.bg, ba=tr.ba)
+    R0, t0 = inr.camera_pose(init, tr.ext)
+    rad = float(cfg.match.search_radius_px)
+    pt_idx, pt_ok, _ = step._match_points_against_store(cam, cfg, frame, R0, t0, tr.pstore, rad, tr._local_pt)
+    ln_idx, ln_ok, _ = step._match_lines_against_store(cam, cfg, frame, R0, t0, tr.lstore, rad)
+    obs = step._pose_obs_from_matches(cfg, frame, tr.pstore, tr.lstore, pt_idx, pt_ok, ln_idx, ln_ok)
+
+    def solve(device):
+        return inr.solve_pose_inertial(cam, _to(tr.ext, device), _to(obs, device), _to(pc, device), _to(prev, device),
+                                       _to(init, device), cfg.opt, cfg.imu, gravity_w=tr.gravity_w.to(device))
+
+    (sc, in_c, _, n_c), (sg, in_g, _, n_g) = solve("cpu"), solve(dev)
+    errs = {k: (getattr(sg, k).cpu() - getattr(sc, k)).abs().max().item() for k in ("R_wb", "p_w", "v_w", "bg", "ba")}
+    if (max(errs["R_wb"], errs["p_w"]) > 1e-4 or max(errs["v_w"], errs["bg"], errs["ba"]) > 1e-3
+            or int((in_g.cpu() != in_c).sum()) > 2):
+        raise AssertionError(f"solve_pose_inertial: card and CPU differ: {errs}, inliers {int(n_g)} vs {int(n_c)}")
+
+    n_kf, W = tr.n_kf, cfg.opt.local_ba_window
+    window = torch.clamp(torch.arange(n_kf - W, n_kf, dtype=torch.int32), min=0)
+    fixed = (torch.arange(W) < 2) | torch.cat([torch.zeros(1, dtype=torch.bool), window[1:] <= window[:-1]])
+    imu_mask = tr._pints.valid[window[1:].long()] & (window[1:] == window[:-1] + 1)
+
+    def viba(device):
+        ks, _, _ = step.local_inertial_ba(
+            cam, cfg, _to(tr.kstore, device), _to(tr.pstore, device), _to(tr.lstore, device), window.to(device),
+            fixed.to(device), _to(tr._pints.gather(window[1:]), device), imu_mask.to(device),
+            tr.gravity_w.to(device), _to(tr.ext, device))
+        return ks
+
+    kc, kg = viba("cpu"), viba(dev)
+    e_pose = max((kg.R.cpu() - kc.R).abs().max().item(), (kg.t.cpu() - kc.t).abs().max().item())
+    e_v = (kg.v_w.cpu() - kc.v_w).abs().max().item()
+    moved = (kc.t - tr.kstore.t).abs().max().item()
+    if e_pose > 2e-3 or e_v > 2e-2 or not moved > 0:
+        raise AssertionError(f"local_inertial_ba: card and CPU differ: poses {e_pose}, velocities {e_v}")
+    log(f"reference: inertial stages, card vs CPU: preintegrate/compose within 1e-5 (cov {cov_err:.1e} relative), "
+        f"solve_pose_inertial pose diff {max(errs['R_wb'], errs['p_w']):.2e}, velocity {errs['v_w']:.2e}, "
+        f"{int(n_c)} / {int(n_g)} inliers; local_inertial_ba over {int(imu_mask.sum())} factors: poses {e_pose:.2e}, "
+        f"velocities {e_v:.2e} (BA moved the window by up to {moved:.3f} m)")
 
 
 def phase_main_path(dev, smi):
@@ -287,6 +408,107 @@ def phase_main_path(dev, smi):
     return launches, N_FRAMES
 
 
+def phase_vi_path(dev, smi):
+    """Phase 5: the stereo-inertial path at full width (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.frontend.step import ST_OK
+    from pli_slam_tpu_torch.frontend.tracker import Tracker, TrackingState
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.utils import synthetic
+    from pli_slam_tpu_torch.utils.profile import N_FRAMES_VI, slice_camera, slice_config_vi, vi_frames
+
+    cfg, cam = slice_config_vi(), slice_camera()
+    t0 = time.perf_counter()
+    frames = vi_frames(cam, cfg, N_FRAMES_VI, dev)
+    torch.cuda.synchronize()
+    log(f"vi path: rendered {N_FRAMES_VI} frames {cam.width}x{cam.height} with {len(frames[0]['imu_gyro'])} IMU "
+        f"samples each in {time.perf_counter() - t0:.2f} s")
+
+    tracker = Tracker(cam, cfg, dev)
+    tracker.streaming = True
+    hamming.reset_launches()
+    ms_host, ms_fused, launches_host = [], [], None
+    init_frame = init_ms = None
+    for i, fr in enumerate(frames):
+        fused = tracker.imu_ready and tracker.gravity_w is not None and tracker.state == TrackingState.OK
+        if fused and launches_host is None:
+            launches_host = hamming.launches
+        f0 = time.perf_counter()
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+        dt_ms = (time.perf_counter() - f0) * 1e3
+        if tracker.imu_ready and init_frame is None:
+            init_frame, init_ms = i, dt_ms  # this frame ran the initialization: kept out of the percentiles
+            v_err = float(np.linalg.norm(tracker.v_w.cpu().numpy() - fr["v_w"]))
+            # the trajectory so far, read without consuming it (later BA still refines these frames)
+            pend, done = list(tracker._traj_pending), list(tracker._traj_done)
+            ate_init = synthetic.ate_rmse(tracker.positions(), np.stack([f["p_w"] for f in frames[:i + 1]]))
+            tracker._traj_pending, tracker._traj_done = pend, done
+        elif i > 0:
+            (ms_fused if fused else ms_host).append(dt_ms)
+    tracker.finalize()
+    est = tracker.positions()
+    torch.cuda.synchronize()
+    launches = hamming.launches
+
+    if not tracker.imu_ready or init_frame is None:
+        raise AssertionError(f"IMU initialization never fired: {tracker.imu_init_log[-3:]}")
+    rec = tracker.imu_init_log[-1]
+    if not rec["accepted"]:
+        raise AssertionError(f"IMU initialization not accepted: {rec}")
+    R0, _ = synthetic.Trajectory().pose(0.0)
+    g_true = R0.T @ np.array([0.0, 0.0, -9.81])
+    g = tracker.gravity_w.cpu().numpy().astype(np.float64)
+    g_angle = float(np.degrees(np.arccos(np.clip(g @ g_true / np.linalg.norm(g) / 9.81, -1.0, 1.0))))
+    g_mag = float(np.linalg.norm(g))
+    gt = np.stack([fr["p_w"] for fr in frames])
+    if est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"trajectory shape {est.shape} / finite {np.all(np.isfinite(est))}")
+    ate = synthetic.ate_rmse(est, gt)
+    # host-path frames report at once; the fused frames' stats lag one frame in
+    # streaming mode: the first fused frame appends a placeholder, and the last
+    # frame's stats are still pending
+    n_host = init_frame + 1
+    n_fused = N_FRAMES_VI - n_host
+    consumed = tracker.stats[:n_host] + tracker.stats[n_host + 1:]
+    pending = tracker._pending_stats[1]
+    ok_frames = sum(1 for s in consumed if s["state"] == TrackingState.OK) + int(float(pending[ST_OK].item()) > 0)
+    kf_at_init = rec["n_kf"]
+    n_kf = tracker.n_kf
+    vi_kfs = n_kf - kf_at_init  # keyframes made by the fused step, each with VI-BA (n_kf >= 3 since before init)
+    launches_fused = launches - launches_host
+    pct = lambda v, q: float(np.percentile(v, q))  # noqa: E731
+    log(f"vi path: IMU init at frame {init_frame} ({rec['n_kf']} keyframes), that frame {init_ms:.1f} ms, the "
+        f"initialization {rec['wall_ms']:.1f} ms of it; gravity {g_angle:.2f} deg from the truth, |g| {g_mag:.3f}; "
+        f"velocity {v_err:.3f} m/s from the truth, ATE of frames 0-{init_frame} {ate_init:.4f} m; "
+        f"bg {np.round(rec['bg'], 4).tolist()}, ba {np.round(rec['ba'], 4).tolist()} [{smi}]")
+    log(f"vi path: host-path frames 1-{init_frame - 1}: fps {1e3 / np.mean(ms_host):.3f}, p50 {pct(ms_host, 50):.2f} ms, "
+        f"p99 {pct(ms_host, 99):.2f} ms, gated_match launches {launches_host} ({launches_host / (n_host - 1):.2f} per "
+        f"tracked frame) [{smi}]")
+    log(f"vi path: fused stereo-inertial frames {n_host}-{N_FRAMES_VI - 1}: fps {1e3 / np.mean(ms_fused):.3f}, "
+        f"p50 {pct(ms_fused, 50):.2f} ms, p99 {pct(ms_fused, 99):.2f} ms, gated_match launches {launches_fused} "
+        f"({launches_fused / n_fused:.2f} per frame), {vi_kfs} keyframes with VI-BA [{smi}]")
+    log(f"vi path: ATE {ate:.4f} m, n_kf {n_kf}, ok frames {ok_frames}/{N_FRAMES_VI}, gated_match launches {launches} "
+        f"over {N_FRAMES_VI - 1} tracked frames [{smi}]")
+    if g_angle > 8.0 or abs(g_mag - 9.81) > 0.15 * 9.81:
+        raise AssertionError(f"gravity {g} is {g_angle:.2f} deg / {g_mag:.3f} m/s^2 against {g_true}")
+    if v_err > 0.8 or not ate_init < 0.10:
+        raise AssertionError(f"at the IMU initialization: velocity {v_err} m/s from the truth, ATE {ate_init} m")
+    if n_fused < 20:
+        raise AssertionError(f"only {n_fused} frames ran the fused stereo-inertial step")
+    if vi_kfs < 1:
+        raise AssertionError("no fused stereo-inertial frame took the keyframe branch")
+    if ok_frames < 0.9 * N_FRAMES_VI:
+        raise AssertionError(f"only {ok_frames}/{N_FRAMES_VI} frames tracked")
+    if not ate < 2.0:
+        raise AssertionError(f"ATE {ate} m >= 2.0 m (beyond what visual-inertial BA's drift does to either package)")
+    if launches < 2 * (N_FRAMES_VI - 1) or launches_host < 2 * (n_host - 1) or launches_fused < 2 * n_fused:
+        raise AssertionError(f"gated_match launched {launches_host} + {launches_fused} times for {n_host - 1} host-path "
+                             f"and {n_fused} fused frames")
+    return launches, N_FRAMES_VI
+
+
 def main() -> int:
     import torch
 
@@ -311,6 +533,7 @@ def main() -> int:
     max_err, times = phase_kernels(dev)
     phase_small_reference(dev)
     launches, n_frames = phase_main_path(dev, smi)
+    launches_vi, n_frames_vi = phase_vi_path(dev, smi)
 
     from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
 
@@ -319,10 +542,11 @@ def main() -> int:
     (b_ms, b_by), (bf_ms, _) = bound_ms(1200, 4096), bound_ms(1200, 16384)
     log(json.dumps({"kernels": [{
         "name": "gated_match", "route": "cuda", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "launches": launches + launches_vi, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "call_ms": c_ms, "shape": "N=1200 x P=4096",
         "ms_fuse": kf_ms, "plain_ms_fuse": pf_ms, "bound_ms_fuse": bf_ms, "call_ms_fuse": cf_ms,
-        "shape_fuse": "N=1200 x P=16384", "launches_per_frame": launches / (n_frames - 1),
+        "shape_fuse": "N=1200 x P=16384", "launches_visual": launches, "launches_vi": launches_vi,
+        "launches_per_frame": launches / (n_frames - 1), "launches_per_frame_vi": launches_vi / (n_frames_vi - 1),
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
-"""The per-frame device program of the stereo visual path
-(port of the device half of pli_slam_tpu/frontend/tracker.py:48-1225, 1442).
+"""The per-frame device programs of the stereo visual and stereo-inertial
+paths (port of the device half of pli_slam_tpu/frontend/tracker.py:48-1445).
 
-Every point match -- twice per frame in tracking and once per keyframe
-in the fuse step -- goes through `ops.kernels.hamming.gated_match`, the
+`make_step_visual` is the visual step; `make_step_vi` is its inertial
+analog after IMU initialization (preintegrate, IMU prediction,
+`track_step_inertial`, and on a keyframe the chain factor and
+`local_inertial_ba`). Every point match -- twice per frame in tracking and
+once per keyframe in the fuse step, on both paths -- goes through `ops.kernels.hamming.gated_match`, the
 hand-written CUDA kernel on a GPU and its plain twin on the CPU. Both
 call sites follow the reference's accelerator branch on every device
 (tracker.py:82-89 and :375-389): the direct du^2+dv^2 gate inside the
@@ -38,13 +41,16 @@ import torch
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.frontend.frame import FrameData
 from pli_slam_tpu_torch.ops import camera as cam_ops
+from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie, matching
 from pli_slam_tpu_torch.ops.indexing import scatter_add, scatter_set, top_k, unique_fixed
 from pli_slam_tpu_torch.ops.kernels.hamming import gated_match
 from pli_slam_tpu_torch.ops.lines import _deg2rad_f32
 from pli_slam_tpu_torch.solve import ba as ba_mod
 from pli_slam_tpu_torch.solve import gn
+from pli_slam_tpu_torch.solve import inertial as inr
 from pli_slam_tpu_torch.solve import triangulate as tri
+from pli_slam_tpu_torch.solve import vi_ba as vib
 from pli_slam_tpu_torch.worldmap import stores as st
 from pli_slam_tpu_torch.worldmap import vocab as vocab_mod
 
@@ -138,6 +144,14 @@ def track_step(cam, cfg: SlamConfig, frame: FrameData, R0, t0, pstore: st.PointS
 
     pt_in = pt_ok & res2.inlier_pt
     ln_in = ln_ok & res2.inlier_ln
+    pstore, lstore, n_in = _count_seen_and_found(pstore, lstore, pt_frust, ln_frust, pt_idx, pt_in, ln_idx, ln_in)
+    return res2.R_cw, res2.t_cw, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore
+
+
+def _count_seen_and_found(pstore, lstore, pt_frust, ln_frust, pt_idx, pt_in, ln_idx, ln_in):
+    """The landmark statistics a tracking step leaves behind: `visible` for
+    what lay in the frustum, `found` for the inliers. Returns the stores and
+    the inlier count."""
     frust_ids, frust_rows = pt_frust
     if frust_ids is None:
         visible = pstore.visible + frust_rows.to(torch.int32)
@@ -151,7 +165,39 @@ def track_step(cam, cfg: SlamConfig, frame: FrameData, R0, t0, pstore: st.PointS
         lstore, visible=lstore.visible + ln_frust.to(torch.int32),
         found=scatter_add(lstore.found, torch.clamp(ln_idx, min=0), ln_in.to(torch.int32)))
     n_in = torch.sum(pt_in.to(torch.int32)) + torch.sum(ln_in.to(torch.int32))
-    return res2.R_cw, res2.t_cw, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore
+    return pstore, lstore, n_in
+
+
+def track_step_inertial(cam, cfg: SlamConfig, frame: FrameData, preint, prev_state, init_state, gravity_w, ext,
+                        pstore: st.PointStore, lstore: st.LineStore, local_pt_ids=None, wide=False):
+    """Inertial analog of track_step: the 15-dof state is solved with the
+    preintegration factor in the loop. `wide` (a bool, or a 0-d device bool)
+    triples the round-1 window, for the frames after a map-changing event.
+    Returns (state, R, t, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore)."""
+    R0, t0 = inr.camera_pose(init_state, ext)
+    rad = cfg.match.search_radius_px
+    if isinstance(wide, torch.Tensor):
+        r1 = torch.where(wide, _f32(3.0 * rad), _f32(rad))
+    else:
+        r1 = _f32(3.0 * rad) if wide else _f32(rad)
+    pt_idx, pt_ok, _ = _match_points_against_store(cam, cfg, frame, R0, t0, pstore, r1, local_pt_ids)
+    ln_idx, ln_ok, _ = _match_lines_against_store(cam, cfg, frame, R0, t0, lstore, r1)
+    obs = _pose_obs_from_matches(cfg, frame, pstore, lstore, pt_idx, pt_ok, ln_idx, ln_ok)
+    st1, _, _, _ = inr.solve_pose_inertial(cam, ext, obs, preint, prev_state, init_state, cfg.opt, cfg.imu,
+                                           gravity_w=gravity_w)
+
+    R1, t1 = inr.camera_pose(st1, ext)
+    r2 = max(rad * 0.4, 4.0)
+    pt_idx, pt_ok, pt_frust = _match_points_against_store(cam, cfg, frame, R1, t1, pstore, r2, local_pt_ids)
+    ln_idx, ln_ok, ln_frust = _match_lines_against_store(cam, cfg, frame, R1, t1, lstore, r2)
+    obs = _pose_obs_from_matches(cfg, frame, pstore, lstore, pt_idx, pt_ok, ln_idx, ln_ok)
+    st2, in_pt, in_ln, _ = inr.solve_pose_inertial(cam, ext, obs, preint, prev_state, st1, cfg.opt, cfg.imu,
+                                                   gravity_w=gravity_w)
+    pt_in = pt_ok & in_pt
+    ln_in = ln_ok & in_ln
+    pstore, lstore, n_in = _count_seen_and_found(pstore, lstore, pt_frust, ln_frust, pt_idx, pt_in, ln_idx, ln_in)
+    R2, t2 = inr.camera_pose(st2, ext)
+    return st2, R2, t2, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore
 
 
 # ---------------------------------------------------------------------------
@@ -518,6 +564,32 @@ def local_ba(cam, cfg: SlamConfig, kstore, pstore, lstore, window, fixed, iters:
     return kstore, pstore, lstore
 
 
+def local_inertial_ba(cam, cfg: SlamConfig, kstore, pstore, lstore, window, fixed, preint_chain, imu_mask,
+                      gravity_w, ext=None):
+    """Visual-inertial windowed BA over a temporal keyframe window: factor i
+    of `preint_chain` ([W-1] stacked) spans window[i] -> window[i+1]."""
+    W = window.shape[0]
+    dev = window.device
+    ar = torch.arange(W, device=dev)
+    dup = torch.any((window[:, None] == window[None, :]) & (ar[None, :] < ar[:, None]), dim=1)
+    row_ok = kstore.valid[window.long()] & ~dup
+    base, ids_pt, ids_ln = window_problem(kstore, pstore, lstore, window, fixed,
+                                          pt_cap=cfg.opt.ba_pt_cap, ln_cap=cfg.opt.ba_ln_cap)
+    if ext is None:
+        ext = inr.Extrinsics.identity(dev)
+    win = window.long()
+    prob = vib.VIBAProblem(base=base, v=kstore.v_w[win], bg=kstore.bg[win], ba=kstore.ba[win], preint=preint_chain,
+                           imu_mask=imu_mask & row_ok[1:] & row_ok[:-1], gravity_w=gravity_w,
+                           R_cb=ext.R_cb, t_cb=ext.t_cb)
+    R, t, v, bg, ba_, pts, lns = vib.solve_vi_ba(cam, prob, cfg.opt, cfg.imu)
+    kstore = dataclasses.replace(
+        kstore, R=scatter_set(kstore.R, window, R), t=scatter_set(kstore.t, window, t),
+        v_w=scatter_set(kstore.v_w, window, v), bg=scatter_set(kstore.bg, window, bg),
+        ba=scatter_set(kstore.ba, window, ba_))
+    pstore, lstore = _scatter_landmarks(pstore, lstore, ids_pt, ids_ln, pts, lns)
+    return kstore, pstore, lstore
+
+
 def _device_cull_keyframes(cfg: SlamConfig, kstore, pstore, n_kf: int):
     """Invalidate redundant keyframes; KF 0 and the active window are protected."""
     K = kstore.valid.shape[0]
@@ -558,8 +630,69 @@ def vocab_query(db, bow_pt, bow_ln, exclude_mask, n_best: int = 3, covis=None):
 
 
 # ---------------------------------------------------------------------------
-# The fused visual step
+# The fused steps: visual, and stereo-inertial after IMU initialization
 # ---------------------------------------------------------------------------
+
+
+def _keyframe_decision(cfg: SlamConfig, ok, n_in, n_kf: int, frames_since_kf: int, last_kf_inliers, allow_mapping):
+    """The frame's one device->host read (ok, inlier count, the reference
+    keyframe's inliers) and the keyframe decision made from it on the host.
+    Returns (need_kf, frames since keyframe incl. this one, last_kf_inliers
+    as a device int32)."""
+    last_kf_inliers = torch.as_tensor(last_kf_inliers, dtype=torch.int32, device=ok.device)
+    ok_h, n_in_h, last_h = torch.stack([ok.to(torch.int32), n_in.to(torch.int32), last_kf_inliers]).tolist()
+    fs = frames_since_kf + 1
+    tc = cfg.tracking
+    need_kf = (bool(ok_h) and bool(allow_mapping) and n_in_h >= tc.kf_min_inliers
+               and fs > max(tc.kf_min_interval, 1)
+               and (fs >= tc.kf_max_interval or n_in_h < tc.kf_ref_ratio * max(last_h, 1))
+               and n_kf < cfg.map.max_keyframes)
+    return need_kf, fs, last_kf_inliers
+
+
+def _index_keyframe(cfg: SlamConfig, voc_pt, voc_ln, frame, n_kf: int, kstore, pstore, bow_db, kf_view):
+    """What follows a keyframe's insertion and BA on both fused paths: the
+    BoW add and loop-candidate query, the view ring, the local-map refresh."""
+    dev = kstore.R.device
+    n_kf2 = n_kf + 1
+    bow_p = voc_pt.bow(frame.feats.desc, frame.feats.valid & (kstore.obs_pt[n_kf] >= 0))
+    bow_l = voc_ln.bow(frame.lines.desc, frame.lines.valid)
+    bow_db = bow_db.add(n_kf, bow_p, bow_l)
+    K = bow_db.valid.shape[0]
+    excl = (torch.arange(K, device=dev) >= max(n_kf2 - cfg.loop.min_kf_gap, 0)) | (kstore.covis[n_kf] > 10)
+    slots, scores = vocab_query(bow_db, bow_p, bow_l, excl, n_best=N_LOOP_CANDS, covis=kstore.covis)
+    if n_kf < cfg.loop.min_kf_gap:
+        slots, scores = torch.full_like(slots, -1), torch.full_like(scores, -1.0)
+    new_view = (frame.feats.uv, frame.feats.desc, frame.feats.valid,
+                torch.tensor(n_kf, dtype=torch.int32, device=dev))
+    kf_view2 = tuple(torch.cat([nv[None], old[:-1]], dim=0) for nv, old in zip(new_view, kf_view))
+    local_pt2 = _local_map_ids(cfg, kstore, pstore, n_kf)
+    return bow_db, slots, scores, kf_view2, local_pt2
+
+
+def _no_keyframe(dev):
+    """(n_new, loop_slot, loop_score) of a frame that made no keyframe."""
+    return (torch.zeros((), dtype=torch.int32, device=dev),
+            torch.full((N_LOOP_CANDS,), -1, dtype=torch.int32, device=dev),
+            torch.full((N_LOOP_CANDS,), -1.0, device=dev))
+
+
+def _step_outputs(ok, n_in, n_kf2: int, need_kf: bool, fs2: int, last_in2, n_new, loop_slot, loop_score,
+                  pstore, lstore, kstore, R_new, t_new):
+    """(counters, stats vector, trajectory record relative to the newest keyframe)."""
+    dev = R_new.device
+    f32 = torch.float32
+    host = torch.tensor([n_kf2, float(need_kf), fs2, n_kf2 - 1 if need_kf else -1], dtype=f32).to(dev)
+    stats = torch.cat([
+        torch.stack([ok.to(f32), n_in.to(f32), host[0], host[1], n_new.to(f32),
+                     torch.sum(pstore.valid.to(f32)), torch.sum(lstore.valid.to(f32)), host[2],
+                     last_in2.to(f32)]),
+        loop_slot.to(f32), loop_score.to(f32), host[3:]])
+    counters = (n_kf2, fs2, last_in2.to(torch.int32))
+    ref = max(n_kf2 - 1, 0)
+    R_cr = lie._mm(R_new, kstore.R[ref].T)
+    t_cr = t_new - lie._einsum("ij,j->i", R_cr, kstore.t[ref])
+    return counters, stats, (ref, R_cr, t_cr)
 
 
 def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
@@ -581,7 +714,6 @@ def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
 
     def kf_branch(frame, stamp, R, t, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore, lstore, kstore, bow_db,
                   kf_view, local_pt):
-        dev = R.device
         tri_depth = None
         if cam.bf > 0:
             tri_depth = (far_point_depths(cam, cfg, frame, R, t, kf_view, kstore) if n_kf > 0
@@ -594,24 +726,12 @@ def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
             kstore, pstore, lstore = local_ba(cam, cfg, kstore, pstore, lstore, window, fixed)
         kstore = _device_cull_keyframes(cfg, kstore, pstore, n_kf2)
         R2, t2 = kstore.R[n_kf], kstore.t[n_kf]
-
-        bow_p = voc_pt.bow(frame.feats.desc, frame.feats.valid & (kstore.obs_pt[n_kf] >= 0))
-        bow_l = voc_ln.bow(frame.lines.desc, frame.lines.valid)
-        bow_db = bow_db.add(n_kf, bow_p, bow_l)
-        K = bow_db.valid.shape[0]
-        excl = (torch.arange(K, device=dev) >= max(n_kf2 - cfg.loop.min_kf_gap, 0)) | (kstore.covis[n_kf] > 10)
-        slots, scores = vocab_query(bow_db, bow_p, bow_l, excl, n_best=N_LOOP_CANDS, covis=kstore.covis)
-        if n_kf < cfg.loop.min_kf_gap:
-            slots, scores = torch.full_like(slots, -1), torch.full_like(scores, -1.0)
-        new_view = (frame.feats.uv, frame.feats.desc, frame.feats.valid,
-                    torch.tensor(n_kf, dtype=torch.int32, device=dev))
-        kf_view2 = tuple(torch.cat([nv[None], old[:-1]], dim=0) for nv, old in zip(new_view, kf_view))
-        local_pt2 = _local_map_ids(cfg, kstore, pstore, n_kf)
+        bow_db, slots, scores, kf_view2, local_pt2 = _index_keyframe(cfg, voc_pt, voc_ln, frame, n_kf, kstore,
+                                                                      pstore, bow_db, kf_view)
         return R2, t2, pstore, lstore, kstore, bow_db, n_kf2, n_new, slots, scores, kf_view2, local_pt2
 
     def step(img_args, stamp, R, t, R_prev, t_prev, vel_xi, has_vel, n_kf, frames_since_kf, last_kf_inliers,
              allow_mapping, pstore, lstore, kstore, bow_db, kf_view, local_pt):
-        dev = R.device
         frame = build(*img_args)
         dR, dt = lie.se3_exp(vel_xi)
         use_mm = has_vel & bool(cfg.tracking.motion_model)
@@ -627,15 +747,8 @@ def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
         vel_xi = torch.where(ok, lie.se3_log(R_rel, t_rel), vel_xi)
         has_vel = ok | has_vel
 
-        # the frame's one device->host read: everything the keyframe decision needs
-        last_kf_inliers = torch.as_tensor(last_kf_inliers, dtype=torch.int32, device=dev)
-        ok_h, n_in_h, last_h = torch.stack([ok.to(torch.int32), n_in.to(torch.int32), last_kf_inliers]).tolist()
-        fs = frames_since_kf + 1
-        tc = cfg.tracking
-        need_kf = (bool(ok_h) and bool(allow_mapping) and n_in_h >= tc.kf_min_inliers
-                   and fs > max(tc.kf_min_interval, 1)
-                   and (fs >= tc.kf_max_interval or n_in_h < tc.kf_ref_ratio * max(last_h, 1))
-                   and n_kf < cfg.map.max_keyframes)
+        need_kf, fs, last_kf_inliers = _keyframe_decision(cfg, ok, n_in, n_kf, frames_since_kf, last_kf_inliers,
+                                                          allow_mapping)
         if need_kf:
             (R_new, t_new, pstore, lstore, kstore, bow_db, n_kf2, n_new, loop_slot, loop_score, kf_view,
              local_pt) = kf_branch(frame, stamp, R_new, t_new, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore,
@@ -644,22 +757,116 @@ def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
             last_in2 = n_in + n_new
         else:
             n_kf2, fs2, last_in2 = n_kf, fs, last_kf_inliers
-            n_new = torch.zeros((), dtype=torch.int32, device=dev)
-            loop_slot = torch.full((N_LOOP_CANDS,), -1, dtype=torch.int32, device=dev)
-            loop_score = torch.full((N_LOOP_CANDS,), -1.0, device=dev)
-
-        f32 = torch.float32
-        host = torch.tensor([n_kf2, float(need_kf), fs2, n_kf2 - 1 if need_kf else -1], dtype=f32).to(dev)
-        stats = torch.cat([
-            torch.stack([ok.to(f32), n_in.to(f32), host[0], host[1], n_new.to(f32),
-                         torch.sum(pstore.valid.to(f32)), torch.sum(lstore.valid.to(f32)), host[2],
-                         last_in2.to(f32)]),
-            loop_slot.to(f32), loop_score.to(f32), host[3:]])
-        counters = (n_kf2, fs2, last_in2.to(torch.int32))
-        ref = max(n_kf2 - 1, 0)
-        R_cr = lie._mm(R_new, kstore.R[ref].T)
-        t_cr = t_new - lie._einsum("ij,j->i", R_cr, kstore.t[ref])
+            n_new, loop_slot, loop_score = _no_keyframe(R.device)
+        counters, stats, rel = _step_outputs(ok, n_in, n_kf2, need_kf, fs2, last_in2, n_new, loop_slot, loop_score,
+                                             pstore, lstore, kstore, R_new, t_new)
         return (R_new, t_new, R, t, vel_xi, has_vel, pstore, lstore, kstore, bow_db, kf_view, local_pt,
-                pt_idx, pt_in, ln_idx, ln_in, counters, stats, (ref, R_cr, t_cr))
+                pt_idx, pt_in, ln_idx, ln_in, counters, stats, rel)
+
+    return step
+
+
+def make_step_vi(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
+    """Per-frame program for the stereo-inertial path after IMU
+    initialization, the inertial analog of make_step_visual: build ->
+    preintegrate -> IMU prediction -> inertial tracking -> on a keyframe:
+    insertion, the chain factor KF(k-1) -> KF(k), temporal-window
+    visual-inertial BA, BoW add / loop query, view ring, local map. Returns
+
+      step(img_args, imu_args, stamp, R, t, v_w, bg, ba, gravity_w,
+           preint_acc, ext, n_kf, frames_since_kf, last_kf_inliers,
+           allow_mapping, wide, pstore, lstore, kstore, bow_db, kf_view,
+           local_pt, pints)
+      -> (R, t, R_prev, t_prev, v_w, bg, ba, preint_acc, pstore, lstore,
+          kstore, bow_db, kf_view, local_pt, pints, pt_idx, pt_in, ln_idx,
+          ln_in, counters, stats, rel)
+
+    with the reference's argument and result order. `imu_args` is the packed
+    [T, 8] batch g | a | dt | mask; `wide` a host bool; the counters are as
+    in make_step_visual. As there, the reference's two `lax.cond`s are host
+    `if`s and the frame makes one device->host read."""
+
+    def kf_branch(frame, stamp, R, t, v_w, bg, ba, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore, lstore, kstore,
+                  bow_db, kf_view, pints, preint_acc, gravity_w, ext):
+        dev = R.device
+        tri_depth = None
+        if cam.bf > 0:
+            tri_depth = (far_point_depths(cam, cfg, frame, R, t, kf_view, kstore) if n_kf > 0
+                         else torch.full_like(frame.depth, -1.0))
+        pstore, lstore, kstore, n_new = insert_keyframe(
+            cam, cfg, frame, R, t, stamp, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore, lstore, kstore, tri_depth)
+        n_kf2 = n_kf + 1
+        # inertial state on the new keyframe row, and the chain factor KF(k-1) -> KF(k)
+        new = {}
+        for name, val in (("v_w", v_w), ("bg", bg), ("ba", ba)):
+            arr = getattr(kstore, name).clone()
+            arr[n_kf] = val
+            new[name] = arr
+        kstore = dataclasses.replace(kstore, **new)
+        pints = pints.set(n_kf, preint_acc, valid=(preint_acc.dt > 1e-6) & (n_kf > 0))
+
+        # temporal-window VI BA: the last W keyframes, padded with the newest
+        W = cfg.opt.local_ba_window
+        lo = max(n_kf2 - W, 0)
+        window = torch.clamp(lo + torch.arange(W, dtype=torch.int32, device=dev), 0, max(n_kf2 - 1, 0))
+        dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), window[1:] <= window[:-1]])
+        # the first local_ba_fixed poses are pinned (a 1-pose gauge lets the
+        # window's bias/velocity states wander)
+        fixed = (torch.arange(W, device=dev) < max(cfg.opt.local_ba_fixed, 1)) | dup
+        if n_kf2 >= 3:
+            stacked = pints.gather(window[1:])
+            imu_mask = pints.valid[window[1:].long()] & (window[1:] == window[:-1] + 1)
+            kstore, pstore, lstore = local_inertial_ba(cam, cfg, kstore, pstore, lstore, window, fixed, stacked,
+                                                       imu_mask, gravity_w, ext)
+        # continue from the refined keyframe state. No keyframe culling here:
+        # it would break the preintegration chain's adjacency
+        R2, t2 = kstore.R[n_kf], kstore.t[n_kf]
+        v2, bg2, ba2 = kstore.v_w[n_kf], kstore.bg[n_kf], kstore.ba[n_kf]
+        bow_db, slots, scores, kf_view2, local_pt2 = _index_keyframe(cfg, voc_pt, voc_ln, frame, n_kf, kstore,
+                                                                      pstore, bow_db, kf_view)
+        # the accumulator starts again, linearized at the refined biases
+        acc2 = imu_ops.identity_with_bias(bg2, ba2)
+        return (R2, t2, v2, bg2, ba2, pstore, lstore, kstore, bow_db, n_kf2, n_new, slots, scores, kf_view2,
+                local_pt2, pints, acc2)
+
+    def step(img_args, imu_args, stamp, R, t, v_w, bg, ba, gravity_w, preint_acc, ext, n_kf, frames_since_kf,
+             last_kf_inliers, allow_mapping, wide, pstore, lstore, kstore, bow_db, kf_view, local_pt, pints):
+        frame = build(*img_args)
+        # this frame's preintegration and the per-keyframe accumulator
+        p = imu_ops.preintegrate(imu_args[:, 0:3], imu_args[:, 3:6], imu_args[:, 6], imu_args[:, 7] > 0.5,
+                                 bg, ba, cfg.imu)
+        acc = imu_ops.compose(preint_acc, p)
+        prev_state = inr.body_state_from_camera(R, t, v_w, bg, ba, ext)
+        Rp, vp, pp = imu_ops.predict_state(prev_state.R_wb, prev_state.v_w, prev_state.p_w, p, bg, ba, gravity_w)
+        init_state = inr.BodyState(R_wb=Rp, p_w=pp, v_w=vp, bg=bg, ba=ba)
+        (st2, R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore) = track_step_inertial(
+            cam, cfg, frame, p, prev_state, init_state, gravity_w, ext, pstore, lstore, local_pt, wide=wide)
+        ok = n_in >= cfg.tracking.min_inliers_track
+        # on failure hold the IMU dead-reckoned state, its velocity clamped
+        # (bias and gravity error integrate without bound during loss)
+        R_pred, t_pred = inr.camera_pose(init_state, ext)
+        R_new = torch.where(ok, R1, R_pred)
+        t_new = torch.where(ok, t1, t_pred)
+        vp_safe = vp * torch.clamp(5.0 / torch.clamp(torch.linalg.norm(vp), min=1e-9), max=1.0)
+        v_new = torch.where(ok, st2.v_w, vp_safe)
+        bg_new = torch.where(ok, st2.bg, bg)
+        ba_new = torch.where(ok, st2.ba, ba)
+
+        need_kf, fs, last_kf_inliers = _keyframe_decision(cfg, ok, n_in, n_kf, frames_since_kf, last_kf_inliers,
+                                                          allow_mapping)
+        if need_kf:
+            (R_new, t_new, v_new, bg_new, ba_new, pstore, lstore, kstore, bow_db, n_kf2, n_new, loop_slot,
+             loop_score, kf_view, local_pt, pints, acc) = kf_branch(
+                frame, stamp, R_new, t_new, v_new, bg_new, ba_new, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore,
+                lstore, kstore, bow_db, kf_view, pints, acc, gravity_w, ext)
+            fs2 = 0
+            last_in2 = n_in + n_new
+        else:
+            n_kf2, fs2, last_in2 = n_kf, fs, last_kf_inliers
+            n_new, loop_slot, loop_score = _no_keyframe(R.device)
+        counters, stats, rel = _step_outputs(ok, n_in, n_kf2, need_kf, fs2, last_in2, n_new, loop_slot, loop_score,
+                                             pstore, lstore, kstore, R_new, t_new)
+        return (R_new, t_new, R, t, v_new, bg_new, ba_new, acc, pstore, lstore, kstore, bow_db, kf_view, local_pt,
+                pints, pt_idx, pt_in, ln_idx, ln_in, counters, stats, rel)
 
     return step

@@ -1,22 +1,37 @@
-"""Host-side tracker for the stereo visual path (port of the stereo, non-IMU
-part of pli_slam_tpu/frontend/tracker.py `Tracker`).
+"""Host-side tracker for the stereo and stereo-inertial paths (port of the
+stereo part of pli_slam_tpu/frontend/tracker.py `Tracker`).
 
-The first frame builds on the host path and `_initialize`s the map;
-every later frame runs the fused device step (frontend.step) and
-`_finish_fused` consumes its stats vector -- one frame late in
-`streaming` mode, as in the reference, so the stats read overlaps the
-next frame's work.
+Stereo (`sensor="stereo"`): the first frame builds on the host path and
+`_initialize`s the map; every later frame runs the fused device step
+(frontend.step.make_step_visual).
 
-The rare paths belong to later slices. Where a run reaches one of them
--- relocalization, switching to a new map, a map reset on a timestamp
-jump back, loop closing -- the port raises `NotImplementedError` naming
-it instead of carrying on. `_try_merge` with a single map is a no-op in
-the reference too, and returns False here; the port never parks a map,
-so it always has one.
+Stereo-inertial (`sensor="stereo_imu"`, `process(..., imu=...)`): until the
+IMU is initialized every frame is host-orchestrated (`_process_frame`:
+preintegrate, visual `track_step` against the whole point store, keyframe
+and windowed BA decided on the host). Once enough keyframes and IMU time
+have gathered, `_try_imu_init` runs the three-stage initialization (gyro
+bias, the inertial-only MAP problem, full inertial BA) and from the next
+frame on the fused stereo-inertial step (make_step_vi) takes over, with the
+VIBA1 / VIBA2 refinements queued as deferred chunks at +5 s and +15 s.
+
+`_finish_fused` consumes a fused step's stats vector -- one frame late in
+`streaming` mode, as in the reference, so the stats read overlaps the next
+frame's work.
+
+The rare paths belong to later slices. Where a run reaches one of them --
+relocalization, switching to a new map, a map reset (timestamp jump, bad
+IMU), loop closing with its "gba" chunks -- the port raises
+`NotImplementedError` naming it instead of carrying on. `_try_merge` with a
+single map is a no-op in the reference too, and returns False here; the
+port never parks a map, so it always has one. The mono-only pieces of the
+host path (`_kf_views`, `_apply_scale`, `_scale_refinement`) come with the
+mono slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from functools import partial
 
 import numpy as np
@@ -25,10 +40,15 @@ import torch
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.frontend import step as step_mod
 from pli_slam_tpu_torch.frontend.frame import FrameData, build_frame
+from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie
 from pli_slam_tpu_torch.ops.camera import PINHOLE, Camera
+from pli_slam_tpu_torch.solve import imu_init as ii
+from pli_slam_tpu_torch.solve import inertial as inr
 from pli_slam_tpu_torch.worldmap import stores as st
 from pli_slam_tpu_torch.worldmap import vocab as vocab_mod
+
+_EMPTY_INFO = {"n_inliers": 0, "n_kf": 0, "n_points": 0, "n_lines": 0, "new_landmarks": 0}
 
 
 class TrackingState:
@@ -39,16 +59,19 @@ class TrackingState:
 
 
 class Tracker:
-    """Orchestrates the per-frame device programs on `device`."""
+    """Orchestrates the per-frame device programs on `device`: the GPU
+    unless the caller names another (`device=None` means
+    `torch.device("cuda")`; the CPU is used only when asked for)."""
 
-    def __init__(self, cam: Camera, cfg: SlamConfig, device):
-        if cfg.sensor != "stereo":
-            raise NotImplementedError(f"sensor {cfg.sensor!r}: the port runs the stereo visual path only")
+    def __init__(self, cam: Camera, cfg: SlamConfig, device=None):
+        if cfg.sensor not in ("stereo", "stereo_imu"):
+            raise NotImplementedError(
+                f"sensor {cfg.sensor!r}: the port runs the stereo and stereo-inertial paths only")
         if cam.model != PINHOLE:
             raise NotImplementedError("fisheye (KB8) stereo is not ported yet")
         if cfg.loop.enabled:
             raise NotImplementedError("loop closing (LoopCloser) is not ported yet: use LoopConfig(enabled=False)")
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         dev = self.device
         self.cam = cam
         self.cfg = cfg
@@ -57,6 +80,8 @@ class Tracker:
         self.voc_ln = vocab_mod.Vocabulary(seed=23)
         self.bow_db = vocab_mod.BowDatabase.empty(cfg.map.max_keyframes, self.voc_pt.n_words, dev)
         self._step = step_mod.make_step_visual(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame)
+        # deferred BA chunks, one executed per later non-keyframe frame
+        self._deferred_ba: list[tuple] = []
         m = cfg.map
         self.pstore = st.PointStore.empty(m.max_points, device=dev)
         self.lstore = st.LineStore.empty(m.max_lines, device=dev)
@@ -81,10 +106,61 @@ class Tracker:
         self._traj_done: list[tuple[float, np.ndarray, np.ndarray]] = []
         self.stats: list[dict] = []
 
+        # -- inertial state (sensor stereo_imu) ---------------------------
+        self.use_imu = cfg.sensor.endswith("_imu")
+        self.ext = inr.Extrinsics.from_Tbc(cfg.imu.Tbc, dev)
+        self.imu_ready = False
+        self.gravity_w = None  # world gravity vector after init
+        self.v_w = torch.zeros(3, device=dev)
+        self.bg = torch.zeros(3, device=dev)
+        self.ba = torch.zeros(3, device=dev)
+        self.last_preint = None
+        self._first_imu_stamp = None
+        self._last_imu_raw = None  # boundary sample carried between frame batches
+        self._viba_stage: int | None = None  # 0 after init, 1 after VIBA1, 2 done
+        self._imu_init_stamp = 0.0
+        # one record per IMU-init attempt: accepted / reason, scale, gravity
+        # angle from vertical, biases, wall time
+        self.imu_init_log: list[dict] = []
+        self._preint_since_kf = None  # host path's per-keyframe accumulator
+        # per-keyframe preintegration chain on the device (slot k spans KF k-1 -> KF k)
+        self._pints = imu_ops.PreintStore.empty(m.max_keyframes, dev)
+        self._imu_pad = cfg.imu.max_samples_per_frame
+        self._vi_fused_active = False
+        self._preint_acc = None  # fused path's per-keyframe accumulator
+        # frames of widened matching after a map-changing event (IMU init,
+        # full inertial BA, a deferred chunk)
+        self._map_event_cooldown = 0
+        if self.use_imu:
+            self._step_vi = step_mod.make_step_vi(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame)
+
+    # -- pose helpers --------------------------------------------------------
+    def _use_motion_model(self) -> torch.Tensor:
+        """0-d device bool: a velocity exists and the motion model is on."""
+        return self.has_vel & bool(self.cfg.tracking.motion_model)
+
+    def _predict_pose(self):
+        dR, dt = lie.se3_exp(self.vel_xi)
+        use_mm = self._use_motion_model()
+        return (torch.where(use_mm, lie._mm(dR, self.R), self.R),
+                torch.where(use_mm, lie._einsum("ij,j->i", dR, self.t) + dt, self.t))
+
+    def _update_motion_model(self):
+        # velocity twist: the current T_cw composed with the previous T_wc
+        R_rel = lie._mm(self.R, self.R_prev.T)
+        t_rel = self.t - lie._einsum("ij,j->i", R_rel, self.t_prev)
+        self.vel_xi = lie.se3_log(R_rel, t_rel)
+        self.has_vel = torch.ones((), dtype=torch.bool, device=self.device)
+
+    def _reset_motion(self):
+        self.has_vel = torch.zeros((), dtype=torch.bool, device=self.device)
+
     # -- trajectory ----------------------------------------------------------
     def finalize(self):
-        """End of run. The reference drains its deferred global-BA chunks
-        here; they come from loop closing, which this slice does not run."""
+        """End of run: drain the deferred BA chunks, so that saved poses
+        reflect the fully refined map."""
+        if self._deferred_ba:
+            self.run_deferred_ba(max_chunks=len(self._deferred_ba))
 
     @property
     def trajectory(self) -> list[tuple[float, np.ndarray, np.ndarray]]:
@@ -105,11 +181,223 @@ class Tracker:
     def positions(self) -> np.ndarray:
         return np.stack([p for _, _, p in self.trajectory])
 
-    def _record(self, stamp: float):
+    def _live_pose_rel(self):
+        """The live pose relative to the newest keyframe: (slot, R_cr, t_cr)."""
         ref = max(self.n_kf - 1, 0)
         R_cr = lie._mm(self.R, self.kstore.R[ref].T)
         t_cr = self.t - lie._einsum("ij,j->i", R_cr, self.kstore.t[ref])
+        return ref, R_cr, t_cr
+
+    def _recompose_live_pose(self, ref: int, R_cr, t_cr):
+        """Carry the live pose along with keyframe `ref`'s refined pose."""
+        self.R = lie._mm(R_cr, self.kstore.R[ref])
+        self.t = lie._einsum("ij,j->i", R_cr, self.kstore.t[ref]) + t_cr
+
+    def _record(self, stamp: float):
+        ref, R_cr, t_cr = self._live_pose_rel()
         self._traj_pending.append((stamp, ref, R_cr, t_cr, self.R, self.t))
+
+    # -- IMU plumbing ---------------------------------------------------------
+    def _imu_batch_arrays(self, imu: dict | None, packed: bool = False):
+        """Pad and midpoint this frame's raw IMU batch to the fixed [T] arrays
+        that preintegration consumes. The PREVIOUS frame's last raw sample is
+        prepended: per-frame batches cut the sample stream at frame
+        boundaries, and without the carried sample the interval between the
+        last sample of frame k-1 and the first of frame k would be dropped
+        (10% of every frame's motion at 200 Hz / 20 fps). `packed` gives the
+        one [T, 8] tensor g | a | dt | mask of the fused step instead of four."""
+        T = self._imu_pad
+        g = np.zeros((T, 3), np.float32)
+        a = np.zeros((T, 3), np.float32)
+        dts = np.zeros(T, np.float32)
+        mask = np.zeros(T, bool)
+        if imu is not None:
+            gyro = np.asarray(imu["gyro"], np.float32).reshape(-1, 3)
+            acc = np.asarray(imu["acc"], np.float32).reshape(-1, 3)
+            stamps = np.asarray(imu["stamps"], np.float64).reshape(-1)
+            if self._first_imu_stamp is None and len(stamps):
+                self._first_imu_stamp = float(stamps[0])
+            prev = self._last_imu_raw
+            if prev is not None and len(stamps) and prev[0] < stamps[0] - 1e-9:
+                stamps = np.concatenate([[prev[0]], stamps])
+                gyro = np.vstack([prev[1], gyro])
+                acc = np.vstack([prev[2], acc])
+            if len(stamps):
+                self._last_imu_raw = (float(stamps[-1]), gyro[-1].copy(), acc[-1].copy())
+            n = min(len(stamps), T)
+            if n >= 2:
+                g[: n - 1] = 0.5 * (gyro[: n - 1] + gyro[1:n])
+                a[: n - 1] = 0.5 * (acc[: n - 1] + acc[1:n])
+                dts[: n - 1] = np.diff(stamps[:n]).astype(np.float32)
+                mask[: n - 1] = dts[: n - 1] > 0
+        if packed:
+            buf = np.concatenate([g, a, dts[:, None], mask[:, None].astype(np.float32)], axis=1)
+            return torch.from_numpy(buf).to(self.device)
+        return tuple(torch.from_numpy(x).to(self.device) for x in (g, a, dts, mask))
+
+    def _ingest_imu(self, imu: dict, stamp: float):
+        """Preintegrate this frame's IMU batch with the current biases and
+        add it to the per-keyframe accumulator."""
+        g, a, dts, mask = self._imu_batch_arrays(imu)
+        self.last_preint = imu_ops.preintegrate(g, a, dts, mask, self.bg, self.ba, self.cfg.imu)
+        if self._preint_since_kf is None:
+            self._preint_since_kf = self.last_preint
+        else:
+            self._preint_since_kf = imu_ops.compose(self._preint_since_kf, self.last_preint)
+
+    def _kf_chain(self, window: np.ndarray):
+        """Stacked preintegration chain and mask (numpy) for consecutive
+        window slots: factor i spans window[i] -> window[i+1], valid only
+        between adjacent slots with a recorded accumulator."""
+        window = np.asarray(window)
+        nxt = window[1:]
+        stacked = self._pints.gather(torch.as_tensor(nxt, dtype=torch.int32, device=self.device))
+        adjacent = nxt == window[:-1] + 1
+        imu_mask = self._pints.valid.cpu().numpy()[nxt] & adjacent
+        return stacked, imu_mask
+
+    def _body_state(self):
+        return inr.body_state_from_camera(self.R, self.t, self.v_w, self.bg, self.ba, self.ext)
+
+    # padded full-inertial-BA window capacities
+    _FIBA_CAPS = (8, 16, 32)
+
+    def _full_inertial_ba(self):
+        """Whole-map visual-inertial BA. Maps up to the largest padded capacity
+        solve in one window; larger maps run overlapping windows oldest ->
+        newest, twice. The live frame pose rides along relative to the newest
+        keyframe (teleporting it onto the keyframe would rewind the tracker
+        by the frames since)."""
+        rel = self._live_pose_rel()
+        for window, fixed in self._fiba_schedule():
+            self._run_fiba_window(window, fixed)
+        self._adopt_keyframe_state(rel[0])
+        self._recompose_live_pose(*rel)
+        self._map_event_cooldown = 5
+
+    def _adopt_keyframe_state(self, k: int):
+        self.v_w, self.bg, self.ba = self.kstore.v_w[k], self.kstore.bg[k], self.kstore.ba[k]
+
+    def _fiba_schedule(self):
+        """The full-inertial-BA sweep as a list of (window, fixed) chunks, to
+        run at once (`_full_inertial_ba`) or one per frame (the deferred queue)."""
+        n = self.n_kf
+        if n < 3 or self.gravity_w is None:
+            return []
+        W = next((c for c in self._FIBA_CAPS if c >= n), self._FIBA_CAPS[-1])
+        if n <= W:
+            starts = [max(n - W, 0)]
+            passes = 1
+        else:
+            step = W - 1  # one keyframe of overlap carries the anchor forward
+            starts = list(range(0, n - W, step)) + [n - W]
+            passes = 2
+        out = []
+        for _ in range(passes):
+            for lo in starts:
+                window = np.clip(np.arange(lo, lo + W), 0, n - 1)
+                fixed = np.zeros(W, bool)
+                fixed[0] = True
+                fixed[1:] |= window[1:] <= window[:-1]
+                out.append((window, fixed))
+        return out
+
+    def _run_vi_ba(self, window: np.ndarray, fixed: np.ndarray):
+        stacked, imu_mask = self._kf_chain(window)
+        dev = self.device
+        self.kstore, self.pstore, self.lstore = step_mod.local_inertial_ba(
+            self.cam, self.cfg, self.kstore, self.pstore, self.lstore,
+            torch.as_tensor(window, dtype=torch.int32, device=dev), torch.as_tensor(fixed, device=dev),
+            stacked, torch.as_tensor(imu_mask, device=dev), self.gravity_w, self.ext)
+
+    def _run_fiba_window(self, window, fixed):
+        # keyframes culled since the schedule was drawn stay pinned
+        self._run_vi_ba(window, fixed | ~self.kstore.valid.cpu().numpy()[window])
+
+    def _queue_gba(self, inertial: bool):
+        raise NotImplementedError("post-loop global BA (Tracker._queue_gba, loop closing) is not ported yet")
+
+    def run_deferred_ba(self, max_chunks: int = 1):
+        """Execute up to `max_chunks` queued chunks. The live frame pose rides
+        along: recorded relative to the newest keyframe before each chunk and
+        recomposed against that keyframe's refined pose after it."""
+        n_run = 0
+        while self._deferred_ba and n_run < max_chunks:
+            kind, arg = self._deferred_ba.pop(0)
+            if kind != "fiba":
+                raise NotImplementedError(f"deferred {kind!r} chunk (post-loop global BA) is not ported yet")
+            rel = self._live_pose_rel()
+            self._run_fiba_window(*arg)
+            if not self._deferred_ba:  # final chunk: refresh the live state
+                self._adopt_keyframe_state(rel[0])
+            self._recompose_live_pose(*rel)
+            self._map_event_cooldown = max(self._map_event_cooldown, 2)
+            n_run += 1
+
+    def _try_imu_init(self):
+        """Three-stage IMU initialization over the keyframe chain:
+        1. gyro bias from visual against preintegrated keyframe rotations;
+        2. the joint MAP problem over gravity direction, biases and
+           per-keyframe velocities with the poses fixed
+           (solve.imu_init.inertial_optimization; the scale is fixed for stereo);
+        3. full inertial BA over the whole map.
+        VIBA1 / VIBA2 follow at +5 s / +15 s. Appends one record to `imu_init_log`."""
+        t0 = time.perf_counter()
+
+        def log(accepted, reason, **kw):
+            self.imu_init_log.append({"n_kf": int(self.n_kf), "accepted": bool(accepted), "reason": reason,
+                                      "wall_ms": (time.perf_counter() - t0) * 1e3, **kw})
+
+        n = self.n_kf
+        # a thin keyframe set under-constrains the inertial-only MAP problem
+        if n < self.cfg.imu.init_min_kfs:
+            return log(False, "too_few_keyframes")
+        stacked, imu_mask = self._kf_chain(np.arange(n))
+        if imu_mask.sum() < 3:
+            return log(False, "too_few_preintegrations")
+        dev = self.device
+        ks = self.kstore
+        R_k, t_k = ks.R[:n], ks.t[:n]
+        # body states from camera poses through T_cb
+        R_wb = torch.einsum("kji,jm->kim", R_k, self.ext.R_cb)
+        p_wb = torch.einsum("kji,kj->ki", R_k, self.ext.t_cb[None] - t_k)
+
+        # stage 1: gyro bias from rotation residuals
+        live = np.nonzero(imu_mask)[0]
+        preints = [imu_ops._map(lambda a: a[i], stacked) for i in live]
+        dRs = [lie._mm(R_wb[i].T, R_wb[i + 1]) for i in live]
+        bg0 = inr.estimate_gyro_bias(preints, dRs, prior_info=1.0)
+
+        # stage 2: joint MAP over (gravity direction, bg, ba, velocities)
+        mask_dev = torch.as_tensor(imu_mask, device=dev)
+        Rwg0 = ii.gravity_dir_seed(stacked, mask_dev, R_wb, self.cfg.imu.gravity)
+        v0 = ii.velocity_seed(p_wb, ks.stamp[:n])
+        Rwg, s, bg, ba, v, costs = ii.inertial_optimization(
+            stacked, mask_dev, R_wb, p_wb, v0, Rwg0, bg0, torch.zeros(3, device=dev), self.cfg.imu,
+            prior_g=1e2, prior_a=1e5, fix_scale=True)
+        g_w = lie._einsum("ij,j->i", Rwg, torch.tensor([0.0, 0.0, -self.cfg.imu.gravity], device=dev))
+        if not bool(torch.all(torch.isfinite(g_w))):
+            return log(False, "nonfinite_gravity")
+        self.gravity_w = g_w
+        self.bg = bg
+        self.ba = ba
+        new = {}
+        for name, val in (("v_w", v), ("bg", bg.expand(n, 3)), ("ba", ba.expand(n, 3))):
+            arr = getattr(self.kstore, name).clone()
+            arr[:n] = val
+            new[name] = arr
+        self.kstore = dataclasses.replace(self.kstore, **new)
+        self.v_w = v[n - 1]
+        self.imu_ready = True
+        # stage 3: full-map visual-inertial BA. No standalone gravity
+        # refinement follows: the VIBA chunks re-optimize the state jointly
+        self._full_inertial_ba()
+        self._imu_init_stamp = float(self.kstore.stamp[n - 1])
+        self._viba_stage = 0
+        g_np = g_w.cpu().numpy()
+        grav_angle = float(np.degrees(np.arccos(np.clip(-g_np[2] / max(np.linalg.norm(g_np), 1e-9), -1.0, 1.0))))
+        log(True, "ok", scale=float(s), gravity_angle_deg=grav_angle, bg=bg.cpu().numpy().tolist(),
+            ba=ba.cpu().numpy().tolist(), cost0=float(costs[0]), cost1=float(costs[-1]))
 
     # -- rare paths (later slices) ------------------------------------------
     def _relocalize(self, frame) -> bool:
@@ -125,29 +413,129 @@ class Tracker:
         return False
 
     def _check_timestamp(self, stamp: float) -> None:
+        """A frame older than its predecessor resets the active map; a forward
+        jump of more than 1 s with an inertial sensor breaks the
+        preintegration chain: the map is parked if the IMU was initialized,
+        and reset if not."""
         prev, self._prev_stamp = self._prev_stamp, float(stamp)
         if prev is None or self.state == TrackingState.NOT_INITIALIZED:
             return
         if stamp < prev:
             self.reset_active_map()
+        elif stamp - prev > 1.0 and self.use_imu:
+            if self.imu_ready:
+                self._switch_to_new_map()
+            else:
+                self.reset_active_map()
+
+    # -- keyframes on the host path -----------------------------------------
+    def _bow_kf(self, frame: FrameData, kf_slot: int, n_kf: int):
+        """BoW add and loop-candidate query for a host-path keyframe (the
+        same database the fused steps maintain)."""
+        bow_p = self.voc_pt.bow(frame.feats.desc, frame.feats.valid & (self.kstore.obs_pt[kf_slot] >= 0))
+        bow_l = self.voc_ln.bow(frame.lines.desc, frame.lines.valid)
+        self.bow_db = self.bow_db.add(kf_slot, bow_p, bow_l)
+        K = self.bow_db.valid.shape[0]
+        excl = torch.arange(K, device=self.device) >= max(n_kf - self.cfg.loop.min_kf_gap, 0)
+        slots, scores = step_mod.vocab_query(self.bow_db, bow_p, bow_l, excl, n_best=step_mod.N_LOOP_CANDS,
+                                             covis=self.kstore.covis)
+        if kf_slot < self.cfg.loop.min_kf_gap:
+            slots, scores = torch.full_like(slots, -1), torch.full_like(scores, -1.0)
+        return slots, scores
+
+    def _cull_keyframes(self):
+        """Invalidate redundant keyframes: >= kf_cull_redundancy of their
+        landmarks are seen by more than cull_min_obs keyframes. KF 0 and the
+        active window are kept."""
+        W = self.cfg.opt.local_ba_window
+        lo, hi = 1, self.n_kf - W
+        if self.n_kf < W + 2 or hi <= lo:
+            return
+        obs = self.kstore.obs_pt[lo:hi]
+        has = obs >= 0
+        n_obs = self.pstore.n_obs[torch.clamp(obs, min=0).long()]
+        redundant = torch.sum((n_obs >= self.cfg.map.cull_min_obs + 1) & has, dim=1) / torch.clamp(
+            torch.sum(has, dim=1), min=1)
+        cull = (redundant >= self.cfg.map.kf_cull_redundancy) & self.kstore.valid[lo:hi]
+        valid = self.kstore.valid.clone()
+        valid[lo:hi] &= ~cull
+        self.kstore = dataclasses.replace(self.kstore, valid=valid)
+
+    def _create_keyframe(self, frame, stamp, pt_idx, pt_in, ln_idx, ln_in) -> int:
+        self.pstore, self.lstore, self.kstore, n_new = step_mod.insert_keyframe(
+            self.cam, self.cfg, frame, self.R, self.t, stamp, pt_idx, pt_in, ln_idx, ln_in, self.n_kf,
+            self.pstore, self.lstore, self.kstore)
+        if self.use_imu:
+            k = self.n_kf
+            new = {}
+            for name, val in (("v_w", self.v_w), ("bg", self.bg), ("ba", self.ba)):
+                arr = getattr(self.kstore, name).clone()
+                arr[k] = val
+                new[name] = arr
+            self.kstore = dataclasses.replace(self.kstore, **new)
+            # snapshot the chain factor KF(k-1) -> KF(k) and start the accumulator again
+            if k > 0 and self._preint_since_kf is not None:
+                self._pints = self._pints.set(k, self._preint_since_kf)
+            self._preint_since_kf = None
+        self.n_kf += 1
+        # windowed BA over the last W keyframes, the oldest fixed for gauge
+        W = self.cfg.opt.local_ba_window
+        lo = max(self.n_kf - W, 0)
+        window = np.clip(np.arange(lo, lo + W), 0, max(self.n_kf - 1, 0))
+        n_fixed = max(self.cfg.opt.local_ba_fixed, W - (self.n_kf - lo))
+        fixed = np.zeros(W, bool)
+        fixed[: max(1, n_fixed)] = True
+        fixed[1:] |= window[1:] <= window[:-1]  # duplicated padding entries
+        if self.n_kf >= 3:
+            k = self.n_kf - 1
+            if self.use_imu and self.imu_ready and self.gravity_w is not None:
+                self._run_vi_ba(window, fixed)
+                self._adopt_keyframe_state(k)
+            else:
+                dev = self.device
+                self.kstore, self.pstore, self.lstore = step_mod.local_ba(
+                    self.cam, self.cfg, self.kstore, self.pstore, self.lstore,
+                    torch.as_tensor(window, dtype=torch.int32, device=dev), torch.as_tensor(fixed, device=dev))
+            # tracking continues from the refined latest keyframe
+            self.R, self.t = self.kstore.R[k], self.kstore.t[k]
+        self._bow_kf(frame, self.n_kf - 1, self.n_kf)
+        self._try_merge(self.n_kf - 1)
+        self._cull_keyframes()
+        self._refresh_local_map(self.n_kf - 1)
+        return int(n_new)
 
     # -- main entries ---------------------------------------------------------
     def process(self, img_l, img_r, stamp: float, allow_mapping: bool = True, imu: dict | None = None) -> dict:
-        """Stereo frame (reference System::TrackStereo). Images are [H, W]
-        float32 in [0, 255], numpy or tensors; they are moved to `device`."""
-        if imu is not None:
-            raise NotImplementedError("stereo-inertial tracking is not ported yet")
+        """Stereo / stereo-inertial frame. Images are [H, W] float32 in
+        [0, 255], numpy or tensors; they are moved to `device`. `imu` is this
+        frame's raw batch {"gyro" [n,3], "acc" [n,3], "stamps" [n]} covering
+        (previous frame, this frame]; the visual sensor ignores it."""
         self._check_timestamp(stamp)
         img_args = (torch.as_tensor(img_l, dtype=torch.float32, device=self.device),
                     torch.as_tensor(img_r, dtype=torch.float32, device=self.device))
+        if self.use_imu:
+            # after IMU init the frames run the fused stereo-inertial step;
+            # before it, and after a loss, they are host-orchestrated
+            if self.imu_ready and self.gravity_w is not None and self.state == TrackingState.OK:
+                return self._process_fused_vi(img_args, stamp, allow_mapping, imu)
+            if self._vi_fused_active:
+                self._exit_vi_fused()
+            return self._process_frame(self.build_frame(*img_args), stamp, allow_mapping, imu)
         if self.state == TrackingState.NOT_INITIALIZED:
             return self._initialize(self.build_frame(*img_args), stamp)
         return self._process_fused(img_args, stamp, allow_mapping)
 
+    def _info(self, n_inliers: int, n_new: int) -> dict:
+        info = {"state": self.state, "n_inliers": int(n_inliers), "n_kf": self.n_kf,
+                "n_points": int(self.pstore.valid.sum()), "n_lines": int(self.lstore.valid.sum()),
+                "new_landmarks": int(n_new)}
+        self.stats.append(info)
+        return info
+
     def _initialize(self, frame: FrameData, stamp: float) -> dict:
         n_stereo = int((frame.stereo_ok & frame.feats.valid).sum())
         if n_stereo < self.cfg.tracking.min_init_features:
-            return {"state": self.state, "n_inliers": 0, "n_kf": 0, "n_points": 0, "n_lines": 0, "new_landmarks": 0}
+            return {"state": self.state, **_EMPTY_INFO}
         dev = self.device
         n, nl = frame.feats.uv.shape[0], frame.lines.angle.shape[0]
         neg = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -160,19 +548,111 @@ class Tracker:
         self.last_kf_inliers = n_stereo
         self.frames_since_kf = 0
         self._refresh_local_map(0)
+        # the per-keyframe accumulator starts AT KF0: batches ingested before
+        # (frame 0's samples lie before t0) must not leak into the KF0 -> KF1 factor
+        self._preint_since_kf = None
         # KF0's view is deliberately not seeded into the triangulation ring (reference :2965)
         self._record(stamp)
-        info = {"state": self.state, "n_inliers": n_stereo, "n_kf": 1,
-                "n_points": int(self.pstore.valid.sum()), "n_lines": int(self.lstore.valid.sum()),
-                "new_landmarks": int(n_new)}
-        self.stats.append(info)
-        return info
+        return self._info(n_stereo, n_new)
 
     def _refresh_local_map(self, kf_slot: int):
         if kf_slot < 0:
             self._local_pt = step_mod._empty_local_map(self.cfg, self.device)
             return
         self._local_pt = step_mod._local_map_ids(self.cfg, self.kstore, self.pstore, kf_slot)
+
+    def _process_frame(self, frame: FrameData, stamp: float, allow_mapping: bool = True,
+                       imu: dict | None = None) -> dict:
+        """Host-orchestrated frame of the stereo-inertial path: every frame
+        before IMU initialization, and the frames after a tracking loss."""
+        if self.use_imu and imu is not None:
+            self._ingest_imu(imu, stamp)
+        if self.state == TrackingState.NOT_INITIALIZED:
+            return self._initialize(frame, stamp)
+        tc = self.cfg.tracking
+        lost_limit = tc.recently_lost_sec * self.cfg.fps
+
+        if self.use_imu and self.imu_ready and self.last_preint is not None:
+            prev_state = self._body_state()
+            R_pred, v_pred, p_pred = imu_ops.predict_state(
+                prev_state.R_wb, prev_state.v_w, prev_state.p_w, self.last_preint, self.bg, self.ba, self.gravity_w)
+            init_state = inr.BodyState(R_wb=R_pred, p_w=p_pred, v_w=v_pred, bg=self.bg, ba=self.ba)
+            (state2, R, t, pt_idx, pt_in, ln_idx, ln_in, n_in, self.pstore, self.lstore) = (
+                step_mod.track_step_inertial(self.cam, self.cfg, frame, self.last_preint, prev_state, init_state,
+                                             self.gravity_w, self.ext, self.pstore, self.lstore))
+            n_inliers = int(n_in)
+            self.R_prev, self.t_prev = self.R, self.t
+            if n_inliers >= tc.min_inliers_track:
+                self.R, self.t = R, t
+                self.v_w, self.bg, self.ba = state2.v_w, state2.bg, state2.ba
+                self.state = TrackingState.OK
+                self._update_motion_model()
+                self._lost_frames = 0
+            else:
+                # dead-reckon on the IMU, the velocity clamped to 5 m/s
+                self.R, self.t = inr.camera_pose(init_state, self.ext)
+                self.v_w = v_pred * torch.clamp(5.0 / torch.clamp(torch.linalg.norm(v_pred), min=1e-9), max=1.0)
+                self.state = TrackingState.RECENTLY_LOST
+                self._lost_frames += 1
+                # tracking lost within 10 s of IMU init on a small map: the
+                # gravity estimate was bad, so the map is reset
+                if self._lost_frames > lost_limit and stamp - self._imu_init_stamp < 10.0 and self.n_kf <= 10:
+                    self.reset_active_map()
+                if self._lost_frames >= 3 and self._relocalize(frame):
+                    n_inliers = tc.min_inliers_local_map
+                    self._lost_frames = 0
+                elif self._lost_frames > lost_limit:
+                    self._switch_to_new_map()
+        else:
+            R0, t0 = self._predict_pose()
+            (R, t, pt_idx, pt_in, ln_idx, ln_in, n_in, self.pstore, self.lstore) = step_mod.track_step(
+                self.cam, self.cfg, frame, R0, t0, self.pstore, self.lstore, wide=~self._use_motion_model())
+            n_inliers = int(n_in)
+            self.R_prev, self.t_prev = self.R, self.t
+            if n_inliers >= tc.min_inliers_track:
+                self.R, self.t = R, t
+                self.state = TrackingState.OK
+                self._update_motion_model()
+                self._lost_frames = 0
+            else:
+                # dead-reckon on the motion model
+                self.R, self.t = R0, t0
+                self.state = TrackingState.RECENTLY_LOST
+                self._lost_frames += 1
+                if self._lost_frames >= 2 and self._relocalize(frame):
+                    n_inliers = tc.min_inliers_local_map
+                    self._lost_frames = 0
+                elif self._lost_frames > lost_limit:
+                    self._switch_to_new_map()
+
+        # inertial bookkeeping: initialize once enough keyframes and data
+        # span exist, then the staged VIBA1 / VIBA2 refinement
+        if self.use_imu and self.last_preint is not None and self.state == TrackingState.OK:
+            if not self.imu_ready:
+                if (self._first_imu_stamp is not None
+                        and stamp - self._first_imu_stamp >= self.cfg.imu.init_time_sec):
+                    self._try_imu_init()
+            elif self._viba_stage is not None and self._viba_stage < 2:
+                if stamp - self._imu_init_stamp > (5.0 if self._viba_stage == 0 else 15.0):
+                    self._full_inertial_ba()
+                    self._viba_stage += 1
+
+        self.frames_since_kf += 1
+        # keyframe decision against what the reference keyframe OBSERVES
+        # (its inliers plus the landmarks it created)
+        need_kf = (self.state == TrackingState.OK and n_inliers >= tc.kf_min_inliers
+                   and self.frames_since_kf > max(tc.kf_min_interval, 1)
+                   and (self.frames_since_kf >= tc.kf_max_interval
+                        or n_inliers < tc.kf_ref_ratio * max(int(self.last_kf_inliers), 1)))
+        n_new = 0
+        if allow_mapping and need_kf and self.n_kf < self.cfg.map.max_keyframes:
+            n_new = self._create_keyframe(frame, stamp, pt_idx, pt_in, ln_idx, ln_in)
+            self.last_kf_inliers = n_inliers + n_new
+            self.frames_since_kf = 0
+        elif self._deferred_ba:
+            self.run_deferred_ba()  # one bounded chunk on a non-keyframe frame
+        self._record(stamp)
+        return self._info(n_inliers, n_new)
 
     def _process_fused(self, img_args, stamp: float, allow_mapping: bool) -> dict:
         (R, t, R_prev, t_prev, self.vel_xi, self.has_vel,
@@ -185,15 +665,57 @@ class Tracker:
         self._traj_pending.append((stamp, rel[0], rel[1], rel[2], R, t))
         return self._finish_fused(stamp, stats_dev, img_args, counters)
 
+    def _process_fused_vi(self, img_args, stamp: float, allow_mapping: bool, imu: dict | None) -> dict:
+        """One fused stereo-inertial frame (after IMU init): the whole
+        preintegrate -> predict -> inertial track -> keyframe / VI-BA / BoW
+        pipeline is make_step_vi; the host handles the rare paths and the
+        VIBA1 / VIBA2 schedule."""
+        if not self._vi_fused_active:
+            self._vi_fused_active = True
+            acc = self._preint_since_kf
+            self._preint_acc = acc if acc is not None else imu_ops.identity_with_bias(self.bg, self.ba)
+            self._preint_since_kf = None
+            self.last_preint = None
+        imu_packed = self._imu_batch_arrays(imu, packed=True)  # one upload per frame
+        wide = self._map_event_cooldown > 0
+        if wide:
+            self._map_event_cooldown -= 1
+        (R, t, R_prev, t_prev, self.v_w, self.bg, self.ba, self._preint_acc,
+         self.pstore, self.lstore, self.kstore, self.bow_db, self._kf_view_dev, self._local_pt, self._pints,
+         _pt_idx, _pt_in, _ln_idx, _ln_in, counters, stats_dev, rel) = self._step_vi(
+            img_args, imu_packed, stamp, self.R, self.t, self.v_w, self.bg, self.ba, self.gravity_w,
+            self._preint_acc, self.ext, self.n_kf, self.frames_since_kf, self.last_kf_inliers, allow_mapping,
+            wide, self.pstore, self.lstore, self.kstore, self.bow_db, self._kf_view_dev, self._local_pt,
+            self._pints)
+        self.R, self.t, self.R_prev, self.t_prev = R, t, R_prev, t_prev
+        self._traj_pending.append((stamp, rel[0], rel[1], rel[2], R, t))
+        info = self._finish_fused(stamp, stats_dev, img_args, counters)
+        # staged refinement (VIBA1 at +5 s, VIBA2 at +15 s), queued as
+        # per-frame chunks so the full-map sweep never lands on one frame
+        if (self.state == TrackingState.OK and self._viba_stage is not None and self._viba_stage < 2
+                and not self._deferred_ba):
+            if stamp - self._imu_init_stamp > (5.0 if self._viba_stage == 0 else 15.0):
+                self._deferred_ba.extend(("fiba", chunk) for chunk in self._fiba_schedule())
+                self._viba_stage += 1
+        return info
+
+    def _exit_vi_fused(self):
+        """Leaving the fused stereo-inertial mode (after a loss): hand the
+        per-keyframe accumulator back to the host-orchestrated path."""
+        self._vi_fused_active = False
+        if self._preint_acc is not None:
+            self._preint_since_kf = self._preint_acc
+            self._preint_acc = None
+
     def _finish_fused(self, stamp, stats_dev, img_args, counters) -> dict:
-        """Consume the step's stats vector (the previous frame's in streaming mode)."""
+        """Consume a fused step's stats vector (the previous frame's in
+        streaming mode): shared by the visual and the stereo-inertial step."""
         # the keyframe counters are exact on the host already (see frontend.step)
         self.n_kf, self.frames_since_kf, self.last_kf_inliers = counters
         if self.streaming:
             pending, self._pending_stats = self._pending_stats, (stamp, stats_dev, img_args)
             if pending is None:
-                info = {"state": self.state, "n_inliers": 0, "n_kf": 0, "n_points": 0, "n_lines": 0,
-                        "new_landmarks": 0}
+                info = {"state": self.state, **_EMPTY_INFO}
                 self.stats.append(info)
                 return info
             _, stats_dev, img_args = pending
@@ -214,6 +736,8 @@ class Tracker:
                     self._switch_to_new_map()
         if stats[step_mod.ST_KF_CREATED] > 0:
             self._try_merge(int(stats[step_mod.ST_KF_SLOT]))
+        elif self._deferred_ba:
+            self.run_deferred_ba()  # one bounded chunk on a non-keyframe frame
         info = {"state": self.state, "n_inliers": n_inliers, "n_kf": int(stats[step_mod.ST_NKF]),
                 "n_points": int(stats[step_mod.ST_NPTS]), "n_lines": int(stats[step_mod.ST_NLNS]),
                 "new_landmarks": int(stats[step_mod.ST_NNEW])}

@@ -3,8 +3,14 @@
 Same conventions as the reference: rotations `[..., 3, 3]`, vectors
 `[..., 3]`, SE(3) as (R, t) with T x = R x + t, twists [rho, phi]
 (translation first). Taylor fallbacks near theta = 0 keep float32 safe.
-Only the SO(3)/SE(3) half is on the stereo visual path; Sim(3) and the
-quaternion helpers come with the loop-closing slice.
+The SO(3)/SE(3) half serves the stereo visual and stereo-inertial paths;
+Sim(3) and the quaternion helpers come with the loop-closing slice.
+
+Every function is functional (no in-place write, no `.item()`, no Python
+branch on a tensor), so `torch.func.jacfwd` and `vmap` go through them:
+the IMU factor's Jacobians are taken that way (solve.inertial, solve.vi_ba,
+solve.imu_init). The `torch.where` branches keep the untaken side finite
+at zero perturbation (`t2_safe`, `small_s`).
 
 TF32 is off (package `__init__`), so `_mm` / `_einsum` are full float32
 like the reference's `Precision.HIGHEST`.
@@ -104,6 +110,32 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     w_pi = axis_pi * theta_pi[..., None]
     near_pi = (math.pi - theta) < 1e-3
     return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian Jr of SO(3): Exp(w + dw) ~ Exp(w) Exp(Jr dw)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    _, b, c = _sinc_coeffs(theta2)
+    W = hat(w)
+    I = _eye3(w).expand(W.shape)
+    return I - b[..., None, None] * W + c[..., None, None] * _mm(W, W)
+
+
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SO(3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < _EPS
+    t2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(t2_safe)
+    # coefficient of W^2: 1/t^2 - (1 + cos t)/(2 t sin t); Taylor 1/12 + t^2/720
+    cot_term = torch.where(
+        small,
+        1.0 / 12.0 + theta2 / 720.0,
+        1.0 / t2_safe - (1.0 + torch.cos(theta)) / (2.0 * theta * torch.clamp(torch.sin(theta), min=1e-12)),
+    )
+    W = hat(w)
+    I = _eye3(w).expand(W.shape)
+    return I + 0.5 * W + cot_term[..., None, None] * _mm(W, W)
 
 
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
-"""Point and line residual blocks with analytic pose Jacobians
-(port of the visual half of pli_slam_tpu.solve.residuals).
+"""Point and line residual blocks with analytic pose Jacobians, and the
+IMU preintegration factor (port of pli_slam_tpu.solve.residuals).
 
 Pose convention: T_cw = (R_cw, t_cw), x_c = R_cw x_w + t_cw; updates are
-left-multiplicative twists (rho, phi). The IMU factor and pose priors
-belong to the stereo-inertial slice.
+left-multiplicative twists (rho, phi). The mono point residual and
+`make_pose_prior` are on no ported path yet.
 """
 
 from __future__ import annotations
@@ -58,3 +58,24 @@ def line_residuals(cam, R_cw, t_cw, xs_w, xe_w, l_obs):
     ds, Js, xs_c, Jd_xc_s = endpoint(xs_w)
     de, Je, xe_c, Jd_xc_e = endpoint(xe_w)
     return torch.stack([ds, de], dim=-1), torch.stack([Js, Je], dim=-2), (xs_c, xe_c, Jd_xc_s, Jd_xc_e)
+
+
+def imu_residual(preint, R0, p0, v0, R1, p1, v1, bg, ba, gravity=9.81):
+    """9-dof preintegration factor r = [r_phi, r_v, r_p] between body states
+    0 and 1 (R_wb, p_w, v_w), biases at state 0. `gravity` is a magnitude
+    (world -z) or a world vector [3]. Returns r [..., 9]: every argument
+    may carry leading batch axes (a chain of factors, a batch of perturbed
+    states), which broadcast. The function is functional, so forward-mode
+    autodiff goes through it (ops.autodiff.jacfwd at the call sites)."""
+    from pli_slam_tpu_torch.ops import imu as imu_ops
+
+    g = imu_ops.gravity_vector(gravity, R0)
+    dt = preint.dt[..., None]
+    dR = imu_ops.delta_rotation(preint, bg)
+    dV = imu_ops.delta_velocity(preint, bg, ba)
+    dP = imu_ops.delta_position(preint, bg, ba)
+    R0t = R0.transpose(-1, -2)
+    r_phi = lie.so3_log(lie._mm(dR.transpose(-1, -2), lie._mm(R0t, R1)))
+    r_v = imu_ops._mv(R0t, v1 - v0 - g * dt) - dV
+    r_p = imu_ops._mv(R0t, p1 - p0 - v0 * dt - 0.5 * g * dt * dt) - dP
+    return torch.cat([r_phi, r_v, r_p], dim=-1)

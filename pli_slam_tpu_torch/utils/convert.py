@@ -19,8 +19,10 @@ import torch
 
 from pli_slam_tpu_torch.frontend.frame import FrameData
 from pli_slam_tpu_torch.ops.camera import Camera
+from pli_slam_tpu_torch.ops.imu import Preintegrated, PreintStore, identity_with_bias
 from pli_slam_tpu_torch.ops.lines import LineFeatures
 from pli_slam_tpu_torch.ops.orb import Features
+from pli_slam_tpu_torch.solve.inertial import BodyState, Extrinsics
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.worldmap.stores import KeyFrameStore, LineStore, PointStore
 from pli_slam_tpu_torch.worldmap.vocab import BowDatabase, Vocabulary
@@ -94,6 +96,43 @@ def keyframe_store(x, device=None) -> KeyFrameStore:
 
 def bow_database(x, device=None) -> BowDatabase:
     return _tensors(BowDatabase, x, device)
+
+
+def preintegrated(x, device=None) -> Preintegrated:
+    return _tensors(Preintegrated, x, device)
+
+
+def preint_store(x, device=None) -> PreintStore:
+    return _tensors(PreintStore, x, device, {"data": preintegrated})
+
+
+def body_state(x, device=None) -> BodyState:
+    return _tensors(BodyState, x, device)
+
+
+def extrinsics(x, device=None) -> Extrinsics:
+    return _tensors(Extrinsics, x, device)
+
+
+def inertial_state(tr, device=None) -> dict:
+    """What `make_step_vi` starts from, read off a reference `Tracker` after
+    its IMU initialization (only attribute names and `np.asarray` are used)
+    and rebuilt as the port's objects: pose, velocity, biases, gravity, the
+    per-keyframe accumulator, extrinsics, the host counters, the three
+    stores, the BoW database, the view ring, the local map and the
+    preintegration chain. The keys are `step`'s argument names."""
+    acc = tr._preint_acc if tr._preint_acc is not None else tr._preint_since_kf
+    bg, ba = tensor(tr.bg, device), tensor(tr.ba, device)
+    # no accumulator yet (a keyframe on the very frame before): the fused path starts from the identity
+    acc = identity_with_bias(bg, ba) if acc is None else preintegrated(acc, device)
+    return dict(
+        R=tensor(tr.R, device), t=tensor(tr.t, device), v_w=tensor(tr.v_w, device), bg=bg,
+        ba=ba, gravity_w=tensor(tr.gravity_w, device), preint_acc=acc,
+        ext=extrinsics(tr.ext, device), n_kf=int(tr.n_kf), frames_since_kf=int(tr.frames_since_kf),
+        last_kf_inliers=int(tr.last_kf_inliers), pstore=point_store(tr.pstore, device),
+        lstore=line_store(tr.lstore, device), kstore=keyframe_store(tr.kstore, device),
+        bow_db=bow_database(tr.bow_db, device), kf_view=tuple(tensor(v, device) for v in tr._kf_view_dev),
+        local_pt=tensor(tr._local_pt, device), pints=preint_store(tr._pints, device))
 
 
 def vocabulary(v) -> Vocabulary:

@@ -1,6 +1,6 @@
-"""Where the port's main path spends its time on one GPU.
+"""Where the port's main paths spend their time on one GPU.
 
-Run from the repository root:  python3 -m pli_slam_tpu_torch.utils.profile [--out DIR]
+Run from the repository root:  python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -21,6 +21,18 @@ steady frames (frames 12-21):
 3. stages: all 40 frames with `torch.cuda.synchronize()` around each stage
    (build_frame and the step's stages), which makes the stage times exclusive
    and inflates the frame.
+
+With `--vi` it profiles the stereo-inertial path instead
+(`slice_config_vi()`: SlamConfig.euroc_stereo_inertial() with loop closing
+off and the IMU settings of bench.py's flagship run, 52 frames with 200 Hz
+IMU under ImuNoiseModel.euroc()): launches and device busy time per frame
+from two CUDA-only trace windows of one tracker (10 host-path frames before
+IMU initialization, 10 fused stereo-inertial frames after it), then the
+synchronised stage pass with `preintegrate`, `track_step_inertial`,
+`local_inertial_ba` and `_try_imu_init` added to the stages. `--vi-drift N`
+runs N frames of that path twice and prints, per frame after the
+initialization, how far velocity, accelerometer bias and trajectory have
+drifted from the truth, up to the frame where a run reaches an unported path.
 
 Needs a CUDA device. The chrome trace of pass 1 is written under `build/`
 and deleted once read (it runs to ~100 MB).
@@ -45,7 +57,15 @@ from pli_slam_tpu_torch.ops.camera import Camera
 N_FRAMES = 40
 N_WARM = 12  # frames before the timed window, as bench.py's run_visual
 N_WINDOW = 10
+# The stereo-inertial run stops at 52 frames: the IMU initializes at frame 30,
+# and from the first keyframe after it visual-inertial BA drives the
+# accelerometer bias and the velocity off (in the reference too), until
+# tracking is lost near frame 57-59 (on an NVIDIA H100; the reference, on a
+# CPU, at frame 57) and the run reaches relocalization, which is not ported yet. 52 frames leave 21 fused stereo-inertial frames
+# that both packages still track.
+N_FRAMES_VI = 52
 STAGES = ("track_step", "insert_keyframe", "local_ba", "far_point_depths", "_local_map_ids")
+STAGES_VI = STAGES + ("track_step_inertial", "local_inertial_ba")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -58,6 +78,25 @@ def slice_config() -> SlamConfig:
     """The ported slice's configuration: the EuRoC operating point at its
     published widths with loop closing off."""
     return loop_off(SlamConfig.euroc_stereo())
+
+
+def slice_config_vi() -> SlamConfig:
+    """The stereo-inertial slice's configuration: the EuRoC stereo-inertial
+    operating point at its published widths with loop closing off and the
+    IMU settings of bench.py's flagship run (init after 1.5 s, 16-sample batches)."""
+    cfg = loop_off(SlamConfig.euroc_stereo_inertial())
+    return dataclasses.replace(cfg, imu=dataclasses.replace(cfg.imu, init_time_sec=1.5, max_samples_per_frame=16))
+
+
+def vi_frames(cam: Camera, cfg: SlamConfig, n_frames: int, dev) -> list[dict]:
+    """The visual path's synthetic room sequence with 200 Hz IMU under the
+    EuRoC noise model; each frame's raw batch under "imu"."""
+    from pli_slam_tpu_torch.utils import synthetic
+
+    frames = list(synthetic.make_sequence(cam, n_frames, dev, fps=cfg.fps, imu_noise=synthetic.ImuNoiseModel.euroc()))
+    for fr in frames:
+        fr["imu"] = {"gyro": fr["imu_gyro"], "acc": fr["imu_acc"], "stamps": fr["imu_stamps"]}
+    return frames
 
 
 def slice_camera() -> Camera:
@@ -107,10 +146,12 @@ def _window(cam, cfg, frames, dev, profiler=None) -> float:
     return wall
 
 
-def _stages(cam, cfg, frames, dev):
-    """Pass 3: per-stage wall time with a device sync around each stage."""
+def _stages(cam, cfg, frames, dev, vi: bool = False):
+    """Pass 3: per-stage wall time with a device sync around each stage.
+    With `vi`, the frames carry IMU batches and the inertial stages are timed too."""
     from pli_slam_tpu_torch.frontend import step as step_mod
     from pli_slam_tpu_torch.frontend import tracker as tr_mod
+    from pli_slam_tpu_torch.ops import imu as imu_mod
 
     stage_ms = defaultdict(list)
 
@@ -124,7 +165,11 @@ def _stages(cam, cfg, frames, dev):
             return out
         return wrapper
 
-    saved = [(step_mod, n, getattr(step_mod, n)) for n in STAGES] + [(tr_mod, "build_frame", tr_mod.build_frame)]
+    saved = ([(step_mod, n, getattr(step_mod, n)) for n in (STAGES_VI if vi else STAGES)]
+             + [(tr_mod, "build_frame", tr_mod.build_frame)])
+    if vi:
+        saved += [(imu_mod, "preintegrate", imu_mod.preintegrate),
+                  (tr_mod.Tracker, "_try_imu_init", tr_mod.Tracker._try_imu_init)]
     try:
         for mod, name, fn in saved:
             setattr(mod, name, timed(name, fn))
@@ -134,18 +179,114 @@ def _stages(cam, cfg, frames, dev):
         for i, fr in enumerate(frames):
             torch.cuda.synchronize()
             s = time.perf_counter()
-            tracker.process(fr["img_l"], fr["img_r"], fr["t"])
+            tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr.get("imu"))
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - s) * 1e3)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+    if vi:
+        return frame_ms, stage_ms, tracker
     return frame_ms, stage_ms
+
+
+def _traced(tracker, frames, label: str):
+    """Drive `frames` through `tracker` inside a CUDA-only trace; prints the
+    window's wall time, device busy time and launches per frame."""
+    acts = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[acts.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for fr in frames:
+            tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace = os.path.join("build", "profile_trace.json")
+    os.makedirs("build", exist_ok=True)
+    prof.export_chrome_trace(trace)
+    busy_us, n_dev, launches = trace_busy(trace)
+    os.remove(trace)
+    n = len(frames)
+    print(f"profile[vi]: {label}: {n} frames traced (CUDA activity only), wall {wall * 1e3:.1f} ms "
+          f"({wall * 1e3 / n:.1f} ms/frame); device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / 1e6 / wall:.1f}% "
+          f"of the traced window; {launches} cudaLaunchKernel calls ({launches / n:.0f} per frame)", flush=True)
+
+
+def main_vi(dev) -> int:
+    """The stereo-inertial path: two traced windows of one tracker, then the stage pass."""
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+
+    cfg, cam = slice_config_vi(), slice_camera()
+    frames = vi_frames(cam, cfg, N_FRAMES_VI, dev)
+    tracker = Tracker(cam, cfg, dev)
+    tracker.streaming = True
+    for fr in frames[:N_WARM]:
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+    k = N_WARM
+    _traced(tracker, frames[k:k + N_WINDOW], f"host path before IMU init, frames {k}-{k + N_WINDOW - 1}")
+    k += N_WINDOW
+    while not tracker.imu_ready and k < N_FRAMES_VI:
+        fr = frames[k]
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+        k += 1
+    if not tracker.imu_ready:
+        raise SystemExit("profile: IMU initialization did not fire")
+    print(f"profile[vi]: IMU initialization fired at frame {k - 1}: {tracker.imu_init_log[-1]}", flush=True)
+    for fr in frames[k:k + 3]:  # the first fused frames allocate
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+    k += 3
+    _traced(tracker, frames[k:k + N_WINDOW], f"fused stereo-inertial step, frames {k}-{k + N_WINDOW - 1}")
+
+    frame_ms, stage_ms, tr = _stages(cam, cfg, frames, dev, vi=True)
+    print(f"stages[vi] (synchronised), frames 0-{N_FRAMES_VI - 1}: frame mean {np.mean(frame_ms):.2f} ms, "
+          f"p50 {np.percentile(frame_ms, 50):.2f}, p99 {np.percentile(frame_ms, 99):.2f}; "
+          f"IMU init accepted with {tr.imu_init_log[-1]['n_kf']} keyframes", flush=True)
+    for name, v in sorted(stage_ms.items(), key=lambda kv: -sum(kv[1])):
+        print(f"  {name:20s} calls {len(v):3d} (frames 0-{N_FRAMES_VI - 1})  mean {np.mean(v):8.2f} ms  "
+              f"{100 * sum(v) / sum(frame_ms):5.1f}% of all frames' time", flush=True)
+    return 0
+
+
+def main_vi_drift(dev, n_frames: int) -> int:
+    """How the stereo-inertial run drifts after the IMU initialization: per
+    frame the state, inliers, keyframes, the velocity's and the accelerometer
+    bias's distance from the truth and the ATE of the positions as reported
+    up to that frame, for two runs
+    over the same `n_frames` frames (they differ from the first keyframe
+    after the initialization on: float atomics, amplified by visual-inertial
+    BA). A run ends where it reaches a path that is not ported."""
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.utils import synthetic
+
+    cfg, cam = slice_config_vi(), slice_camera()
+    frames = vi_frames(cam, cfg, n_frames, dev)
+    ba_true = np.asarray(synthetic.ImuNoiseModel.euroc().ba0)
+    for rep in range(2):
+        tracker = Tracker(cam, cfg, dev)
+        gt = []
+        for i, fr in enumerate(frames):
+            try:
+                info = tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+            except NotImplementedError as e:
+                print(f"drift[{rep}]: frame {i}: the run ends here: {e}", flush=True)
+                break
+            gt.append(fr["p_w"])
+            if not tracker.imu_ready:
+                continue
+            ate = synthetic.ate_rmse(tracker.positions(), np.stack(gt))
+            v_err = float(np.linalg.norm(tracker.v_w.cpu().numpy() - fr["v_w"]))
+            ba_err = float(np.linalg.norm(tracker.ba.cpu().numpy() - ba_true))
+            print(f"drift[{rep}]: frame {i} {info['state']} inliers {info['n_inliers']} n_kf {info['n_kf']} "
+                  f"|v - v_true| {v_err:.3f} m/s |ba - ba_true| {ba_err:.3f} m/s^2 ATE {ate:.4f} m", flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile", help="directory for the op tables")
+    ap.add_argument("--vi", action="store_true", help="profile the stereo-inertial path instead of the visual one")
+    ap.add_argument("--vi-drift", type=int, metavar="N", default=0,
+                    help="instead: N frames of the stereo-inertial path, twice, printing the drift per frame")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -155,6 +296,10 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
     hamming.build()
+    if args.vi_drift:
+        return main_vi_drift(dev, args.vi_drift)
+    if args.vi:
+        return main_vi(dev)
     cfg, cam = slice_config(), slice_camera()
     frames = list(synthetic.make_sequence(cam, N_FRAMES, dev, fps=cfg.fps))
     acts = torch.profiler.ProfilerActivity

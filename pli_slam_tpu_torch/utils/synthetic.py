@@ -1,9 +1,11 @@
-"""Synthetic stereo sequence: ray-traced textured room, analytic trajectory
-(port of pli_slam_tpu.utils.synthetic without the IMU noise model).
+"""Synthetic stereo-inertial sequence: ray-traced textured room, analytic
+trajectory, ideal or corrupted IMU samples (port of
+pli_slam_tpu.utils.synthetic; depth rendering comes with the RGB-D slice).
 
 Images are rendered with torch on the given device, so the port's
-end-to-end runs need no JAX. `Trajectory` and `ate_rmse` are numpy, as
-in the reference.
+end-to-end runs need no JAX. `Trajectory`, the IMU samples, the noise
+model and `ate_rmse` are numpy, as in the reference, and give the same
+numbers bit for bit.
 """
 
 from __future__ import annotations
@@ -99,24 +101,113 @@ class Trajectory:
         Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
         return Ry @ Rx, p
 
+    def velocity(self, t: float, eps: float = 1e-4):
+        _, p0 = self.pose(t - eps)
+        _, p1 = self.pose(t + eps)
+        return (p1 - p0) / (2 * eps)
 
-def make_sequence(cam: Camera, n_frames: int, device, fps: float = 20.0, traj: Trajectory | None = None,
-                  room_half: float = ROOM_HALF):
-    """Yield per-frame dicts {t, img_l, img_r (tensors on `device`), R_wc, p_w (numpy)}.
-    The right camera sits `baseline` along the camera's +x axis."""
+    def imu_sample(self, t: float, gravity: float = 9.81, eps: float = 1e-3):
+        """Ideal gyro (body rates) and accel (specific force in the body frame)."""
+        R0, _ = self.pose(t - eps)
+        R1, _ = self.pose(t + eps)
+        Rm, _ = self.pose(t)
+        dR = R0.T @ R1
+        cos_a = np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)
+        ang = np.arccos(cos_a)
+        vee = 0.5 * np.array([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]])
+        w = vee if ang < 1e-6 else vee * (ang / np.sin(ang))
+        w = w / (2 * eps)
+        v0 = self.velocity(t - eps)
+        v1 = self.velocity(t + eps)
+        a_w = (v1 - v0) / (2 * eps)
+        g = np.array([0.0, 0.0, -gravity])
+        a_b = Rm.T @ (a_w - g)  # specific force
+        return w.astype(np.float32), a_b.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class ImuNoiseModel:
+    """Additive IMU corruption: white noise + constant bias + bias random
+    walk. Continuous-time densities, discretized at the sample rate
+    (sigma_d = sigma_c * sqrt(rate); walk step = walk_c * sqrt(dt))."""
+
+    noise_gyro: float = 1.7e-4  # rad/s/sqrt(Hz)
+    noise_acc: float = 2.0e-3  # m/s^2/sqrt(Hz)
+    walk_gyro: float = 1.94e-5  # rad/s^2/sqrt(Hz)
+    walk_acc: float = 3.0e-3  # m/s^3/sqrt(Hz)
+    bg0: tuple = (0.003, -0.002, 0.004)  # constant gyro bias, rad/s
+    ba0: tuple = (0.05, -0.03, 0.06)  # constant accel bias, m/s^2
+    seed: int = 0
+
+    @staticmethod
+    def euroc() -> "ImuNoiseModel":
+        """The EuRoC noise operating point."""
+        return ImuNoiseModel()
+
+
+class _ImuCorruptor:
+    """Stateful sampler: applies an ImuNoiseModel to ideal samples,
+    integrating the bias random walk across calls (chronological)."""
+
+    def __init__(self, model: ImuNoiseModel, rate_hz: float):
+        self.m = model
+        self.rng = np.random.default_rng(model.seed)
+        self.sq_rate = math.sqrt(rate_hz)
+        self.sq_dt = math.sqrt(1.0 / rate_hz)
+        self.bg = np.asarray(model.bg0, np.float32).copy()
+        self.ba = np.asarray(model.ba0, np.float32).copy()
+
+    def __call__(self, gyro: np.ndarray, acc: np.ndarray):
+        m = self.m
+        g = gyro + self.bg + (m.noise_gyro * self.sq_rate) * self.rng.standard_normal(3)
+        a = acc + self.ba + (m.noise_acc * self.sq_rate) * self.rng.standard_normal(3)
+        self.bg = self.bg + (m.walk_gyro * self.sq_dt) * self.rng.standard_normal(3)
+        self.ba = self.ba + (m.walk_acc * self.sq_dt) * self.rng.standard_normal(3)
+        return g.astype(np.float32), a.astype(np.float32)
+
+
+def make_sequence(cam: Camera, n_frames: int, device=None, fps: float = 20.0, traj: Trajectory | None = None,
+                  imu_rate: float = 200.0, room_half: float = ROOM_HALF, Tbc: np.ndarray | None = None,
+                  imu_noise: ImuNoiseModel | None = None):
+    """Yield per-frame dicts {t, img_l, img_r (tensors on `device`), R_wc, p_w,
+    v_w, imu_stamps, imu_gyro, imu_acc (numpy)}. `device=None` renders on
+    the GPU; pass "cpu" to render there. The right camera sits `baseline`
+    along the camera's +x axis; the IMU batch covers (t_prev, t].
+
+    With `Tbc` (4x4 body->camera transform), `traj` describes the BODY (IMU)
+    trajectory and the rendered camera rides at T_wc = T_wb * Tbc. IMU
+    samples are always in the body frame."""
+    device = torch.device("cuda" if device is None else device)
     traj = traj or Trajectory()
     baseline = cam.baseline
+    n_imu = int(round(imu_rate / fps))
+    corrupt = _ImuCorruptor(imu_noise, imu_rate) if imu_noise is not None else None
+    R_bc = np.eye(3, dtype=np.float32) if Tbc is None else np.asarray(Tbc, np.float32)[:3, :3]
+    t_bc = np.zeros(3, np.float32) if Tbc is None else np.asarray(Tbc, np.float32)[:3, 3]
     for k in range(n_frames):
         t = k / fps
-        R_wc, p_w = traj.pose(t)
-        R = torch.as_tensor(R_wc, dtype=torch.float32, device=device)
-        p = torch.as_tensor(p_w, dtype=torch.float32, device=device)
+        R_wb, p_wb = traj.pose(t)
+        R_wc = R_wb @ R_bc
+        p_w = p_wb + R_wb @ t_bc
+        R = torch.as_tensor(R_wc, dtype=torch.float32).to(device)
+        p = torch.as_tensor(p_w, dtype=torch.float32).to(device)
+        stamps = t - (np.arange(n_imu)[::-1]) / imu_rate
+        gyro = np.zeros((n_imu, 3), np.float32)
+        acc = np.zeros((n_imu, 3), np.float32)
+        for i, ts in enumerate(stamps):
+            gyro[i], acc[i] = traj.imu_sample(max(ts, 0.0))
+            if corrupt is not None:
+                gyro[i], acc[i] = corrupt(gyro[i], acc[i])
         yield {
             "t": t,
             "img_l": render_view(cam, R, p, room_half),
             "img_r": render_view(cam, R, p + R[:, 0] * baseline, room_half),
             "R_wc": np.asarray(R_wc, np.float32),
             "p_w": np.asarray(p_w, np.float32),
+            "v_w": traj.velocity(t).astype(np.float32),
+            "imu_stamps": stamps.astype(np.float32),
+            "imu_gyro": gyro,
+            "imu_acc": acc,
         }
 
 

@@ -22,6 +22,10 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert len(mods) > 20
+    # the walk reaches the stereo-inertial slice's modules and the two scripts' helpers
+    for name in ("ops.imu", "ops.autodiff", "solve.inertial", "solve.vi_ba", "solve.imu_init", "utils.profile",
+                 "utils.kernel_bench"):
+        assert f"pli_slam_tpu_torch.{name}" in mods, name
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -61,3 +65,26 @@ def test_no_source_file_mentions_a_jax_import():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
     offenders = [str(p) for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_no_module_picks_the_cpu_by_itself():
+    """An entry point of the port runs on the GPU unless the caller asks for
+    the CPU: no source file names the CPU as a device (a default argument, a
+    fallback when no GPU is found), and none asks whether CUDA is there in
+    order to choose. `utils/profile.py` and `utils/kernel_bench.py` ask only
+    to refuse to run without a GPU; `chip_smoke.py` likewise, and its
+    card-against-CPU checks name the CPU on purpose."""
+    cpu_device = re.compile(r"""(device\s*=\s*["']cpu["']|torch\.device\(\s*["']cpu["']|\.to\(\s*["']cpu["']\s*\)|"""
+                            r"""["']cpu["']\s+if\b|else\s+["']cpu["'])""")
+    asks_cuda = re.compile(r"cuda\.is_available\(\)")
+    refuses = re.compile(r"if not torch\.cuda\.is_available\(\):\s*\n(\s*print\(.*\n)?\s*(?:raise SystemExit|return 2)")
+    offenders = []
+    for path in PKG.rglob("*.py"):
+        src = path.read_text()
+        if cpu_device.search(src):
+            offenders.append((str(path), "names the CPU as a device"))
+        if len(asks_cuda.findall(src)) != len(refuses.findall(src)):
+            offenders.append((str(path), "asks for CUDA other than to refuse to run"))
+    assert not offenders, offenders
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert len(asks_cuda.findall(smoke)) == len(refuses.findall(smoke)) == 1

@@ -42,3 +42,32 @@ def test_ate_matches_reference():
     est = gt @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]).T + 0.5 + rng.normal(size=gt.shape) * 0.01
     assert tsyn.ate_rmse(est, gt) == jsyn.ate_rmse(est, gt)
     assert tsyn.ate_rmse(est, gt) < 0.03
+
+
+def test_device_defaults_to_the_gpu_and_cpu_is_honoured():
+    """`Tracker` and `make_sequence` take `device=None`, which means the GPU
+    (and raises where there is none: no silent CPU fallback); "cpu" is
+    honoured when asked for."""
+    import dataclasses
+    import inspect
+
+    import pytest
+
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.utils.config import LoopConfig, SlamConfig
+
+    assert inspect.signature(Tracker.__init__).parameters["device"].default is None
+    assert inspect.signature(tsyn.make_sequence).parameters["device"].default is None
+    cam = TCamera.pinhole(**ARGS)
+    cfg = dataclasses.replace(SlamConfig.tiny_test(), loop=LoopConfig(enabled=False))
+    tr = Tracker(cam, cfg, "cpu")
+    assert tr.device == torch.device("cpu")
+    for t in (tr.R, tr.pstore.x, tr.kstore.R, tr.bow_db.valid, tr._pints.valid, tr.ext.R_cb, tr._local_pt):
+        assert t.device.type == "cpu"
+    fr = next(iter(tsyn.make_sequence(cam, 1, "cpu", room_half=2.55)))
+    assert fr["img_l"].device.type == "cpu" and fr["imu_gyro"].shape == (10, 3)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):  # torch refuses: it was not built with CUDA / finds no GPU
+            Tracker(cam, cfg)
+        with pytest.raises((RuntimeError, AssertionError)):
+            next(iter(tsyn.make_sequence(cam, 1, room_half=2.55)))

@@ -127,7 +127,7 @@ def test_rare_paths_raise():
     with pytest.raises(NotImplementedError, match="LoopCloser"):
         Tracker(cam, tiny, "cpu")
     with pytest.raises(NotImplementedError, match="sensor"):
-        Tracker(cam, dataclasses.replace(tiny, sensor="stereo_imu", loop=LoopConfig(enabled=False)), "cpu")
+        Tracker(cam, dataclasses.replace(tiny, sensor="mono_imu", loop=LoopConfig(enabled=False)), "cpu")
     tr = Tracker(cam, dataclasses.replace(tiny, loop=LoopConfig(enabled=False)), "cpu")
     frames = list(tsyn.make_sequence(cam, 2, "cpu", fps=tiny.fps, traj=tsyn.Trajectory(**TRAJ), room_half=2.55))
     tr.process(frames[0]["img_l"], frames[0]["img_r"], 1.0)
