@@ -590,6 +590,29 @@ def local_inertial_ba(cam, cfg: SlamConfig, kstore, pstore, lstore, window, fixe
     return kstore, pstore, lstore
 
 
+def global_ba(cam, cfg: SlamConfig, kstore, pstore, lstore, iters: int | None = None):
+    """Full-map BA over every keyframe slot, slot 0 fixed. Small maps
+    (K <= 4 W) run the joint Schur solve; larger ones the memory-bounded
+    alternating solver, which erases the observations it finds to be
+    outliers (every amortized chunk prunes, as in the reference)."""
+    K = kstore.R.shape[0]
+    dev = kstore.R.device
+    iters = cfg.opt.gba_iters if iters is None else iters
+    window = torch.arange(K, dtype=torch.int32, device=dev)
+    fixed = window == 0
+    if K <= 4 * cfg.opt.local_ba_window:
+        return local_ba(cam, cfg, kstore, pstore, lstore, window, fixed, iters=iters)
+    prob, _, _ = window_problem(kstore, pstore, lstore, window, fixed)
+    result = ba_mod.solve_ba_alternating(cam, prob, cfg.opt, iters=iters)
+    keep_pt = (result.po_chi2 < cfg.opt.prune_chi2_pt).reshape(K, -1)
+    keep_ln = (result.lo_chi2 < cfg.opt.prune_chi2_ln).reshape(K, -1)
+    kstore = dataclasses.replace(
+        kstore, R=result.R, t=result.t,
+        obs_pt=torch.where(keep_pt, kstore.obs_pt, torch.full_like(kstore.obs_pt, -1)),
+        obs_ln=torch.where(keep_ln, kstore.obs_ln, torch.full_like(kstore.obs_ln, -1)))
+    return kstore, dataclasses.replace(pstore, x=result.pts), dataclasses.replace(lstore, seg=result.lns)
+
+
 def _device_cull_keyframes(cfg: SlamConfig, kstore, pstore, n_kf: int):
     """Invalidate redundant keyframes; KF 0 and the active window are protected."""
     K = kstore.valid.shape[0]

@@ -18,18 +18,26 @@ VIBA1 / VIBA2 refinements queued as deferred chunks at +5 s and +15 s.
 `streaming` mode, as in the reference, so the stats read overlaps the next
 frame's work.
 
-The rare paths belong to later slices. Where a run reaches one of them --
-relocalization, switching to a new map, a map reset (timestamp jump, bad
-IMU), loop closing with its "gba" chunks -- the port raises
-`NotImplementedError` naming it instead of carrying on. `_try_merge` with a
-single map is a no-op in the reference too, and returns False here; the
-port never parks a map, so it always has one. The mono-only pieces of the
-host path (`_kf_views`, `_apply_scale`, `_scale_refinement`) come with the
-mono slice.
+The rare paths. With `cfg.loop.enabled` a `LoopCloser` sees every new
+keyframe's BoW candidates (verification, essential-graph correction, then
+the global BA queued as per-frame "gba" chunks). After two lost frames
+(three with an inertial sensor) `_relocalize` seeds PnP against the whole
+point store and the BoW candidates and keeps the best wide re-track;
+persistent loss parks the map in the `Atlas` and starts a new one, which
+`_try_merge` welds back into the parked map when place recognition finds
+it again. A timestamp going backwards (or a jump with an inertial sensor)
+resets or parks the active map. The mono-only pieces of the host path
+(`_kf_views`, `_apply_scale`, `_scale_refinement`) come with the mono
+slice.
+
+Random draws (the PnP and merge RANSACs, and the loop closer's) go through
+`Tracker.draw`, `solve.sim3.sample_indices` unless replaced: the reference
+seeds its `jax.random` keys with the same integers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from functools import partial
@@ -40,13 +48,17 @@ import torch
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.frontend import step as step_mod
 from pli_slam_tpu_torch.frontend.frame import FrameData, build_frame
+from pli_slam_tpu_torch.frontend.loop_closing import LoopCloser, match_cross_map, scene_scaled_thresh
 from pli_slam_tpu_torch.ops import imu as imu_ops
-from pli_slam_tpu_torch.ops import lie
+from pli_slam_tpu_torch.ops import lie, matching
 from pli_slam_tpu_torch.ops.camera import PINHOLE, Camera
 from pli_slam_tpu_torch.solve import imu_init as ii
 from pli_slam_tpu_torch.solve import inertial as inr
+from pli_slam_tpu_torch.solve import pnp as pnp_mod
+from pli_slam_tpu_torch.solve import sim3 as sim3_mod
 from pli_slam_tpu_torch.worldmap import stores as st
 from pli_slam_tpu_torch.worldmap import vocab as vocab_mod
+from pli_slam_tpu_torch.worldmap.atlas import Atlas, MapBundle
 
 _EMPTY_INFO = {"n_inliers": 0, "n_kf": 0, "n_points": 0, "n_lines": 0, "new_landmarks": 0}
 
@@ -69,8 +81,6 @@ class Tracker:
                 f"sensor {cfg.sensor!r}: the port runs the stereo and stereo-inertial paths only")
         if cam.model != PINHOLE:
             raise NotImplementedError("fisheye (KB8) stereo is not ported yet")
-        if cfg.loop.enabled:
-            raise NotImplementedError("loop closing (LoopCloser) is not ported yet: use LoopConfig(enabled=False)")
         self.device = torch.device("cuda" if device is None else device)
         dev = self.device
         self.cam = cam
@@ -87,6 +97,16 @@ class Tracker:
         self.lstore = st.LineStore.empty(m.max_lines, device=dev)
         self.kstore = st.KeyFrameStore.empty(m.max_keyframes, cfg.orb.n_features, cfg.lines.n_lines, dev)
         self.state = TrackingState.NOT_INITIALIZED
+        self.draw = sim3_mod.sample_indices  # (seed, probs, shape) -> indices; see solve.sim3
+        self.atlas = Atlas(cfg, dev)
+        self.loop_closer = LoopCloser(cfg, self.draw) if cfg.loop.enabled else None
+        # (name) -> a context manager around each rare path: "loop" (a consistent
+        # candidate's verification and correction), "gba" / "fiba" (a deferred BA
+        # chunk), "reloc" (a relocalization attempt); see utils.profile.SyncSpans
+        self.span = _no_span
+        self._merge_streak = 0
+        self._merge_map_idx = -1
+        self._merge_kf = -1
         self.n_kf = 0
         self._kf_view_dev = step_mod._empty_kf_views(cfg, dev)
         self._local_pt = step_mod._empty_local_map(cfg, dev)
@@ -180,6 +200,12 @@ class Tracker:
 
     def positions(self) -> np.ndarray:
         return np.stack([p for _, _, p in self.trajectory])
+
+    def _flush_trajectory(self):
+        """Compose the pending relative poses against the current keyframe
+        store: must run before anything that changes keyframe slot identity
+        (map reset, new-map switch, merge)."""
+        _ = self.trajectory
 
     def _live_pose_rel(self):
         """The live pose relative to the newest keyframe: (slot, R_cr, t_cr)."""
@@ -315,7 +341,15 @@ class Tracker:
         self._run_vi_ba(window, fixed | ~self.kstore.valid.cpu().numpy()[window])
 
     def _queue_gba(self, inertial: bool):
-        raise NotImplementedError("post-loop global BA (Tracker._queue_gba, loop closing) is not ported yet")
+        """Schedule the post-loop global BA as per-frame chunks: the
+        full-inertial-BA sweep with an initialized IMU, else ceil(gba_iters /
+        gba_chunk_iters) chunks of whole-map BA. A new loop supersedes any
+        pending schedule; each chunk works on the live map."""
+        if inertial:
+            self._deferred_ba = [("fiba", chunk) for chunk in self._fiba_schedule()]
+        else:
+            chunk = max(self.cfg.loop.gba_chunk_iters, 1)
+            self._deferred_ba = [("gba", chunk)] * -(-self.cfg.opt.gba_iters // chunk)
 
     def run_deferred_ba(self, max_chunks: int = 1):
         """Execute up to `max_chunks` queued chunks. The live frame pose rides
@@ -324,12 +358,15 @@ class Tracker:
         n_run = 0
         while self._deferred_ba and n_run < max_chunks:
             kind, arg = self._deferred_ba.pop(0)
-            if kind != "fiba":
-                raise NotImplementedError(f"deferred {kind!r} chunk (post-loop global BA) is not ported yet")
             rel = self._live_pose_rel()
-            self._run_fiba_window(*arg)
-            if not self._deferred_ba:  # final chunk: refresh the live state
-                self._adopt_keyframe_state(rel[0])
+            with self.span(kind):
+                if kind == "gba":
+                    self.kstore, self.pstore, self.lstore = step_mod.global_ba(
+                        self.cam, self.cfg, self.kstore, self.pstore, self.lstore, iters=arg)
+                else:
+                    self._run_fiba_window(*arg)
+                    if not self._deferred_ba:  # final chunk: refresh the live state
+                        self._adopt_keyframe_state(rel[0])
             self._recompose_live_pose(*rel)
             self._map_event_cooldown = max(self._map_event_cooldown, 2)
             n_run += 1
@@ -399,18 +436,232 @@ class Tracker:
         log(True, "ok", scale=float(s), gravity_angle_deg=grav_angle, bg=bg.cpu().numpy().tolist(),
             ba=ba.cpu().numpy().tolist(), cost0=float(costs[0]), cost1=float(costs[-1]))
 
-    # -- rare paths (later slices) ------------------------------------------
-    def _relocalize(self, frame) -> bool:
-        raise NotImplementedError("relocalization (Tracker._relocalize) is not ported yet")
+    # -- Atlas: a new map on persistent loss, merging back -------------------
+    def _park_active(self):
+        self.atlas.maps[self.atlas.active_idx] = MapBundle(
+            pstore=self.pstore, lstore=self.lstore, kstore=self.kstore, n_kf=self.n_kf, bow_db=self.bow_db)
+
+    def _clear_map_state(self):
+        """What a fresh active map starts from (shared by the new-map switch
+        and the map reset): no keyframes, no IMU initialization."""
+        dev, cfg = self.device, self.cfg
+        self.n_kf = 0
+        self.state = TrackingState.NOT_INITIALIZED
+        self._reset_motion()
+        self._lost_frames = 0
+        self.frames_since_kf = 0
+        self._pending_stats = None
+        self._preint_since_kf = None
+        self._pints = imu_ops.PreintStore.empty(cfg.map.max_keyframes, dev)
+        self._kf_view_dev = step_mod._empty_kf_views(cfg, dev)
+        self._local_pt = step_mod._empty_local_map(cfg, dev)
+        self._deferred_ba = []  # pending chunks name old-map slots
+        self.imu_ready = False
+        self.gravity_w = None
+        self._viba_stage = None
+        self.v_w = torch.zeros(3, device=dev)
+        self._vi_fused_active = False
+        self._preint_acc = None
+        self.bow_db = vocab_mod.BowDatabase.empty(cfg.map.max_keyframes, self.voc_pt.n_words, dev)
+        if self.loop_closer is not None:
+            self.loop_closer = LoopCloser(cfg, self.draw)
 
     def _switch_to_new_map(self):
-        raise NotImplementedError("new-map switch (Tracker._switch_to_new_map, Atlas) is not ported yet")
+        """Park the active map (with its BoW database, so place recognition
+        can find it again) and start a fresh one; the IMU initializes anew."""
+        self._flush_trajectory()  # pending poses name old-map keyframe slots
+        self._park_active()
+        fresh = self.atlas.create_new_map()
+        self.pstore, self.lstore, self.kstore = fresh.pstore, fresh.lstore, fresh.kstore
+        self._clear_map_state()
 
     def reset_active_map(self):
-        raise NotImplementedError("map reset (Tracker.reset_active_map) is not ported yet")
+        """Discard the active map and start afresh; parked maps stay."""
+        self._flush_trajectory()
+        m, dev = self.cfg.map, self.device
+        self.pstore = st.PointStore.empty(m.max_points, device=dev)
+        self.lstore = st.LineStore.empty(m.max_lines, device=dev)
+        self.kstore = st.KeyFrameStore.empty(m.max_keyframes, self.cfg.orb.n_features, self.cfg.lines.n_lines, dev)
+        self._clear_map_state()
+        self.last_kf_inliers = 0
+        self.bg = torch.zeros(3, device=dev)
+        self.ba = torch.zeros(3, device=dev)
+        self._first_imu_stamp = None
+        self._last_imu_raw = None
+
+    def _bow_of_kf(self, kf_slot: int):
+        """BoW vectors of a keyframe's observed landmarks (their own descriptors)."""
+        ids, lids = self.kstore.obs_pt[kf_slot], self.kstore.obs_ln[kf_slot]
+        safe, lsafe = torch.clamp(ids, min=0).long(), torch.clamp(lids, min=0).long()
+        return (self.voc_pt.bow(self.pstore.desc[safe], (ids >= 0) & self.pstore.valid[safe]),
+                self.voc_ln.bow(self.lstore.desc[lsafe], (lids >= 0) & self.lstore.valid[lsafe]))
 
     def _try_merge(self, kf_slot: int) -> bool:
-        return False
+        """Query the parked maps' BoW databases with the new keyframe; on a
+        hit that persists over two keyframes, verify with SE3 RANSAC over
+        cross-map landmark matches and weld the active map into the parked
+        one, the verified matches fused, then a welding BA across the seam."""
+        if self.atlas.n_maps() <= 1 or self.n_kf < 2:
+            return False
+        bow_p, bow_l = self._bow_of_kf(kf_slot)
+        cand_maps, lazy = [], []
+        for mi, bundle in enumerate(self.atlas.maps):
+            if mi == self.atlas.active_idx or bundle.bow_db is None:
+                continue
+            excl = torch.zeros(bundle.bow_db.valid.shape[0], dtype=torch.bool, device=self.device)
+            slots, scores = vocab_mod.query(bundle.bow_db, bow_p, bow_l, excl, n_best=1)
+            cand_maps.append(mi)
+            lazy.append(torch.stack([slots[0].float(), scores[0]]))
+        best = (-1, -1, -1.0)
+        if lazy:
+            for mi, (slot_f, score) in zip(cand_maps, torch.stack(lazy).cpu().numpy()):  # one read for all maps
+                if float(score) > best[2]:
+                    best = (mi, int(slot_f), float(score))
+        mi, k_dst, score = best
+        if mi < 0 or k_dst < 0 or score < 0.12:
+            self._merge_streak = 0
+            return False
+        if self._merge_map_idx == mi and abs(k_dst - self._merge_kf) <= 3:
+            self._merge_streak += 1
+        else:
+            self._merge_streak = 1
+        self._merge_map_idx, self._merge_kf = mi, k_dst
+        if self._merge_streak < 2:
+            return False
+
+        dst = self.atlas.maps[mi]
+        xa, xb, idx_b, m = match_cross_map(self.kstore, self.pstore, kf_slot, dst.kstore, dst.pstore, k_dst)
+        hyp = self.draw(1000 + kf_slot, sim3_mod.mask_probs(m), (self.cfg.loop.sim3_hypotheses, 3))
+        R_rel, t_rel, _, inl, n_in = sim3_mod.ransac_sim3(xa, xb, m, hyp, inlier_thresh=scene_scaled_thresh(xa, m),
+                                                          with_scale=False)
+        if int(n_in) < self.cfg.loop.sim3_min_inliers:
+            return False
+
+        self._flush_trajectory()  # keyframe slots are about to be remapped
+        neg = torch.full_like(idx_b, -1)
+        fuse_src = torch.where(inl, self.kstore.obs_pt[kf_slot], neg)
+        fuse_dst = torch.where(inl, idx_b, neg)
+        self._park_active()
+        merged = self.atlas.merge_active_into(mi, R_rel, t_rel, fuse_src, fuse_dst)
+        kf_slots = self.atlas.last_kf_slots  # active slot -> merged slot
+        self.pstore, self.lstore, self.kstore, self.n_kf = merged.pstore, merged.lstore, merged.kstore, merged.n_kf
+        # the live pose into the merged world: T_cw' = T_cw o T_rel^-1
+        Rr_inv, tr_inv = lie.se3_inverse(R_rel, t_rel)
+        self.t = lie._einsum("ij,j->i", self.R, tr_inv) + self.t
+        self.R = lie._mm(self.R, Rr_inv)
+        self._reset_motion()
+        # the active side's preintegration chain survives where both ends stay adjacent
+        self._pints = self._pints.remap(kf_slots)
+        if self.gravity_w is not None:
+            self.gravity_w = lie._einsum("ij,j->i", R_rel, self.gravity_w)
+            self.v_w = lie._einsum("ij,j->i", R_rel, self.v_w)
+        self._preint_since_kf = None
+        # the view ring's keyframe slots through the merge map (-1 drops a view)
+        uvv, descv, validv, slotv = self._kf_view_dev
+        slot_map = torch.as_tensor(np.concatenate([kf_slots.astype(np.int32), [-1]]), device=self.device)
+        new_slot = slot_map[torch.clamp(slotv, -1, len(kf_slots) - 1).long()]
+        self._kf_view_dev = (uvv, descv, validv & (new_slot >= 0)[:, None], new_slot)
+        self._deferred_ba = []  # pending chunks name pre-merge slots
+        self.rebuild_bow()
+        merged.bow_db = None
+        if self.loop_closer is not None:
+            self.loop_closer = LoopCloser(self.cfg, self.draw)
+        self._merge_streak = 0
+        self._merge_map_idx = -1
+        self._weld_ba(k_dst)
+        return True
+
+    def _weld_ba(self, k_dst: int):
+        """The welding BA after a merge: the matched parked-side neighbourhood
+        of `k_dst` (fixed) and the newest active-side keyframes,
+        visual-inertial with an initialized IMU; tracking continues from the
+        newest keyframe."""
+        W = self.cfg.opt.local_ba_window
+        half = W // 2
+        old_side = [k_dst + i - half // 2 for i in range(W - half)]
+        new_side = [self.n_kf - half + i for i in range(half)]
+        window = np.asarray([min(max(k, 0), self.n_kf - 1) for k in old_side + new_side], np.int32)
+        fixed = np.zeros(W, bool)
+        fixed[: W - half] = True
+        fixed |= np.asarray([window[i] in window[:i] for i in range(W)])
+        if self.imu_ready and self.gravity_w is not None:
+            self._run_vi_ba(window, fixed)
+        else:
+            dev = self.device
+            self.kstore, self.pstore, self.lstore = step_mod.local_ba(
+                self.cam, self.cfg, self.kstore, self.pstore, self.lstore,
+                torch.as_tensor(window, device=dev), torch.as_tensor(fixed, device=dev))
+        self.R, self.t = self.kstore.R[self.n_kf - 1], self.kstore.t[self.n_kf - 1]
+
+    def rebuild_bow(self):
+        """Recompute the BoW database from the landmark stores (after a merge)."""
+        ks, ps, ls = self.kstore, self.pstore, self.lstore
+        ids, lids = ks.obs_pt, ks.obs_ln
+        safe, lsafe = torch.clamp(ids, min=0).long(), torch.clamp(lids, min=0).long()
+        bow_p = self.voc_pt.bow_rows(ps.desc[safe], (ids >= 0) & ps.valid[safe])
+        bow_l = self.voc_ln.bow_rows(ls.desc[lsafe], (lids >= 0) & ls.valid[lsafe])
+        zero = torch.zeros((), device=self.device)
+        self.bow_db = vocab_mod.BowDatabase(hist_pt=torch.where(ks.valid[:, None], bow_p, zero),
+                                            hist_ln=torch.where(ks.valid[:, None], bow_l, zero), valid=ks.valid)
+        if self.n_kf > 0:
+            self._refresh_local_map(self.n_kf - 1)
+
+    # -- relocalization ---------------------------------------------------------
+    def _bow_query_frame(self, desc, fvalid, ldesc, lvalid, n_best: int):
+        """The frame's top BoW candidates over the whole database: (slots, scores)."""
+        excl = torch.zeros(self.bow_db.valid.shape[0], dtype=torch.bool, device=self.device)
+        return step_mod.vocab_query(self.bow_db, self.voc_pt.bow(desc, fvalid), self.voc_ln.bow(ldesc, lvalid),
+                                    excl, n_best=n_best)
+
+    def _pnp_reloc(self, frame: FrameData, seed: int):
+        """Pose-free PnP: the frame's descriptors against the whole point
+        store (mutual nearest neighbours, ratio 0.8), RANSAC lifted by the
+        stereo depth, then the GN polish."""
+        cfg, ps = self.cfg, self.pstore
+        dist = matching.hamming_matrix(frame.feats.desc, ps.desc)
+        idx, _, okm = matching.match_nn(dist, frame.feats.valid, ps.valid, max_dist=cfg.match.orb_th_low, ratio=0.8)
+        okm = matching.mutual_consistency(idx, okm, dist, frame.feats.valid, ps.valid) & (frame.depth > 0)
+        hyp = self.draw(seed, sim3_mod.mask_probs(okm), (pnp_mod.N_HYPOTHESES, 3))
+        return pnp_mod.solve_pnp(self.cam, ps.x[idx.long()], frame.feats.uv, frame.u_right, frame.stereo_ok,
+                                 frame.depth, frame.sigma2, okm, hyp, cfg.opt, inlier_px=8.0, min_inliers=12)
+
+    def _relocalize(self, frame: FrameData) -> bool:
+        """Seeds: the PnP pose (if its RANSAC clears its floor) and the BoW
+        candidates' keyframe poses. Every seed gets a wide re-track and the
+        best one is kept if it reaches min_inliers_local_map; the local map
+        is then re-anchored at the keyframe nearest by |t_cw|."""
+        if self.n_kf == 0:
+            return False
+        with self.span("reloc"):
+            seeds = []
+            Rp, tp, _, _, okp = self._pnp_reloc(frame, 7000 + len(self.stats))
+            if bool(okp):
+                seeds.append((Rp, tp))
+            nb = self.cfg.loop.bow_candidates
+            slots, scores = self._bow_query_frame(frame.feats.desc, frame.feats.valid, frame.lines.desc,
+                                                  frame.lines.valid, n_best=nb)
+            slots, scores = slots.cpu().numpy(), scores.cpu().numpy()
+            for c in range(nb):
+                k = int(slots[c])
+                if k >= 0 and float(scores[c]) > 0.05:
+                    seeds.append((self.kstore.R[k], self.kstore.t[k]))
+            best_n, best_pose = 0, None
+            wide = torch.ones((), dtype=torch.bool, device=self.device)
+            for R0, t0 in seeds:
+                R, t, *_, n_in, self.pstore, self.lstore = step_mod.track_step(
+                    self.cam, self.cfg, frame, R0, t0, self.pstore, self.lstore, wide=wide)
+                if int(n_in) > best_n:
+                    best_n, best_pose = int(n_in), (R, t)
+            if best_pose is None or best_n < self.cfg.tracking.min_inliers_local_map:
+                return False
+            self.R, self.t = best_pose
+            self._reset_motion()
+            self.state = TrackingState.OK
+            # the nearest keyframe by |t_cw| difference, as in the reference
+            d = np.linalg.norm(self.kstore.t[: self.n_kf].cpu().numpy() - self.t.cpu().numpy()[None], axis=1)
+            d[~self.kstore.valid[: self.n_kf].cpu().numpy()] = np.inf
+            self._refresh_local_map(int(np.argmin(d)))
+            return True
 
     def _check_timestamp(self, stamp: float) -> None:
         """A frame older than its predecessor resets the active map; a forward
@@ -498,7 +749,10 @@ class Tracker:
                     torch.as_tensor(window, dtype=torch.int32, device=dev), torch.as_tensor(fixed, device=dev))
             # tracking continues from the refined latest keyframe
             self.R, self.t = self.kstore.R[k], self.kstore.t[k]
-        self._bow_kf(frame, self.n_kf - 1, self.n_kf)
+        slots, scores = self._bow_kf(frame, self.n_kf - 1, self.n_kf)
+        if self.loop_closer is not None:
+            self.loop_closer.on_keyframe(self, self.n_kf - 1,
+                                         list(zip(slots.cpu().tolist(), scores.cpu().tolist())))
         self._try_merge(self.n_kf - 1)
         self._cull_keyframes()
         self._refresh_local_map(self.n_kf - 1)
@@ -598,6 +852,9 @@ class Tracker:
                 # gravity estimate was bad, so the map is reset
                 if self._lost_frames > lost_limit and stamp - self._imu_init_stamp < 10.0 and self.n_kf <= 10:
                     self.reset_active_map()
+                    info = {"state": self.state, **_EMPTY_INFO}
+                    self.stats.append(info)
+                    return info
                 if self._lost_frames >= 3 and self._relocalize(frame):
                     n_inliers = tc.min_inliers_local_map
                     self._lost_frames = 0
@@ -735,7 +992,12 @@ class Tracker:
                 elif self._lost_frames > self.cfg.tracking.recently_lost_sec * self.cfg.fps:
                     self._switch_to_new_map()
         if stats[step_mod.ST_KF_CREATED] > 0:
-            self._try_merge(int(stats[step_mod.ST_KF_SLOT]))
+            kf_slot = int(stats[step_mod.ST_KF_SLOT])
+            if self.loop_closer is not None:
+                cands = [(int(stats[step_mod.ST_LOOP_SLOT + c]), float(stats[step_mod.ST_LOOP_SCORE + c]))
+                         for c in range(step_mod.N_LOOP_CANDS)]
+                self.loop_closer.on_keyframe(self, kf_slot, cands)
+            self._try_merge(kf_slot)
         elif self._deferred_ba:
             self.run_deferred_ba()  # one bounded chunk on a non-keyframe frame
         info = {"state": self.state, "n_inliers": n_inliers, "n_kf": int(stats[step_mod.ST_NKF]),
@@ -743,6 +1005,11 @@ class Tracker:
                 "new_landmarks": int(stats[step_mod.ST_NNEW])}
         self.stats.append(info)
         return info
+
+
+def _no_span(name: str):
+    """The default `Tracker.span`: no timing."""
+    return contextlib.nullcontext()
 
 
 def _compose_trajectory(refs, R_cr, t_cr, R_abs, t_abs, kR, kt, kvalid):

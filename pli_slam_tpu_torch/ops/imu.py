@@ -95,7 +95,24 @@ class PreintStore:
         return _map(lambda A: A[idx], self.data)
 
     def remap(self, kf_slots) -> "PreintStore":
-        raise NotImplementedError("PreintStore.remap (Atlas map merging) is not ported yet")
+        """Re-index through a merge's src -> dst keyframe slot map (-1 =
+        dropped). A factor spans KF k-1 -> k, so it survives only where
+        both endpoints stayed adjacent in the merged map."""
+        K = self.valid.shape[0]
+        dev = self.valid.device
+        slots = torch.as_tensor(kf_slots, device=dev).to(torch.int64)
+        if slots.shape[0] < K:
+            slots = torch.cat([slots, torch.full((K - slots.shape[0],), -1, dtype=torch.int64, device=dev)])
+        prev = torch.cat([torch.full((1,), -2, dtype=torch.int64, device=dev), slots[:-1]])
+        keep = self.valid & (slots >= 1) & (prev == slots - 1)
+        dst = torch.clamp(torch.where(keep, slots, torch.full_like(slots, K - 1)), 0, K - 1)
+
+        def scat(A):
+            m = keep.reshape((-1,) + (1,) * (A.ndim - 1))
+            return torch.zeros_like(A).index_add_(0, dst, torch.where(m, A, torch.zeros_like(A)))
+
+        valid = torch.zeros(K, dtype=torch.int32, device=dev).scatter_reduce(0, dst, keep.to(torch.int32), "amax") > 0
+        return PreintStore(data=_map(scat, self.data), valid=valid)
 
 
 def preintegrate(gyro, acc, dts, mask, bg, ba, cfg: ImuConfig) -> Preintegrated:

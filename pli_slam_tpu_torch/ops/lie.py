@@ -1,10 +1,11 @@
-"""SO(3) / SE(3) Lie-group operations in torch (port of pli_slam_tpu.ops.lie).
+"""SO(3) / SE(3) / Sim(3) Lie-group operations in torch (port of
+pli_slam_tpu.ops.lie).
 
 Same conventions as the reference: rotations `[..., 3, 3]`, vectors
 `[..., 3]`, SE(3) as (R, t) with T x = R x + t, twists [rho, phi]
-(translation first). Taylor fallbacks near theta = 0 keep float32 safe.
-The SO(3)/SE(3) half serves the stereo visual and stereo-inertial paths;
-Sim(3) and the quaternion helpers come with the loop-closing slice.
+(translation first), Sim(3) as (R, t, s) with x -> s R x + t and twists
+[rho, phi, sigma]. Taylor fallbacks near theta = 0 keep float32 safe.
+Quaternions are (w, x, y, z).
 
 Every function is functional (no in-place write, no `.item()`, no Python
 branch on a tensor), so `torch.func.jacfwd` and `vmap` go through them:
@@ -183,5 +184,109 @@ def se3_inverse(R, t):
     return Rt, -_einsum("...ij,...j->...i", Rt, t)
 
 
+def se3_compose(Ra, ta, Rb, tb):
+    """(Ra, ta) o (Rb, tb): first apply b, then a."""
+    return _mm(Ra, Rb), _einsum("...ij,...j->...i", Ra, tb) + ta
+
+
 def se3_apply(R, t, x):
     return _einsum("...ij,...j->...i", R, x) + t
+
+
+def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Pack (R, t) into a homogeneous [..., 4, 4] matrix."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    top = torch.cat([R.expand(batch + (3, 3)), t.expand(batch + (3,))[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device).expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_matrix(T: torch.Tensor):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (R, t, s), action x -> s R x + t; twists [rho, phi, sigma], sigma = log s
+# ---------------------------------------------------------------------------
+
+
+def sim3_exp(xi: torch.Tensor):
+    """Twist [..., 7] -> (R, t, s), with the reference's Taylor branches."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(phi)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    W = hat(phi)
+    I = _eye3(xi).expand(W.shape)
+    small_sig = torch.abs(sigma) < _EPS
+    small_th = theta2 < _EPS
+    one = torch.ones_like(sigma)
+    a_coef = torch.where(small_sig, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                         (s - 1.0) / torch.where(small_sig, one, sigma))
+    sig2t2 = sigma * sigma + theta2
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    A = s * sin_t
+    B = s * cos_t
+    den1 = torch.where(small_th, one, theta * sig2t2)
+    den2 = torch.where(small_th, one, sig2t2)
+    den3 = torch.where(small_th, one, theta2)
+    b_gen = (A * sigma + (1.0 - B) * theta) / den1
+    c_gen = (a_coef - ((B - 1.0) * sigma + A * theta) / den2) / den3
+    b_small = torch.where(small_sig, 0.5 + sigma / 3.0,
+                          (sigma * s - s + 1.0) / torch.where(small_sig, one, sigma * sigma))
+    c_small = 1.0 / 6.0 + sigma / 8.0
+    b_ = torch.where(small_th, b_small, b_gen)
+    c_ = torch.where(small_th, c_small, c_gen)
+    V = a_coef[..., None, None] * I + b_[..., None, None] * W + c_[..., None, None] * _mm(W, W)
+    return R, _einsum("...ij,...j->...i", V, rho), s
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * _einsum("...ij,...j->...i", Rt, t), s_inv
+
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    return _mm(Ra, Rb), sa[..., None] * _einsum("...ij,...j->...i", Ra, tb) + ta, sa * sb
+
+
+def sim3_apply(R, t, s, x):
+    return s[..., None] * _einsum("...ij,...j->...i", R, x) + t
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (w, x, y, z)
+# ---------------------------------------------------------------------------
+
+
+def quat_from_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Rotation [..., 3, 3] -> unit quaternion [..., 4] with w >= 0 (Shepperd)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    q0 = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    q1 = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    q2 = torch.stack([m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21], dim=-1)
+    q3 = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11], dim=-1)
+    cases = torch.stack([q0, q1, q2, q3], dim=-2)
+    k = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.gather(cases, -2, k[..., None, None].expand(cases.shape[:-2] + (1, 4)))[..., 0, :]
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def rotation_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] (w, x, y, z), normalized first -> rotation [..., 3, 3]."""
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )

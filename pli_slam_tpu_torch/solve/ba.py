@@ -8,7 +8,7 @@ camera system, Levenberg-Marquardt with delayed rejection. The
 reference's `fori_loop`s are Python loops; the reduced system is solved
 with `torch.linalg.solve_ex` (no host-side `info` check, so no sync).
 Accept/reject decisions stay on the device as selects.
-`solve_ba_alternating` (global BA) belongs to the loop-closing slice.
+`solve_ba_alternating` is the memory-bounded whole-map solver of global BA.
 """
 
 from __future__ import annotations
@@ -84,6 +84,12 @@ def build_obs_index(lm_id, static_ok, pose_id, capacity: int, wcap: int) -> ObsI
     pose_sorted = pose_id[perm].long()
     pose_of = torch.where(gmask, pose_sorted[gat], torch.zeros_like(gat))
     return ObsIndex(perm=perm, gat=gat, gmask=gmask, pose_of=pose_of)
+
+
+def segment_reduce(idx: ObsIndex, vals):
+    """Sum per-observation rows [E, F] into per-landmark rows [C, F]."""
+    g = vals[idx.perm][idx.gat]  # [C, wcap, F]
+    return torch.sum(torch.where(idx.gmask[..., None], g, torch.zeros((), dtype=vals.dtype, device=vals.device)), dim=1)
 
 
 def segment_reduce_split(idx: ObsIndex, vals, split: int, n_poses: int):
@@ -401,3 +407,77 @@ def _solve_ba_stage(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int) -> B
                     po_chi2=torch.where(worse, chi2_p_p, chi2_p_c),
                     lo_chi2=torch.where(worse, chi2_l_p, chi2_l_c),
                     cost=torch.where(worse, cost_prev2, cost_cur))
+
+
+def solve_ba_alternating(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int | None = None,
+                         wcap: int = 16) -> BAResult:
+    """Memory-bounded whole-map BA by exact block-coordinate descent: a
+    landmark-only GN step (poses fixed, block-diagonal per landmark), then a
+    pose-only GN step (landmarks fixed, block-diagonal per pose). No Hpl
+    blocks, so memory is O(P * wcap) instead of the Schur solve's O(P * W)."""
+    iters = cfg.gba_iters if iters is None else iters
+    W = prob.R.shape[0]
+    dev, dt_ = prob.R.device, prob.R.dtype
+    idx_p, idx_l = prepare_indices(prob, wcap_pt=wcap, wcap_ln=wcap)
+    damping = 1e-3
+    eye3 = torch.eye(3, dtype=dt_, device=dev)
+    eye6 = torch.eye(6, dtype=dt_, device=dev)
+    zero = torch.zeros((), dtype=dt_, device=dev)
+    free = (prob.pose_mask & ~prob.fixed_mask).to(dt_)
+    Sx = prob.po_pt.shape[0] // W
+    Sl = prob.lo_ln.shape[0] // W
+
+    def clip_step(d, max_step):
+        nrm = torch.linalg.norm(d, dim=-1, keepdim=True)
+        return d * torch.clamp(max_step / torch.clamp(nrm, min=1e-12), max=1.0)
+
+    R, t, pts, lns = prob.R, prob.t, prob.pts, prob.lns
+    for _ in range(iters):
+        # landmark step (poses fixed)
+        r_p, _, Jl_p, ok_p = _point_obs_linearize(cam, prob, R, t, pts)
+        w_p, _ = _robust_weight(r_p, prob.po_sigma2, ok_p, cfg.huber_stereo)
+        red_p = segment_reduce(idx_p, torch.cat([torch.einsum("nia,n,nib->nab", Jl_p, w_p, Jl_p).reshape(-1, 9),
+                                                 torch.einsum("nia,n,ni->na", Jl_p, w_p, r_p)], dim=-1))
+        Hll_p, gl_p = red_p[:, :9].reshape(-1, 3, 3), red_p[:, 9:]
+        act_p = prob.pt_mask & (_diag_sum(Hll_p) > 1e-10)
+        Hinv = _inv_spd_equilibrated(Hll_p + damping * eye3 + (~act_p)[:, None, None] * eye3, _inv3x3)
+        d_pt = clip_step(-torch.einsum("iab,ib->ia", Hinv, gl_p), cfg.ba_max_landmark_step)
+        pts = pts + torch.where(act_p[:, None] & torch.all(torch.isfinite(d_pt), -1, keepdim=True), d_pt, zero)
+
+        r_l, _, Jl_l, ok_l = _line_obs_linearize(cam, prob, R, t, lns)
+        w_l, _ = _robust_weight(r_l, prob.lo_sigma2, ok_l, cfg.huber_mono)
+        red_l = segment_reduce(idx_l, torch.cat([torch.einsum("nia,n,nib->nab", Jl_l, w_l, Jl_l).reshape(-1, 36),
+                                                 torch.einsum("nia,n,ni->na", Jl_l, w_l, r_l)], dim=-1))
+        Hll_l, gl_l = red_l[:, :36].reshape(-1, 6, 6), red_l[:, 36:]
+        act_l = prob.ln_mask & (_diag_sum(Hll_l) > 1e-10)
+        seg_dir = lns[:, 3:] - lns[:, :3]
+        u = seg_dir / torch.clamp(torch.linalg.norm(seg_dir, dim=-1, keepdim=True), min=1e-6)
+        Dp = torch.einsum("la,lb->lab", u, u)
+        z3 = torch.zeros_like(Dp)
+        Dblk = torch.cat([torch.cat([Dp, z3], -1), torch.cat([z3, Dp], -1)], dim=-2)
+        regl = _diag_sum(Hll_l) / 6.0 + 1.0
+        Hinv_l = _inv_spd_equilibrated(
+            Hll_l + damping * eye6 + regl[:, None, None] * Dblk + (~act_l)[:, None, None] * eye6, _inv6x6_spd)
+        d_ln = clip_step(-torch.einsum("iab,ib->ia", Hinv_l, gl_l), cfg.ba_max_landmark_step)
+        lns = lns + torch.where(act_l[:, None] & torch.all(torch.isfinite(d_ln), -1, keepdim=True), d_ln, zero)
+
+        # pose step (landmarks fixed; block-diagonal, exact)
+        r_p, Jp_p, _, ok_p = _point_obs_linearize(cam, prob, R, t, pts)
+        w_p, _ = _robust_weight(r_p, prob.po_sigma2, ok_p, cfg.huber_stereo)
+        r_l, Jp_l, _, ok_l = _line_obs_linearize(cam, prob, R, t, lns)
+        w_l, _ = _robust_weight(r_l, prob.lo_sigma2, ok_l, cfg.huber_mono)
+        Hpp = (torch.einsum("nia,n,nib->nab", Jp_p, w_p, Jp_p).reshape(W, Sx, 6, 6).sum(1)
+               + torch.einsum("nia,n,nib->nab", Jp_l, w_l, Jp_l).reshape(W, Sl, 6, 6).sum(1))
+        gp = (torch.einsum("nia,n,ni->na", Jp_p, w_p, r_p).reshape(W, Sx, 6).sum(1)
+              + torch.einsum("nia,n,ni->na", Jp_l, w_l, r_l).reshape(W, Sl, 6).sum(1))
+        act_w = _diag_sum(Hpp) > 1e-10
+        Hpp_inv = _inv_spd_equilibrated(Hpp + damping * eye6 + (~act_w)[:, None, None] * eye6, _inv6x6_spd)
+        dp = clip_step(-torch.einsum("wab,wb->wa", Hpp_inv, gp), cfg.ba_max_pose_step)
+        dp = dp * free[:, None] * act_w[:, None]
+        dp = torch.where(torch.all(torch.isfinite(dp)), dp, zero)
+        dR, dt = lie.se3_exp(dp)
+        R = lie.normalize_rotation(torch.einsum("wij,wjk->wik", dR, R))
+        t = torch.einsum("wij,wj->wi", dR, t) + dt
+
+    cost, chi2_p, chi2_l = evaluate_cost(cam, prob, R, t, pts, lns, cfg)
+    return BAResult(R=R, t=t, pts=pts, lns=lns, po_chi2=chi2_p, lo_chi2=chi2_l, cost=cost)

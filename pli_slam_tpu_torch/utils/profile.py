@@ -61,23 +61,37 @@ N_WINDOW = 10
 # and from the first keyframe after it visual-inertial BA drives the
 # accelerometer bias and the velocity off (in the reference too), until
 # tracking is lost near frame 57-59 (on an NVIDIA H100; the reference, on a
-# CPU, at frame 57) and the run reaches relocalization, which is not ported yet. 52 frames leave 21 fused stereo-inertial frames
-# that both packages still track.
+# CPU, at frame 57). 52 frames leave 21 fused stereo-inertial frames that both
+# packages still track.
 N_FRAMES_VI = 52
+# The loop-closing run: bench.py's flagship trajectory (bench.py:98-101), back
+# at its start after 140 frames, 180 frames of it.
+FLAGSHIP_TRAJ = dict(amp=(1.0, 0.5, 0.3), freq=(1 / 7, 2 / 7, 3 / 7), yaw_amp=0.4, yaw_freq=1 / 7)
+N_FRAMES_LOOP = 180
 STAGES = ("track_step", "insert_keyframe", "local_ba", "far_point_depths", "_local_map_ids")
 STAGES_VI = STAGES + ("track_step_inertial", "local_inertial_ba")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def loop_off(cfg: SlamConfig) -> SlamConfig:
-    """`cfg` with loop closing off (loop closing is not ported yet)."""
+    """`cfg` with loop closing off: the configuration of the measured visual
+    and stereo-inertial paths, whose sequences never revisit a place."""
     return dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enabled=False))
 
 
 def slice_config() -> SlamConfig:
-    """The ported slice's configuration: the EuRoC operating point at its
-    published widths with loop closing off."""
+    """The visual path's measured configuration: the EuRoC operating point at
+    its published widths with loop closing off."""
     return loop_off(SlamConfig.euroc_stereo())
+
+
+def loop_config() -> SlamConfig:
+    """The loop-closing run's configuration: SlamConfig.euroc_stereo() as
+    published, loop closing on at its defaults, with bench.py's per-keyframe
+    creation budget for a long run (bench.py:88-91: at the default budget the
+    16384-point store fills at ~40 keyframes)."""
+    cfg = SlamConfig.euroc_stereo()
+    return dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking, kf_max_new_points=256))
 
 
 def slice_config_vi() -> SlamConfig:
@@ -102,6 +116,28 @@ def vi_frames(cam: Camera, cfg: SlamConfig, n_frames: int, dev) -> list[dict]:
 def slice_camera() -> Camera:
     """bench.py's camera: EuRoC-like 752x480 pinhole, fx=435.2, bf=0.11 fx."""
     return Camera.pinhole(fx=435.2, fy=435.2, cx=367.4, cy=252.2, bf=0.11 * 435.2, width=752, height=480)
+
+
+class SyncSpans:
+    """A `Tracker.span` that records each rare path's wall time: `ms[name]`
+    gets one entry in ms per call, the device synchronised at both ends so
+    that the time is the path's own."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.ms: dict[str, list[float]] = defaultdict(list)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.ms[name].append((time.perf_counter() - t0) * 1e3)
 
 
 def union_us(intervals) -> float:
@@ -254,7 +290,8 @@ def main_vi_drift(dev, n_frames: int) -> int:
     up to that frame, for two runs
     over the same `n_frames` frames (they differ from the first keyframe
     after the initialization on: float atomics, amplified by visual-inertial
-    BA). A run ends where it reaches a path that is not ported."""
+    BA). Relocalization and a new map, where a run reaches them, are
+    reported like any other frame."""
     from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.utils import synthetic
 

@@ -45,10 +45,17 @@ class Vocabulary:
         return torch.where(valid, ids, torch.full_like(ids, -1))
 
     def bow(self, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        ids = self.words(desc, valid)
-        hist = torch.zeros(self.n_words, device=desc.device).index_add(
-            0, torch.clamp(ids, min=0).long(), valid.float())
-        return hist / torch.clamp(torch.linalg.norm(hist), min=1e-9)
+        """Normalized word histogram of desc [S,256] where valid [S] -> [n_words]."""
+        return self.bow_rows(desc[None], valid[None])[0]
+
+    def bow_rows(self, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """`bow` of every row of a batch: desc [B,S,256], valid [B,S] -> [B, n_words]."""
+        B = desc.shape[0]
+        ids = self.words(desc.reshape(-1, desc.shape[-1]), valid.reshape(-1))
+        rows = torch.arange(B, device=desc.device).repeat_interleave(desc.shape[1])
+        hist = torch.zeros(B * self.n_words, device=desc.device).index_add(
+            0, rows * self.n_words + torch.clamp(ids, min=0).long(), valid.reshape(-1).float()).reshape(B, -1)
+        return hist / torch.clamp(torch.linalg.norm(hist, dim=-1, keepdim=True), min=1e-9)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -160,8 +160,11 @@ def test_preint_store_set_gather():
     back = convert.preint_store(np_tree(jstore))
     for (ka, a), (kb, b) in zip(convert.to_numpy(back).items(), convert.to_numpy(tstore).items()):
         np.testing.assert_array_equal(a, b, err_msg=ka)
-    with pytest.raises(NotImplementedError, match="remap"):
-        tstore.remap([0, 1, 2])
+    # a merge's keyframe slot map (test_torch_reloc_atlas holds more cases)
+    slots = np.array([3, 4, -1, 0, 1, 2], np.int32)
+    for (ka, a), (kb, b) in zip(convert.to_numpy(tstore.remap(slots)).items(),
+                                convert.to_numpy(np_tree(jstore.remap(slots))).items()):
+        np.testing.assert_array_equal(a, b, err_msg=ka)
 
 
 def test_midpoint_samples_parity():

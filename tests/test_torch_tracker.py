@@ -120,21 +120,25 @@ def test_streaming_matches_blocking():
 
 
 def test_rare_paths_raise():
-    """The slices that are not ported yet raise instead of carrying on."""
+    """Only the sensors of later slices raise now: the tracker builds with
+    loop closing on, a frame older than its predecessor resets the active
+    map (and the next frame initializes it again), and relocalization with a
+    map and a frame runs and answers."""
     tiny = SlamConfig.tiny_test()
     cam = convert.camera(jax.tree_util.tree_map(
         np.asarray, JCamera.pinhole(fx=120.0, fy=120.0, cx=64.0, cy=48.0, bf=0.11 * 120.0, width=128, height=96)))
-    with pytest.raises(NotImplementedError, match="LoopCloser"):
-        Tracker(cam, tiny, "cpu")
+    assert Tracker(cam, tiny, "cpu").loop_closer is not None
     with pytest.raises(NotImplementedError, match="sensor"):
         Tracker(cam, dataclasses.replace(tiny, sensor="mono_imu", loop=LoopConfig(enabled=False)), "cpu")
-    tr = Tracker(cam, dataclasses.replace(tiny, loop=LoopConfig(enabled=False)), "cpu")
-    frames = list(tsyn.make_sequence(cam, 2, "cpu", fps=tiny.fps, traj=tsyn.Trajectory(**TRAJ), room_half=2.55))
+    tr = Tracker(cam, tiny, "cpu")
+    frames = list(tsyn.make_sequence(cam, 3, "cpu", fps=tiny.fps, traj=tsyn.Trajectory(**TRAJ), room_half=2.55))
     tr.process(frames[0]["img_l"], frames[0]["img_r"], 1.0)
-    with pytest.raises(NotImplementedError, match="reset_active_map"):
-        tr.process(frames[1]["img_l"], frames[1]["img_r"], 0.5)
-    with pytest.raises(NotImplementedError, match="_relocalize"):
-        tr._relocalize(None)
+    tr.process(frames[1]["img_l"], frames[1]["img_r"], 1.05)
+    assert tr.state == TrackingState.OK and tr.n_kf == 1
+    kstore = tr.kstore
+    tr.process(frames[2]["img_l"], frames[2]["img_r"], 0.5)
+    assert tr.kstore is not kstore and tr.n_kf == 1 and tr.state == TrackingState.OK  # reset, then initialized
+    assert tr._relocalize(tr.build_frame(frames[2]["img_l"], frames[2]["img_r"])) is True
 
 
 @pytest.mark.slow

@@ -658,7 +658,9 @@ def test_fiba_schedule_equal(n_kf):
 def test_deferred_fiba_queue_drains_one_chunk_per_frame(ref_run):
     """After IMU initialization a queued full-inertial-BA sweep runs one
     chunk per later frame without a keyframe, carries the live pose along,
-    and `finalize` drains what is left; a "gba" chunk belongs to loop closing."""
+    and `finalize` drains what is left. A loop closure's queue: the
+    full-inertial-BA sweep with the IMU initialized, else ceil(gba_iters /
+    gba_chunk_iters) "gba" chunks of whole-map BA, which run the same way."""
     cfg, _, tt, rec = ref_run
     tt = _copy_tracker(tt)
     assert tt.imu_ready and not tt._deferred_ba
@@ -681,11 +683,15 @@ def test_deferred_fiba_queue_drains_one_chunk_per_frame(ref_run):
     assert left[-1] == 1 and tt._map_event_cooldown >= 1
     tt.finalize()
     assert tt._deferred_ba == [] and np.all(np.isfinite(tt.positions()))
-    tt._deferred_ba = [("gba", 3)]
-    with pytest.raises(NotImplementedError, match="gba"):
-        tt.run_deferred_ba()
-    with pytest.raises(NotImplementedError, match="_queue_gba"):
-        tt._queue_gba(inertial=True)
+    tt._queue_gba(inertial=True)
+    assert [k for k, _ in tt._deferred_ba] == ["fiba"] * len(tt._fiba_schedule())
+    tt._queue_gba(inertial=False)
+    assert tt._deferred_ba == [("gba", 3)] * 4  # gba_iters 10 in chunks of 3
+    R0 = tt.kstore.R.clone()
+    tt.run_deferred_ba()
+    assert len(tt._deferred_ba) == 3 and not torch.equal(tt.kstore.R, R0)
+    tt.finalize()
+    assert tt._deferred_ba == [] and np.all(np.isfinite(tt.positions()))
 
 
 def _copy_tracker(tt):
@@ -695,24 +701,30 @@ def _copy_tracker(tt):
     new = copy.copy(tt)
     for name in ("_deferred_ba", "_traj_pending", "_traj_done", "stats", "imu_init_log"):
         setattr(new, name, list(getattr(tt, name)))
+    new.atlas = copy.copy(tt.atlas)  # a new map appends to the Atlas's list
+    new.atlas.maps = list(tt.atlas.maps)
     return new
 
 
 def test_forward_time_jump_reaches_the_unported_paths(ref_run):
-    """A forward jump of more than 1 s breaks the preintegration chain: the
-    map is parked once the IMU is initialized and reset before; both belong
-    to the Atlas slice and raise."""
-    cfg, _, tt, rec = ref_run
+    """A forward jump of more than 1 s breaks the preintegration chain: once
+    the IMU is initialized the map is parked in the Atlas and a new one
+    starts (both packages, from the same state), before it the map is reset."""
+    cfg, jt, tt, rec = ref_run
     tt = _copy_tracker(tt)
+    jt = _copy_tracker(jt)
     img = np.zeros((96, 128), np.float32)
-    with pytest.raises(NotImplementedError, match="_switch_to_new_map"):
-        tt.process(img, img, tt._prev_stamp + 1.5)
+    for tr in (jt, tt):
+        tr.process(img, img, tr._prev_stamp + 1.5)
+        assert tr.atlas.n_maps() == 2 and not tr.imu_ready and tr.n_kf == 0
+        assert tr.state == TrackingState.NOT_INITIALIZED
     _, tcam = _cams()
     fresh = Tracker(tcam, port_cfg(cfg), "cpu")
     fr = next(iter(tsyn.make_sequence(tcam, 1, "cpu", fps=cfg.fps, traj=tsyn.Trajectory(**TRAJ), room_half=2.55)))
     fresh.process(fr["img_l"], fr["img_r"], 0.0)
-    with pytest.raises(NotImplementedError, match="reset_active_map"):
-        fresh.process(fr["img_l"], fr["img_r"], 1.5)
+    kstore = fresh.kstore
+    fresh.process(fr["img_l"], fr["img_r"], 1.5)
+    assert fresh.atlas.n_maps() == 1 and fresh.kstore is not kstore and fresh.n_kf == 1  # reset, then initialized
 
 
 @pytest.mark.slow
