@@ -84,8 +84,35 @@ Phases (each prints one line; any failure raises and exits non-zero):
                Prints fps and p50/p99 of 6a's ordinary frames and the wall
                time of the loop-closure frame, each GBA chunk, each
                relocalization attempt and the merge frame.
-Then one JSON line describing the kernels, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}. Imports nothing of JAX.
+  7. RGB-D through `System.track_rgbd` -- scripts/run_tum.py's deployment as
+               published (SlamConfig(sensor="rgbd", width=640, height=480,
+               fps=30.0) on TUM3's intrinsics, 1200 ORB x 8 levels, 256 lines,
+               16384/4096/512 stores, loop closing on), streaming, over 40
+               frames of the synthetic room with depth at 30 fps. Guards: 90%
+               of frames tracked, finite positions, ATE under RGBD_ATE_BOUND
+               (set from what both packages do on these frames: windowed BA
+               throws keyframes off in the reference too), two gated-match
+               launches per fused frame
+               counted for this phase alone. Then `save_map`, `load_map` into
+               a new System in localization mode over the next 5 frames (all
+               tracked, the map does not grow), and the trajectory savers'
+               files (one line per frame / keyframe);
+  8. monocular through `System.track_monocular` -- SlamConfig.euroc_stereo()
+               with sensor "mono" (752x480, phase 4's camera, bf unused) over
+               40 consecutive frames of phase 4's sequence (the reference
+               initializes on consecutive frames at this width). Guards:
+               initialized no later than MONO_INIT_MARGIN frames after the
+               reference (REF_INIT_MONO), 60% of frames tracked (the
+               reference test's floor), Sim(3)-aligned ATE under
+               MONO_ATE_BOUND (set from the reference's own run, REF_ATE_MONO),
+               two gated-match launches per tracked frame after the
+               initialization;
+  rectifier -- `euroc_rectifier()` on the card against the CPU on a 752x480
+               pair, within 1e-3 grey levels, and one call timed.
+Phases 7 and 8 print fps and p50/p99, and phase 7 the map's save and load
+times. Then one JSON line describing the kernels (launches on every path,
+per path and per frame), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -862,6 +889,216 @@ def phase_atlas(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-8 and the rectifier: the other sensors through the System facade
+# ---------------------------------------------------------------------------
+
+N_LOCALIZE = 5
+# The reference (pli_slam_tpu on its accelerator branch, run on a CPU) over the same frames through its own
+# System, streaming (tests/test_torch_mono_rgbd.py::test_full_width_reference_runs, slow): RGB-D ATE
+# 0.0124 m over the 3.20 m path with its own renderer's images, but 0.175 m with the port's, which differ
+# in a few pixels: on this deployment windowed BA throws keyframes 0.2-0.4 m off in the reference, and the
+# port does the same on the card (0.018-0.118 m over seven runs; PERF.md, section 6). So the ATE bound is a
+# divergence guard above what both packages do.
+REF_ATE_RGBD = (0.0124, 0.175)  # the reference on its own images, on the port's
+RGBD_ATE_BOUND = 0.30
+# Mono, same reference: initialized at frame 1 (its two-view reconstruction succeeds on consecutive 20 fps
+# frames of this scene at 752x480, so no stride is needed), 39 of 40 frames tracked, 14 keyframes,
+# Sim(3)-aligned ATE 0.519 m over the 4.96 m path. The port draws its own RANSAC hypotheses (the
+# reference's cannot be reproduced in torch), so its two-view initialization may pick another sample:
+# the initialization may come MONO_INIT_MARGIN frames later, and the ATE bound is 2x the reference's.
+REF_INIT_MONO = 1
+MONO_INIT_MARGIN = 2
+REF_ATE_MONO = 0.519
+MONO_ATE_BOUND = 1.0
+
+
+def _frame_times(ms):
+    import numpy as np
+
+    ms = np.asarray(ms)
+    return (f"fps {1e3 / ms.mean():.3f}, p50 {np.percentile(ms, 50):.2f} ms, "
+            f"p99 {np.percentile(ms, 99):.2f} ms")
+
+
+def phase_rgbd(dev, smi):
+    """Phase 7: RGB-D through `System.track_rgbd` (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.system import System
+    from pli_slam_tpu_torch.utils import synthetic
+    from pli_slam_tpu_torch.utils import trajectory as tio
+    from pli_slam_tpu_torch.utils.profile import N_FRAMES_RGBD, rgbd_camera, rgbd_config
+
+    cfg, cam = rgbd_config(), rgbd_camera()
+    t0 = time.perf_counter()
+    frames = list(synthetic.make_sequence(cam, N_FRAMES_RGBD + N_LOCALIZE, dev, fps=cfg.fps, with_depth=True))
+    frames, ahead = frames[:N_FRAMES_RGBD], frames[N_FRAMES_RGBD:]  # the second System continues where the map ends
+    torch.cuda.synchronize()
+    log(f"rgbd: rendered {N_FRAMES_RGBD + N_LOCALIZE} frames {cam.width}x{cam.height} with depth in "
+        f"{time.perf_counter() - t0:.2f} s")
+    sysm = System(cam, cfg, device=dev)
+    sysm.tracker.streaming = True
+    hamming.reset_launches()
+    ms = []
+    for i, fr in enumerate(frames):
+        f0 = time.perf_counter()
+        info = sysm.track_rgbd(fr["img_l"], fr["depth"], fr["t"])
+        if i > 0:
+            ms.append((time.perf_counter() - f0) * 1e3)
+        if not np.all(np.isfinite(info["p_w"])):
+            raise AssertionError(f"rgbd: frame {i} pose not finite")
+    torch.cuda.synchronize()
+    launches = hamming.launches
+    tracker = sysm.tracker
+    ok_frames = _consumed_ok(tracker)
+    sysm.shutdown()
+    est = np.stack([p for _, _, p in tracker.trajectory])
+    gt = np.stack([fr["p_w"] for fr in frames])
+    if est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"rgbd: trajectory shape {est.shape} / finite {np.all(np.isfinite(est))}")
+    ate = tio.ate_rmse(est, gt)
+    n_fused = N_FRAMES_RGBD - 1
+    log(f"rgbd: System.track_rgbd over {N_FRAMES_RGBD} frames, frames 1-{n_fused}: {_frame_times(ms)}; ATE {ate:.4f} m "
+        f"(the reference: {REF_ATE_RGBD[0]} m on its own images, {REF_ATE_RGBD[1]} m on the port's), {tracker.n_kf} "
+        f"keyframes, ok frames {ok_frames}/{N_FRAMES_RGBD}, "
+        f"gated_match launches {launches} ({launches / n_fused:.2f} per fused frame) [{smi}]")
+
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    map_path = os.path.join(out, "rgbd_map.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sysm.save_map(map_path)
+    t_save = (time.perf_counter() - t0) * 1e3
+    loaded = System(cam, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded.load_map(map_path)
+    torch.cuda.synchronize()
+    t_load = (time.perf_counter() - t0) * 1e3
+    loaded.activate_localization_mode()
+    n_pts, n_kf = int(loaded.tracker.pstore.valid.sum()), loaded.tracker.n_kf
+    hamming.reset_launches()
+    states, ms_loc = [], []
+    for fr in ahead:
+        f0 = time.perf_counter()
+        states.append(loaded.track_rgbd(fr["img_l"], fr["depth"], fr["t"])["state"])
+        ms_loc.append((time.perf_counter() - f0) * 1e3)
+    launches_loc = hamming.launches
+    grown = (int(loaded.tracker.pstore.valid.sum()) - n_pts, loaded.tracker.n_kf - n_kf)
+    lines = {}
+    for name in ("trajectory_tum", "trajectory_euroc", "trajectory_kitti", "keyframe_trajectory_tum"):
+        path = os.path.join(out, f"rgbd_{name}.txt")
+        getattr(sysm, f"save_{name}")(path)
+        with open(path) as f:
+            lines[name] = len(f.readlines())
+    log(f"rgbd: save_map {t_save:.2f} ms ({os.path.getsize(map_path) / 2**20:.2f} MiB), load_map into a new System "
+        f"{t_load:.2f} ms; localization mode over the next {N_LOCALIZE} frames: states {states}, map grown by "
+        f"{grown[0]} points / {grown[1]} keyframes, {np.mean(ms_loc):.2f} ms a frame, gated_match launches "
+        f"{launches_loc}; trajectory files (lines) {lines} [{smi}]")
+    for name in os.listdir(out):
+        os.remove(os.path.join(out, name))
+    if ok_frames < 0.9 * N_FRAMES_RGBD:
+        raise AssertionError(f"rgbd: only {ok_frames}/{N_FRAMES_RGBD} frames tracked")
+    if not ate < RGBD_ATE_BOUND:
+        raise AssertionError(f"rgbd: ATE {ate} m >= {RGBD_ATE_BOUND} m")
+    if launches < 2 * n_fused:
+        raise AssertionError(f"rgbd: gated_match launched {launches} times for {n_fused} fused frames")
+    if any(s != "OK" for s in states) or grown != (0, 0) or loaded.tracker.n_kf != tracker.n_kf:
+        raise AssertionError(f"rgbd: localization after load_map: states {states}, map grown by {grown}")
+    if lines["trajectory_tum"] != N_FRAMES_RGBD or lines["keyframe_trajectory_tum"] != tracker.n_kf:
+        raise AssertionError(f"rgbd: trajectory files {lines}")
+    return launches + launches_loc, n_fused + N_LOCALIZE  # the loaded map's frames run the fused step too
+
+
+def phase_mono(dev, smi):
+    """Phase 8: monocular through `System.track_monocular` (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.frontend.tracker import TrackingState
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.system import System
+    from pli_slam_tpu_torch.utils import trajectory as tio
+    from pli_slam_tpu_torch.utils.profile import sensor_run
+
+    cfg, cam, frames = sensor_run("mono", dev)
+    sysm = System(cam, cfg, device=dev)
+    hamming.reset_launches()
+    ms, states = [], []
+    init = None
+    for i, fr in enumerate(frames):
+        f0 = time.perf_counter()
+        info = sysm.track_monocular(fr["img_l"], fr["t"])
+        dt = (time.perf_counter() - f0) * 1e3
+        states.append(info["state"])
+        if init is None and info["state"] == TrackingState.OK:
+            init, init_ms, init_launches = i, dt, hamming.launches
+        elif init is not None:
+            ms.append(dt)
+    torch.cuda.synchronize()
+    launches = hamming.launches
+    tracker = sysm.tracker
+    sysm.shutdown()
+    est = np.stack([p for _, _, p in tracker.trajectory])
+    gt = np.stack([fr["p_w"] for fr in frames])
+    ok_frames = sum(s == TrackingState.OK for s in states)
+    if init is None:
+        raise AssertionError(f"mono: never initialized over {len(frames)} frames")
+    if est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"mono: trajectory shape {est.shape} / finite {np.all(np.isfinite(est))}")
+    ate = tio.ate_rmse(est, gt, with_scale=True)
+    n_tracked = len(frames) - init - 1
+    log(f"mono: System.track_monocular over {len(frames)} consecutive frames: initialized at frame {init} "
+        f"(the reference: {REF_INIT_MONO}), that frame {init_ms:.1f} ms; frames {init + 1}-{len(frames) - 1}: "
+        f"{_frame_times(ms)}; Sim(3) ATE {ate:.4f} m (the reference's own run: {REF_ATE_MONO} m), {tracker.n_kf} "
+        f"keyframes, ok frames {ok_frames}/{len(frames)}, gated_match launches {launches} ({init_launches} up to the "
+        f"initialization, {(launches - init_launches) / max(n_tracked, 1):.2f} per frame after it) [{smi}]")
+    if init > REF_INIT_MONO + MONO_INIT_MARGIN:
+        raise AssertionError(f"mono: initialized at frame {init}, the reference at {REF_INIT_MONO}")
+    if ok_frames < 0.6 * len(frames):
+        raise AssertionError(f"mono: only {ok_frames}/{len(frames)} frames tracked")
+    if not ate < MONO_ATE_BOUND:
+        raise AssertionError(f"mono: Sim(3) ATE {ate} m >= {MONO_ATE_BOUND} m")
+    if launches - init_launches < 2 * n_tracked:
+        raise AssertionError(f"mono: gated_match launched {launches - init_launches} times for {n_tracked} frames")
+    return launches, len(frames)
+
+
+def phase_rectifier(dev, smi):
+    """The EuRoC rectifier on the card against the CPU on a 752x480 pair
+    (bilinear in float32: within 1e-3 grey levels), and one call timed."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.rectify import euroc_rectifier
+    from pli_slam_tpu_torch.utils import synthetic
+    from pli_slam_tpu_torch.utils.profile import slice_camera
+
+    fr = next(iter(synthetic.make_sequence(slice_camera(), 1, "cpu")))
+    rect_c, rect_g = euroc_rectifier("cpu"), euroc_rectifier(dev)
+    out_c = rect_c(fr["img_l"], fr["img_r"])
+    args = (fr["img_l"].to(dev), fr["img_r"].to(dev))
+    out_g = rect_g(*args)
+    err = max((g.cpu() - c).abs().max().item() for g, c in zip(out_g, out_c))
+    for _ in range(3):
+        rect_g(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    n = 20
+    start.record()
+    for _ in range(n):
+        rect_g(*args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    log(f"rectifier: euroc_rectifier() on a 752x480 pair, card vs CPU max diff {err:.2e} grey levels; one call "
+        f"(both images) {ms:.4f} ms (CUDA events, mean of {n}) [{smi}]")
+    if not err <= 1e-3:
+        raise AssertionError(f"rectifier: card and CPU differ by {err}")
+
+
 def main() -> int:
     import torch
 
@@ -891,6 +1128,9 @@ def main() -> int:
     launches_kidnap = phase_kidnap(dev, smi, run)
     launches_atlas = phase_atlas(dev, smi)
     launches_ra = launches_kidnap + launches_atlas
+    launches_rgbd, n_fused_rgbd = phase_rgbd(dev, smi)
+    launches_mono, n_frames_mono = phase_mono(dev, smi)
+    phase_rectifier(dev, smi)
 
     from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
 
@@ -899,13 +1139,16 @@ def main() -> int:
     (b_ms, b_by), (bf_ms, _) = bound_ms(1200, 4096), bound_ms(1200, 16384)
     log(json.dumps({"kernels": [{
         "name": "gated_match", "route": "cuda", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
-        "launches": launches + launches_vi + launches_loop + launches_ra, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "launches": launches + launches_vi + launches_loop + launches_ra + launches_rgbd + launches_mono,
+        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "call_ms": c_ms, "shape": "N=1200 x P=4096",
         "ms_fuse": kf_ms, "plain_ms_fuse": pf_ms, "bound_ms_fuse": bf_ms, "call_ms_fuse": cf_ms,
         "shape_fuse": "N=1200 x P=16384", "launches_visual": launches, "launches_vi": launches_vi,
         "launches_per_frame": launches / (n_frames - 1), "launches_per_frame_vi": launches_vi / (n_frames_vi - 1),
         "launches_loop": launches_loop, "launches_reloc_atlas": launches_ra,
-        "launches_per_frame_loop": launches_loop / (n_frames_loop - 1),
+        "launches_per_frame_loop": launches_loop / (n_frames_loop - 1), "launches_rgbd": launches_rgbd,
+        "launches_per_frame_rgbd": launches_rgbd / n_fused_rgbd, "launches_mono": launches_mono,
+        "launches_per_frame_mono": launches_mono / n_frames_mono,
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

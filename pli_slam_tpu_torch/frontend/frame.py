@@ -1,8 +1,13 @@
-"""Per-frame front end for rectified stereo (port of pli_slam_tpu.frontend.frame).
+"""Per-frame front ends (port of pli_slam_tpu.frontend.frame), on the
+device the images live on.
 
-`build_frame` runs both ORB pyramids, stereo point association, left
-line detection with LBD and descriptor-free stereo line association, on
-the device the images live on.
+`build_frame` (rectified stereo) runs both ORB pyramids, stereo point
+association, left line detection with LBD and descriptor-free stereo line
+association. `build_frame_rgbd` samples the depth image at the features
+and turns it into a virtual right coordinate u - bf/d, so the stereo
+machinery downstream applies unchanged. `build_frame_mono` has no depth
+channel; with a Kannala-Brandt8 camera its keypoints and line endpoints
+are undistorted to the ideal pinhole frame (`undistort_uv`).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import torch
 
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.ops import lines as line_ops
+from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import orb, stereo
 from pli_slam_tpu_torch.ops.camera import Camera
 from pli_slam_tpu_torch.ops.lines import LineFeatures
@@ -21,7 +27,7 @@ from pli_slam_tpu_torch.ops.orb import Features
 
 @dataclasses.dataclass(frozen=True)
 class FrameData:
-    """Everything tracking needs about one stereo frame."""
+    """Everything tracking needs about one frame."""
 
     feats: Features
     u_right: torch.Tensor  # [N] refined right-image u
@@ -53,3 +59,64 @@ def build_frame(cam: Camera, cfg: SlamConfig, img_l: torch.Tensor, img_r: torch.
 
     return FrameData(feats=fl, u_right=u_r, stereo_ok=sok, depth=depth,
                      lines=ll, line_disp=line_disp, line_ok=lok, sigma2=fl.scale ** 2)
+
+
+def _sample_depth(depth_img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Depth at the nearest pixel of (sub-pixel) points; `torch.round`
+    rounds half to even, as `jnp.round` does."""
+    h, w = depth_img.shape
+    ui = torch.clamp(torch.round(uv[..., 0]).long(), 0, w - 1)
+    vi = torch.clamp(torch.round(uv[..., 1]).long(), 0, h - 1)
+    return depth_img[vi, ui]
+
+
+def build_frame_rgbd(cam: Camera, cfg: SlamConfig, img: torch.Tensor, depth_img: torch.Tensor) -> FrameData:
+    """RGB-D frame: the depth at each feature becomes a virtual right
+    coordinate u_r = u - bf/d, and line endpoints get disparities bf/d."""
+    fl = orb.extract(img, cfg.orb)
+    d = _sample_depth(depth_img, fl.uv)
+    ok = fl.valid & (d > 0.0)
+    u_r = torch.where(ok, fl.uv[:, 0] - cam.bf / torch.clamp(d, min=1e-6), torch.full_like(d, -1.0))
+    depth = torch.where(ok, d, torch.full_like(d, -1.0))
+
+    nl = cfg.lines.n_lines
+    if cfg.use_lines:
+        ll = line_ops.detect(img, cfg.lines)
+        d0 = _sample_depth(depth_img, ll.p0)
+        d1 = _sample_depth(depth_img, ll.p1)
+        lok = ll.valid & (d0 > 0.0) & (d1 > 0.0)
+        line_disp = torch.stack([cam.bf / torch.clamp(d0, min=1e-6), cam.bf / torch.clamp(d1, min=1e-6)], dim=-1)
+        line_disp = torch.where(lok[:, None], line_disp, torch.zeros_like(line_disp))
+    else:
+        ll = LineFeatures.empty(nl, img.device)
+        line_disp = torch.zeros((nl, 2), device=img.device)
+        lok = torch.zeros(nl, dtype=torch.bool, device=img.device)
+
+    return FrameData(feats=fl, u_right=u_r, stereo_ok=ok, depth=depth,
+                     lines=ll, line_disp=line_disp, line_ok=lok, sigma2=fl.scale ** 2)
+
+
+def undistort_uv(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
+    """Observed (fisheye) pixels -> ideal-pinhole pixels with the same
+    fx/fy/cx/cy (the reference's keypoint undistortion)."""
+    ray = cam_ops.unproject(cam, uv)  # KB8 Newton inversion, z = 1
+    return torch.stack([cam.fx * ray[..., 0] + cam.cx, cam.fy * ray[..., 1] + cam.cy], dim=-1)
+
+
+def build_frame_mono(cam: Camera, cfg: SlamConfig, img: torch.Tensor) -> FrameData:
+    """Monocular frame: no stereo or depth channel (landmark depth comes
+    from two-view initialization and triangulation later). With a KB8
+    `cam` the features and line endpoints are extracted on the raw image
+    and their coordinates undistorted to the ideal pinhole frame."""
+    dev = img.device
+    fl = orb.extract(img, cfg.orb)
+    n, nl = fl.uv.shape[0], cfg.lines.n_lines
+    ll = line_ops.detect(img, cfg.lines) if cfg.use_lines else LineFeatures.empty(nl, dev)
+    if cam.model == cam_ops.KANNALA_BRANDT8:
+        fl = dataclasses.replace(fl, uv=undistort_uv(cam, fl.uv))
+        if cfg.use_lines:
+            ll = dataclasses.replace(ll, p0=undistort_uv(cam, ll.p0), p1=undistort_uv(cam, ll.p1))
+    return FrameData(feats=fl, u_right=torch.full((n,), -1.0, device=dev),
+                     stereo_ok=torch.zeros(n, dtype=torch.bool, device=dev), depth=torch.full((n,), -1.0, device=dev),
+                     lines=ll, line_disp=torch.zeros((nl, 2), device=dev),
+                     line_ok=torch.zeros(nl, dtype=torch.bool, device=dev), sigma2=fl.scale ** 2)

@@ -22,6 +22,7 @@ import torch
 
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import lie, matching
+from pli_slam_tpu_torch.ops.indexing import nanmedian
 from pli_slam_tpu_torch.solve import pgo, sim3
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.worldmap import stores as st
@@ -57,24 +58,10 @@ def match_kf_landmarks(kstore: st.KeyFrameStore, pstore: st.PointStore, kf_a, kf
     return xa, xb, ok
 
 
-def _nanmedian(d, mask):
-    """`jnp.nanmedian` of d[mask]: linear interpolation at the middle, so an
-    even count averages the two middle values (`torch.nanmedian` returns the
-    lower one). NaN when the mask is empty."""
-    n = mask.sum()
-    srt, _ = torch.sort(torch.where(mask, d, torch.full_like(d, float("inf"))))
-    pos = 0.5 * (n - 1).to(d.dtype)
-    low, high = torch.floor(pos), torch.ceil(pos)
-    hw = pos - low
-    last = torch.clamp(n - 1, min=0)
-    med = srt[torch.clamp(low.long(), min=0)] * (1.0 - hw) + srt[torch.minimum(torch.clamp(high.long(), min=0), last)] * hw
-    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
-
-
 def scene_scaled_thresh(x, mask, frac: float = 0.06, floor: float = 1e-3):
     """RANSAC inlier threshold: `frac` of the matched cloud's median spread."""
     c = torch.sum(torch.where(mask[:, None], x, torch.zeros_like(x)), dim=0) / torch.clamp(mask.sum(), min=1)
-    spread = _nanmedian(torch.linalg.norm(x - c, dim=-1), mask)
+    spread = nanmedian(torch.linalg.norm(x - c, dim=-1), mask)
     spread = torch.where(torch.isfinite(spread), spread, torch.ones_like(spread))
     return torch.clamp(frac * spread, min=floor)
 

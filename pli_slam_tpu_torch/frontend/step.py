@@ -1,11 +1,14 @@
-"""The per-frame device programs of the stereo visual and stereo-inertial
-paths (port of the device half of pli_slam_tpu/frontend/tracker.py:48-1445).
+"""The per-frame device programs (port of the device half of
+pli_slam_tpu/frontend/tracker.py:48-1445).
 
-`make_step_visual` is the visual step; `make_step_vi` is its inertial
-analog after IMU initialization (preintegrate, IMU prediction,
-`track_step_inertial`, and on a keyframe the chain factor and
-`local_inertial_ba`). Every point match -- twice per frame in tracking and
-once per keyframe in the fuse step, on both paths -- goes through `ops.kernels.hamming.gated_match`, the
+`make_step_visual` is the visual step of the stereo and RGB-D paths;
+`make_step_vi` is its inertial analog after IMU initialization
+(preintegrate, IMU prediction, `track_step_inertial`, and on a keyframe the
+chain factor and `local_inertial_ba`). The monocular path is
+host-orchestrated and adds `_mono_reconstruct` (two-view initialization)
+and `_mono_triangulated_depths`. Every point match -- twice per frame in
+tracking and once per keyframe in the fuse step, on every path -- goes
+through `ops.kernels.hamming.gated_match`, the
 hand-written CUDA kernel on a GPU and its plain twin on the CPU. Both
 call sites follow the reference's accelerator branch on every device
 (tracker.py:82-89 and :375-389): the direct du^2+dv^2 gate inside the
@@ -43,13 +46,14 @@ from pli_slam_tpu_torch.frontend.frame import FrameData
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie, matching
-from pli_slam_tpu_torch.ops.indexing import scatter_add, scatter_set, top_k, unique_fixed
+from pli_slam_tpu_torch.ops.indexing import nanmedian, scatter_add, scatter_set, top_k, unique_fixed
 from pli_slam_tpu_torch.ops.kernels.hamming import gated_match
 from pli_slam_tpu_torch.ops.lines import _deg2rad_f32
 from pli_slam_tpu_torch.solve import ba as ba_mod
 from pli_slam_tpu_torch.solve import gn
 from pli_slam_tpu_torch.solve import inertial as inr
 from pli_slam_tpu_torch.solve import triangulate as tri
+from pli_slam_tpu_torch.solve import twoview
 from pli_slam_tpu_torch.solve import vi_ba as vib
 from pli_slam_tpu_torch.worldmap import stores as st
 from pli_slam_tpu_torch.worldmap import vocab as vocab_mod
@@ -198,6 +202,47 @@ def track_step_inertial(cam, cfg: SlamConfig, frame: FrameData, preint, prev_sta
     pstore, lstore, n_in = _count_seen_and_found(pstore, lstore, pt_frust, ln_frust, pt_idx, pt_in, ln_idx, ln_in)
     R2, t2 = inr.camera_pose(st2, ext)
     return st2, R2, t2, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore
+
+
+# ---------------------------------------------------------------------------
+# Monocular: two-view initialization and triangulated depth
+# ---------------------------------------------------------------------------
+
+
+def _mono_reconstruct(cam, cfg: SlamConfig, prev_frame: FrameData, frame: FrameData, draw, seed: int):
+    """Two-view initialization between the held anchor frame and the
+    current one; the F / H hypotheses are drawn with `draw(seed, probs,
+    shape)` from the mutual matches. Returns (success, R, t: T_c2c1 with the
+    map scaled to a median inlier depth of 1, depth1 [N] per anchor feature
+    in that scale (-1 where none), n_inliers)."""
+    dist = matching.hamming_matrix(prev_frame.feats.desc, frame.feats.desc)
+    idx, _, ok = matching.match_nn(dist, prev_frame.feats.valid, frame.feats.valid, max_dist=cfg.match.orb_th_low,
+                                   ratio=0.9)
+    ok = matching.mutual_consistency(idx, ok, dist, prev_frame.feats.valid, frame.feats.valid)
+    uv2 = frame.feats.uv[torch.clamp(idx, min=0).long()]
+    idx_f, idx_h = twoview.draw_hypotheses(draw, seed, ok)
+    rec = twoview.reconstruct_two_views(cam, prev_frame.feats.uv, uv2, ok, idx_f, idx_h)
+    z = rec["points"][:, 2]
+    front = rec["inliers"] & (z > 0)
+    med = nanmedian(z, front)  # as jnp.nanmedian: an even count averages the middle two
+    med = torch.where(torch.isfinite(med) & (med > 1e-6), med, torch.ones_like(med))
+    scale = 1.0 / med
+    depth1 = torch.where(front, z * scale, torch.full_like(z, -1.0))
+    return rec["success"], rec["R"], rec["t"] * scale, depth1, rec["n_inliers"]
+
+
+def _mono_triangulated_depths(cam, cfg: SlamConfig, frame: FrameData, R, t, kf_uv, kf_desc, kf_valid, R_kf, t_kf):
+    """A mono frame's depth channel [N] (current-camera z): its features
+    matched against a keyframe's view and triangulated; the frame's own
+    depth (-1) where that fails."""
+    dist = matching.hamming_matrix(frame.feats.desc, kf_desc)
+    idx, _, ok = matching.match_nn(dist, frame.feats.valid, kf_valid, max_dist=cfg.match.orb_th_low, ratio=0.8)
+    ok = matching.mutual_consistency(idx, ok, dist, frame.feats.valid, kf_valid)
+    uv1 = kf_uv[torch.clamp(idx, min=0).long()]
+    X = tri.triangulate_dlt(R_kf, t_kf, R, t, cam_ops.unproject(cam, uv1), cam_ops.unproject(cam, frame.feats.uv))
+    good = tri.triangulation_checks(cam, R_kf, t_kf, R, t, X, uv1, frame.feats.uv, frame.sigma2, frame.sigma2)
+    z = lie.se3_apply(R, t, X)[:, 2]
+    return torch.where(ok & good & (z > 0.05), z, frame.depth)
 
 
 # ---------------------------------------------------------------------------

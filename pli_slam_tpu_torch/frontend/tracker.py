@@ -1,9 +1,26 @@
-"""Host-side tracker for the stereo and stereo-inertial paths (port of the
-stereo part of pli_slam_tpu/frontend/tracker.py `Tracker`).
+"""Host-side tracker for the stereo, stereo-inertial, RGB-D and monocular
+paths (port of pli_slam_tpu/frontend/tracker.py `Tracker`).
 
-Stereo (`sensor="stereo"`): the first frame builds on the host path and
-`_initialize`s the map; every later frame runs the fused device step
-(frontend.step.make_step_visual).
+Stereo (`sensor="stereo"`, `process`): the first frame builds on the host
+path and `_initialize`s the map; every later frame runs the fused device
+step (frontend.step.make_step_visual). With a `rectifier`
+(ops.rectify.StereoRectifier) raw pairs are rectified inside the frame
+build, on the fused step and the host path alike.
+
+RGB-D (`sensor="rgbd"`, `process_rgbd`): the same, with
+frontend.frame.build_frame_rgbd as the frame builder (the depth image
+becomes a virtual right coordinate).
+
+Monocular (`sensor="mono"`, `process_mono`): every frame is
+host-orchestrated (`_process_frame`). `_initialize_mono` holds an anchor
+frame and reconstructs the current one against it (solve.twoview), re-
+anchoring while that fails; on success the anchor becomes KF0 with the
+median-depth-normalized triangulation, and the current frame is tracked
+into KF1. Later keyframes get their depth by triangulation against the
+view three keyframes back (`_kf_views`), whose pose is read live from the
+store. A Kannala-Brandt8 camera is allowed here: features are undistorted
+to the pinhole frame with the same intrinsics, and everything downstream
+runs on that pinhole camera.
 
 Stereo-inertial (`sensor="stereo_imu"`, `process(..., imu=...)`): until the
 IMU is initialized every frame is host-orchestrated (`_process_frame`:
@@ -26,13 +43,14 @@ point store and the BoW candidates and keeps the best wide re-track;
 persistent loss parks the map in the `Atlas` and starts a new one, which
 `_try_merge` welds back into the parked map when place recognition finds
 it again. A timestamp going backwards (or a jump with an inertial sensor)
-resets or parks the active map. The mono-only pieces of the host path
-(`_kf_views`, `_apply_scale`, `_scale_refinement`) come with the mono
-slice.
+resets or parks the active map. Monocular relocalization solves PnP with
+the depth-free DLT. The mono-inertial and RGB-D-inertial pieces
+(`_apply_scale`, `_scale_refinement`) are not ported yet: `mono_imu` and
+`rgbd_imu` raise.
 
-Random draws (the PnP and merge RANSACs, and the loop closer's) go through
-`Tracker.draw`, `solve.sim3.sample_indices` unless replaced: the reference
-seeds its `jax.random` keys with the same integers.
+Random draws (the PnP, two-view and merge RANSACs, and the loop closer's)
+go through `Tracker.draw`, `solve.sim3.sample_indices` unless replaced: the
+reference seeds its `jax.random` keys with the same integers.
 """
 
 from __future__ import annotations
@@ -47,11 +65,11 @@ import torch
 
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.frontend import step as step_mod
-from pli_slam_tpu_torch.frontend.frame import FrameData, build_frame
+from pli_slam_tpu_torch.frontend.frame import FrameData, build_frame, build_frame_mono, build_frame_rgbd
 from pli_slam_tpu_torch.frontend.loop_closing import LoopCloser, match_cross_map, scene_scaled_thresh
 from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie, matching
-from pli_slam_tpu_torch.ops.camera import PINHOLE, Camera
+from pli_slam_tpu_torch.ops.camera import KANNALA_BRANDT8, PINHOLE, Camera
 from pli_slam_tpu_torch.solve import imu_init as ii
 from pli_slam_tpu_torch.solve import inertial as inr
 from pli_slam_tpu_torch.solve import pnp as pnp_mod
@@ -73,19 +91,36 @@ class TrackingState:
 class Tracker:
     """Orchestrates the per-frame device programs on `device`: the GPU
     unless the caller names another (`device=None` means
-    `torch.device("cuda")`; the CPU is used only when asked for)."""
+    `torch.device("cuda")`; the CPU is used only when asked for).
+    `rectifier`: an ops.rectify.StereoRectifier for raw stereo pairs."""
 
-    def __init__(self, cam: Camera, cfg: SlamConfig, device=None):
-        if cfg.sensor not in ("stereo", "stereo_imu"):
-            raise NotImplementedError(
-                f"sensor {cfg.sensor!r}: the port runs the stereo and stereo-inertial paths only")
-        if cam.model != PINHOLE:
-            raise NotImplementedError("fisheye (KB8) stereo is not ported yet")
+    SENSORS = ("stereo", "stereo_imu", "rgbd", "mono")
+
+    def __init__(self, cam: Camera, cfg: SlamConfig, device=None, rectifier=None):
+        if cfg.sensor not in self.SENSORS:
+            raise NotImplementedError(f"sensor {cfg.sensor!r}: the port runs {', '.join(self.SENSORS)}")
+        self.is_mono = cfg.sensor == "mono"
+        if cam.model == KANNALA_BRANDT8 and not self.is_mono:
+            raise NotImplementedError(f"a KB8 (fisheye) camera with sensor {cfg.sensor!r} is not ported yet")
         self.device = torch.device("cuda" if device is None else device)
         dev = self.device
+        # a KB8 mono camera: features are undistorted to the pinhole frame with
+        # the same intrinsics, and everything downstream runs on that pinhole camera
+        self.cam_raw = cam
+        cam = dataclasses.replace(cam, model=PINHOLE)
         self.cam = cam
         self.cfg = cfg
-        self.build_frame = partial(build_frame, cam, cfg)
+        self.rectifier = None if rectifier is None else rectifier.to(dev)
+        if self.is_mono:
+            self.build_frame = partial(build_frame_mono, self.cam_raw, cfg)
+        elif cfg.sensor == "rgbd":
+            self.build_frame = partial(build_frame_rgbd, cam, cfg)
+        elif self.rectifier is not None:
+            self.build_frame = partial(_build_rectified, cam, cfg, self.rectifier)
+        else:
+            self.build_frame = partial(build_frame, cam, cfg)
+        self._mono_init_frame = None  # (FrameData, stamp) of the anchor awaiting its second view
+        self._kf_views: list[tuple] = []  # (uv, desc, valid, kf_slot) of the last 3 keyframes (mono)
         self.voc_pt = vocab_mod.Vocabulary(seed=17)  # the reference's LSH defaults
         self.voc_ln = vocab_mod.Vocabulary(seed=23)
         self.bow_db = vocab_mod.BowDatabase.empty(cfg.map.max_keyframes, self.voc_pt.n_words, dev)
@@ -454,6 +489,8 @@ class Tracker:
         self._preint_since_kf = None
         self._pints = imu_ops.PreintStore.empty(cfg.map.max_keyframes, dev)
         self._kf_view_dev = step_mod._empty_kf_views(cfg, dev)
+        self._kf_views = []
+        self._mono_init_frame = None
         self._local_pt = step_mod._empty_local_map(cfg, dev)
         self._deferred_ba = []  # pending chunks name old-map slots
         self.imu_ready = False
@@ -556,6 +593,7 @@ class Tracker:
             self.gravity_w = lie._einsum("ij,j->i", R_rel, self.gravity_w)
             self.v_w = lie._einsum("ij,j->i", R_rel, self.v_w)
         self._preint_since_kf = None
+        self._kf_views = []
         # the view ring's keyframe slots through the merge map (-1 drops a view)
         uvv, descv, validv, slotv = self._kf_view_dev
         slot_map = torch.as_tensor(np.concatenate([kf_slots.astype(np.int32), [-1]]), device=self.device)
@@ -616,14 +654,17 @@ class Tracker:
     def _pnp_reloc(self, frame: FrameData, seed: int):
         """Pose-free PnP: the frame's descriptors against the whole point
         store (mutual nearest neighbours, ratio 0.8), RANSAC lifted by the
-        stereo depth, then the GN polish."""
+        stereo depth (mono: the depth-free 6-point DLT), then the GN polish."""
         cfg, ps = self.cfg, self.pstore
         dist = matching.hamming_matrix(frame.feats.desc, ps.desc)
         idx, _, okm = matching.match_nn(dist, frame.feats.valid, ps.valid, max_dist=cfg.match.orb_th_low, ratio=0.8)
-        okm = matching.mutual_consistency(idx, okm, dist, frame.feats.valid, ps.valid) & (frame.depth > 0)
-        hyp = self.draw(seed, sim3_mod.mask_probs(okm), (pnp_mod.N_HYPOTHESES, 3))
+        okm = matching.mutual_consistency(idx, okm, dist, frame.feats.valid, ps.valid)
+        if not self.is_mono:
+            okm = okm & (frame.depth > 0)
+        hyp = self.draw(seed, sim3_mod.mask_probs(okm), (pnp_mod.N_HYPOTHESES, 6 if self.is_mono else 3))
         return pnp_mod.solve_pnp(self.cam, ps.x[idx.long()], frame.feats.uv, frame.u_right, frame.stereo_ok,
-                                 frame.depth, frame.sigma2, okm, hyp, cfg.opt, inlier_px=8.0, min_inliers=12)
+                                 frame.depth, frame.sigma2, okm, hyp, cfg.opt, inlier_px=8.0, min_inliers=12,
+                                 mono=self.is_mono)
 
     def _relocalize(self, frame: FrameData) -> bool:
         """Seeds: the PnP pose (if its RANSAC clears its floor) and the BoW
@@ -713,6 +754,14 @@ class Tracker:
         self.kstore = dataclasses.replace(self.kstore, valid=valid)
 
     def _create_keyframe(self, frame, stamp, pt_idx, pt_in, ln_idx, ln_in) -> int:
+        if self.is_mono and self._kf_views:
+            # no depth channel: triangulate against the view three keyframes
+            # back (consecutive keyframes carry too little parallax), its pose
+            # read live from the store (windowed BA refines it)
+            uvk, desck, validk, slotk = self._kf_views[0]
+            depth = step_mod._mono_triangulated_depths(self.cam, self.cfg, frame, self.R, self.t, uvk, desck, validk,
+                                                       self.kstore.R[slotk], self.kstore.t[slotk])
+            frame = dataclasses.replace(frame, depth=depth)
         self.pstore, self.lstore, self.kstore, n_new = step_mod.insert_keyframe(
             self.cam, self.cfg, frame, self.R, self.t, stamp, pt_idx, pt_in, ln_idx, ln_in, self.n_kf,
             self.pstore, self.lstore, self.kstore)
@@ -749,6 +798,9 @@ class Tracker:
                     torch.as_tensor(window, dtype=torch.int32, device=dev), torch.as_tensor(fixed, device=dev))
             # tracking continues from the refined latest keyframe
             self.R, self.t = self.kstore.R[k], self.kstore.t[k]
+        if self.is_mono:
+            self._kf_views = (self._kf_views + [(frame.feats.uv, frame.feats.desc, frame.feats.valid,
+                                                 self.n_kf - 1)])[-3:]
         slots, scores = self._bow_kf(frame, self.n_kf - 1, self.n_kf)
         if self.loop_closer is not None:
             self.loop_closer.on_keyframe(self, self.n_kf - 1,
@@ -765,8 +817,7 @@ class Tracker:
         frame's raw batch {"gyro" [n,3], "acc" [n,3], "stamps" [n]} covering
         (previous frame, this frame]; the visual sensor ignores it."""
         self._check_timestamp(stamp)
-        img_args = (torch.as_tensor(img_l, dtype=torch.float32, device=self.device),
-                    torch.as_tensor(img_r, dtype=torch.float32, device=self.device))
+        img_args = (self._image(img_l), self._image(img_r))
         if self.use_imu:
             # after IMU init the frames run the fused stereo-inertial step;
             # before it, and after a loss, they are host-orchestrated
@@ -778,6 +829,24 @@ class Tracker:
         if self.state == TrackingState.NOT_INITIALIZED:
             return self._initialize(self.build_frame(*img_args), stamp)
         return self._process_fused(img_args, stamp, allow_mapping)
+
+    def process_rgbd(self, img, depth, stamp: float, allow_mapping: bool = True) -> dict:
+        """RGB-D frame: `img` [H, W] float32 in [0, 255] and `depth` [H, W]
+        in metres (0 where unknown), numpy or tensors. The map initializes
+        on the host path; later frames run the fused step."""
+        self._check_timestamp(stamp)
+        img_args = (self._image(img), self._image(depth))
+        if self.state == TrackingState.NOT_INITIALIZED:
+            return self._process_frame(self.build_frame(*img_args), stamp, allow_mapping)
+        return self._process_fused(img_args, stamp, allow_mapping)
+
+    def process_mono(self, img, stamp: float, allow_mapping: bool = True) -> dict:
+        """Monocular frame: every frame is host-orchestrated."""
+        self._check_timestamp(stamp)
+        return self._process_frame(self.build_frame(self._image(img)), stamp, allow_mapping)
+
+    def _image(self, img) -> torch.Tensor:
+        return torch.as_tensor(img, dtype=torch.float32, device=self.device)
 
     def _info(self, n_inliers: int, n_new: int) -> dict:
         info = {"state": self.state, "n_inliers": int(n_inliers), "n_kf": self.n_kf,
@@ -809,6 +878,51 @@ class Tracker:
         self._record(stamp)
         return self._info(n_stereo, n_new)
 
+    def _initialize_mono(self, frame: FrameData, stamp: float) -> dict:
+        """Two-view bootstrapping: hold the first well-featured frame, and
+        reconstruct each next one against it (re-anchoring on the current
+        frame while that fails); on success KF0 is the anchor at the origin
+        with the normalized triangulation, and the current frame, tracked
+        from the reconstructed pose, becomes KF1."""
+        n_feat = int(frame.feats.valid.sum())
+        if self._mono_init_frame is None:
+            if n_feat >= self.cfg.tracking.min_init_features:
+                self._mono_init_frame = (frame, stamp)
+            self._record(stamp)
+            return self._info(0, 0)
+        prev, prev_stamp = self._mono_init_frame
+        okf, R, t, depth1, n_inl = step_mod._mono_reconstruct(self.cam, self.cfg, prev, frame, self.draw,
+                                                              len(self.trajectory) + 1)
+        if not bool(okf):
+            if n_feat >= self.cfg.tracking.min_init_features:
+                self._mono_init_frame = (frame, stamp)
+            self._record(stamp)
+            return self._info(n_inl, 0)
+
+        dev = self.device
+        n, nl = prev.feats.uv.shape[0], prev.lines.angle.shape[0]
+        self.pstore, self.lstore, self.kstore, n_new0 = step_mod.insert_keyframe(
+            self.cam, self.cfg, dataclasses.replace(prev, depth=depth1), torch.eye(3, device=dev),
+            torch.zeros(3, device=dev), prev_stamp, torch.full((n,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev), torch.full((nl,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(nl, dtype=torch.bool, device=dev), 0, self.pstore, self.lstore, self.kstore)
+        self.n_kf = 1
+        self._kf_views = [(prev.feats.uv, prev.feats.desc, prev.feats.valid, 0)]
+        self._mono_init_frame = None
+        self.state = TrackingState.OK
+
+        R2, t2, pt_idx, pt_in, ln_idx, ln_in, n_in, self.pstore, self.lstore = step_mod.track_step(
+            self.cam, self.cfg, frame, R, t, self.pstore, self.lstore, wide=torch.zeros((), dtype=torch.bool,
+                                                                                       device=dev))
+        self.R_prev, self.t_prev = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        self.R, self.t = R2, t2
+        self._update_motion_model()
+        n_new = self._create_keyframe(frame, stamp, pt_idx, pt_in, ln_idx, ln_in)
+        self.last_kf_inliers = int(n_in) + n_new
+        self.frames_since_kf = 0
+        self._record(stamp)
+        return self._info(n_in, int(n_new0) + n_new)
+
     def _refresh_local_map(self, kf_slot: int):
         if kf_slot < 0:
             self._local_pt = step_mod._empty_local_map(self.cfg, self.device)
@@ -817,12 +931,13 @@ class Tracker:
 
     def _process_frame(self, frame: FrameData, stamp: float, allow_mapping: bool = True,
                        imu: dict | None = None) -> dict:
-        """Host-orchestrated frame of the stereo-inertial path: every frame
-        before IMU initialization, and the frames after a tracking loss."""
+        """Host-orchestrated frame: every monocular frame, the first frame of
+        the visual paths, and the stereo-inertial frames before the IMU
+        initialization and after a tracking loss."""
         if self.use_imu and imu is not None:
             self._ingest_imu(imu, stamp)
         if self.state == TrackingState.NOT_INITIALIZED:
-            return self._initialize(frame, stamp)
+            return self._initialize_mono(frame, stamp) if self.is_mono else self._initialize(frame, stamp)
         tc = self.cfg.tracking
         lost_limit = tc.recently_lost_sec * self.cfg.fps
 
@@ -1005,6 +1120,10 @@ class Tracker:
                 "new_landmarks": int(stats[step_mod.ST_NNEW])}
         self.stats.append(info)
         return info
+
+
+def _build_rectified(cam, cfg, rectifier, img_l, img_r):
+    return build_frame(cam, cfg, *rectifier(img_l, img_r))
 
 
 def _no_span(name: str):

@@ -13,6 +13,9 @@ The reference leans on XLA behaviours that torch does not share:
   on CUDA syncs for its output size. `unique_fixed` sorts, keeps the
   first of each run and compacts into a fixed-size buffer, keeping the
   smallest ids as the reference does.
+- `jnp.nanmedian` interpolates at the middle, so an even count averages
+  the two middle values; `torch.nanmedian` returns the lower one.
+  `nanmedian` follows the reference.
 
 Gathers and scatters here never see an out-of-range index: callers clamp
 and mask explicitly (an out-of-range index is a device assert on CUDA).
@@ -61,3 +64,16 @@ def unique_fixed(ids: torch.Tensor, size: int, fill_value: int) -> torch.Tensor:
     # rows not kept all land in the spare slot `size`, which is dropped
     out = out.scatter(0, torch.where(keep, pos, torch.full_like(pos, size)), s)
     return out[:size]
+
+
+def nanmedian(d: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """`jnp.nanmedian` of d[mask] [N] -> 0-d: the two middle values of an
+    even count averaged; NaN when the mask is empty."""
+    n = mask.sum()
+    srt, _ = torch.sort(torch.where(mask, d, torch.full_like(d, float("inf"))))
+    pos = 0.5 * (n - 1).to(d.dtype)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    last = torch.clamp(n - 1, min=0)
+    med = srt[torch.clamp(low.long(), min=0)] * (1.0 - hw) + srt[torch.minimum(torch.clamp(high.long(), min=0), last)] * hw
+    return torch.where(n > 0, med, torch.full_like(med, float("nan")))

@@ -1,5 +1,6 @@
 """Two-view DLT triangulation and acceptance checks
-(port of the parts of pli_slam_tpu.solve.triangulate on the stereo path).
+and midpoint triangulation (port of pli_slam_tpu.solve.triangulate but for
+the epipolar gate of fisheye stereo).
 
 The 4x4 DLT system's smallest eigenvector is found by shifted inverse
 power iteration with a closed-form (cofactor) 4x4 inverse, as in the
@@ -64,6 +65,30 @@ def _inv4x4(m: torch.Tensor) -> torch.Tensor:
     adj = torch.stack([torch.stack([cof[j][i] for j in range(4)], -1) for i in range(4)], -2)
     det_safe = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30), det)
     return adj / det_safe[..., None, None]
+
+
+def triangulate_midpoint(R1, t1, R2, t2, ray1, ray2):
+    """Midpoint of the closest points of the two rays (batched). Returns
+    ([N,3] world points, [N] cosine of the parallax)."""
+    Rw1, tw1 = lie.se3_inverse(R1, t1)
+    Rw2, tw2 = lie.se3_inverse(R2, t2)
+    d1 = torch.einsum("ij,nj->ni", Rw1, ray1)
+    d2 = torch.einsum("ij,nj->ni", Rw2, ray2)
+    d1 = d1 / torch.clamp(torch.linalg.norm(d1, dim=-1, keepdim=True), min=1e-12)
+    d2 = d2 / torch.clamp(torch.linalg.norm(d2, dim=-1, keepdim=True), min=1e-12)
+    # [d1 -d2][s; u] = tw2 - tw1 in least squares (2x2 normal equations)
+    b = tw2 - tw1
+    a11 = torch.sum(d1 * d1, dim=-1)
+    a12 = -torch.sum(d1 * d2, dim=-1)
+    a22 = torch.sum(d2 * d2, dim=-1)
+    b1 = torch.sum(d1 * b, dim=-1)
+    b2 = -torch.sum(d2 * b, dim=-1)
+    det = a11 * a22 - a12 * a12
+    det_safe = torch.where(torch.abs(det) < 1e-12, torch.ones_like(det), det)
+    s = (b1 * a22 - b2 * a12) / det_safe
+    u = (a11 * b2 - a12 * b1) / det_safe
+    X = 0.5 * ((tw1 + s[..., None] * d1) + (tw2 + u[..., None] * d2))
+    return X, torch.sum(d1 * d2, dim=-1)
 
 
 def triangulation_checks(cam, R1, t1, R2, t2, X_w, uv1, uv2, sigma2_1, sigma2_2,

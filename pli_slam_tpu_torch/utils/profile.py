@@ -1,6 +1,7 @@
 """Where the port's main paths spend their time on one GPU.
 
-Run from the repository root:  python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N]
+Run from the repository root:
+  python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -33,6 +34,9 @@ synchronised stage pass with `preintegrate`, `track_step_inertial`,
 runs N frames of that path twice and prints, per frame after the
 initialization, how far velocity, accelerometer bias and trajectory have
 drifted from the truth, up to the frame where a run reaches an unported path.
+`--spread rgbd|mono` runs chip_smoke.py's RGB-D or mono phase N_SPREAD times
+on the same frames and prints each run's accuracy (the card's runs are not
+bit-reproducible).
 
 Needs a CUDA device. The chrome trace of pass 1 is written under `build/`
 and deleted once read (it runs to ~100 MB).
@@ -68,6 +72,9 @@ N_FRAMES_VI = 52
 # at its start after 140 frames, 180 frames of it.
 FLAGSHIP_TRAJ = dict(amp=(1.0, 0.5, 0.3), freq=(1 / 7, 2 / 7, 3 / 7), yaw_amp=0.4, yaw_freq=1 / 7)
 N_FRAMES_LOOP = 180
+N_FRAMES_RGBD = 40  # chip_smoke.py's phase 7
+N_FRAMES_MONO = 40  # and phase 8: the reference initializes on consecutive frames at 752x480, no stride
+N_SPREAD = 4
 STAGES = ("track_step", "insert_keyframe", "local_ba", "far_point_depths", "_local_map_ids")
 STAGES_VI = STAGES + ("track_step_inertial", "local_inertial_ba")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -116,6 +123,36 @@ def vi_frames(cam: Camera, cfg: SlamConfig, n_frames: int, dev) -> list[dict]:
 def slice_camera() -> Camera:
     """bench.py's camera: EuRoC-like 752x480 pinhole, fx=435.2, bf=0.11 fx."""
     return Camera.pinhole(fx=435.2, fy=435.2, cx=367.4, cy=252.2, bf=0.11 * 435.2, width=752, height=480)
+
+
+def rgbd_config() -> SlamConfig:
+    """scripts/run_tum.py's deployment as published: RGB-D at 640x480 and 30 fps,
+    every other setting at its default (loop closing on)."""
+    return SlamConfig(sensor="rgbd", width=640, height=480, fps=30.0)
+
+
+def rgbd_camera() -> Camera:
+    """TUM RGB-D freiburg3's intrinsics, the default of scripts/run_tum.py (TUM3.yaml: bf 40.0)."""
+    return Camera.pinhole(fx=535.4, fy=539.2, cx=320.1, cy=247.6, bf=40.0, width=640, height=480)
+
+
+def mono_config() -> SlamConfig:
+    """The EuRoC operating point with one camera: SlamConfig.euroc_stereo() with
+    sensor "mono", loop closing on (on slice_camera(); its bf is not used)."""
+    return SlamConfig.euroc_stereo().replace(sensor="mono")
+
+
+def sensor_run(sensor: str, dev) -> tuple:
+    """(cfg, cam, frames) of chip_smoke.py's phase 7 (`"rgbd"`: N_FRAMES_RGBD
+    frames of the room with depth at 30 fps) or phase 8 (`"mono"`:
+    N_FRAMES_MONO consecutive frames of the visual path's sequence)."""
+    from pli_slam_tpu_torch.utils import synthetic
+
+    if sensor == "rgbd":
+        cfg, cam = rgbd_config(), rgbd_camera()
+        return cfg, cam, list(synthetic.make_sequence(cam, N_FRAMES_RGBD, dev, fps=cfg.fps, with_depth=True))
+    cfg, cam = mono_config(), slice_camera()
+    return cfg, cam, list(synthetic.make_sequence(cam, N_FRAMES_MONO, dev, fps=cfg.fps))
 
 
 class SyncSpans:
@@ -318,12 +355,44 @@ def main_vi_drift(dev, n_frames: int) -> int:
     return 0
 
 
+def main_spread(dev, sensor: str) -> int:
+    """N_SPREAD runs of chip_smoke.py's phase 7 or 8 through `System` on the
+    same rendered frames: how far the card's runs of one build spread (its
+    scatter-adds use float atomics, so runs differ from the first rounding
+    on). Per run: ATE (mono: after a Sim(3) alignment), keyframes, frames
+    tracked, the first tracked frame and the largest position error."""
+    from pli_slam_tpu_torch.system import System
+    from pli_slam_tpu_torch.utils import trajectory as tio
+
+    cfg, cam, frames = sensor_run(sensor, dev)
+    gt = np.stack([fr["p_w"] for fr in frames])
+    for rep in range(N_SPREAD):
+        sysm = System(cam, cfg, device=dev)
+        sysm.tracker.streaming = sensor == "rgbd"
+        states = []
+        for fr in frames:
+            info = (sysm.track_rgbd(fr["img_l"], fr["depth"], fr["t"]) if sensor == "rgbd"
+                    else sysm.track_monocular(fr["img_l"], fr["t"]))
+            states.append(info["state"])
+        sysm.shutdown()
+        est = np.stack([p for _, _, p in sysm.tracker.trajectory])
+        s, R, t = tio.align_umeyama(est, gt, with_scale=sensor == "mono")
+        err = np.linalg.norm(s * est @ R.T + t - gt, axis=1)
+        print(f"spread[{sensor} {rep}]: ATE {tio.ate_rmse(est, gt, with_scale=sensor == 'mono'):.4f} m, "
+              f"{sysm.tracker.n_kf} keyframes, states OK {sum(x == 'OK' for x in states)}/{len(states)} (first at "
+              f"frame {states.index('OK') if 'OK' in states else None}), largest aligned error {err.max():.4f} m at "
+              f"frame {int(err.argmax())}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile", help="directory for the op tables")
     ap.add_argument("--vi", action="store_true", help="profile the stereo-inertial path instead of the visual one")
     ap.add_argument("--vi-drift", type=int, metavar="N", default=0,
                     help="instead: N frames of the stereo-inertial path, twice, printing the drift per frame")
+    ap.add_argument("--spread", choices=("rgbd", "mono"),
+                    help="instead: chip_smoke.py's RGB-D or mono phase, N_SPREAD times, printing each run's accuracy")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -335,6 +404,8 @@ def main(argv=None) -> int:
     hamming.build()
     if args.vi_drift:
         return main_vi_drift(dev, args.vi_drift)
+    if args.spread:
+        return main_spread(dev, args.spread)
     if args.vi:
         return main_vi(dev)
     cfg, cam = slice_config(), slice_camera()

@@ -1,6 +1,6 @@
 """Synthetic stereo-inertial sequence: ray-traced textured room, analytic
-trajectory, ideal or corrupted IMU samples (port of
-pli_slam_tpu.utils.synthetic; depth rendering comes with the RGB-D slice).
+trajectory, ideal or corrupted IMU samples, ground-truth depth (port of
+pli_slam_tpu.utils.synthetic).
 
 Images are rendered with torch on the given device, so the port's
 end-to-end runs need no JAX. `Trajectory`, the IMU samples, the noise
@@ -73,6 +73,13 @@ def render_view(cam: Camera, R_wc: torch.Tensor, t_wc: torch.Tensor, room_half: 
     t_best, p_hit = _trace_room(cam, R_wc, t_wc, room_half)
     img = _texture(p_hit) * (1.0 - 0.015 * torch.clamp(t_best, 0.0, 12.0))
     return torch.clamp(img, 0.0, 255.0)
+
+
+def render_depth(cam: Camera, R_wc: torch.Tensor, t_wc: torch.Tensor, room_half: float = ROOM_HALF) -> torch.Tensor:
+    """Ground-truth camera-z depth [H, W] (pinhole rays have z = 1, so the
+    ray parameter is the depth); 0 where no surface is hit."""
+    t_best, _ = _trace_room(cam, R_wc, t_wc, room_half)
+    return torch.where(t_best < 1e8, t_best, torch.zeros_like(t_best))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,12 +174,13 @@ class _ImuCorruptor:
 
 
 def make_sequence(cam: Camera, n_frames: int, device=None, fps: float = 20.0, traj: Trajectory | None = None,
-                  imu_rate: float = 200.0, room_half: float = ROOM_HALF, Tbc: np.ndarray | None = None,
-                  imu_noise: ImuNoiseModel | None = None):
-    """Yield per-frame dicts {t, img_l, img_r (tensors on `device`), R_wc, p_w,
-    v_w, imu_stamps, imu_gyro, imu_acc (numpy)}. `device=None` renders on
-    the GPU; pass "cpu" to render there. The right camera sits `baseline`
-    along the camera's +x axis; the IMU batch covers (t_prev, t].
+                  imu_rate: float = 200.0, room_half: float = ROOM_HALF, with_depth: bool = False,
+                  Tbc: np.ndarray | None = None, imu_noise: ImuNoiseModel | None = None):
+    """Yield per-frame dicts {t, img_l, img_r (and `depth` with `with_depth`:
+    tensors on `device`), R_wc, p_w, v_w, imu_stamps, imu_gyro, imu_acc
+    (numpy)}. `device=None` renders on the GPU; pass "cpu" to render there.
+    The right camera sits `baseline` along the camera's +x axis; the IMU
+    batch covers (t_prev, t].
 
     With `Tbc` (4x4 body->camera transform), `traj` describes the BODY (IMU)
     trajectory and the rendered camera rides at T_wc = T_wb * Tbc. IMU
@@ -202,6 +210,7 @@ def make_sequence(cam: Camera, n_frames: int, device=None, fps: float = 20.0, tr
             "t": t,
             "img_l": render_view(cam, R, p, room_half),
             "img_r": render_view(cam, R, p + R[:, 0] * baseline, room_half),
+            **({"depth": render_depth(cam, R, p, room_half)} if with_depth else {}),
             "R_wc": np.asarray(R_wc, np.float32),
             "p_w": np.asarray(p_w, np.float32),
             "v_w": traj.velocity(t).astype(np.float32),

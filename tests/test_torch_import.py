@@ -22,10 +22,11 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert len(mods) > 20
-    # the walk reaches the stereo-inertial and loop-closing slices' modules and the two scripts' helpers
+    # the walk reaches the stereo-inertial, loop-closing and sensor / facade slices' modules and the two
+    # scripts' helpers
     for name in ("ops.imu", "ops.autodiff", "solve.inertial", "solve.vi_ba", "solve.imu_init", "utils.profile",
                  "utils.kernel_bench", "solve.sim3", "solve.pgo", "solve.pnp", "frontend.loop_closing",
-                 "worldmap.atlas"):
+                 "worldmap.atlas", "solve.twoview", "ops.rectify", "utils.trajectory", "system"):
         assert f"pli_slam_tpu_torch.{name}" in mods, name
     code = (
         "import sys\n"

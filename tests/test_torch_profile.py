@@ -25,6 +25,19 @@ def test_slice_config_is_euroc_at_published_widths_with_loop_off():
     assert cam.bf == pytest.approx(0.11 * 435.2)
 
 
+def test_rgbd_and_mono_configs_are_the_published_deployments():
+    """chip_smoke.py's phase 7: scripts/run_tum.py's SlamConfig(sensor="rgbd",
+    640x480, 30 fps) on TUM3's intrinsics, everything else at its default;
+    phase 8: SlamConfig.euroc_stereo() with sensor "mono", loop closing on."""
+    cfg = profile.rgbd_config()
+    assert cfg == SlamConfig(sensor="rgbd", width=640, height=480, fps=30.0) and cfg.loop.enabled
+    cam = profile.rgbd_camera()
+    assert (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, cam.width, cam.height) == pytest.approx(
+        (535.4, 539.2, 320.1, 247.6, 40.0, 640, 480))
+    mono = profile.mono_config()
+    assert mono == dataclasses.replace(SlamConfig.euroc_stereo(), sensor="mono") and mono.loop.enabled
+
+
 @pytest.mark.parametrize("intervals, total", [
     ([], 0.0),
     ([(0.0, 2.0)], 2.0),

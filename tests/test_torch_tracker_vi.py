@@ -271,10 +271,14 @@ def test_whole_slice_imu_init_and_fused_vi(ref_run):
 
 
 def test_sensors_not_ported_raise():
+    """The inertial variants of mono and RGB-D are not ported yet; mono and
+    RGB-D themselves are (tests/test_torch_mono_rgbd.py)."""
     _, tcam = _cams()
-    for sensor in ("mono_imu", "rgbd_imu", "mono", "rgbd"):
+    for sensor in ("mono_imu", "rgbd_imu"):
         with pytest.raises(NotImplementedError, match="sensor"):
             Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu")
+    for sensor in ("mono", "rgbd"):
+        assert not Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu").use_imu
 
 
 def test_host_path_lockstep(ref_run):
