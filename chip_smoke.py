@@ -8,7 +8,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. build   -- compiles every kernel of the main path from `pli_slam_tpu_torch/csrc/`;
   3. kernels -- each kernel against its plain PyTorch version on the card at
                the main path's shapes (planted matches, duplicate rows, radius
-               boundary, ragged store) and at shapes that stress its tiling
+               boundary, ragged store; N=2000 at P=4096 and 16384 for KITTI's
+               2000 ORB features) and at shapes that stress its tiling
                (a store below one tile, one row past a chunk, 37 frame rows,
                a store gated out entirely, arbitrary int8 and zero rows, an
                exact duplicate in another tile and chunk), idx, best, second
@@ -22,7 +23,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
                windowed BA) on the card against the CPU, where every kernel
                runs its plain version; then
                the port's `Tracker.process` in streaming mode over the
-               40-frame synthetic stereo sequence of bench.py's visual run,
+               40-frame synthetic stereo sequence of bench.py's visual run
+               (every frame rendered on the host: the card tracks a CPU's pixels),
                at SlamConfig.euroc_stereo() with loop closing off (752x480,
                1200 ORB x 8 levels, 256 lines, 16384/4096/512 stores), and a
                check that the main path launched every kernel;
@@ -104,15 +106,41 @@ Phases (each prints one line; any failure raises and exits non-zero):
                initialized no later than MONO_INIT_MARGIN frames after the
                reference (REF_INIT_MONO), 60% of frames tracked (the
                reference test's floor), Sim(3)-aligned ATE under
-               MONO_ATE_BOUND (set from the reference's own run, REF_ATE_MONO),
+               MONO_ATE_BOUND (set from the reference's run on these frames, REF_ATE_MONO),
                two gated-match launches per tracked frame after the
                initialization;
   rectifier -- `euroc_rectifier()` on the card against the CPU on a 752x480
                pair, within 1e-3 grey levels, and one call timed.
-Phases 7 and 8 print fps and p50/p99, and phase 7 the map's save and load
-times. Then one JSON line describing the kernels (launches on every path,
-per path and per frame), the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+  9. the dataset ingest path -- each dataset's on-disk layout written from
+               the frames above (rendered on the host, quantised to 8 bits as
+               a camera's are) into a scratch folder under build/, then the
+               port's drivers through their main(), each frame synchronised:
+               9a. EuRoC stereo-inertial: phase 5's 52 frames as an ASL folder
+               (PNGs with all five row filters, 200 Hz imu0/data.csv, ground
+               truth) and a reference-style YAML (phase 5's camera, no
+               rectification blocks), `run_euroc --stereo-imu --native-loader
+               --config`; the IMU slices read back must equal phase 5's samples;
+               phase 5's ATE bounds;
+               9b. TUM RGB-D: phase 7's 40 frames (8-bit RGB, 16-bit depth at
+               factor 5000, depth stamped 4 ms after its image), `run_tum
+               --freiburg 3`; phase 7's ATE bound;
+               9c. KITTI stereo: KITTI 00's camera (1241x376, baseline 0.537 m),
+               30 frames at 10 fps, 2000 ORB, `run_kitti`; ATE bound set from
+               the reference's run of the same folder (REF_ATE_KITTI);
+               9d. live: `run_live` on 9a's folder at 20 Hz for 40 frames
+               (pushed, delivered and dropped frames printed);
+               9e. trained vocabularies: `train_vocab --euroc` on 9a's folder
+               (1024 point and line words), their words on the card equal to
+               the CPU's, and a Tracker with both over phase 4's frames
+               (phase 4's ATE bound), its BoW rows and best loop score printed.
+               Drivers pass --no-plots when the card has no matplotlib.
+Phases 7, 8 and 9 print fps and p50/p99 (9 also the ingest stage's ms a
+frame), and phase 7 the map's save and load times. Phase 4 prints the
+SHA-256 of its first frame pair, which must equal the CPU's
+(FRAME0_SHA256, held by tests/test_torch_datasets.py). Then one JSON line
+describing the kernels (launches on every path, per path and per frame,
+and the N=2000 shapes of KITTI's operating point), the nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -125,6 +153,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
+TIMED_CASES = ("track_r15", "fuse", "kitti_track_r15", "kitti_fuse")
+KITTI_FX = 718.856  # KITTI 00's P0 (phase 9c)
 TPU_KERNEL = "pli_slam_tpu/ops/pallas/hamming.py:28"
 KERNEL_SRC = "pli_slam_tpu_torch/csrc/gated_match.cu"
 
@@ -183,12 +214,14 @@ def phase_kernels(dev):
     from pli_slam_tpu_torch.ops.kernels import hamming
     from pli_slam_tpu_torch.utils.kernel_bench import eager_ms, graph_ms, match_case
 
-    main_cases = [  # (label, N, P, radius): the main path's calls
+    main_cases = [  # (label, N, P, radius): the main path's calls; KITTI's 2000 ORB (phase 9c) at fx 718.856
         ("track_r15", 1200, 4096, 15.0),
         ("track_wide_r45", 1200, 4096, 45.0),
         ("track_r6", 1200, 4096, 6.0),
         ("fuse", 1200, 16384, float(np.float32(0.05) * np.float32(435.2))),
         ("ragged_store", 1200, 4096 + 77, 15.0),
+        ("kitti_track_r15", 2000, 4096, 15.0),
+        ("kitti_fuse", 2000, 16384, float(np.float32(0.05) * np.float32(KITTI_FX))),
     ]
     rng = np.random.default_rng(0)
     cases = [(label, match_case(rng, n, p, radius), radius, None) for label, n, p, radius in main_cases]
@@ -223,8 +256,8 @@ def phase_kernels(dev):
             rows = torch.arange(n, device=dev, dtype=torch.int32)
             if not (torch.equal(k_idx[fvalid], rows[fvalid]) and bool((k_second[fvalid] == 0).all())):
                 raise AssertionError(f"{label}: the lower of two exact copies must win with second == best == 0")
-        if label in ("track_r15", "fuse"):
-            max_dist, ratio = (100.0, 0.9) if label == "track_r15" else (64.0, 1.0)
+        if label in TIMED_CASES:
+            max_dist, ratio = (64.0, 1.0) if label.endswith("fuse") else (100.0, 0.9)
             t_plain_a = eager_ms(lambda: hamming.gated_match_reference(*args, r_dev))
             t_kern_a = graph_ms(lambda: hamming.gated_match_cuda(*args, r_dev, max_dist, ratio))
             t_call = eager_ms(lambda: hamming.gated_match(*args, r_dev, max_dist, ratio))
@@ -420,7 +453,12 @@ def phase_main_path(dev, smi):
     t0 = time.perf_counter()
     frames = list(synthetic.make_sequence(cam, N_FRAMES, dev, fps=cfg.fps))
     torch.cuda.synchronize()
-    log(f"main path: rendered {N_FRAMES} frames {cam.width}x{cam.height} in {time.perf_counter() - t0:.2f} s")
+    digest = synthetic.frame_digest(frames[0]["img_l"], frames[0]["img_r"])
+    log(f"main path: rendered {N_FRAMES} frames {cam.width}x{cam.height} on the host in {time.perf_counter() - t0:.2f} "
+        f"s; first pair's SHA-256 {digest} (a CPU build computes {FRAME0_SHA256}: "
+        f"{'equal' if digest == FRAME0_SHA256 else 'DIFFERENT'})")
+    if digest != FRAME0_SHA256:
+        raise AssertionError("the frames differ from the CPU's (tests/test_torch_datasets.py holds the digest)")
 
     tracker = Tracker(cam, cfg, dev)
     tracker.streaming = True
@@ -461,7 +499,7 @@ def phase_main_path(dev, smi):
         raise AssertionError(f"ATE {ate} m >= 0.10 m (divergence guard)")
     if launches < 2 * n_fused:
         raise AssertionError(f"gated_match launched {launches} times for {n_fused} fused frames")
-    return launches, N_FRAMES
+    return launches, N_FRAMES, frames
 
 
 def phase_vi_path(dev, smi):
@@ -557,7 +595,7 @@ def phase_vi_path(dev, smi):
     if launches < 2 * (N_FRAMES_VI - 1) or launches_host < 2 * (n_host - 1) or launches_fused < 2 * n_fused:
         raise AssertionError(f"gated_match launched {launches_host} + {launches_fused} times for {n_host - 1} host-path "
                              f"and {n_fused} fused frames")
-    return launches, N_FRAMES_VI
+    return launches, N_FRAMES_VI, (cfg, frames)
 
 
 # ---------------------------------------------------------------------------
@@ -573,39 +611,6 @@ def _world_pose(traj, t, R_wc, p_w):
     R0, p0 = traj.pose(t)
     R_cw = (R0.T @ R_wc).T
     return R_cw, -R_cw @ (R0.T @ (np.asarray(p_w) - p0))
-
-
-def _overlapping_pair(tracker, traj, min_gap: int):
-    """The keyframe pair (newer, older), at least `min_gap` slots apart, whose
-    ground-truth poses are nearest (distance in m plus viewing-direction
-    angle in rad), from the keyframes' stamps."""
-    import numpy as np
-
-    n = tracker.n_kf
-    stamps = tracker.kstore.stamp[:n].cpu().numpy()
-    valid = tracker.kstore.valid[:n].cpu().numpy()
-    poses = [traj.pose(float(t)) for t in stamps]
-    best = (np.inf, -1, -1)
-    for i in range(n):
-        for j in range(i - min_gap + 1):
-            if not (valid[i] and valid[j]):
-                continue
-            (Ri, pi), (Rj, pj) = poses[i], poses[j]
-            cost = np.linalg.norm(pi - pj) + np.arccos(np.clip(Ri[:, 2] @ Rj[:, 2], -1.0, 1.0))
-            best = min(best, (cost, i, j))
-    return best[1], best[2], best[0]
-
-
-def _kf_error(tracker, traj) -> float:
-    """The largest position error of a valid keyframe against the truth at its stamp (tracker world)."""
-    import numpy as np
-
-    n = tracker.n_kf
-    valid = tracker.kstore.valid[:n].cpu().numpy()
-    R, t = tracker.kstore.R[:n].cpu().numpy(), tracker.kstore.t[:n].cpu().numpy()
-    R0, p0 = traj.pose(0.0)
-    gt = np.stack([R0.T @ (traj.pose(float(s))[1] - p0) for s in tracker.kstore.stamp[:n].cpu().numpy()])
-    return float(np.linalg.norm(-np.einsum("kji,kj->ki", R, t) - gt, axis=1)[valid].max())
 
 
 def _consumed_ok(tracker, n_host: int = 1):
@@ -627,105 +632,51 @@ def phase_loop(dev, smi):
     import numpy as np
     import torch
 
-    from pli_slam_tpu_torch.frontend.loop_closing import apply_loop_correction
-    from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.ops.kernels import hamming
-    from pli_slam_tpu_torch.utils import synthetic
-    from pli_slam_tpu_torch.utils.profile import FLAGSHIP_TRAJ, N_FRAMES_LOOP, SyncSpans, loop_config, slice_camera
+    from pli_slam_tpu_torch.utils.profile import N_FRAMES_LOOP, loop_frames, loop_run
 
-    cfg, cam = loop_config(), slice_camera()
-    traj = synthetic.Trajectory(**FLAGSHIP_TRAJ)
-    n_after = 6  # frames after the closure: the queued GBA chunks run one per non-keyframe frame
     t0 = time.perf_counter()
-    frames = list(synthetic.make_sequence(cam, N_FRAMES_LOOP + n_after, dev, fps=cfg.fps, traj=traj))
+    cfg, cam, traj, frames = loop_frames(dev)
     torch.cuda.synchronize()
     log(f"loop: rendered {len(frames)} frames of bench.py's flagship trajectory in {time.perf_counter() - t0:.2f} s")
-
-    tracker = Tracker(cam, cfg, dev)
-    tracker.streaming = True
-    tracker.span = spans = SyncSpans(dev)  # times the rare paths only: ordinary frames run unsynchronised
-    t_loop, t_gba = spans.ms["loop"], spans.ms["gba"]
-    lc = tracker.loop_closer
-    kf_errs = []  # the largest keyframe error after each GBA chunk
     hamming.reset_launches()
-    ms_plain, loop_frames = [], []
-
-    def run(fr, i):
-        n_gba, n_loop, n_closed = len(t_gba), len(t_loop), lc.n_loops_closed
-        f0 = time.perf_counter()
-        tracker.process(fr["img_l"], fr["img_r"], fr["t"])
-        dt = (time.perf_counter() - f0) * 1e3
-        if len(t_loop) > n_loop:  # a loop verification ran in this frame
-            loop_frames.append((i, round(dt, 2), lc.n_loops_closed > n_closed))
-        elif len(t_gba) > n_gba:
-            kf_errs.append(_kf_error(tracker, traj))
-        elif i > 0:
-            ms_plain.append(dt)
-
-    wall0 = time.perf_counter()
-    for i, fr in enumerate(frames[:N_FRAMES_LOOP]):
-        run(fr, i)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - wall0
-    gt = np.stack([fr["p_w"] for fr in frames])
-    pend, done = list(tracker._traj_pending), list(tracker._traj_done)  # read without consuming
-    ate_run = synthetic.ate_rmse(tracker.positions(), gt[:N_FRAMES_LOOP])
-    tracker._traj_pending, tracker._traj_done = pend, done
-    natural = lc.n_loops_closed
-    planted = None
-    if natural == 0:
-        # no loop candidate reached the closer (as in the reference on these frames):
-        # close the loop between the keyframes that ground truth says overlap
-        kf_cur, kf_loop, cost = _overlapping_pair(tracker, traj, cfg.loop.min_kf_gap)
-        lc._consistency, lc._consistent_with = cfg.loop.consistency_kfs, kf_loop
-        kf_before = _kf_error(tracker, traj)
-        closed = lc.on_keyframe(tracker, kf_cur, [(kf_loop, 1.0)])
-        kf_after = _kf_error(tracker, traj)
-        # the correction once more, warm, on the corrected map (its result is dropped)
-        with spans("correction"):
-            apply_loop_correction(tracker.kstore, tracker.pstore, tracker.lstore, kf_cur, kf_loop,
-                                  torch.eye(3, device=dev), torch.zeros(3, device=dev), cfg)
-        planted = (kf_cur, kf_loop, cost, t_loop[-1], closed, kf_before, kf_after, spans.ms["correction"][0])
-    n_queued = len(tracker._deferred_ba)
-    for i, fr in enumerate(frames[N_FRAMES_LOOP:], N_FRAMES_LOOP):
-        run(fr, i)
-    while tracker._deferred_ba:
-        tracker.run_deferred_ba(1)
-        kf_errs.append(_kf_error(tracker, traj))
-    tracker.finalize()
-    est = tracker.positions()
-    torch.cuda.synchronize()
+    r = loop_run(cfg, cam, traj, frames, dev)
     launches = hamming.launches
+    tracker, lc, t_gba = r["tracker"], r["tracker"].loop_closer, r["t_gba"]
     n_frames = len(frames)
     ok_frames = _consumed_ok(tracker)
-    ate = synthetic.ate_rmse(est, gt) if est.shape == gt.shape else float("nan")
-    ms = np.asarray(ms_plain)
+    est = r["est"]
+    ate = r["ate"]
+    ms = np.asarray(r["ms_plain"])
     pct = lambda q: float(np.percentile(ms, q))  # noqa: E731
     gba_ms = [round(t, 2) for t in t_gba]
-    kf_err_ms = [round(e, 4) for e in kf_errs]
-    log(f"loop: {N_FRAMES_LOOP} frames, ordinary frames: fps {N_FRAMES_LOOP / wall:.3f} over the run, mean "
-        f"{ms.mean():.2f} ms, p50 {pct(50):.2f} ms, p99 {pct(99):.2f} ms; {tracker.n_kf} keyframes, ATE {ate_run:.4f} m, "
-        f"loops closed by the run {natural} (frames with a verification: frame, ms, closed {loop_frames}) [{smi}]")
+    kf_err_ms = [round(e, 4) for e in r["kf_errs"]]
+    log(f"loop: Tracker construction ran the closure's warm-up in {tracker.loop_warmup_ms:.2f} ms [{smi}]")
+    log(f"loop: {N_FRAMES_LOOP} frames, ordinary frames: fps {N_FRAMES_LOOP / r['wall']:.3f} over the run, mean "
+        f"{ms.mean():.2f} ms, p50 {pct(50):.2f} ms, p99 {pct(99):.2f} ms; {r['n_kf_run']} keyframes, ATE "
+        f"{r['ate_run']:.4f} m, loops closed by the run {r['natural']} (frames with a verification: frame, ms, closed "
+        f"{r['loop_frames']}) [{smi}]")
+    planted = r["planted"]
     if planted is not None:
-        log(f"loop: no candidate reached the closer; planted closure keyframe {planted[0]} -> {planted[1]} "
-            f"(ground-truth pose distance {planted[2]:.3f}), verified {planted[4]}, verification + PGO + queueing "
-            f"{planted[3]:.2f} ms (the correction alone once more, warm: {planted[7]:.2f} ms); largest keyframe "
-            f"position error against the truth {planted[5]:.4f} m before, {planted[6]:.4f} m after the correction "
-            f"[{smi}]")
-    log(f"loop: {n_queued} GBA chunks queued, {len(t_gba)} run, ms each {gba_ms}, largest keyframe position error "
-        f"after each {kf_err_ms} m; queue left {len(tracker._deferred_ba)}; "
+        log(f"loop: no candidate reached the closer; planted closure keyframe {planted['kf_cur']} -> "
+            f"{planted['kf_loop']} (ground-truth pose distance {planted['cost']:.3f}), verified {planted['closed']}, "
+            f"verification + PGO + queueing {planted['ms']:.2f} ms (the correction alone once more, warm: "
+            f"{planted['warm_ms']:.2f} ms); largest keyframe position error against the truth "
+            f"{planted['kf_before']:.4f} m before, {planted['kf_after']:.4f} m after the correction [{smi}]")
+    log(f"loop: {r['n_queued']} GBA chunks queued, {len(t_gba)} run, ms each {gba_ms}, largest keyframe position "
+        f"error after each {kf_err_ms} m; queue left {len(tracker._deferred_ba)}; "
         f"ATE {ate:.4f} m over {n_frames} frames, ok frames {ok_frames}/{n_frames}, gated_match launches {launches} "
         f"({launches / (n_frames - 1):.2f} per fused frame) [{smi}]")
     if lc.n_loops_closed < 1:
         raise AssertionError("no loop closed")
-    if tracker._deferred_ba or not t_gba or n_queued < 1:
-        raise AssertionError(f"GBA chunks: {n_queued} queued, {len(t_gba)} run, {len(tracker._deferred_ba)} left")
+    if tracker._deferred_ba or not t_gba or r["n_queued"] < 1:
+        raise AssertionError(f"GBA chunks: {r['n_queued']} queued, {len(t_gba)} run, {len(tracker._deferred_ba)} left")
     if ok_frames < 0.9 * n_frames:
         raise AssertionError(f"only {ok_frames}/{n_frames} frames tracked")
     # the port here: 0.020 m before the closure, 0.20-0.25 m after it and its GBA chunks, whose first throws
     # keyframes ~1 m off in both packages (PERF.md, section 6, loop closing)
-    if not (ate_run < 0.10 and np.all(np.isfinite(est)) and ate < 0.35):
-        raise AssertionError(f"ATE {ate_run} m before the closure, {ate} m after it")
+    if not (r["ate_run"] < 0.10 and np.all(np.isfinite(est)) and ate < 0.35):
+        raise AssertionError(f"ATE {r['ate_run']} m before the closure, {ate} m after it")
     if launches < 2 * (n_frames - 1):
         raise AssertionError(f"gated_match launched {launches} times for {n_frames - 1} fused frames")
     return launches, n_frames, (tracker, traj, frames)
@@ -896,20 +847,36 @@ def phase_atlas(dev, smi):
 N_LOCALIZE = 5
 # The reference (pli_slam_tpu on its accelerator branch, run on a CPU) over the same frames through its own
 # System, streaming (tests/test_torch_mono_rgbd.py::test_full_width_reference_runs, slow): RGB-D ATE
-# 0.0124 m over the 3.20 m path with its own renderer's images, but 0.175 m with the port's, which differ
-# in a few pixels: on this deployment windowed BA throws keyframes 0.2-0.4 m off in the reference, and the
-# port does the same on the card (0.018-0.118 m over seven runs; PERF.md, section 6). So the ATE bound is a
-# divergence guard above what both packages do.
-REF_ATE_RGBD = (0.0124, 0.175)  # the reference on its own images, on the port's
-RGBD_ATE_BOUND = 0.30
+# 0.0124 m over the 3.20 m path on its own renderer's images, 0.1752 m on the port's, which are the
+# card's (rendered on the host, FRAME0_SHA256). On this deployment (TUM3's bf 40 puts the far-point cutoff
+# inside the room) windowed BA throws keyframes 0.2-0.4 m off in both packages (ROADMAP queue 3 B3): the
+# largest aligned error is 0.383 m in the reference's run and 0.288 m in the card's, and phase 7 keeps that
+# configuration so that the defect stays in view. Since the Hough votes and the PGO sum in fixed point on
+# the card, its runs are bit-identical: ATE 0.120358 m in four runs of one call and in the whole script
+# (PERF.md, section 6, the dataset ingest path). The bound is that value with a margin of 1.5x, so a change that moves the run
+# further is caught; phase 9b holds the same frames, quantised to 8 bits and read back through the TUM
+# loader (0.0577 m), to the same bound.
+REF_ATE_RGBD = (0.0124, 0.1752)  # the reference on its own images, on the port's (the card's)
+RGBD_ATE_CARD = 0.120358
+RGBD_ATE_BOUND = 1.5 * RGBD_ATE_CARD
+# SHA-256 of phase 4's first stereo pair, float32 bytes: the host renders, so the card tracks a CPU's pixels
+FRAME0_SHA256 = "0489db0458d05833810cc36832a2ba22a9125f3eb793c7acc7b7bd6afff1b8e0"
+# Phase 9c: the reference's scripts/run_kitti.py on the same written folder, at full width on a CPU
+# (tests/test_torch_drivers.py::test_full_width_reference_kitti, slow): ATE 0.0289 m over 30 frames, 6
+# keyframes. The card's run (bit-reproducible): 0.0425 m (PERF.md, section 6, the dataset ingest path). The bound is a
+# divergence guard at about 3.5x the reference's.
+REF_ATE_KITTI = 0.0289
+KITTI_ATE_BOUND = 0.10
 # Mono, same reference: initialized at frame 1 (its two-view reconstruction succeeds on consecutive 20 fps
 # frames of this scene at 752x480, so no stride is needed), 39 of 40 frames tracked, 14 keyframes,
-# Sim(3)-aligned ATE 0.519 m over the 4.96 m path. The port draws its own RANSAC hypotheses (the
-# reference's cannot be reproduced in torch), so its two-view initialization may pick another sample:
-# the initialization may come MONO_INIT_MARGIN frames later, and the ATE bound is 2x the reference's.
+# Sim(3)-aligned ATE 0.5186 m over the 4.96 m path on the port's (the card's) images, 0.519 m on its own.
+# The port draws its own RANSAC hypotheses (the reference's cannot be reproduced in torch), so its two-view
+# initialization may pick another sample: the initialization may come MONO_INIT_MARGIN frames later, and
+# the ATE bound is 2x the reference's.
+REF_INIT_MONO_OWN, REF_ATE_MONO_OWN = 1, 0.519  # the reference on its own images
 REF_INIT_MONO = 1
 MONO_INIT_MARGIN = 2
-REF_ATE_MONO = 0.519
+REF_ATE_MONO = 0.5186
 MONO_ATE_BOUND = 1.0
 
 
@@ -961,8 +928,11 @@ def phase_rgbd(dev, smi):
         raise AssertionError(f"rgbd: trajectory shape {est.shape} / finite {np.all(np.isfinite(est))}")
     ate = tio.ate_rmse(est, gt)
     n_fused = N_FRAMES_RGBD - 1
+    s_, R_, t_ = tio.align_umeyama(est, gt)
+    worst = float(np.linalg.norm(s_ * est @ R_.T + t_ - gt, axis=1).max())
     log(f"rgbd: System.track_rgbd over {N_FRAMES_RGBD} frames, frames 1-{n_fused}: {_frame_times(ms)}; ATE {ate:.4f} m "
-        f"(the reference: {REF_ATE_RGBD[0]} m on its own images, {REF_ATE_RGBD[1]} m on the port's), {tracker.n_kf} "
+        f"(bound {RGBD_ATE_BOUND:.4f} m; the reference: {REF_ATE_RGBD[0]} m on its own images, {REF_ATE_RGBD[1]} m on "
+        f"these), largest aligned error {worst:.4f} m (windowed BA's RGB-D excursions, queue 3 B3), {tracker.n_kf} "
         f"keyframes, ok frames {ok_frames}/{N_FRAMES_RGBD}, "
         f"gated_match launches {launches} ({launches / n_fused:.2f} per fused frame) [{smi}]")
 
@@ -1011,7 +981,7 @@ def phase_rgbd(dev, smi):
         raise AssertionError(f"rgbd: localization after load_map: states {states}, map grown by {grown}")
     if lines["trajectory_tum"] != N_FRAMES_RGBD or lines["keyframe_trajectory_tum"] != tracker.n_kf:
         raise AssertionError(f"rgbd: trajectory files {lines}")
-    return launches + launches_loc, n_fused + N_LOCALIZE  # the loaded map's frames run the fused step too
+    return launches + launches_loc, n_fused + N_LOCALIZE, frames  # the loaded map's frames run the fused step too
 
 
 def phase_mono(dev, smi):
@@ -1054,7 +1024,7 @@ def phase_mono(dev, smi):
     n_tracked = len(frames) - init - 1
     log(f"mono: System.track_monocular over {len(frames)} consecutive frames: initialized at frame {init} "
         f"(the reference: {REF_INIT_MONO}), that frame {init_ms:.1f} ms; frames {init + 1}-{len(frames) - 1}: "
-        f"{_frame_times(ms)}; Sim(3) ATE {ate:.4f} m (the reference's own run: {REF_ATE_MONO} m), {tracker.n_kf} "
+        f"{_frame_times(ms)}; Sim(3) ATE {ate:.4f} m (the reference on these frames: {REF_ATE_MONO} m), {tracker.n_kf} "
         f"keyframes, ok frames {ok_frames}/{len(frames)}, gated_match launches {launches} ({init_launches} up to the "
         f"initialization, {(launches - init_launches) / max(n_tracked, 1):.2f} per frame after it) [{smi}]")
     if init > REF_INIT_MONO + MONO_INIT_MARGIN:
@@ -1099,6 +1069,250 @@ def phase_rectifier(dev, smi):
         raise AssertionError(f"rectifier: card and CPU differ by {err}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the dataset ingest path, the port's drivers on written dataset folders
+# ---------------------------------------------------------------------------
+
+KITTI_CAM = dict(fx=KITTI_FX, fy=KITTI_FX, cx=607.1928, cy=185.2157, baseline=0.537, width=1241, height=376)
+KITTI_TRAJ = dict(amp=(1.2, 0.3, 1.5), freq=(0.1, 0.12, 0.08), yaw_amp=0.3, yaw_freq=0.1)  # forward, car-like
+N_FRAMES_KITTI = 30
+N_FRAMES_LIVE = 40
+N_FRAMES_VOCAB = 12  # frames of 9a's folder the vocabularies are trained on
+
+
+def _plot_args():
+    """`--no-plots` when the card's Python has no matplotlib (said in the log)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return ["--no-plots"], "no matplotlib: the drivers run with --no-plots"
+    return [], "matplotlib found: the drivers write their plots"
+
+
+def _driver_line(name, summary, launches, smi):
+    ate = summary.get("ate")
+    return (f"{name}: {summary['frames']} frames, fps {summary['fps']:.3f}, p50 {summary['p50_ms']:.2f} ms, p99 "
+            f"{summary['p99_ms']:.2f} ms (each frame synchronised), ingest {summary['ingest_ms']:.2f} ms and track "
+            f"{summary['track_ms']:.2f} ms a frame; ATE {'none' if ate is None else f'{ate:.4f} m'}, "
+            f"{summary['n_kf']} keyframes; gated_match launches {launches} [{smi}]")
+
+
+def _run_driver(module, argv):
+    """A driver's main() in this process; its launches and summary.json."""
+    import importlib
+
+    from pli_slam_tpu_torch.ops.kernels import hamming
+
+    out = argv[argv.index("--out") + 1]
+    hamming.reset_launches()
+    rc = importlib.import_module(f"pli_slam_tpu_torch.scripts.{module}").main(argv)
+    launches = hamming.launches
+    if rc != 0:
+        raise AssertionError(f"{module} returned {rc}")
+    with open(os.path.join(out, "summary.json")) as f:
+        return json.load(f), launches
+
+
+def phase_euroc(dev, smi, work, vi, plots):
+    """9a: phase 5's frames written as an ASL folder (8-bit PNGs, all five row
+    filters, 200 Hz imu0/data.csv, ground truth) with a reference-style YAML
+    (phase 5's camera, Tbc = identity, no rectification blocks), through
+    `run_euroc --stereo-imu --native-loader --config`. Guards: the IMU slices
+    read back equal phase 5's samples; phase 5's ATE bounds."""
+    import numpy as np
+
+    from pli_slam_tpu_torch.utils import dataset_writers as dw
+    from pli_slam_tpu_torch.utils import trajectory as tio
+    from pli_slam_tpu_torch.utils.euroc import EurocSequence
+    from pli_slam_tpu_torch.utils.profile import slice_camera
+
+    cfg, frames = vi
+    root, yaml, out = os.path.join(work, "euroc"), os.path.join(work, "euroc.yaml"), os.path.join(work, "out_euroc")
+    t0 = time.perf_counter()
+    dw.write_euroc(root, frames, cfg.fps, filter_type=None)
+    dw.write_euroc_yaml(yaml, slice_camera(), cfg)
+    t_write = time.perf_counter() - t0
+    n_imu = 0
+    for k, fr in enumerate(EurocSequence(root).frames()):
+        if k == 0:
+            continue  # the loader's first frame has no IMU slice
+        mem = frames[k]
+        if not (np.array_equal(fr["imu_gyro"], mem["imu_gyro"]) and np.array_equal(fr["imu_acc"], mem["imu_acc"])
+                and np.abs(fr["imu_stamps"] - mem["imu_stamps"]).max() < 1e-6):
+            raise AssertionError(f"euroc: frame {k}'s IMU slice read back differs from phase 5's samples")
+        n_imu += len(fr["imu_gyro"])
+    summary, launches = _run_driver("run_euroc", [root, "--stereo-imu", "--native-loader", "--config", yaml,
+                                                  "--out", out, *plots])
+    est = np.stack([p for _, _, p in tio.load_tum(os.path.join(out, "trajectory_tum.txt"))])
+    gt = np.stack([fr["p_w"] for fr in frames])
+    init = summary["imu_init_frame"]
+    n_head = len(frames) if init is None else init + 1
+    ate_head = tio.ate_rmse(est[:n_head], gt[:n_head])
+    log(f"euroc: wrote {len(frames)} stereo pairs {frames[0]['img_l'].shape[1]}x{frames[0]['img_l'].shape[0]} and "
+        f"{n_imu} IMU samples in {t_write:.2f} s; IMU slices read back equal phase 5's; run_euroc --stereo-imu "
+        f"--native-loader --config: IMU initialized at frame {init}, ATE of frames 0-{n_head - 1} {ate_head:.4f} m")
+    log(_driver_line("euroc", summary, launches, smi))
+    if summary["frames"] != len(frames) or est.shape != gt.shape or not np.all(np.isfinite(est)):
+        raise AssertionError(f"euroc: {summary['frames']} frames run, trajectory {est.shape}")
+    if not ate_head < 0.10 or not summary["ate"] < 2.0:
+        raise AssertionError(f"euroc: ATE {ate_head} m up to the IMU initialization, {summary['ate']} m over the run")
+    if launches < 2 * (len(frames) - 1):
+        raise AssertionError(f"euroc: gated_match launched {launches} times for {len(frames) - 1} tracked frames")
+    return root, yaml, launches, len(frames)
+
+
+def phase_tum(dev, smi, work, rgbd_frames, plots):
+    """9b: phase 7's frames as a TUM RGB-D folder (8-bit RGB, 16-bit depth at
+    factor 5000, depth stamped 4 ms after its image), through `run_tum
+    --freiburg 3`. Guard: phase 7's."""
+    from pli_slam_tpu_torch.utils import dataset_writers as dw
+    from pli_slam_tpu_torch.utils.datasets import TumRgbdSequence
+
+    root, out = os.path.join(work, "tum"), os.path.join(work, "out_tum")
+    dw.write_tum(root, rgbd_frames, 30.0)
+    n_assoc = len(TumRgbdSequence(root))
+    summary, launches = _run_driver("run_tum", [root, "--freiburg", "3", "--out", out, *plots])
+    log(f"tum: {len(rgbd_frames)} frames written, {n_assoc} associated across the 4 ms stamp offset")
+    log(_driver_line("tum", summary, launches, smi))
+    if n_assoc != len(rgbd_frames) or summary["frames"] != n_assoc:
+        raise AssertionError(f"tum: {n_assoc} of {len(rgbd_frames)} frames associated, {summary['frames']} run")
+    if not summary["ate"] < RGBD_ATE_BOUND:
+        raise AssertionError(f"tum: ATE {summary['ate']} m >= {RGBD_ATE_BOUND} m")
+    if launches < 2 * (summary["frames"] - 1):
+        raise AssertionError(f"tum: gated_match launched {launches} times for {summary['frames'] - 1} fused frames")
+    return launches, summary["frames"]
+
+
+def kitti_frames(dev):
+    """Phase 9c's frames: KITTI 00's rectified stereo camera (1241x376, baseline
+    0.537 m) at 10 fps on a forward, car-like trajectory through the room."""
+    from pli_slam_tpu_torch.ops.camera import Camera
+    from pli_slam_tpu_torch.utils import synthetic
+
+    c = KITTI_CAM
+    cam = Camera.pinhole(fx=c["fx"], fy=c["fy"], cx=c["cx"], cy=c["cy"], bf=c["fx"] * c["baseline"],
+                         width=c["width"], height=c["height"])
+    return list(synthetic.make_sequence(cam, N_FRAMES_KITTI, dev, fps=10.0, traj=synthetic.Trajectory(**KITTI_TRAJ)))
+
+
+def phase_kitti(dev, smi, work, plots):
+    """9c: KITTI at 1241x376 with 2000 ORB through `run_kitti`. Guard: set from
+    the reference's run of the same folder (REF_ATE_KITTI)."""
+    from pli_slam_tpu_torch.utils import dataset_writers as dw
+
+    c = KITTI_CAM
+    root, out = os.path.join(work, "kitti"), os.path.join(work, "out_kitti")
+    dw.write_kitti(root, kitti_frames("cpu"), 10.0, c["fx"], c["fy"], c["cx"], c["cy"], c["baseline"])
+    summary, launches = _run_driver("run_kitti", [root, "--out", out, *plots])
+    log(_driver_line(f"kitti (the reference on this folder: ATE {REF_ATE_KITTI} m)", summary, launches, smi))
+    if summary["frames"] != N_FRAMES_KITTI or not summary["ate"] < KITTI_ATE_BOUND:
+        raise AssertionError(f"kitti: {summary['frames']} frames, ATE {summary['ate']} m (bound {KITTI_ATE_BOUND} m)")
+    if launches < 2 * (N_FRAMES_KITTI - 1):
+        raise AssertionError(f"kitti: gated_match launched {launches} times for {N_FRAMES_KITTI - 1} fused frames")
+    return launches, N_FRAMES_KITTI
+
+
+def phase_live(dev, smi, work, root, yaml):
+    """9d: `run_live` on 9a's folder at 20 Hz for 40 frames: at the port's rate
+    most frames are dropped by the bounded queue, and those still queued when
+    the feed stops are not tracked (the synchronizer returns on `stop()`, as
+    the reference's does). Guard: every delivered frame is tracked or
+    reported lost, and the run ends."""
+    out = os.path.join(work, "out_live")
+    summary, launches = _run_driver("run_live", [root, "--rate", "20", "--frames", str(N_FRAMES_LIVE), "--config", yaml,
+                                                 "--out", out])
+    log(f"live: pushed {summary['pushed']} frames at 20 Hz, delivered {summary['delivered']}, dropped "
+        f"{summary['dropped']} by the bounded queue, {summary['left']} left in it when the feed stopped, in "
+        f"{summary['seconds']:.2f} s; states {summary['states']}, "
+        f"{summary['n_kf']} keyframes; gated_match launches {launches} [{smi}]")
+    if summary["pushed"] != N_FRAMES_LIVE or summary["delivered"] < 1:
+        raise AssertionError(f"live: {summary}")
+    if sum(summary["states"].values()) != summary["delivered"]:
+        raise AssertionError(f"live: delivered {summary['delivered']} frames but reported {summary['states']}")
+    return launches, summary["delivered"]
+
+
+def phase_vocab(dev, smi, work, root, room):
+    """9e: `train_vocab --euroc` on 9a's folder (1024 point and 1024 line
+    words), the trained `words` on the card against the CPU, then a Tracker
+    with both trained vocabularies over phase 4's frames (phase 4's ATE
+    guard). Prints the keyframes' BoW rows and the last keyframe's best
+    loop-query score."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.frontend import step as step_mod
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.ops import orb
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.scripts import train_vocab
+    from pli_slam_tpu_torch.utils import synthetic
+    from pli_slam_tpu_torch.utils.profile import slice_camera, slice_config
+    from pli_slam_tpu_torch.worldmap.vocab import TrainedVocabulary
+
+    prefix = os.path.join(work, "vocab")
+    t0 = time.perf_counter()
+    if train_vocab.main(["--euroc", root, "--out", prefix, "--words", "1024", "--line-words", "1024",
+                         "--frames", str(N_FRAMES_VOCAB)]) != 0:
+        raise AssertionError("train_vocab failed")
+    t_train = time.perf_counter() - t0
+    voc_pt, voc_ln = TrainedVocabulary.load(prefix + "_pt.npz"), TrainedVocabulary.load(prefix + "_ln.npz")
+    cfg, cam = slice_config(), slice_camera()
+    f = orb.extract(room[0]["img_l"].to(dev), cfg.orb)
+    w_dev = voc_pt.words(f.desc, f.valid).cpu()
+    w_cpu = voc_pt.words(f.desc.cpu(), f.valid.cpu())
+    if not torch.equal(w_dev, w_cpu):
+        raise AssertionError(f"vocab: words differ between card and CPU in {(w_dev != w_cpu).sum().item()} rows")
+    tracker = Tracker(cam, cfg, dev, vocab_pt=voc_pt, vocab_ln=voc_ln)
+    tracker.streaming = True
+    hamming.reset_launches()
+    for fr in room:
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"])
+    tracker.finalize()
+    launches = hamming.launches
+    est, gt = tracker.positions(), np.stack([fr["p_w"] for fr in room])
+    ate = synthetic.ate_rmse(est, gt)
+    db, n_kf = tracker.bow_db, tracker.n_kf
+    rows = int(db.valid.sum())
+    nnz = (db.hist_pt[:n_kf] > 0).sum(1).tolist()
+    k = n_kf - 1
+    excl = torch.arange(db.valid.shape[0], device=dev) >= max(n_kf - cfg.loop.min_kf_gap, 0)
+    _, scores = step_mod.vocab_query(db, db.hist_pt[k], db.hist_ln[k], excl, n_best=step_mod.N_LOOP_CANDS,
+                                     covis=tracker.kstore.covis)
+    log(f"vocab: train_vocab on {N_FRAMES_VOCAB} frames of 9a's folder in {t_train:.2f} s: {voc_pt.n_words} point and "
+        f"{voc_ln.n_words} line words; words on the card equal the CPU's for {int(f.valid.sum())} descriptors; "
+        f"Tracker(vocab_pt=, vocab_ln=) over phase 4's {len(room)} frames: ATE {ate:.4f} m, {n_kf} keyframes, "
+        f"{rows} BoW rows ({db.hist_pt.shape[1]} / {db.hist_ln.shape[1]} words wide; words per keyframe {nnz}), "
+        f"the last keyframe's loop query best score {float(scores[0]):.4f}; gated_match launches {launches} [{smi}]")
+    # keyframe 0, made by the map's initialization, gets no BoW row (in the reference too)
+    if rows != n_kf - 1 or db.hist_pt.shape[1] != voc_pt.n_words or db.hist_ln.shape[1] != voc_ln.n_words:
+        raise AssertionError(f"vocab: {rows} BoW rows for {n_kf} keyframes, widths {tuple(db.hist_pt.shape)}")
+    if not ate < 0.10:
+        raise AssertionError(f"vocab: ATE {ate} m >= 0.10 m")
+    if launches < 2 * (len(room) - 1):
+        raise AssertionError(f"vocab: gated_match launched {launches} times for {len(room) - 1} fused frames")
+    return launches, len(room)
+
+
+def phase_ingest(dev, smi, vi, rgbd_frames, room):
+    """Phase 9 (see the module docstring): 9a-9e in a scratch folder under build/."""
+    import shutil
+    import tempfile
+
+    plots, said = _plot_args()
+    log(f"ingest: {said}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase9_", dir=os.path.join(ROOT, "build"))
+    try:
+        root, yaml, l_euroc, n_euroc = phase_euroc(dev, smi, work, vi, plots)
+        counts = {"euroc": (l_euroc, n_euroc), "tum": phase_tum(dev, smi, work, rgbd_frames, plots),
+                  "kitti": phase_kitti(dev, smi, work, plots), "live": phase_live(dev, smi, work, root, yaml),
+                  "vocab": phase_vocab(dev, smi, work, root, room)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1122,24 +1336,30 @@ def main() -> int:
 
     max_err, times = phase_kernels(dev)
     phase_small_reference(dev)
-    launches, n_frames = phase_main_path(dev, smi)
-    launches_vi, n_frames_vi = phase_vi_path(dev, smi)
+    launches, n_frames, room = phase_main_path(dev, smi)
+    launches_vi, n_frames_vi, vi = phase_vi_path(dev, smi)
     launches_loop, n_frames_loop, run = phase_loop(dev, smi)
     launches_kidnap = phase_kidnap(dev, smi, run)
     launches_atlas = phase_atlas(dev, smi)
     launches_ra = launches_kidnap + launches_atlas
-    launches_rgbd, n_fused_rgbd = phase_rgbd(dev, smi)
+    launches_rgbd, n_fused_rgbd, rgbd_frames = phase_rgbd(dev, smi)
     launches_mono, n_frames_mono = phase_mono(dev, smi)
     phase_rectifier(dev, smi)
+    ingest = phase_ingest(dev, smi, vi, rgbd_frames, room)
+    launches_ingest = sum(n for n, _ in ingest.values())
 
     from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
 
     k_ms, p_ms, c_ms = times["track_r15"]
     kf_ms, pf_ms, cf_ms = times["fuse"]
+    kk_ms, pk_ms, ck_ms = times["kitti_track_r15"]
+    kkf_ms, pkf_ms, ckf_ms = times["kitti_fuse"]
     (b_ms, b_by), (bf_ms, _) = bound_ms(1200, 4096), bound_ms(1200, 16384)
+    (bk_ms, _), (bkf_ms, _) = bound_ms(2000, 4096), bound_ms(2000, 16384)
     log(json.dumps({"kernels": [{
         "name": "gated_match", "route": "cuda", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
-        "launches": launches + launches_vi + launches_loop + launches_ra + launches_rgbd + launches_mono,
+        "launches": launches + launches_vi + launches_loop + launches_ra + launches_rgbd + launches_mono
+        + launches_ingest,
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "call_ms": c_ms, "shape": "N=1200 x P=4096",
         "ms_fuse": kf_ms, "plain_ms_fuse": pf_ms, "bound_ms_fuse": bf_ms, "call_ms_fuse": cf_ms,
@@ -1149,8 +1369,14 @@ def main() -> int:
         "launches_per_frame_loop": launches_loop / (n_frames_loop - 1), "launches_rgbd": launches_rgbd,
         "launches_per_frame_rgbd": launches_rgbd / n_fused_rgbd, "launches_mono": launches_mono,
         "launches_per_frame_mono": launches_mono / n_frames_mono,
+        "ms_n2000": kk_ms, "plain_ms_n2000": pk_ms, "bound_ms_n2000": bk_ms, "call_ms_n2000": ck_ms,
+        "shape_n2000": "N=2000 x P=4096", "ms_fuse_n2000": kkf_ms, "plain_ms_fuse_n2000": pkf_ms,
+        "bound_ms_fuse_n2000": bkf_ms, "call_ms_fuse_n2000": ckf_ms, "shape_fuse_n2000": "N=2000 x P=16384",
+        **{f"launches_{name}": n for name, (n, _) in ingest.items()},
+        **{f"launches_per_frame_{name}": n / max(frames - 1, 1) for name, (n, frames) in ingest.items()},
     }]}))
     log(smi)
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

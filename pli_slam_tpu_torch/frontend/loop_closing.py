@@ -9,6 +9,10 @@ RANSAC (`solve.sim3`) and the projection re-check; then the essential-graph
 PGO (`solve.pgo`) with landmark re-anchoring, line endpoints included, and
 the global BA, queued on the tracker as per-frame chunks.
 
+`LoopCloser.warm_up` runs each of those solvers once on empty stores of
+the real shapes; `Tracker` calls it at construction on a GPU, so that the
+first closure in a process does not pay for loading their kernels.
+
 Random draws go through `LoopCloser.draw` (default `solve.sim3.sample_indices`,
 seeded with the reference's `kf_slot * 7 + candidate`); a parity test can
 hand in the reference's own draw instead.
@@ -17,6 +21,7 @@ hand in the reference's own draw instead.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -159,6 +164,32 @@ class LoopCloser:
         # every other sensor is metric and the loop is rigid
         self.with_scale = cfg.sensor == "mono"
         self.draw = sim3.sample_indices if draw is None else draw
+
+    def warm_up(self, tracker) -> float:
+        """Run each solver a closure uses once on `tracker`'s stores, results
+        dropped: 3D-3D matching, RANSAC, the projection re-check, the
+        essential-graph PGO in every mode the tracker can reach (one
+        iteration each, on the [7K, 7K] system of the real K) and one
+        whole-map BA iteration. The first closure in a process otherwise
+        pays for loading these kernels and creating the solver handles
+        (9-15 s on an H100, against ~2 s warm). Returns its wall time in ms,
+        the device synchronised at the end."""
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(self.cfg, opt=dataclasses.replace(self.cfg.opt, pgo_iters=1))
+        ks, ps, ls = tracker.kstore, tracker.pstore, tracker.lstore
+        x, y, m = match_kf_landmarks(ks, ps, 1, 0)
+        R_rel, t_rel, s_rel, _, _ = self._ransac(x, y, m, 0)
+        projection_support(tracker.cam, ks, ps, 1, 0, R_rel, t_rel, s_rel, radius=cfg.loop.proj_radius_px)
+        for inertial in (False, True) if tracker.use_imu else (False,):
+            apply_loop_correction(ks, ps, ls, 1, 0, R_rel, t_rel, cfg, inertial=inertial,
+                                  s_rel=s_rel if self.with_scale else None)
+        if cfg.loop.run_gba:
+            from pli_slam_tpu_torch.frontend.step import global_ba
+
+            global_ba(tracker.cam, cfg, ks, ps, ls, iters=1)
+        if ks.R.device.type == "cuda":
+            torch.cuda.synchronize(ks.R.device)
+        return (time.perf_counter() - t0) * 1e3
 
     def _ransac(self, x, y, m, seed: int):
         idx = self.draw(seed, sim3.mask_probs(m), (self.cfg.loop.sim3_hypotheses, 3))

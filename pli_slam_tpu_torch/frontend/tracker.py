@@ -92,11 +92,17 @@ class Tracker:
     """Orchestrates the per-frame device programs on `device`: the GPU
     unless the caller names another (`device=None` means
     `torch.device("cuda")`; the CPU is used only when asked for).
-    `rectifier`: an ops.rectify.StereoRectifier for raw stereo pairs."""
+    `rectifier`: an ops.rectify.StereoRectifier for raw stereo pairs.
+    `vocab_pt` / `vocab_ln`: the point and line vocabularies (a
+    worldmap.vocab.TrainedVocabulary, e.g. from scripts.train_vocab); the
+    LSH vocabularies by default. The BoW database is sized by each one's
+    `n_words` (the reference sizes both halves by the point vocabulary's).
+    On a GPU with loop closing on, construction runs
+    `LoopCloser.warm_up` (its time in `loop_warmup_ms`)."""
 
     SENSORS = ("stereo", "stereo_imu", "rgbd", "mono")
 
-    def __init__(self, cam: Camera, cfg: SlamConfig, device=None, rectifier=None):
+    def __init__(self, cam: Camera, cfg: SlamConfig, device=None, rectifier=None, vocab_pt=None, vocab_ln=None):
         if cfg.sensor not in self.SENSORS:
             raise NotImplementedError(f"sensor {cfg.sensor!r}: the port runs {', '.join(self.SENSORS)}")
         self.is_mono = cfg.sensor == "mono"
@@ -121,9 +127,9 @@ class Tracker:
             self.build_frame = partial(build_frame, cam, cfg)
         self._mono_init_frame = None  # (FrameData, stamp) of the anchor awaiting its second view
         self._kf_views: list[tuple] = []  # (uv, desc, valid, kf_slot) of the last 3 keyframes (mono)
-        self.voc_pt = vocab_mod.Vocabulary(seed=17)  # the reference's LSH defaults
-        self.voc_ln = vocab_mod.Vocabulary(seed=23)
-        self.bow_db = vocab_mod.BowDatabase.empty(cfg.map.max_keyframes, self.voc_pt.n_words, dev)
+        self.voc_pt = vocab_pt if vocab_pt is not None else vocab_mod.Vocabulary(seed=17)  # the reference's LSH defaults
+        self.voc_ln = vocab_ln if vocab_ln is not None else vocab_mod.Vocabulary(seed=23)
+        self.bow_db = self._empty_bow_db()
         self._step = step_mod.make_step_visual(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame)
         # deferred BA chunks, one executed per later non-keyframe frame
         self._deferred_ba: list[tuple] = []
@@ -188,6 +194,13 @@ class Tracker:
         self._map_event_cooldown = 0
         if self.use_imu:
             self._step_vi = step_mod.make_step_vi(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame)
+        self.loop_warmup_ms = None
+        if self.loop_closer is not None and dev.type == "cuda":
+            self.loop_warmup_ms = self.loop_closer.warm_up(self)
+
+    def _empty_bow_db(self):
+        return vocab_mod.BowDatabase.empty(self.cfg.map.max_keyframes, self.voc_pt.n_words, self.device,
+                                           n_words_ln=self.voc_ln.n_words)
 
     # -- pose helpers --------------------------------------------------------
     def _use_motion_model(self) -> torch.Tensor:
@@ -499,7 +512,7 @@ class Tracker:
         self.v_w = torch.zeros(3, device=dev)
         self._vi_fused_active = False
         self._preint_acc = None
-        self.bow_db = vocab_mod.BowDatabase.empty(cfg.map.max_keyframes, self.voc_pt.n_words, dev)
+        self.bow_db = self._empty_bow_db()
         if self.loop_closer is not None:
             self.loop_closer = LoopCloser(cfg, self.draw)
 

@@ -16,6 +16,11 @@ The reference leans on XLA behaviours that torch does not share:
 - `jnp.nanmedian` interpolates at the middle, so an even count averages
   the two middle values; `torch.nanmedian` returns the lower one.
   `nanmedian` follows the reference.
+- `x.at[idx].add(v)` on floats: torch's `index_add` on CUDA sums with
+  atomics in whatever order the threads arrive, so two runs of one build
+  can round differently. `deterministic_index_add` sums there in 64-bit
+  fixed point (`fixed_point_index_add`), where integer additions give the
+  same bits in any order.
 
 Gathers and scatters here never see an out-of-range index: callers clamp
 and mask explicitly (an out-of-range index is a device assert on CUDA).
@@ -42,6 +47,38 @@ def scatter_set(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torc
 def scatter_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """Functional `dst.at[idx].add(src)` along dim 0."""
     return dst.index_add(0, idx.long(), src.to(dst.dtype))
+
+
+def deterministic_index_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Functional `dst.index_add(0, idx, src)` for a float `dst` that gives
+    the same bits in every run: on the CPU `index_add` itself, which adds in
+    update order as XLA's CPU scatter does; on CUDA, whose `index_add` adds
+    with atomics in arrival order, `fixed_point_index_add`."""
+    if dst.device.type != "cuda":
+        return dst.index_add(0, idx.long(), src.to(dst.dtype))
+    return fixed_point_index_add(dst, idx, src)
+
+
+def fixed_point_index_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """`dst.index_add(0, idx, src)` whose result does not depend on the order
+    of the additions, on any device. Each column of `src` [N, ...] is scaled
+    by the power of two that brings the sum of its magnitudes just under
+    2**62, rounded to int64 and summed with integer adds (exact in any order,
+    CUDA atomics included), then scaled back and added to `dst` in float64:
+    each destination is its sum correctly rounded, with a quantization error
+    below N * 2**-62 of its column's magnitude sum. A destination that
+    receives a non-finite row becomes NaN."""
+    n = src.shape[0]
+    v = src.reshape(n, -1).to(torch.float64)
+    finite = torch.isfinite(v)
+    v = torch.where(finite, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    exp = torch.clamp(61.0 - torch.ceil(torch.log2(torch.clamp(v.abs().sum(0), min=1e-300))), max=1000.0)
+    q = torch.round(torch.ldexp(v, exp)).to(torch.int64)
+    acc = torch.zeros((dst.shape[0], q.shape[1]), dtype=torch.int64, device=dst.device).index_add_(0, idx.long(), q)
+    bad = torch.zeros(acc.shape, dtype=torch.int32, device=dst.device).index_add_(0, idx.long(), (~finite).to(torch.int32))
+    out = dst.reshape(dst.shape[0], -1).to(torch.float64) + torch.ldexp(acc.to(torch.float64), -exp)
+    out = torch.where(bad > 0, torch.full((), float("nan"), dtype=out.dtype, device=out.device), out)
+    return out.to(dst.dtype).reshape(dst.shape)
 
 
 def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -14,10 +14,12 @@ Parity notes:
   cummax formulation with identical integer outputs;
 - `reduce_window(..., "SAME")` pads floor/ceil for even windows; the
   explicit padding in `_max_window_same` does the same;
-- the Hough votes are a float32 `index_add_`: on the CPU it sums in
-  update order like XLA's CPU scatter, on CUDA atomics sum in another
-  order, so accumulator cells can differ in the last bits there and
-  equal-score peaks may swap. No test compares lines across devices.
+- the Hough votes are summed by `indexing.deterministic_index_add`: on the
+  CPU in update order, like XLA's CPU scatter; on CUDA in 64-bit fixed
+  point, so that two runs on the card give the same lines (float atomics
+  add in arrival order). The card's cells are the correctly rounded sums
+  and may differ from the CPU's in the last bits, so equal-score peaks may
+  swap between the devices. No test compares lines across devices.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 from pli_slam_tpu_torch.utils.config import LineConfig
 from pli_slam_tpu_torch.ops import image as image_ops
 from pli_slam_tpu_torch.ops.fast import max_pool_same
-from pli_slam_tpu_torch.ops.indexing import top_k
+from pli_slam_tpu_torch.ops.indexing import deterministic_index_add, top_k
 
 
 def _deg2rad_f32(deg: float) -> float:
@@ -120,14 +122,16 @@ def _hough_vote(edge, gx, gy, mag, cfg: LineConfig, h: int, w: int):
     gy_v = gy.reshape(-1)[flat_idx]
     theta = torch.atan2(gy_v, gx_v) % math.pi
     tbin0 = (theta * (T / math.pi)).to(torch.int32) % T
-    acc = torch.zeros(T * R, dtype=torch.float32, device=gx.device)
     diag32 = float(np.float32(diag))
+    cells = []
     for dt in (-1, 0, 1):
         tb = (tbin0 + dt) % T
         th = (tb.float() + 0.5) * (math.pi / T)
         rho = xs * torch.cos(th) + ys * torch.sin(th)
         rbin = torch.clamp(((rho + diag32) / cfg.rho_res).to(torch.int32), 0, R - 1)
-        acc = acc.index_add(0, (tb * R + rbin).long(), weight)
+        cells.append(tb * R + rbin)
+    acc = deterministic_index_add(torch.zeros(T * R, dtype=torch.float32, device=gx.device), torch.cat(cells),
+                          weight.repeat(3))
     return acc.reshape(T, R), diag32, R
 
 

@@ -4,7 +4,9 @@ pli_slam_tpu.solve.pgo).
 Poses are world->camera Sim3 (R, t, s). Every edge residual
 r = log(S_m^-1 S_j S_i^-1) and its two 7x7 Jacobians come from one batched
 forward-mode pass over all edges (`ops.autodiff.jacfwd`), the blocks are
-scattered into a dense [K, K, 7, 7] Hessian and the [7K, 7K] system is
+summed into a dense [K, K, 7, 7] Hessian by
+`ops.indexing.deterministic_index_add` (on the card in fixed point, so that
+every run gives the same bits) and the [7K, 7K] system is
 solved with `torch.linalg.solve_ex` (no host check; a singular or
 non-finite step is dropped on the device, as the reference drops a
 non-finite one). The reference's `fori_loop` is a Python loop.
@@ -17,7 +19,7 @@ import dataclasses
 import torch
 
 from pli_slam_tpu_torch.ops import autodiff, lie
-from pli_slam_tpu_torch.ops.indexing import top_k
+from pli_slam_tpu_torch.ops.indexing import deterministic_index_add, top_k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,15 +106,12 @@ def optimize(graph: PoseGraph, iters: int = 20, se3: bool = False, damping: floa
         Hii = torch.einsum("eai,e,eaj->eij", Ji, w, Ji)
         Hjj = torch.einsum("eai,e,eaj->eij", Jj, w, Jj)
         Hij = torch.einsum("eai,e,eaj->eij", Ji, w, Jj)
-        H = torch.zeros((K * K, dof, dof), dtype=dt_, device=dev)
-        H.index_add_(0, ei * K + ei, Hii)
-        H.index_add_(0, ej * K + ej, Hjj)
-        H.index_add_(0, ei * K + ej, Hij)
-        H.index_add_(0, ej * K + ei, Hij.transpose(-1, -2))
+        H = deterministic_index_add(torch.zeros((K * K, dof, dof), dtype=dt_, device=dev),
+                            torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]),
+                            torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]))
         H = H.reshape(K, K, dof, dof)
-        g = torch.zeros((K, dof), dtype=dt_, device=dev)
-        g.index_add_(0, ei, torch.einsum("eai,e,ea->ei", Ji, w, r))
-        g.index_add_(0, ej, torch.einsum("eai,e,ea->ei", Jj, w, r))
+        g = deterministic_index_add(torch.zeros((K, dof), dtype=dt_, device=dev), torch.cat([ei, ej]),
+                            torch.cat([torch.einsum("eai,e,ea->ei", Ji, w, r), torch.einsum("eai,e,ea->ei", Jj, w, r)]))
 
         H = H * free[:, None, None, None] * free[None, :, None, None]
         H[ar, ar] = H[ar, ar] + diag_add

@@ -25,7 +25,7 @@ from pli_slam_tpu_torch.ops.orb import Features
 from pli_slam_tpu_torch.solve.inertial import BodyState, Extrinsics
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.worldmap.stores import KeyFrameStore, LineStore, PointStore
-from pli_slam_tpu_torch.worldmap.vocab import BowDatabase, Vocabulary
+from pli_slam_tpu_torch.worldmap.vocab import BowDatabase, TrainedVocabulary, Vocabulary
 
 
 def _dataclass_from_dict(cls, d: dict, where: str):
@@ -139,6 +139,11 @@ def vocabulary(v) -> Vocabulary:
     """The LSH vocabulary is defined by (n_bits, seed); its planes are drawn
     from the same numpy generator in both packages."""
     return Vocabulary(n_bits=int(v.n_bits), seed=int(v.seed))
+
+
+def vocab_from_reference(v) -> TrainedVocabulary:
+    """A reference `TrainedVocabulary` (centroids and IDF as arrays) as the port's."""
+    return TrainedVocabulary(centroids=np.asarray(v.centroids, np.int8), idf=np.asarray(v.idf, np.float32))
 
 
 def to_numpy(obj, prefix: str = "") -> dict[str, np.ndarray]:

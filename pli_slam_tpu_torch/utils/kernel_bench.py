@@ -3,14 +3,15 @@
     python3 -m pli_slam_tpu_torch.utils.kernel_bench [--baseline OLD.cu] [--variants]
 
 At the main path's two shapes (N=1200 x P=4096, a tracking call; N=1200 x
-P=16384, a keyframe fuse) it checks the kernel against its plain version
+P=16384, a keyframe fuse), and at both with KITTI's N=2000, it checks the kernel against its plain version
 (exact) and prints, per shape:
 - `graph_ms`: device time per launch, 50 launches replayed from one CUDA
   graph, so the host's launch rate is out of the picture;
 - `eager_ms`: CUDA events around a loop of 50 eager `gated_match_cuda` calls
   (the larger of device time and the host's time per call);
 - `call_ms`: the same around the whole `gated_match` call;
-- `host_us`: host clock per eager call, the queue never full.
+- `host_us`: host clock per eager call, the queue never full;
+- `plain_ms`: CUDA events around 50 calls of the plain PyTorch version.
 `--baseline` names the source of an earlier version of the kernel with the
 first version's C interface (`gated_match_launch` with a squared radius
 on the device, separate partial and output arrays, a second merge kernel
@@ -41,6 +42,9 @@ from pli_slam_tpu_torch.ops.kernels import hamming
 SHAPES = {  # label: (N, P, radius, max_dist, ratio), as frontend/step.py calls the matcher
     "track": (1200, 4096, 15.0, 100.0, 0.9),
     "fuse": (1200, 16384, float(np.float32(0.05) * np.float32(435.2)), 64.0, 1.0),
+    # KITTI's operating point, 2000 ORB features (scripts/run_kitti.py) on KITTI 00's fx
+    "track_n2000": (2000, 4096, 15.0, 100.0, 0.9),
+    "fuse_n2000": (2000, 16384, float(np.float32(0.05) * np.float32(718.856)), 64.0, 1.0),
 }
 VARIANTS = [  # compiler flags: the merge as a second kernel, no gate and fold at all (timing only: wrong results),
     # ring depth, warpgroups per block, fixed tiles per block
@@ -189,6 +193,7 @@ def time_current(label, args, r_dev, max_dist, ratio):
         "eager_ms": eager_ms(lambda: hamming.gated_match_cuda(*args, r_dev, max_dist, ratio)),
         "call_ms": eager_ms(lambda: hamming.gated_match(*args, r_dev, max_dist, ratio)),
         "host_us": host_us(lambda: hamming.gated_match(*args, r_dev, max_dist, ratio)),
+        "plain_ms": eager_ms(lambda: hamming.gated_match_reference(*args, r_dev)),
     }
 
 

@@ -1,7 +1,8 @@
 """Where the port's main paths spend their time on one GPU.
 
 Run from the repository root:
-  python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono]
+  python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono|loop
+                                              | --first-closure | --nondet rgbd|mono | --stages]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -34,9 +35,17 @@ synchronised stage pass with `preintegrate`, `track_step_inertial`,
 runs N frames of that path twice and prints, per frame after the
 initialization, how far velocity, accelerometer bias and trajectory have
 drifted from the truth, up to the frame where a run reaches an unported path.
-`--spread rgbd|mono` runs chip_smoke.py's RGB-D or mono phase N_SPREAD times
-on the same frames and prints each run's accuracy (the card's runs are not
-bit-reproducible).
+`--spread rgbd|mono|loop` runs chip_smoke.py's RGB-D, mono or loop-closing
+(6a) phase N_SPREAD times on the same frames and prints each run's
+accuracy, a digest of its trajectory, and whether all runs were
+bit-identical. `--first-closure` runs phase 6a twice in a fresh process:
+the closure warm-up's time at Tracker construction, the first closure's
+wall time and the second's. `--nondet rgbd|mono` runs phase 7 or 8 once
+under `torch.use_deterministic_algorithms(True, warn_only=True)` (a
+diagnostic switched off again after the run) and `NondetSites`, and lists
+the ops that can make two runs differ. `--stages` runs only pass 3 (the
+synchronised stage times), which `python3 -m
+pli_slam_tpu_torch.scripts.profile_stages` also runs.
 
 Needs a CUDA device. The chrome trace of pass 1 is written under `build/`
 and deleted once read (it runs to ~100 MB).
@@ -47,13 +56,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import time
+import traceback
+import warnings
 from collections import defaultdict
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.ops.camera import Camera
@@ -155,6 +168,123 @@ def sensor_run(sensor: str, dev) -> tuple:
     return cfg, cam, list(synthetic.make_sequence(cam, N_FRAMES_MONO, dev, fps=cfg.fps))
 
 
+N_AFTER_LOOP = 6  # frames after the planted closure: the queued GBA chunks run one per non-keyframe frame
+
+
+def loop_frames(dev):
+    """(cfg, cam, traj, frames) of chip_smoke.py's phase 6a: loop_config() on
+    slice_camera(), N_FRAMES_LOOP + N_AFTER_LOOP frames of bench.py's
+    flagship trajectory."""
+    from pli_slam_tpu_torch.utils import synthetic
+
+    cfg, cam = loop_config(), slice_camera()
+    traj = synthetic.Trajectory(**FLAGSHIP_TRAJ)
+    return cfg, cam, traj, list(synthetic.make_sequence(cam, N_FRAMES_LOOP + N_AFTER_LOOP, dev, fps=cfg.fps,
+                                                        traj=traj))
+
+
+def overlapping_pair(tracker, traj, min_gap: int):
+    """The keyframe pair (newer, older), at least `min_gap` slots apart, whose
+    ground-truth poses are nearest (distance in m plus viewing-direction
+    angle in rad), from the keyframes' stamps: (newer, older, cost)."""
+    n = tracker.n_kf
+    stamps = tracker.kstore.stamp[:n].cpu().numpy()
+    valid = tracker.kstore.valid[:n].cpu().numpy()
+    poses = [traj.pose(float(t)) for t in stamps]
+    best = (np.inf, -1, -1)
+    for i in range(n):
+        for j in range(i - min_gap + 1):
+            if not (valid[i] and valid[j]):
+                continue
+            (Ri, pi), (Rj, pj) = poses[i], poses[j]
+            cost = np.linalg.norm(pi - pj) + np.arccos(np.clip(Ri[:, 2] @ Rj[:, 2], -1.0, 1.0))
+            best = min(best, (cost, i, j))
+    return best[1], best[2], best[0]
+
+
+def kf_error(tracker, traj) -> float:
+    """The largest position error of a valid keyframe against the truth at its stamp (tracker world)."""
+    n = tracker.n_kf
+    valid = tracker.kstore.valid[:n].cpu().numpy()
+    R, t = tracker.kstore.R[:n].cpu().numpy(), tracker.kstore.t[:n].cpu().numpy()
+    R0, p0 = traj.pose(0.0)
+    gt = np.stack([R0.T @ (traj.pose(float(s))[1] - p0) for s in tracker.kstore.stamp[:n].cpu().numpy()])
+    return float(np.linalg.norm(-np.einsum("kji,kj->ki", R, t) - gt, axis=1)[valid].max())
+
+
+def loop_run(cfg, cam, traj, frames, dev) -> dict:
+    """Phase 6a on `frames` (from `loop_frames`): a fresh tracker in streaming
+    mode, its rare paths timed by SyncSpans, over the first N_FRAMES_LOOP
+    frames; then, if the run closed no loop (no candidate reaches the closer
+    on this trajectory, in the reference too), a closure planted between the
+    keyframes that ground truth says overlap, the consistency counter
+    pre-set, and the correction once more, warm (its result dropped); then
+    the remaining frames and the queued GBA chunks, and `finalize`.
+    Returns what chip_smoke.py logs and guards."""
+    from pli_slam_tpu_torch.frontend.loop_closing import apply_loop_correction
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.utils import synthetic
+
+    tracker = Tracker(cam, cfg, dev)
+    tracker.streaming = True
+    tracker.span = spans = SyncSpans(dev)  # times the rare paths only: ordinary frames run unsynchronised
+    t_loop, t_gba = spans.ms["loop"], spans.ms["gba"]
+    lc = tracker.loop_closer
+    kf_errs, ms_plain, loop_frames_ = [], [], []  # kf_errs: the largest keyframe error after each GBA chunk
+
+    def run(fr, i):
+        n_gba, n_loop, n_closed = len(t_gba), len(t_loop), lc.n_loops_closed
+        f0 = time.perf_counter()
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"])
+        dt = (time.perf_counter() - f0) * 1e3
+        if len(t_loop) > n_loop:  # a loop verification ran in this frame
+            loop_frames_.append((i, round(dt, 2), lc.n_loops_closed > n_closed))
+        elif len(t_gba) > n_gba:
+            kf_errs.append(kf_error(tracker, traj))
+        elif i > 0:
+            ms_plain.append(dt)
+
+    wall0 = time.perf_counter()
+    for i, fr in enumerate(frames[:N_FRAMES_LOOP]):
+        run(fr, i)
+    _sync(dev)
+    wall = time.perf_counter() - wall0
+    gt = np.stack([fr["p_w"] for fr in frames])
+    pend, done = list(tracker._traj_pending), list(tracker._traj_done)  # read without consuming
+    ate_run = synthetic.ate_rmse(tracker.positions(), gt[:N_FRAMES_LOOP])
+    tracker._traj_pending, tracker._traj_done = pend, done
+    natural, n_kf_run, planted = lc.n_loops_closed, tracker.n_kf, None
+    if natural == 0:
+        kf_cur, kf_loop, cost = overlapping_pair(tracker, traj, cfg.loop.min_kf_gap)
+        lc._consistency, lc._consistent_with = cfg.loop.consistency_kfs, kf_loop
+        kf_before = kf_error(tracker, traj)
+        closed = lc.on_keyframe(tracker, kf_cur, [(kf_loop, 1.0)])
+        kf_after = kf_error(tracker, traj)
+        with spans("correction"):
+            apply_loop_correction(tracker.kstore, tracker.pstore, tracker.lstore, kf_cur, kf_loop,
+                                  torch.eye(3, device=dev), torch.zeros(3, device=dev), cfg)
+        planted = dict(kf_cur=kf_cur, kf_loop=kf_loop, cost=cost, ms=t_loop[-1], closed=closed,
+                       kf_before=kf_before, kf_after=kf_after, warm_ms=spans.ms["correction"][0])
+    n_queued = len(tracker._deferred_ba)
+    for i, fr in enumerate(frames[N_FRAMES_LOOP:], N_FRAMES_LOOP):
+        run(fr, i)
+    while tracker._deferred_ba:
+        tracker.run_deferred_ba(1)
+        kf_errs.append(kf_error(tracker, traj))
+    tracker.finalize()
+    est = tracker.positions()
+    _sync(dev)
+    ate = synthetic.ate_rmse(est, gt) if est.shape == gt.shape else float("nan")
+    return dict(tracker=tracker, t_gba=t_gba, t_loop=t_loop, kf_errs=kf_errs, ms_plain=ms_plain,
+                loop_frames=loop_frames_, wall=wall, ate_run=ate_run, natural=natural, n_kf_run=n_kf_run,
+                planted=planted, n_queued=n_queued, est=est, ate=ate)
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 class SyncSpans:
     """A `Tracker.span` that records each rare path's wall time: `ms[name]`
     gets one entry in ms per call, the device synchronised at both ends so
@@ -164,16 +294,12 @@ class SyncSpans:
         self.device = torch.device(device)
         self.ms: dict[str, list[float]] = defaultdict(list)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     @contextlib.contextmanager
     def __call__(self, name: str):
-        self._sync()
+        _sync(self.device)
         t0 = time.perf_counter()
         yield
-        self._sync()
+        _sync(self.device)
         self.ms[name].append((time.perf_counter() - t0) * 1e3)
 
 
@@ -355,33 +481,164 @@ def main_vi_drift(dev, n_frames: int) -> int:
     return 0
 
 
-def main_spread(dev, sensor: str) -> int:
-    """N_SPREAD runs of chip_smoke.py's phase 7 or 8 through `System` on the
-    same rendered frames: how far the card's runs of one build spread (its
-    scatter-adds use float atomics, so runs differ from the first rounding
-    on). Per run: ATE (mono: after a Sim(3) alignment), keyframes, frames
-    tracked, the first tracked frame and the largest position error."""
+def _digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a, np.float32).tobytes()).hexdigest()[:16]
+
+
+def main_spread(dev, which: str, n_runs: int = N_SPREAD) -> int:
+    """`n_runs` runs of chip_smoke.py's phase 7 (`rgbd`), 8 (`mono`) or 6a
+    (`loop`) on the same rendered frames, each on a fresh tracker: do the
+    card's runs of one build give the same bits? Per run: ATE (mono: after a
+    Sim(3) alignment), keyframes, the largest position error, a digest of
+    the trajectory; `loop` also the closure's and the warm-up's wall time
+    (the first run's closure is the first in this process). Ends with one
+    line saying whether every run's trajectory was bit-identical."""
     from pli_slam_tpu_torch.system import System
     from pli_slam_tpu_torch.utils import trajectory as tio
 
+    digests = []
+    if which == "loop":
+        cfg, cam, traj, frames = loop_frames(dev)
+        closures = []
+        for rep in range(n_runs):
+            r = loop_run(cfg, cam, traj, frames, dev)
+            digests.append(_digest(r["est"]))
+            pl = r["planted"] or {}
+            closures.append(pl.get("ms", r["t_loop"][0] if r["t_loop"] else float("nan")))
+            warm = r["tracker"].loop_warmup_ms
+            print(f"spread[loop {rep}]: ATE {r['ate_run']:.6f} m before the closure, {r['ate']:.6f} m after it, "
+                  f"{r['tracker'].n_kf} keyframes, closure {closures[-1]:.2f} ms (warm-up at construction "
+                  f"{'none' if warm is None else f'{warm:.2f} ms'}), GBA chunks {[round(t, 2) for t in r['t_gba']]} ms, "
+                  f"trajectory digest {digests[-1]}", flush=True)
+        print(f"spread[loop]: first closure in this process {closures[0]:.2f} ms, later ones "
+              f"{[round(c, 2) for c in closures[1:]]} ms: {closures[0] / np.median(closures[1:]):.2f}x the warm median",
+              flush=True)
+    else:
+        cfg, cam, frames = sensor_run(which, dev)
+        gt = np.stack([fr["p_w"] for fr in frames])
+        for rep in range(n_runs):
+            sysm = System(cam, cfg, device=dev)
+            sysm.tracker.streaming = which == "rgbd"
+            states = []
+            for fr in frames:
+                info = (sysm.track_rgbd(fr["img_l"], fr["depth"], fr["t"]) if which == "rgbd"
+                        else sysm.track_monocular(fr["img_l"], fr["t"]))
+                states.append(info["state"])
+            sysm.shutdown()
+            est = np.stack([p for _, _, p in sysm.tracker.trajectory])
+            mono = which == "mono"
+            s, R, t = tio.align_umeyama(est, gt, with_scale=mono)
+            err = np.linalg.norm(s * est @ R.T + t - gt, axis=1)
+            digests.append(_digest(est))
+            print(f"spread[{which} {rep}]: ATE {tio.ate_rmse(est, gt, with_scale=mono):.6f} m, "
+                  f"{sysm.tracker.n_kf} keyframes, states OK {sum(x == 'OK' for x in states)}/{len(states)} (first at "
+                  f"frame {states.index('OK') if 'OK' in states else None}), largest aligned error {err.max():.4f} m at "
+                  f"frame {int(err.argmax())}, trajectory digest {digests[-1]}", flush=True)
+    print(f"spread[{which}]: {n_runs} runs, bit-identical trajectories: {len(set(digests)) == 1}", flush=True)
+    return 0
+
+
+class NondetSites(TorchDispatchMode):
+    """Records, by the port's call site, every op whose result on CUDA can
+    depend on thread timing with this run's data: a float scatter-add
+    (`index_add`, `scatter_add`, `index_put` with accumulate, a sum or mean
+    `scatter_reduce`) with a repeated destination, and an `index_put` or
+    `scatter` writing different values to one destination. Checks on every
+    call (it syncs), so it is a diagnostic only; it runs on the CPU too,
+    since the data decide."""
+
+    def __init__(self):
+        super().__init__()
+        self.sites: dict = defaultdict(int)
+
+    @staticmethod
+    def _site() -> str:
+        for fr in reversed(traceback.extract_stack()):
+            if "pli_slam_tpu_torch" in fr.filename and not fr.filename.endswith("profile.py"):
+                return f"{fr.filename.split('pli_slam_tpu_torch/')[-1]}:{fr.lineno}"
+        return "?"
+
+    @staticmethod
+    def _clash(lin, vals=None) -> bool:
+        """A repeated destination in `lin` (with `vals` rows: one whose values differ)."""
+        lin = lin.reshape(-1)
+        if lin.numel() < 2:
+            return False
+        order = torch.argsort(lin, stable=True)
+        dup = lin[order][1:] == lin[order][:-1]
+        if vals is not None:
+            v = vals.reshape(lin.numel(), -1)[order]
+            dup = dup & ((v[1:] != v[:-1]) & ~(torch.isnan(v[1:]) & torch.isnan(v[:-1]))).any(1)
+        return bool(dup.any())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        if name in ("index_add", "index_add_"):
+            if args[0].is_floating_point() and self._clash(args[2]):
+                self.sites[(name, self._site())] += 1
+        elif name in ("index_put", "index_put_", "_index_put_impl_"):
+            dst, indices, values = args[:3]
+            acc = args[3] if len(args) > 3 else kwargs.get("accumulate", False)
+            idx = list(indices)
+            if idx and all(i is not None and i.dtype != torch.bool for i in idx):
+                b = torch.broadcast_tensors(*idx)
+                lin = torch.zeros_like(b[0], dtype=torch.int64)
+                for k, i in enumerate(b):
+                    lin = lin * dst.shape[k] + i.long() % dst.shape[k]
+                if acc and dst.is_floating_point() and self._clash(lin):
+                    self.sites[(name + " accumulate", self._site())] += 1
+                elif not acc and values.numel() > 1:
+                    vals = values.expand(tuple(b[0].shape) + tuple(dst.shape[len(idx):]))
+                    if self._clash(lin, vals):
+                        self.sites[(name + " with clashing duplicates", self._site())] += 1
+        elif name in ("scatter_add", "scatter_add_", "scatter_reduce", "scatter_reduce_", "scatter", "scatter_"):
+            dst, dim, index = args[:3]
+            src = args[3] if len(args) > 3 else kwargs.get("src")
+            reduce = args[4] if len(args) > 4 else kwargs.get("reduce")
+            coords = list(torch.meshgrid(*[torch.arange(n, device=index.device) for n in index.shape], indexing="ij"))
+            coords[dim] = index.long()
+            lin = torch.zeros_like(index, dtype=torch.int64)
+            for k, c in enumerate(coords):
+                lin = lin * dst.shape[k] + c
+            if name.startswith("scatter_add") or reduce in ("sum", "mean"):
+                if dst.is_floating_point() and self._clash(lin):
+                    self.sites[(name, self._site())] += 1
+            elif reduce is None and isinstance(src, torch.Tensor) and src.numel() > 1:
+                if self._clash(lin, src[tuple(slice(0, n) for n in index.shape)].reshape(-1, 1)):
+                    self.sites[(name + " with clashing duplicates", self._site())] += 1
+        return out
+
+
+def main_nondet(dev, sensor: str) -> int:
+    """One run of chip_smoke.py's phase 7 (or 8) under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`, which warns
+    once for every op that has no deterministic CUDA path, and under
+    `NondetSites`; prints both lists. The switch is restored after the run."""
+    from pli_slam_tpu_torch.system import System
+
     cfg, cam, frames = sensor_run(sensor, dev)
-    gt = np.stack([fr["p_w"] for fr in frames])
-    for rep in range(N_SPREAD):
-        sysm = System(cam, cfg, device=dev)
-        sysm.tracker.streaming = sensor == "rgbd"
-        states = []
-        for fr in frames:
-            info = (sysm.track_rgbd(fr["img_l"], fr["depth"], fr["t"]) if sensor == "rgbd"
-                    else sysm.track_monocular(fr["img_l"], fr["t"]))
-            states.append(info["state"])
-        sysm.shutdown()
-        est = np.stack([p for _, _, p in sysm.tracker.trajectory])
-        s, R, t = tio.align_umeyama(est, gt, with_scale=sensor == "mono")
-        err = np.linalg.norm(s * est @ R.T + t - gt, axis=1)
-        print(f"spread[{sensor} {rep}]: ATE {tio.ate_rmse(est, gt, with_scale=sensor == 'mono'):.4f} m, "
-              f"{sysm.tracker.n_kf} keyframes, states OK {sum(x == 'OK' for x in states)}/{len(states)} (first at "
-              f"frame {states.index('OK') if 'OK' in states else None}), largest aligned error {err.max():.4f} m at "
-              f"frame {int(err.argmax())}", flush=True)
+    sysm = System(cam, cfg, device=dev)
+    sysm.tracker.streaming = sensor == "rgbd"
+    mode = NondetSites()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, mode:
+            warnings.simplefilter("always")
+            for fr in frames:
+                if sensor == "rgbd":
+                    sysm.track_rgbd(fr["img_l"], fr["depth"], fr["t"])
+                else:
+                    sysm.track_monocular(fr["img_l"], fr["t"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split("\n")[0][:160] for w in caught if "deterministic" in str(w.message)})
+    print(f"nondet[{sensor}]: ops without a deterministic CUDA path ({len(ops)}): {ops}", flush=True)
+    for (op, site), n in sorted(mode.sites.items(), key=lambda kv: kv[0][1]):
+        print(f"nondet[{sensor}]: {site}: {op}, {n} calls", flush=True)
+    if not mode.sites:
+        print(f"nondet[{sensor}]: no order-dependent scatter on this run's data", flush=True)
     return 0
 
 
@@ -391,8 +648,15 @@ def main(argv=None) -> int:
     ap.add_argument("--vi", action="store_true", help="profile the stereo-inertial path instead of the visual one")
     ap.add_argument("--vi-drift", type=int, metavar="N", default=0,
                     help="instead: N frames of the stereo-inertial path, twice, printing the drift per frame")
-    ap.add_argument("--spread", choices=("rgbd", "mono"),
-                    help="instead: chip_smoke.py's RGB-D or mono phase, N_SPREAD times, printing each run's accuracy")
+    ap.add_argument("--spread", choices=("rgbd", "mono", "loop"),
+                    help="instead: chip_smoke.py's RGB-D, mono or loop-closing (6a) phase, N_SPREAD times, printing "
+                         "each run's accuracy and whether the runs were bit-identical")
+    ap.add_argument("--first-closure", action="store_true",
+                    help="instead: phase 6a twice in this fresh process: the warm-up at construction, the first "
+                         "closure's wall time and the second's")
+    ap.add_argument("--stages", action="store_true", help="instead: only the synchronised stage pass (pass 3)")
+    ap.add_argument("--nondet", choices=("rgbd", "mono"),
+                    help="instead: one run of phase 7 or 8 listing the ops that can make the card's runs differ")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -406,10 +670,16 @@ def main(argv=None) -> int:
         return main_vi_drift(dev, args.vi_drift)
     if args.spread:
         return main_spread(dev, args.spread)
+    if args.first_closure:
+        return main_spread(dev, "loop", n_runs=2)
+    if args.nondet:
+        return main_nondet(dev, args.nondet)
     if args.vi:
         return main_vi(dev)
     cfg, cam = slice_config(), slice_camera()
     frames = list(synthetic.make_sequence(cam, N_FRAMES, dev, fps=cfg.fps))
+    if args.stages:
+        return main_stages(cam, cfg, frames, dev)
     acts = torch.profiler.ProfilerActivity
 
     wall0 = _window(cam, cfg, frames, dev)
@@ -440,6 +710,11 @@ def main(argv=None) -> int:
     top = sorted((e for e in ka if e.key.startswith("aten::")), key=lambda e: -e.count)[:8]
     print("ops: top aten ops by calls: " + "; ".join(f"{e.key} x{e.count}" for e in top), flush=True)
 
+    return main_stages(cam, cfg, frames, dev)
+
+
+def main_stages(cam, cfg, frames, dev) -> int:
+    """Pass 3 alone: the synchronised stage times of the visual path."""
     frame_ms, stage_ms = _stages(cam, cfg, frames, dev)
     steady = frame_ms[N_WARM:]
     print(f"stages (synchronised), frames {N_WARM}-{N_FRAMES - 1}: frame mean {np.mean(steady):.2f} ms, "

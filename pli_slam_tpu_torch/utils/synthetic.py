@@ -2,15 +2,19 @@
 trajectory, ideal or corrupted IMU samples, ground-truth depth (port of
 pli_slam_tpu.utils.synthetic).
 
-Images are rendered with torch on the given device, so the port's
-end-to-end runs need no JAX. `Trajectory`, the IMU samples, the noise
-model and `ate_rmse` are numpy, as in the reference, and give the same
-numbers bit for bit.
+Images are rendered with torch on the CPU and then moved to the device
+the caller names, so a GPU run tracks exactly the pixels a CPU run does
+(the GPU's `sin` and fused arithmetic round differently and flip some
+texture thresholds); `frame_digest` names a frame pair's bits, which
+chip_smoke.py holds equal to a CPU build's.
+`Trajectory`, the IMU samples, the noise model and `ate_rmse` are numpy,
+as in the reference, and give the same numbers bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 
 import numpy as np
@@ -49,13 +53,13 @@ def _trace_room(cam: Camera, R_wc: torch.Tensor, t_wc: torch.Tensor, room_half: 
     if cam.model != PINHOLE:
         raise NotImplementedError("the port's renderer draws pinhole views only")
     h, w = cam.height, cam.width
-    dev = R_wc.device
-    us = (torch.arange(w, dtype=torch.float32, device=dev) - cam.cx) / cam.fx
-    vs = (torch.arange(h, dtype=torch.float32, device=dev) - cam.cy) / cam.fy
-    dirs_c = torch.stack([us[None, :].expand(h, w), vs[:, None].expand(h, w), torch.ones((h, w), device=dev)], dim=-1)
+    R_wc, t_wc = R_wc.detach().cpu(), t_wc.detach().cpu()
+    us = (torch.arange(w, dtype=torch.float32) - cam.cx) / cam.fx
+    vs = (torch.arange(h, dtype=torch.float32) - cam.cy) / cam.fy
+    dirs_c = torch.stack([us[None, :].expand(h, w), vs[:, None].expand(h, w), torch.ones((h, w))], dim=-1)
     d_w = torch.einsum("ij,hwj->hwi", R_wc, dirs_c)
     o_w = t_wc
-    t_best = torch.full((h, w), 1e9, device=dev)
+    t_best = torch.full((h, w), 1e9)
     for axis in range(3):
         for sign in (-1.0, 1.0):
             denom = d_w[..., axis]
@@ -69,17 +73,26 @@ def _trace_room(cam: Camera, R_wc: torch.Tensor, t_wc: torch.Tensor, room_half: 
 
 
 def render_view(cam: Camera, R_wc: torch.Tensor, t_wc: torch.Tensor, room_half: float = ROOM_HALF) -> torch.Tensor:
-    """Ray-trace the room from T_wc. Returns [H, W] float32 in [0, 255]."""
+    """Ray-trace the room from T_wc (on the CPU). Returns [H, W] float32 in
+    [0, 255] on R_wc's device."""
     t_best, p_hit = _trace_room(cam, R_wc, t_wc, room_half)
     img = _texture(p_hit) * (1.0 - 0.015 * torch.clamp(t_best, 0.0, 12.0))
-    return torch.clamp(img, 0.0, 255.0)
+    return torch.clamp(img, 0.0, 255.0).to(R_wc.device)
 
 
 def render_depth(cam: Camera, R_wc: torch.Tensor, t_wc: torch.Tensor, room_half: float = ROOM_HALF) -> torch.Tensor:
-    """Ground-truth camera-z depth [H, W] (pinhole rays have z = 1, so the
-    ray parameter is the depth); 0 where no surface is hit."""
+    """Ground-truth camera-z depth [H, W] on R_wc's device (pinhole rays
+    have z = 1, so the ray parameter is the depth); 0 where no surface is hit."""
     t_best, _ = _trace_room(cam, R_wc, t_wc, room_half)
-    return torch.where(t_best < 1e8, t_best, torch.zeros_like(t_best))
+    return torch.where(t_best < 1e8, t_best, torch.zeros_like(t_best)).to(R_wc.device)
+
+
+def frame_digest(*images: torch.Tensor) -> str:
+    """SHA-256 of the images' float32 bytes, in order (a frame pair's bits)."""
+    h = hashlib.sha256()
+    for img in images:
+        h.update(img.detach().cpu().to(torch.float32).contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +191,8 @@ def make_sequence(cam: Camera, n_frames: int, device=None, fps: float = 20.0, tr
                   Tbc: np.ndarray | None = None, imu_noise: ImuNoiseModel | None = None):
     """Yield per-frame dicts {t, img_l, img_r (and `depth` with `with_depth`:
     tensors on `device`), R_wc, p_w, v_w, imu_stamps, imu_gyro, imu_acc
-    (numpy)}. `device=None` renders on the GPU; pass "cpu" to render there.
+    (numpy)}. The images are rendered on the CPU and moved to `device`
+    (`None` = the GPU; pass "cpu" to keep them there).
     The right camera sits `baseline` along the camera's +x axis; the IMU
     batch covers (t_prev, t].
 
@@ -197,8 +211,8 @@ def make_sequence(cam: Camera, n_frames: int, device=None, fps: float = 20.0, tr
         R_wb, p_wb = traj.pose(t)
         R_wc = R_wb @ R_bc
         p_w = p_wb + R_wb @ t_bc
-        R = torch.as_tensor(R_wc, dtype=torch.float32).to(device)
-        p = torch.as_tensor(p_w, dtype=torch.float32).to(device)
+        R = torch.as_tensor(R_wc, dtype=torch.float32)
+        p = torch.as_tensor(p_w, dtype=torch.float32)
         stamps = t - (np.arange(n_imu)[::-1]) / imu_rate
         gyro = np.zeros((n_imu, 3), np.float32)
         acc = np.zeros((n_imu, 3), np.float32)
@@ -208,9 +222,9 @@ def make_sequence(cam: Camera, n_frames: int, device=None, fps: float = 20.0, tr
                 gyro[i], acc[i] = corrupt(gyro[i], acc[i])
         yield {
             "t": t,
-            "img_l": render_view(cam, R, p, room_half),
-            "img_r": render_view(cam, R, p + R[:, 0] * baseline, room_half),
-            **({"depth": render_depth(cam, R, p, room_half)} if with_depth else {}),
+            "img_l": render_view(cam, R, p, room_half).to(device),
+            "img_r": render_view(cam, R, p + R[:, 0] * baseline, room_half).to(device),
+            **({"depth": render_depth(cam, R, p, room_half).to(device)} if with_depth else {}),
             "R_wc": np.asarray(R_wc, np.float32),
             "p_w": np.asarray(p_w, np.float32),
             "v_w": traj.velocity(t).astype(np.float32),
