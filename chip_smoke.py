@@ -134,12 +134,51 @@ Phases (each prints one line; any failure raises and exits non-zero):
                the CPU's, and a Tracker with both over phase 4's frames
                (phase 4's ATE bound), its BoW rows and best loop score printed.
                Drivers pass --no-plots when the card has no matplotlib.
+ 10. the fisheye rig -- TUM-VI's 512x512 Kannala-Brandt8 camera as ORB-SLAM3's
+               Examples/Stereo-Inertial/TUM-VI.yaml publishes it (TUM_512), with
+               two simplifications: cam0's calibration serves both cameras, and
+               the rig is a pure 0.101 m baseline (T_rl a translation); 20 fps,
+               200 Hz IMU under ImuNoiseModel.euroc(); otherwise the EuRoC budget
+               (1200 ORB x 8 levels, 256 lines, 16384/4096/512 stores, BA window
+               8). Every frame is built by build_frame_fisheye_stereo (epipolar-
+               gated L<->R matching and DLT triangulation). 10a: sensor "stereo",
+               loop closing off, 40 frames on the fused visual step; 10b:
+               "stereo_imu" with slice_config_vi()'s IMU settings: host-path frames
+               until the IMU initialization, then fused stereo-inertial frames.
+               The first pair's SHA-256 must equal FISHEYE0_SHA256; the
+               initializations and ATE are held to the reference's run of the
+               same frames (REF_FISHEYE*): 10a over the run, 10b on the frame
+               before the IMU initialization, whose full inertial BA (damped
+               Gauss-Newton without an acceptance test, in both packages) moves
+               the map by an amount float32 rounding decides (PERF.md, section
+               6, PR 7), so the run after it is held only to stay in the room
+               (FISHEYE_VI_ATE_BOUND); the dense L<->R association is timed per
+               frame;
+ 11. mono-inertial through `System.track_monocular(..., imu_batch=)` --
+               slice_config_vi() with sensor "mono_imu" (752x480, phase 4's
+               camera, 200 Hz noisy IMU): the two-view initialization, the IMU
+               initialization with its free scale, then inertial tracking; the
+               initialization frames and the Sim(3) ATE on the frame before the
+               IMU initialization held to the reference's (REF_MONO_VI: the
+               bound is phase 8's, since the two-view initialization draws its
+               own RANSAC samples), the scale printed beside the reference's; the
+               path-length ratio of the last 20 frames and the ATE over the run
+               reported (the reference loses tracking right after the IMU
+               initialization on these frames, and so may the port);
+ 12. RGB-D-inertial through `Tracker.process_rgbd(..., imu=)` -- rgbd_config()
+               on rgbd_camera() with sensor "rgbd_imu" and slice_config_vi()'s IMU
+               settings, every frame on the host path as in the reference; phase
+               5's figures: the IMU initialization's frame held to the
+               reference's run (REF_RGBD_VI), ATE before it to phase 7's bound
+               on the same deployment, the run after it loosely (2.0 m, phase
+               5's: visual-inertial BA drifts, in the reference too).
 Phases 7, 8 and 9 print fps and p50/p99 (9 also the ingest stage's ms a
 frame), and phase 7 the map's save and load times. Phase 4 prints the
 SHA-256 of its first frame pair, which must equal the CPU's
 (FRAME0_SHA256, held by tests/test_torch_datasets.py). Then one JSON line
 describing the kernels (launches on every path, per path and per frame,
-and the N=2000 shapes of KITTI's operating point), the nvidia-smi line,
+and the N=2000 shapes of KITTI's operating point; phases 10-12's
+launches and the fisheye association's time), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -1313,6 +1352,324 @@ def phase_ingest(dev, smi, vi, rgbd_frames, room):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: the fisheye rig, mono-inertial and RGB-D-inertial
+# ---------------------------------------------------------------------------
+
+# The reference (pli_slam_tpu on its accelerator branch, run on a CPU) over the same frames, the port's
+# renderer's (tests/full_width_slice6.py, run by the `slow` tests of tests/test_torch_fisheye.py,
+# test_torch_mono_inertial.py and test_torch_rgbd_inertial.py). FISHEYE0_SHA256 is phase 10's first KB8
+# pair, which tests/test_torch_fisheye.py holds on the CPU.
+FISHEYE0_SHA256 = "22cb69e3e886c2f6203c61877b25849e551901c49753cdd7d1fff913e3c3eaa8"
+REF_FISHEYE = dict(init=13, ate=0.1432, n_kf=14)  # 10a
+# 10b: the reference's fused stereo-inertial step does not compile at 512x512 on a CPU (XLA's LLVM runs out of
+# memory), so its run stops at the IMU initialization and the whole run has no reference figure
+REF_FISHEYE_VI = dict(map_init=13, imu_init=32, ate_pre=0.0360, ate_init=0.0610)
+REF_MONO_VI = dict(mono_init=1, imu_init=30, scale=0.9703, ate_pre_sim3=0.3496, ate_init_sim3=0.3587, ate_sim3=0.9071,
+                   ratio=0.5290)  # 11
+REF_RGBD_VI = dict(imu_init=45, ate_pre=0.0414, ate_init=0.0326, ate=1.0088)  # 12
+INIT_MARGIN = 3  # frames an initialization may come later or earlier than the reference's
+FISHEYE_ATE_BOUND = 2.0 * REF_FISHEYE["ate"]
+FISHEYE_VI_ATE_PRE_BOUND = 2.0 * REF_FISHEYE_VI["ate_pre"]
+FISHEYE_VI_ATE_BOUND = 5.0
+MONO_VI_ATE_PRE_BOUND = 1.0
+RGBD_VI_ATE_PRE_BOUND = RGBD_ATE_BOUND  # phase 7's, on the same deployment
+RGBD_VI_ATE_BOUND = 2.0
+
+
+def _gravity_error_deg(tracker) -> float:
+    """The angle between the tracker's gravity and the truth in its world
+    (the first camera's frame on the default room trajectory)."""
+    import numpy as np
+
+    from pli_slam_tpu_torch.utils import synthetic
+
+    R0, _ = synthetic.Trajectory().pose(0.0)
+    g_true = R0.T @ np.array([0.0, 0.0, -9.81])
+    g = tracker.gravity_w.cpu().numpy().astype(np.float64)
+    return float(np.degrees(np.arccos(np.clip(g @ g_true / np.linalg.norm(g) / 9.81, -1.0, 1.0))))
+
+
+def _fisheye_association_ms(cam, cfg, fr, dev):
+    """The fisheye frame's dense L<->R association (the epipolar gate, the
+    [N, N] Hamming matrix, nearest neighbours with the ratio test, mutual
+    consistency) on one pair's features, timed with CUDA events (mean of 20)."""
+    import dataclasses as dc
+
+    import torch
+
+    from pli_slam_tpu_torch.frontend.frame import undistort_uv
+    from pli_slam_tpu_torch.ops import matching, orb
+    from pli_slam_tpu_torch.solve import triangulate as tri
+    from pli_slam_tpu_torch.utils.kernel_bench import eager_ms
+    from pli_slam_tpu_torch.utils.profile import fisheye_rig
+
+    fl, fr_ = orb.extract(fr["img_l"], cfg.orb), orb.extract(fr["img_r"], cfg.orb)
+    uv_l, uv_r = undistort_uv(cam, fl.uv), undistort_uv(cam, fr_.uv)
+    pin = dc.replace(cam, model=0)
+    T = torch.as_tensor(fisheye_rig(), device=dev)
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+
+    def associate():
+        gate = tri.epipolar_gate(pin, eye, zero, T[:3, :3], T[:3, 3], uv_l, uv_r)
+        dist = matching.hamming_matrix(fl.desc, fr_.desc)
+        idx, _, ok = matching.match_nn(dist, fl.valid, fr_.valid, gate, max_dist=cfg.match.orb_th_high,
+                                       ratio=cfg.match.nn_ratio)
+        return matching.mutual_consistency(idx, ok, dist, fl.valid, fr_.valid, gate)
+
+    n_pairs = int(associate().sum())
+    return eager_ms(associate, iters=20), int(fl.valid.sum()), int(fr_.valid.sum()), n_pairs
+
+
+def phase_fisheye(dev, smi):
+    """Phase 10 (see the module docstring): 10a the fused visual step, 10b
+    the stereo-inertial path, both on TUM-VI's KB8 rig."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.frontend.tracker import Tracker, TrackingState
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.utils import synthetic
+    from pli_slam_tpu_torch.utils.profile import (N_FRAMES_FISHEYE, fisheye_config, fisheye_rig, peek_ate,
+                                                  slice6_frames, tracked_positions)
+
+    t0 = time.perf_counter()
+    cfg_vi, cam, frames = slice6_frames("fisheye_vi", dev)
+    torch.cuda.synchronize()
+    digest = synthetic.frame_digest(frames[0]["img_l"], frames[0]["img_r"])
+    log(f"fisheye: rendered {len(frames)} KB8 pairs {cam.width}x{cam.height} (TUM-VI cam0, baseline "
+        f"{cam.baseline:.3f} m) on the host in {time.perf_counter() - t0:.2f} s; first pair's SHA-256 {digest} (a CPU "
+        f"build computes {FISHEYE0_SHA256}: {'equal' if digest == FISHEYE0_SHA256 else 'DIFFERENT'})")
+    if digest != FISHEYE0_SHA256:
+        raise AssertionError("the fisheye frames differ from the CPU's (tests/test_torch_fisheye.py holds the digest)")
+
+    # 10a: the stereo sensor on the fused visual step
+    cfg = fisheye_config(False)
+    run = frames[:N_FRAMES_FISHEYE]
+    tracker = Tracker(cam, cfg, dev, T_rl=fisheye_rig())
+    tracker.streaming = True
+    hamming.reset_launches()
+    ms, init = [], None
+    for i, fr in enumerate(run):
+        f0 = time.perf_counter()
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"])
+        dt = (time.perf_counter() - f0) * 1e3
+        if init is None and tracker.state == TrackingState.OK:
+            init = i  # this frame initialized the map on the host path
+        elif init is not None:
+            ms.append(dt)
+    tracker.finalize()
+    torch.cuda.synchronize()
+    launches_a = hamming.launches
+    if init is None:
+        raise AssertionError("fisheye: the stereo map never initialized")
+    est, gt = tracked_positions(tracker, run)
+    ate = synthetic.ate_rmse(est, gt)
+    n_fused = len(run) - init - 1
+    ok_frames = _consumed_ok(tracker)
+    assoc_ms, n_l, n_r, n_pairs = _fisheye_association_ms(cam, cfg, run[init], dev)
+    log(f"fisheye 10a: stereo on the fused visual step, {len(run)} frames: the map initialized at frame {init} (the "
+        f"reference: {REF_FISHEYE['init']}); frames {init + 1}-{len(run) - 1}: {_frame_times(ms)}; ATE {ate:.4f} m over "
+        f"{len(est)} recorded frames (the reference: {REF_FISHEYE['ate']} m), {tracker.n_kf} keyframes (the reference: "
+        f"{REF_FISHEYE['n_kf']}), ok frames {ok_frames}/{len(est)}, gated_match launches {launches_a} "
+        f"({launches_a / max(n_fused, 1):.2f} per fused frame); the L<->R association {assoc_ms:.3f} ms a frame "
+        f"({n_l} x {n_r} features, {n_pairs} pairs; CUDA events, mean of 20) [{smi}]")
+    if abs(init - REF_FISHEYE["init"]) > INIT_MARGIN:
+        raise AssertionError(f"fisheye: the map initialized at frame {init}, the reference at {REF_FISHEYE['init']}")
+    if ok_frames < 0.9 * len(est) or not np.all(np.isfinite(est)):
+        raise AssertionError(f"fisheye: {ok_frames}/{len(est)} recorded frames tracked")
+    if not ate < FISHEYE_ATE_BOUND:
+        raise AssertionError(f"fisheye: ATE {ate} m >= {FISHEYE_ATE_BOUND} m")
+    if launches_a < 2 * n_fused:
+        raise AssertionError(f"fisheye: gated_match launched {launches_a} times for {n_fused} fused frames")
+
+    # 10b: stereo-inertial: host-path frames until the IMU initialization, then the fused VI step
+    tracker = Tracker(cam, cfg_vi, dev, T_rl=fisheye_rig())
+    tracker.streaming = True
+    hamming.reset_launches()
+    ms_host, ms_fused, launches_host = [], [], None
+    map_init = imu_init = init_ms = ate_init = ate_pre = None
+    for i, fr in enumerate(frames):
+        fused = tracker.imu_ready and tracker.gravity_w is not None and tracker.state == TrackingState.OK
+        if fused and launches_host is None:
+            launches_host = hamming.launches
+        f0 = time.perf_counter()
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+        dt = (time.perf_counter() - f0) * 1e3
+        if map_init is None and tracker.state == TrackingState.OK:
+            map_init = i
+        elif tracker.imu_ready and imu_init is None:
+            imu_init, init_ms = i, dt
+            ate_init = peek_ate(tracker, frames)
+        elif map_init is not None:
+            (ms_fused if fused else ms_host).append(dt)
+        if not tracker.imu_ready and map_init is not None and i >= map_init + 2:
+            ate_pre = peek_ate(tracker, frames)  # outside the frame's time; the last one is the frame before the init
+    tracker.finalize()
+    torch.cuda.synchronize()
+    launches_b = hamming.launches
+    if imu_init is None:
+        raise AssertionError(f"fisheye 10b: the IMU never initialized: {tracker.imu_init_log[-3:]}")
+    rec = tracker.imu_init_log[-1]
+    est, gt = tracked_positions(tracker, frames)
+    ate_vi = synthetic.ate_rmse(est, gt)
+    launches_fused = launches_b - launches_host
+    n_host, n_fused_vi = imu_init - map_init, len(frames) - imu_init - 1
+    log(f"fisheye 10b: stereo-inertial, {len(frames)} frames: the map initialized at frame {map_init}, the IMU at frame "
+        f"{imu_init} (the reference: {REF_FISHEYE_VI['map_init']}, {REF_FISHEYE_VI['imu_init']}), that frame "
+        f"{init_ms:.1f} ms, {rec['n_kf']} keyframes, gravity {_gravity_error_deg(tracker):.2f} deg from the truth; ATE "
+        f"on the frame before it {ate_pre:.4f} m (the reference: {REF_FISHEYE_VI['ate_pre']} m), after its full "
+        f"inertial BA {ate_init:.4f} m (the reference: {REF_FISHEYE_VI['ate_init']} m) [{smi}]")
+    log(f"fisheye 10b: host-path frames: {_frame_times(ms_host)}, gated_match launches {launches_host} "
+        f"({launches_host / max(n_host, 1):.2f} per tracked frame); fused stereo-inertial frames "
+        f"{imu_init + 1}-{len(frames) - 1}: {_frame_times(ms_fused)}, launches {launches_fused} "
+        f"({launches_fused / max(n_fused_vi, 1):.2f} per frame); ATE {ate_vi:.4f} m over {len(est)} recorded frames "
+        f"(no reference figure: see REF_FISHEYE_VI), {tracker.n_kf} keyframes [{smi}]")
+    if abs(imu_init - REF_FISHEYE_VI["imu_init"]) > INIT_MARGIN or not rec["accepted"]:
+        raise AssertionError(f"fisheye 10b: the IMU initialized at frame {imu_init}: {rec}")
+    if not ate_pre < FISHEYE_VI_ATE_PRE_BOUND or not (np.all(np.isfinite(est)) and ate_vi < FISHEYE_VI_ATE_BOUND):
+        raise AssertionError(f"fisheye 10b: ATE {ate_pre} m before the IMU initialization, {ate_vi} m over the run")
+    if launches_host < 2 * n_host or launches_fused < 2 * n_fused_vi:
+        raise AssertionError(f"fisheye 10b: gated_match launched {launches_host} + {launches_fused} times for "
+                             f"{n_host} host-path and {n_fused_vi} fused frames")
+    return (launches_a, max(n_fused, 1)), (launches_b, len(frames) - map_init - 1), assoc_ms
+
+
+def phase_mono_vi(dev, smi):
+    """Phase 11 (see the module docstring): mono-inertial through
+    `System.track_monocular(..., imu_batch=)`."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.frontend.tracker import TrackingState
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.system import System
+    from pli_slam_tpu_torch.utils import trajectory as tio
+    from pli_slam_tpu_torch.utils.profile import path_ratio, peek_ate, slice6_frames, tracked_positions
+
+    t0 = time.perf_counter()
+    cfg, cam, frames = slice6_frames("mono_vi", dev)
+    torch.cuda.synchronize()
+    log(f"mono-inertial: rendered {len(frames)} frames {cam.width}x{cam.height} with {len(frames[0]['imu_gyro'])} IMU "
+        f"samples each in {time.perf_counter() - t0:.2f} s")
+    sysm = System(cam, cfg, device=dev)
+    tracker = sysm.tracker
+    hamming.reset_launches()
+    ms, states = [], []
+    mono_init = imu_init = init_ms = ate_init = ate_pre = None
+    launches_init = None
+    for i, fr in enumerate(frames):
+        f0 = time.perf_counter()
+        info = sysm.track_monocular(fr["img_l"], fr["t"], imu_batch=fr["imu"])
+        dt = (time.perf_counter() - f0) * 1e3
+        states.append(info["state"])
+        if mono_init is None and info["state"] == TrackingState.OK:
+            mono_init = i
+        elif tracker.imu_ready and imu_init is None:
+            imu_init, init_ms, launches_init = i, dt, hamming.launches
+            ate_init = peek_ate(tracker, frames, with_scale=True)
+        elif mono_init is not None:
+            ms.append(dt)
+        if not tracker.imu_ready and mono_init is not None and i >= mono_init + 2:
+            ate_pre = peek_ate(tracker, frames, with_scale=True)
+    torch.cuda.synchronize()
+    launches = hamming.launches
+    sysm.shutdown()
+    if mono_init is None or imu_init is None:
+        raise AssertionError(f"mono-inertial: initialized at frame {mono_init}, the IMU at {imu_init}: "
+                             f"{tracker.imu_init_log[-3:]}")
+    rec = tracker.imu_init_log[-1]
+    est, gt = tracked_positions(tracker, frames)
+    ate_sim3, ate_se3 = tio.ate_rmse(est, gt, with_scale=True), tio.ate_rmse(est, gt)
+    ratio = path_ratio(est, gt)
+    n_ok = sum(s == TrackingState.OK for s in states)
+    n_tracked = imu_init - mono_init
+    log(f"mono-inertial: System.track_monocular(imu_batch=) over {len(frames)} frames: the map initialized at frame "
+        f"{mono_init}, the IMU at frame {imu_init} (the reference: {REF_MONO_VI['mono_init']}, "
+        f"{REF_MONO_VI['imu_init']}), that frame {init_ms:.1f} ms; its record: scale {rec.get('scale')} (the "
+        f"reference: {REF_MONO_VI['scale']}), gravity {_gravity_error_deg(tracker):.2f} deg from the truth, "
+        f"{rec['n_kf']} keyframes [{smi}]")
+    log(f"mono-inertial: frames after the map's initialization: {_frame_times(ms)}; Sim(3) ATE on the frame before the "
+        f"IMU initialization {ate_pre:.4f} m (the reference: {REF_MONO_VI['ate_pre_sim3']} m), after its full inertial "
+        f"BA {ate_init:.4f} m (the reference: {REF_MONO_VI['ate_init_sim3']} m), over the run Sim(3) "
+        f"{ate_sim3:.4f} m (the reference: {REF_MONO_VI['ate_sim3']} m) and SE(3) {ate_se3:.4f} m; path-length ratio "
+        f"of the last 20 frames without alignment {ratio:.4f} (the reference: {REF_MONO_VI['ratio']}); ok frames "
+        f"{n_ok}/{len(frames)} (states after the IMU initialization {states[imu_init + 1:]}); gated_match launches "
+        f"{launches} ({launches_init} up to the IMU initialization) [{smi}]")
+    if abs(mono_init - REF_MONO_VI["mono_init"]) > MONO_INIT_MARGIN:
+        raise AssertionError(f"mono-inertial: the map initialized at frame {mono_init}")
+    if abs(imu_init - REF_MONO_VI["imu_init"]) > INIT_MARGIN or not rec["accepted"]:
+        raise AssertionError(f"mono-inertial: the IMU initialized at frame {imu_init}: {rec}")
+    if not ate_pre < MONO_VI_ATE_PRE_BOUND or not np.all(np.isfinite(est)) or not 0.0 < rec["scale"] < np.inf:
+        raise AssertionError(f"mono-inertial: Sim(3) ATE {ate_pre} m before the IMU initialization, scale {rec['scale']}")
+    if launches_init < 2 * n_tracked:
+        raise AssertionError(f"mono-inertial: gated_match launched {launches_init} times for {n_tracked} frames")
+    return launches, len(frames) - mono_init - 1
+
+
+def phase_rgbd_vi(dev, smi):
+    """Phase 12 (see the module docstring): RGB-D-inertial through
+    `Tracker.process_rgbd(..., imu=)`, every frame on the host path."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.frontend.tracker import Tracker, TrackingState
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.utils import synthetic
+    from pli_slam_tpu_torch.utils.profile import peek_ate, slice6_frames, tracked_positions
+
+    t0 = time.perf_counter()
+    cfg, cam, frames = slice6_frames("rgbd_vi", dev)
+    torch.cuda.synchronize()
+    log(f"rgbd-inertial: rendered {len(frames)} frames {cam.width}x{cam.height} with depth and "
+        f"{len(frames[0]['imu_gyro'])} IMU samples each in {time.perf_counter() - t0:.2f} s")
+    tracker = Tracker(cam, cfg, dev)
+    hamming.reset_launches()
+    ms_before, ms_after, init_frame, ate_pre = [], [], None, None
+    for i, fr in enumerate(frames):
+        f0 = time.perf_counter()
+        tracker.process_rgbd(fr["img_l"], fr["depth"], fr["t"], imu=fr["imu"])
+        dt = (time.perf_counter() - f0) * 1e3
+        if tracker.imu_ready and init_frame is None:
+            init_frame, init_ms = i, dt
+            v_err = float(np.linalg.norm(tracker.v_w.cpu().numpy() - fr["v_w"]))
+            ate_init = peek_ate(tracker, frames)
+        elif i > 0:
+            (ms_after if init_frame is not None else ms_before).append(dt)
+        if not tracker.imu_ready and i >= 2:
+            ate_pre = peek_ate(tracker, frames)
+    tracker.finalize()
+    torch.cuda.synchronize()
+    launches = hamming.launches
+    if init_frame is None:
+        raise AssertionError(f"rgbd-inertial: the IMU never initialized: {tracker.imu_init_log[-3:]}")
+    rec = tracker.imu_init_log[-1]
+    g_angle = _gravity_error_deg(tracker)
+    est, gt = tracked_positions(tracker, frames)
+    ate = synthetic.ate_rmse(est, gt)
+    ok_frames = sum(s["state"] == TrackingState.OK for s in tracker.stats)
+    log(f"rgbd-inertial: Tracker.process_rgbd(imu=) over {len(frames)} frames (all on the host path): IMU init at frame "
+        f"{init_frame} (the reference: {REF_RGBD_VI['imu_init']}), {rec['n_kf']} keyframes, that frame {init_ms:.1f} ms, "
+        f"the initialization {rec['wall_ms']:.1f} ms of it; gravity {g_angle:.2f} deg from the truth; velocity "
+        f"{v_err:.3f} m/s from the truth; ATE of frames 0-{init_frame - 1} {ate_pre:.4f} m "
+        f"(the reference: {REF_RGBD_VI['ate_pre']} m), after the initialization's full inertial BA {ate_init:.4f} m "
+        f"(the reference: {REF_RGBD_VI['ate_init']} m); bg {np.round(rec['bg'], 4).tolist()}, ba "
+        f"{np.round(rec['ba'], 4).tolist()} [{smi}]")
+    log(f"rgbd-inertial: frames 1-{init_frame - 1}: {_frame_times(ms_before)}; frames {init_frame + 1}-"
+        f"{len(frames) - 1}: {_frame_times(ms_after)}; ATE {ate:.4f} m (the reference: {REF_RGBD_VI['ate']} m), "
+        f"{tracker.n_kf} keyframes, ok frames {ok_frames}/{len(frames)}, gated_match launches {launches} "
+        f"({launches / (len(frames) - 1):.2f} per tracked frame) [{smi}]")
+    if abs(init_frame - REF_RGBD_VI["imu_init"]) > INIT_MARGIN or not rec["accepted"]:
+        raise AssertionError(f"rgbd-inertial: the IMU initialized at frame {init_frame}: {rec}")
+    if not ate_pre < RGBD_VI_ATE_PRE_BOUND or not (np.all(np.isfinite(est)) and ate < RGBD_VI_ATE_BOUND):
+        raise AssertionError(f"rgbd-inertial: ATE {ate_pre} m before the IMU initialization, {ate} m over the run")
+    if ok_frames < 0.9 * len(frames):
+        raise AssertionError(f"rgbd-inertial: only {ok_frames}/{len(frames)} frames tracked")
+    if launches < 2 * (len(frames) - 1):
+        raise AssertionError(f"rgbd-inertial: gated_match launched {launches} times for {len(frames) - 1} frames")
+    return launches, len(frames) - 1
+
+
 def main() -> int:
     import torch
 
@@ -1347,6 +1704,9 @@ def main() -> int:
     phase_rectifier(dev, smi)
     ingest = phase_ingest(dev, smi, vi, rgbd_frames, room)
     launches_ingest = sum(n for n, _ in ingest.values())
+    fisheye, fisheye_vi, assoc_ms = phase_fisheye(dev, smi)
+    slice6 = {"fisheye": fisheye, "fisheye_vi": fisheye_vi, "mono_vi": phase_mono_vi(dev, smi),
+              "rgbd_vi": phase_rgbd_vi(dev, smi)}
 
     from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
 
@@ -1359,7 +1719,7 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": "gated_match", "route": "cuda", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
         "launches": launches + launches_vi + launches_loop + launches_ra + launches_rgbd + launches_mono
-        + launches_ingest,
+        + launches_ingest + sum(n for n, _ in slice6.values()),
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "call_ms": c_ms, "shape": "N=1200 x P=4096",
         "ms_fuse": kf_ms, "plain_ms_fuse": pf_ms, "bound_ms_fuse": bf_ms, "call_ms_fuse": cf_ms,
@@ -1374,6 +1734,9 @@ def main() -> int:
         "bound_ms_fuse_n2000": bkf_ms, "call_ms_fuse_n2000": ckf_ms, "shape_fuse_n2000": "N=2000 x P=16384",
         **{f"launches_{name}": n for name, (n, _) in ingest.items()},
         **{f"launches_per_frame_{name}": n / max(frames - 1, 1) for name, (n, frames) in ingest.items()},
+        **{f"launches_{name}": n for name, (n, _) in slice6.items()},
+        **{f"launches_per_frame_{name}": n / frames for name, (n, frames) in slice6.items()},
+        "fisheye_association_ms": assoc_ms,
     }]}))
     log(smi)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T_START:.1f} s")

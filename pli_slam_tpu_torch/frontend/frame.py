@@ -8,6 +8,9 @@ and turns it into a virtual right coordinate u - bf/d, so the stereo
 machinery downstream applies unchanged. `build_frame_mono` has no depth
 channel; with a Kannala-Brandt8 camera its keypoints and line endpoints
 are undistorted to the ideal pinhole frame (`undistort_uv`).
+`build_frame_fisheye_stereo` serves an unrectified KB8 rig: the left and
+right features are associated by epipolar-gated descriptor matching and
+DLT triangulation, and the depth becomes a virtual right coordinate.
 """
 
 from __future__ import annotations
@@ -19,10 +22,11 @@ import torch
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.ops import lines as line_ops
 from pli_slam_tpu_torch.ops import camera as cam_ops
-from pli_slam_tpu_torch.ops import orb, stereo
+from pli_slam_tpu_torch.ops import matching, orb, stereo
 from pli_slam_tpu_torch.ops.camera import Camera
 from pli_slam_tpu_torch.ops.lines import LineFeatures
 from pli_slam_tpu_torch.ops.orb import Features
+from pli_slam_tpu_torch.solve import triangulate as tri
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +124,53 @@ def build_frame_mono(cam: Camera, cfg: SlamConfig, img: torch.Tensor) -> FrameDa
                      stereo_ok=torch.zeros(n, dtype=torch.bool, device=dev), depth=torch.full((n,), -1.0, device=dev),
                      lines=ll, line_disp=torch.zeros((nl, 2), device=dev),
                      line_ok=torch.zeros(nl, dtype=torch.bool, device=dev), sigma2=fl.scale ** 2)
+
+
+def build_frame_fisheye_stereo(cam_l: Camera, cam_r: Camera, cfg: SlamConfig, R_rl: torch.Tensor,
+                               t_rl: torch.Tensor, img_l: torch.Tensor, img_r: torch.Tensor) -> FrameData:
+    """Fisheye (KB8) stereo frame: a fisheye rig cannot be rectified to
+    scanlines. ORB runs on both raw images and each camera's keypoints are
+    undistorted to its ideal pinhole frame; left and right are matched
+    densely under the epipolar gate of the rig (`T_rl` = (R_rl, t_rl) maps
+    left-camera coordinates to right-camera ones), mutual nearest
+    neighbours with the ratio test, and each match is DLT-triangulated.
+    The depth z becomes a virtual right coordinate u - bf / z. Lines come
+    from the left image only and carry no stereo association."""
+    dev = img_l.device
+    fl = orb.extract(img_l, cfg.orb)
+    fr = orb.extract(img_r, cfg.orb)
+    uv_l = undistort_uv(cam_l, fl.uv)
+    uv_r = undistort_uv(cam_r, fr.uv)
+    fl = dataclasses.replace(fl, uv=uv_l)
+    pin_l = dataclasses.replace(cam_l, model=cam_ops.PINHOLE)
+    pin_r = dataclasses.replace(cam_r, model=cam_ops.PINHOLE)
+
+    # the left view is T_cw = (I, 0), the right one (R_rl, t_rl), in the left camera's frame
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    gate = tri.epipolar_gate(pin_l, eye, zero, R_rl, t_rl, uv_l, uv_r)
+    dist = matching.hamming_matrix(fl.desc, fr.desc)
+    idx, _, ok = matching.match_nn(dist, fl.valid, fr.valid, gate, max_dist=cfg.match.orb_th_high,
+                                   ratio=cfg.match.nn_ratio)
+    ok = matching.mutual_consistency(idx, ok, dist, fl.valid, fr.valid, gate)
+
+    j = torch.clamp(idx, min=0).long()
+    ray_l = cam_ops.unproject(pin_l, uv_l)
+    ray_r = cam_ops.unproject(pin_r, uv_r[j])
+    X = tri.triangulate_dlt(eye, zero, R_rl, t_rl, ray_l, ray_r)
+    good = tri.triangulation_checks(pin_l, eye, zero, R_rl, t_rl, X, uv_l, uv_r[j], fl.scale ** 2,
+                                    fr.scale[j] ** 2, min_parallax_cos=1.0)  # the rig's baseline is the parallax
+    z = X[:, 2]
+    minus = torch.full_like(z, -1.0)
+    depth = torch.where(ok & good & (z > 0.05), z, minus)
+    sok = depth > 0
+    u_r = torch.where(sok, uv_l[:, 0] - cam_l.bf / torch.clamp(depth, min=1e-6), minus)
+
+    nl = cfg.lines.n_lines
+    if cfg.use_lines:
+        ll = line_ops.detect(img_l, cfg.lines)
+        ll = dataclasses.replace(ll, p0=undistort_uv(cam_l, ll.p0), p1=undistort_uv(cam_l, ll.p1))
+    else:
+        ll = LineFeatures.empty(nl, dev)
+    return FrameData(feats=fl, u_right=u_r, stereo_ok=sok, depth=depth, lines=ll,
+                     line_disp=torch.zeros((nl, 2), device=dev), line_ok=torch.zeros(nl, dtype=torch.bool, device=dev),
+                     sigma2=fl.scale ** 2)

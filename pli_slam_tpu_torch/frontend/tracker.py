@@ -1,11 +1,16 @@
-"""Host-side tracker for the stereo, stereo-inertial, RGB-D and monocular
-paths (port of pli_slam_tpu/frontend/tracker.py `Tracker`).
+"""Host-side tracker for every sensor of the reference: stereo,
+stereo-inertial, RGB-D, RGB-D-inertial, monocular and mono-inertial, on
+pinhole or Kannala-Brandt8 (fisheye) cameras (port of
+pli_slam_tpu/frontend/tracker.py `Tracker`).
 
 Stereo (`sensor="stereo"`, `process`): the first frame builds on the host
 path and `_initialize`s the map; every later frame runs the fused device
 step (frontend.step.make_step_visual). With a `rectifier`
 (ops.rectify.StereoRectifier) raw pairs are rectified inside the frame
-build, on the fused step and the host path alike.
+build, on the fused step and the host path alike. A KB8 stereo rig
+(`cam_right`, `T_rl`) cannot be rectified: its frames are built by
+frontend.frame.build_frame_fisheye_stereo (epipolar-gated L/R matching and
+triangulation) on every path, and a rectifier is ignored.
 
 RGB-D (`sensor="rgbd"`, `process_rgbd`): the same, with
 frontend.frame.build_frame_rgbd as the frame builder (the depth image
@@ -31,6 +36,15 @@ bias, the inertial-only MAP problem, full inertial BA) and from the next
 frame on the fused stereo-inertial step (make_step_vi) takes over, with the
 VIBA1 / VIBA2 refinements queued as deferred chunks at +5 s and +15 s.
 
+Mono-inertial (`sensor="mono_imu"`, `process_mono(..., imu=...)`) and
+RGB-D-inertial (`sensor="rgbd_imu"`, `process_rgbd(..., imu=...)`): every
+frame is host-orchestrated, inertial tracking once the IMU is initialized
+(the reference runs no fused step for either). The mono map is born at an
+arbitrary scale: `_try_imu_init` solves for it (the scale is free in the
+inertial-only MAP problem) and `_apply_scale` rescales the map, and while
+the map is young `_scale_refinement` re-estimates scale and gravity at each
+keyframe after VIBA2.
+
 `_finish_fused` consumes a fused step's stats vector -- one frame late in
 `streaming` mode, as in the reference, so the stats read overlaps the next
 frame's work.
@@ -44,9 +58,7 @@ persistent loss parks the map in the `Atlas` and starts a new one, which
 `_try_merge` welds back into the parked map when place recognition finds
 it again. A timestamp going backwards (or a jump with an inertial sensor)
 resets or parks the active map. Monocular relocalization solves PnP with
-the depth-free DLT. The mono-inertial and RGB-D-inertial pieces
-(`_apply_scale`, `_scale_refinement`) are not ported yet: `mono_imu` and
-`rgbd_imu` raise.
+the depth-free DLT.
 
 Random draws (the PnP, two-view and merge RANSACs, and the loop closer's)
 go through `Tracker.draw`, `solve.sim3.sample_indices` unless replaced: the
@@ -65,7 +77,8 @@ import torch
 
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.frontend import step as step_mod
-from pli_slam_tpu_torch.frontend.frame import FrameData, build_frame, build_frame_mono, build_frame_rgbd
+from pli_slam_tpu_torch.frontend.frame import (FrameData, build_frame, build_frame_fisheye_stereo, build_frame_mono,
+                                               build_frame_rgbd)
 from pli_slam_tpu_torch.frontend.loop_closing import LoopCloser, match_cross_map, scene_scaled_thresh
 from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie, matching
@@ -93,6 +106,9 @@ class Tracker:
     unless the caller names another (`device=None` means
     `torch.device("cuda")`; the CPU is used only when asked for).
     `rectifier`: an ops.rectify.StereoRectifier for raw stereo pairs.
+    A KB8 stereo rig needs `T_rl` (4x4, left-camera to right-camera
+    coordinates); `cam_right` defaults to the left camera. A KB8 camera
+    tracks on its pinhole twin (`self.cam`; `self.cam_raw` builds frames).
     `vocab_pt` / `vocab_ln`: the point and line vocabularies (a
     worldmap.vocab.TrainedVocabulary, e.g. from scripts.train_vocab); the
     LSH vocabularies by default. The BoW database is sized by each one's
@@ -100,18 +116,29 @@ class Tracker:
     On a GPU with loop closing on, construction runs
     `LoopCloser.warm_up` (its time in `loop_warmup_ms`)."""
 
-    SENSORS = ("stereo", "stereo_imu", "rgbd", "mono")
+    SENSORS = ("stereo", "stereo_imu", "rgbd", "rgbd_imu", "mono", "mono_imu")
 
-    def __init__(self, cam: Camera, cfg: SlamConfig, device=None, rectifier=None, vocab_pt=None, vocab_ln=None):
+    def __init__(self, cam: Camera, cfg: SlamConfig, device=None, rectifier=None, cam_right: Camera | None = None,
+                 T_rl=None, vocab_pt=None, vocab_ln=None):
         if cfg.sensor not in self.SENSORS:
-            raise NotImplementedError(f"sensor {cfg.sensor!r}: the port runs {', '.join(self.SENSORS)}")
-        self.is_mono = cfg.sensor == "mono"
-        if cam.model == KANNALA_BRANDT8 and not self.is_mono:
-            raise NotImplementedError(f"a KB8 (fisheye) camera with sensor {cfg.sensor!r} is not ported yet")
+            raise ValueError(f"unknown sensor {cfg.sensor!r}: the tracker runs {', '.join(self.SENSORS)}")
+        self.is_mono = cfg.sensor.startswith("mono")
+        self.is_rgbd = cfg.sensor.startswith("rgbd")
         self.device = torch.device("cuda" if device is None else device)
         dev = self.device
-        # a KB8 mono camera: features are undistorted to the pinhole frame with
-        # the same intrinsics, and everything downstream runs on that pinhole camera
+        build_fisheye = None
+        if cam.model == KANNALA_BRANDT8:
+            if cfg.sensor.startswith("stereo"):
+                if T_rl is None:
+                    raise ValueError("KB8 fisheye stereo needs the rig extrinsics T_rl "
+                                     "(4x4 left->right camera transform)")
+                T = torch.as_tensor(np.asarray(T_rl, np.float32), device=dev)
+                build_fisheye = partial(build_frame_fisheye_stereo, cam, cam_right if cam_right is not None else cam,
+                                        cfg, T[:3, :3], T[:3, 3])
+            elif not self.is_mono:
+                raise ValueError("KB8 fisheye supports mono/mono_imu/stereo/stereo_imu")
+        # a KB8 camera: features are undistorted to the pinhole frame with the
+        # same intrinsics, and everything downstream runs on that pinhole camera
         self.cam_raw = cam
         cam = dataclasses.replace(cam, model=PINHOLE)
         self.cam = cam
@@ -119,8 +146,10 @@ class Tracker:
         self.rectifier = None if rectifier is None else rectifier.to(dev)
         if self.is_mono:
             self.build_frame = partial(build_frame_mono, self.cam_raw, cfg)
-        elif cfg.sensor == "rgbd":
+        elif self.is_rgbd:
             self.build_frame = partial(build_frame_rgbd, cam, cfg)
+        elif build_fisheye is not None:
+            self.build_frame = build_fisheye
         elif self.rectifier is not None:
             self.build_frame = partial(_build_rectified, cam, cfg, self.rectifier)
         else:
@@ -167,7 +196,7 @@ class Tracker:
         self._traj_done: list[tuple[float, np.ndarray, np.ndarray]] = []
         self.stats: list[dict] = []
 
-        # -- inertial state (sensor stereo_imu) ---------------------------
+        # -- inertial state (sensors *_imu) --------------------------------
         self.use_imu = cfg.sensor.endswith("_imu")
         self.ext = inr.Extrinsics.from_Tbc(cfg.imu.Tbc, dev)
         self.imu_ready = False
@@ -192,7 +221,7 @@ class Tracker:
         # frames of widened matching after a map-changing event (IMU init,
         # full inertial BA, a deferred chunk)
         self._map_event_cooldown = 0
-        if self.use_imu:
+        if self.use_imu and not self.is_mono:  # the RGB-D-inertial sensor never runs it, as in the reference
             self._step_vi = step_mod.make_step_vi(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame)
         self.loop_warmup_ms = None
         if self.loop_closer is not None and dev.type == "cuda":
@@ -333,6 +362,12 @@ class Tracker:
     def _body_state(self):
         return inr.body_state_from_camera(self.R, self.t, self.v_w, self.bg, self.ba, self.ext)
 
+    def _kf_body_poses(self, n: int):
+        """The first `n` keyframes' body poses (R_wb [n,3,3], p_wb [n,3]) through T_cb."""
+        R_k, t_k = self.kstore.R[:n], self.kstore.t[:n]
+        return (torch.einsum("kji,jm->kim", R_k, self.ext.R_cb),
+                torch.einsum("kji,kj->ki", R_k, self.ext.t_cb[None] - t_k))
+
     # padded full-inertial-BA window capacities
     _FIBA_CAPS = (8, 16, 32)
 
@@ -419,12 +454,32 @@ class Tracker:
             self._map_event_cooldown = max(self._map_event_cooldown, 2)
             n_run += 1
 
+    def _apply_scale(self, s: float):
+        """Rescale the whole map by `s` (the mono-inertial metric scale):
+        point positions, line endpoints, keyframe translations and
+        velocities, the live and previous translations and velocity, and
+        every recorded trajectory entry. As in the reference, the motion
+        model's twist keeps the old scale (the view rings hold keyframe
+        slots, whose poses are read live)."""
+        self.pstore = dataclasses.replace(self.pstore, x=self.pstore.x * s)
+        self.lstore = dataclasses.replace(self.lstore, seg=self.lstore.seg * s)
+        self.kstore = dataclasses.replace(self.kstore, t=self.kstore.t * s, v_w=self.kstore.v_w * s)
+        self.t = self.t * s
+        self.t_prev = self.t_prev * s
+        self.v_w = self.v_w * s
+        # pending entries are (stamp, ref, R_cr, t_cr, R_abs, t_abs): t_cr = t_cw - R_cr t_r
+        # is linear in the translations, so a uniform scale multiplies it too
+        self._traj_pending = [(st_, ref, R_cr, t_cr * s, R_abs, t_abs * s)
+                              for st_, ref, R_cr, t_cr, R_abs, t_abs in self._traj_pending]
+        self._traj_done = [(st_, R_wc, p * s) for st_, R_wc, p in self._traj_done]
+
     def _try_imu_init(self):
         """Three-stage IMU initialization over the keyframe chain:
         1. gyro bias from visual against preintegrated keyframe rotations;
         2. the joint MAP problem over gravity direction, biases and
            per-keyframe velocities with the poses fixed
-           (solve.imu_init.inertial_optimization; the scale is fixed for stereo);
+           (solve.imu_init.inertial_optimization): the scale is fixed for
+           stereo and RGB-D and free for mono, whose map is then rescaled;
         3. full inertial BA over the whole map.
         VIBA1 / VIBA2 follow at +5 s / +15 s. Appends one record to `imu_init_log`."""
         t0 = time.perf_counter()
@@ -442,10 +497,7 @@ class Tracker:
             return log(False, "too_few_preintegrations")
         dev = self.device
         ks = self.kstore
-        R_k, t_k = ks.R[:n], ks.t[:n]
-        # body states from camera poses through T_cb
-        R_wb = torch.einsum("kji,jm->kim", R_k, self.ext.R_cb)
-        p_wb = torch.einsum("kji,kj->ki", R_k, self.ext.t_cb[None] - t_k)
+        R_wb, p_wb = self._kf_body_poses(n)
 
         # stage 1: gyro bias from rotation residuals
         live = np.nonzero(imu_mask)[0]
@@ -457,15 +509,20 @@ class Tracker:
         mask_dev = torch.as_tensor(imu_mask, device=dev)
         Rwg0 = ii.gravity_dir_seed(stacked, mask_dev, R_wb, self.cfg.imu.gravity)
         v0 = ii.velocity_seed(p_wb, ks.stamp[:n])
+        fix_scale = not self.is_mono
         Rwg, s, bg, ba, v, costs = ii.inertial_optimization(
             stacked, mask_dev, R_wb, p_wb, v0, Rwg0, bg0, torch.zeros(3, device=dev), self.cfg.imu,
-            prior_g=1e2, prior_a=1e5, fix_scale=True)
+            prior_g=1e2, prior_a=1e6 if self.is_mono else 1e5, fix_scale=fix_scale)
         g_w = lie._einsum("ij,j->i", Rwg, torch.tensor([0.0, 0.0, -self.cfg.imu.gravity], device=dev))
         if not bool(torch.all(torch.isfinite(g_w))):
             return log(False, "nonfinite_gravity")
         self.gravity_w = g_w
         self.bg = bg
         self.ba = ba
+        scale = float(s)
+        if not fix_scale and abs(scale - 1.0) > 1e-3 and scale > 1e-3:
+            self._apply_scale(scale)
+            v = v * scale
         new = {}
         for name, val in (("v_w", v), ("bg", bg.expand(n, 3)), ("ba", ba.expand(n, 3))):
             arr = getattr(self.kstore, name).clone()
@@ -481,8 +538,48 @@ class Tracker:
         self._viba_stage = 0
         g_np = g_w.cpu().numpy()
         grav_angle = float(np.degrees(np.arccos(np.clip(-g_np[2] / max(np.linalg.norm(g_np), 1e-9), -1.0, 1.0))))
-        log(True, "ok", scale=float(s), gravity_angle_deg=grav_angle, bg=bg.cpu().numpy().tolist(),
+        log(True, "ok", scale=scale, gravity_angle_deg=grav_angle, bg=bg.cpu().numpy().tolist(),
             ba=ba.cpu().numpy().tolist(), cost0=float(costs[0]), cost1=float(costs[-1]))
+
+    def _scale_refinement(self, fix_scale: bool = False):
+        """Scale and gravity-direction refinement over the keyframe chain,
+        the biases pinned (`fix_bias`): the map is rescaled when the
+        correction exceeds 0.2%. With `fix_scale` only the gravity direction
+        and the velocities are refined."""
+        n = self.n_kf
+        if n < 4 or self.gravity_w is None:
+            return
+        stacked, imu_mask = self._kf_chain(np.arange(n))
+        if imu_mask.sum() < 3:
+            return
+        dev = self.device
+        R_wb, p_wb = self._kf_body_poses(n)
+        # the current gravity direction seeds the rotation
+        g0 = torch.tensor([0.0, 0.0, -self.cfg.imu.gravity], device=dev)
+        gw = self.gravity_w / torch.linalg.norm(self.gravity_w)
+        gz = g0 / torch.linalg.norm(g0)
+        v_axis = torch.linalg.cross(gz, gw)
+        s_ang = torch.linalg.norm(v_axis)
+        Rwg0 = torch.where(s_ang > 1e-6,
+                           lie.so3_exp(v_axis / torch.clamp(s_ang, min=1e-9) * torch.arcsin(torch.clamp(s_ang, -1, 1))),
+                           torch.eye(3, device=dev))
+        Rwg, s, _bg, _ba, v, _costs = ii.inertial_optimization(
+            stacked, torch.as_tensor(imu_mask, device=dev), R_wb, p_wb, self.kstore.v_w[:n], Rwg0, self.bg, self.ba,
+            self.cfg.imu, fix_scale=fix_scale, fix_bias=True)
+        scale = float(s)
+        if not np.isfinite(scale) or scale <= 1e-3:
+            return
+        g_w = lie._einsum("ij,j->i", Rwg, g0)
+        if not bool(torch.all(torch.isfinite(g_w))):
+            return
+        self.gravity_w = g_w
+        if not fix_scale and abs(scale - 1.0) > 0.002:
+            self._apply_scale(scale)
+            v = v * scale
+        v_all = self.kstore.v_w.clone()
+        v_all[:n] = v
+        self.kstore = dataclasses.replace(self.kstore, v_w=v_all)
+        self.v_w = v[n - 1]
 
     # -- Atlas: a new map on persistent loss, merging back -------------------
     def _park_active(self):
@@ -843,20 +940,22 @@ class Tracker:
             return self._initialize(self.build_frame(*img_args), stamp)
         return self._process_fused(img_args, stamp, allow_mapping)
 
-    def process_rgbd(self, img, depth, stamp: float, allow_mapping: bool = True) -> dict:
+    def process_rgbd(self, img, depth, stamp: float, allow_mapping: bool = True, imu: dict | None = None) -> dict:
         """RGB-D frame: `img` [H, W] float32 in [0, 255] and `depth` [H, W]
-        in metres (0 where unknown), numpy or tensors. The map initializes
-        on the host path; later frames run the fused step."""
+        in metres (0 where unknown), numpy or tensors; `imu` as in
+        `process`. The map initializes on the host path; later frames run
+        the fused step, but with an IMU every frame is host-orchestrated."""
         self._check_timestamp(stamp)
         img_args = (self._image(img), self._image(depth))
-        if self.state == TrackingState.NOT_INITIALIZED:
-            return self._process_frame(self.build_frame(*img_args), stamp, allow_mapping)
+        if self.use_imu or self.state == TrackingState.NOT_INITIALIZED:
+            return self._process_frame(self.build_frame(*img_args), stamp, allow_mapping, imu)
         return self._process_fused(img_args, stamp, allow_mapping)
 
-    def process_mono(self, img, stamp: float, allow_mapping: bool = True) -> dict:
-        """Monocular frame: every frame is host-orchestrated."""
+    def process_mono(self, img, stamp: float, allow_mapping: bool = True, imu: dict | None = None) -> dict:
+        """Monocular / mono-inertial frame (`imu` as in `process`): every
+        frame is host-orchestrated."""
         self._check_timestamp(stamp)
-        return self._process_frame(self.build_frame(self._image(img)), stamp, allow_mapping)
+        return self._process_frame(self.build_frame(self._image(img)), stamp, allow_mapping, imu)
 
     def _image(self, img) -> torch.Tensor:
         return torch.as_tensor(img, dtype=torch.float32, device=self.device)
@@ -923,6 +1022,7 @@ class Tracker:
         self._kf_views = [(prev.feats.uv, prev.feats.desc, prev.feats.valid, 0)]
         self._mono_init_frame = None
         self.state = TrackingState.OK
+        self._preint_since_kf = None  # the accumulator starts at KF0, as in `_initialize`
 
         R2, t2, pt_idx, pt_in, ln_idx, ln_in, n_in, self.pstore, self.lstore = step_mod.track_step(
             self.cam, self.cfg, frame, R, t, self.pstore, self.lstore, wide=torch.zeros((), dtype=torch.bool,
@@ -944,9 +1044,9 @@ class Tracker:
 
     def _process_frame(self, frame: FrameData, stamp: float, allow_mapping: bool = True,
                        imu: dict | None = None) -> dict:
-        """Host-orchestrated frame: every monocular frame, the first frame of
-        the visual paths, and the stereo-inertial frames before the IMU
-        initialization and after a tracking loss."""
+        """Host-orchestrated frame: every monocular and RGB-D-inertial frame,
+        the first frame of the visual paths, and the stereo-inertial frames
+        before the IMU initialization and after a tracking loss."""
         if self.use_imu and imu is not None:
             self._ingest_imu(imu, stamp)
         if self.state == TrackingState.NOT_INITIALIZED:
@@ -1021,6 +1121,10 @@ class Tracker:
                 if stamp - self._imu_init_stamp > (5.0 if self._viba_stage == 0 else 15.0):
                     self._full_inertial_ba()
                     self._viba_stage += 1
+            elif (self.is_mono and self._viba_stage == 2 and stamp - self._imu_init_stamp < 50.0
+                  and self.frames_since_kf == 0):
+                # the mono scale drifts: refine scale and gravity while the map is young
+                self._scale_refinement()
 
         self.frames_since_kf += 1
         # keyframe decision against what the reference keyframe OBSERVES

@@ -1,6 +1,6 @@
-"""Two-view DLT triangulation and acceptance checks
-and midpoint triangulation (port of pli_slam_tpu.solve.triangulate but for
-the epipolar gate of fisheye stereo).
+"""Two-view DLT triangulation, acceptance checks, midpoint triangulation
+and the epipolar gate of fisheye stereo (port of
+pli_slam_tpu.solve.triangulate).
 
 The 4x4 DLT system's smallest eigenvector is found by shifted inverse
 power iteration with a closed-form (cofactor) 4x4 inverse, as in the
@@ -109,3 +109,22 @@ def triangulation_checks(cam, R1, t1, R2, t2, X_w, uv1, uv2, sigma2_1, sigma2_2,
     cos_par = torch.sum(r1 * r2, dim=-1) / torch.clamp(
         torch.linalg.norm(r1, dim=-1) * torch.linalg.norm(r2, dim=-1), min=1e-12)
     return ok & (cos_par < min_parallax_cos)
+
+
+def epipolar_gate(cam, R1, t1, R2, t2, uv1, uv2, thresh: float = 3.84):
+    """Pairwise epipolar predicate [N1, N2]: the squared pixel distance of
+    uv2 from the epiline of uv1 below `thresh`. F = K^-T [t]x R K^-1 with
+    (R, t) = T_c2w o T_wc1, on a pinhole camera with `cam`'s intrinsics."""
+    R12, t12 = lie.se3_compose(R2, t2, *lie.se3_inverse(R1, t1))
+    E = lie._mm(lie.hat(t12), R12)
+    K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], dtype=torch.float32,
+                     device=uv1.device)
+    Kinv = torch.linalg.inv(K)
+    F = lie._mm(Kinv.T, lie._mm(E, Kinv))
+    h1 = torch.cat([uv1, torch.ones_like(uv1[:, :1])], dim=1)  # [N1, 3]
+    h2 = torch.cat([uv2, torch.ones_like(uv2[:, :1])], dim=1)
+    lines = torch.einsum("ij,nj->ni", F, h1)  # the epiline of uv1 in view 2
+    num = torch.abs(torch.einsum("mi,ni->nm", h2, lines))  # [N1, N2]
+    den = torch.sqrt(lines[:, 0] ** 2 + lines[:, 1] ** 2)[:, None]
+    d2 = (num / torch.clamp(den, min=1e-9)) ** 2
+    return d2 < thresh

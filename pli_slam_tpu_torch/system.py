@@ -16,8 +16,11 @@ port, are written as a uint32 view and read back as an int32 view. As in
 the reference, `load_map` fills a field missing from the file with the
 live store's value.
 
-Sensors: stereo, stereo_imu, rgbd and mono; mono_imu and rgbd_imu raise
-NotImplementedError (the Tracker's).
+Sensors: the reference's, stereo, stereo_imu, mono, mono_imu and rgbd;
+any other, rgbd_imu included, raises ValueError, as in the reference. The
+Tracker itself also runs rgbd_imu (`Tracker.process_rgbd(..., imu=)`) and
+a KB8 fisheye stereo rig (`Tracker(cam, cfg, T_rl=...)`), which `System`
+cannot describe; a KB8 camera serves mono and mono_imu here.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ _STORES = (("pt", "pstore"), ("ln", "lstore"), ("kf", "kstore"))
 
 
 class System:
-    SENSORS = ("stereo", "stereo_imu", "mono", "mono_imu", "rgbd", "rgbd_imu")
+    SENSORS = ("stereo", "stereo_imu", "mono", "mono_imu", "rgbd")
 
     def __init__(self, cam: Camera, cfg: SlamConfig | None = None, rectifier=None, device=None):
         """`rectifier`: an ops.rectify.StereoRectifier; raw stereo pairs
@@ -71,10 +74,10 @@ class System:
         return self._with_pose(info)
 
     def track_monocular(self, img, stamp: float, imu_batch=None) -> dict:
-        """One monocular frame. `imu_batch` is not used until the
-        mono-inertial path is ported (a `mono_imu` System raises)."""
+        """One monocular frame (and, with `mono_imu`, the IMU batch since the
+        previous one, as in `track_stereo`)."""
         t0 = time.time()
-        info = self.tracker.process_mono(img, stamp, allow_mapping=not self.localization_only)
+        info = self.tracker.process_mono(img, stamp, allow_mapping=not self.localization_only, imu=imu_batch)
         self._frame_times.append(time.time() - t0)
         return self._with_pose(info)
 

@@ -34,7 +34,7 @@ synchronised stage pass with `preintegrate`, `track_step_inertial`,
 `local_inertial_ba` and `_try_imu_init` added to the stages. `--vi-drift N`
 runs N frames of that path twice and prints, per frame after the
 initialization, how far velocity, accelerometer bias and trajectory have
-drifted from the truth, up to the frame where a run reaches an unported path.
+drifted from the truth.
 `--spread rgbd|mono|loop` runs chip_smoke.py's RGB-D, mono or loop-closing
 (6a) phase N_SPREAD times on the same frames and prints each run's
 accuracy, a digest of its trajectory, and whether all runs were
@@ -129,7 +129,7 @@ def vi_frames(cam: Camera, cfg: SlamConfig, n_frames: int, dev) -> list[dict]:
 
     frames = list(synthetic.make_sequence(cam, n_frames, dev, fps=cfg.fps, imu_noise=synthetic.ImuNoiseModel.euroc()))
     for fr in frames:
-        fr["imu"] = {"gyro": fr["imu_gyro"], "acc": fr["imu_acc"], "stamps": fr["imu_stamps"]}
+        fr["imu"] = imu_batch(fr)
     return frames
 
 
@@ -166,6 +166,101 @@ def sensor_run(sensor: str, dev) -> tuple:
         return cfg, cam, list(synthetic.make_sequence(cam, N_FRAMES_RGBD, dev, fps=cfg.fps, with_depth=True))
     cfg, cam = mono_config(), slice_camera()
     return cfg, cam, list(synthetic.make_sequence(cam, N_FRAMES_MONO, dev, fps=cfg.fps))
+
+
+# chip_smoke.py's phases 10-12: the fisheye rig, mono-inertial and RGB-D-inertial.
+# TUM-VI's 512x512 fisheye rig (ORB-SLAM3's Examples/Stereo-Inertial/TUM-VI.yaml, TUM_512): cam0's
+# Kannala-Brandt8 calibration, used for both cameras, and a pure 0.101 m baseline
+TUMVI_CAM0 = dict(fx=190.978, fy=190.973, cx=254.932, cy=256.897, k=(0.0034824, 0.00071503, -0.0020532, 0.00020294))
+TUMVI_BASELINE = 0.101
+N_FRAMES_FISHEYE = 40  # 10a, the fused visual step
+N_FRAMES_FISHEYE_VI = 52  # 10b: host-path frames until the IMU initialization, then fused VI frames (as phase 5)
+N_FRAMES_MONO_VI = 44  # phase 11: the reference initializes the IMU at frame 30 and loses tracking right after
+N_FRAMES_RGBD_VI = 64  # phase 12: the IMU initializes after 1.5 s (frame 45 at 30 fps) and 10 keyframes
+
+
+def fisheye_camera() -> Camera:
+    """TUM-VI's cam0 at 512x512 (KB8), bf = fx x 0.101 m."""
+    c = TUMVI_CAM0
+    return Camera.kannala_brandt8(fx=c["fx"], fy=c["fy"], cx=c["cx"], cy=c["cy"], k=c["k"],
+                                  bf=c["fx"] * TUMVI_BASELINE, width=512, height=512)
+
+
+def fisheye_rig() -> np.ndarray:
+    """T_rl of the fisheye rig: the right camera TUMVI_BASELINE along the left one's +x axis."""
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = -TUMVI_BASELINE
+    return T
+
+
+def fisheye_config(inertial: bool) -> SlamConfig:
+    """The fisheye rig's configuration: slice_config() (stereo) or slice_config_vi()
+    (stereo_imu), the EuRoC budget (1200 ORB x 8 levels, 256 lines, stores
+    16384 / 4096 / 512, BA window 8) at 512x512."""
+    return dataclasses.replace(slice_config_vi() if inertial else slice_config(), width=512, height=512)
+
+
+def mono_imu_config() -> SlamConfig:
+    """Mono-inertial on the EuRoC operating point: slice_config_vi() with
+    sensor "mono_imu" (752x480, on slice_camera(); its bf is not used)."""
+    return slice_config_vi().replace(sensor="mono_imu")
+
+
+def rgbd_imu_config() -> SlamConfig:
+    """RGB-D-inertial: rgbd_config() (run_tum.py's deployment, 640x480, 30 fps,
+    loop closing on) with sensor "rgbd_imu" and slice_config_vi()'s IMU settings."""
+    return dataclasses.replace(rgbd_config(), sensor="rgbd_imu", imu=slice_config_vi().imu)
+
+
+def imu_batch(fr: dict) -> dict:
+    """A make_sequence frame's raw IMU batch as `Tracker.process*(imu=)` takes it."""
+    return {"gyro": fr["imu_gyro"], "acc": fr["imu_acc"], "stamps": fr["imu_stamps"]}
+
+
+def tracked_positions(tracker, frames) -> tuple[np.ndarray, np.ndarray]:
+    """(estimated positions, ground truth) of the frames the tracker recorded,
+    matched by stamp: a stereo map records nothing until it initializes."""
+    by_stamp = {round(float(f["t"]), 6): f["p_w"] for f in frames}
+    traj = tracker.trajectory
+    return (np.stack([p for _, _, p in traj]), np.stack([by_stamp[round(float(s), 6)] for s, _, _ in traj]))
+
+
+def peek_ate(tracker, frames, with_scale: bool = False) -> float:
+    """ATE of the frames recorded so far, the pending trajectory left
+    pending (later BA still refines those frames)."""
+    from pli_slam_tpu_torch.utils import trajectory as tio
+
+    pend, done = list(tracker._traj_pending), list(tracker._traj_done)
+    ate = tio.ate_rmse(*tracked_positions(tracker, frames), with_scale=with_scale)
+    tracker._traj_pending, tracker._traj_done = pend, done
+    return ate
+
+
+def path_ratio(est: np.ndarray, gt: np.ndarray, n: int = 20) -> float:
+    """Path length of the last `n` estimated positions over the truth's, with
+    no alignment (tests/test_mono_inertial_scale.py's metric-scale check)."""
+    a, b = est[-n:], gt[len(est) - n:len(est)]
+    return float(np.linalg.norm(np.diff(a, axis=0), axis=1).sum() / np.linalg.norm(np.diff(b, axis=0), axis=1).sum())
+
+
+def slice6_frames(which: str, dev, n_frames: int | None = None) -> tuple:
+    """(cfg, cam, frames) of chip_smoke.py's phases 10-12 on the default room
+    trajectory, with 200 Hz IMU under ImuNoiseModel.euroc() (each frame's batch
+    under "imu"): "fisheye" (10a) and "fisheye_vi" (10b) on fisheye_camera(),
+    "mono_vi" (11) on slice_camera(), "rgbd_vi" (12) on rgbd_camera() with depth."""
+    from pli_slam_tpu_torch.utils import synthetic
+
+    cfg, cam, n = {
+        "fisheye": (fisheye_config(False), fisheye_camera(), N_FRAMES_FISHEYE),
+        "fisheye_vi": (fisheye_config(True), fisheye_camera(), N_FRAMES_FISHEYE_VI),
+        "mono_vi": (mono_imu_config(), slice_camera(), N_FRAMES_MONO_VI),
+        "rgbd_vi": (rgbd_imu_config(), rgbd_camera(), N_FRAMES_RGBD_VI),
+    }[which]
+    frames = list(synthetic.make_sequence(cam, n if n_frames is None else n_frames, dev, fps=cfg.fps,
+                                          with_depth=which == "rgbd_vi", imu_noise=synthetic.ImuNoiseModel.euroc()))
+    for fr in frames:
+        fr["imu"] = imu_batch(fr)
+    return cfg, cam, frames
 
 
 N_AFTER_LOOP = 6  # frames after the planted closure: the queued GBA chunks run one per non-keyframe frame
@@ -465,11 +560,7 @@ def main_vi_drift(dev, n_frames: int) -> int:
         tracker = Tracker(cam, cfg, dev)
         gt = []
         for i, fr in enumerate(frames):
-            try:
-                info = tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
-            except NotImplementedError as e:
-                print(f"drift[{rep}]: frame {i}: the run ends here: {e}", flush=True)
-                break
+            info = tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
             gt.append(fr["p_w"])
             if not tracker.imu_ready:
                 continue

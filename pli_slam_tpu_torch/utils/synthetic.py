@@ -1,6 +1,8 @@
 """Synthetic stereo-inertial sequence: ray-traced textured room, analytic
 trajectory, ideal or corrupted IMU samples, ground-truth depth (port of
-pli_slam_tpu.utils.synthetic).
+pli_slam_tpu.utils.synthetic). Pinhole and Kannala-Brandt8 (fisheye)
+cameras; a stereo pair's right view sits `cam.baseline` along the left
+camera's +x axis, for either model.
 
 Images are rendered with torch on the CPU and then moved to the device
 the caller names, so a GPU run tracks exactly the pixels a CPU run does
@@ -20,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from pli_slam_tpu_torch.ops.camera import PINHOLE, Camera
+from pli_slam_tpu_torch.ops.camera import PINHOLE, Camera, unproject
 
 ROOM_HALF = 6.35
 
@@ -50,13 +52,16 @@ def _texture(p: torch.Tensor) -> torch.Tensor:
 
 
 def _trace_room(cam: Camera, R_wc: torch.Tensor, t_wc: torch.Tensor, room_half: float):
-    if cam.model != PINHOLE:
-        raise NotImplementedError("the port's renderer draws pinhole views only")
     h, w = cam.height, cam.width
     R_wc, t_wc = R_wc.detach().cpu(), t_wc.detach().cpu()
-    us = (torch.arange(w, dtype=torch.float32) - cam.cx) / cam.fx
-    vs = (torch.arange(h, dtype=torch.float32) - cam.cy) / cam.fy
-    dirs_c = torch.stack([us[None, :].expand(h, w), vs[:, None].expand(h, w), torch.ones((h, w))], dim=-1)
+    if cam.model == PINHOLE:
+        us = (torch.arange(w, dtype=torch.float32) - cam.cx) / cam.fx
+        vs = (torch.arange(h, dtype=torch.float32) - cam.cy) / cam.fy
+        dirs_c = torch.stack([us[None, :].expand(h, w), vs[:, None].expand(h, w), torch.ones((h, w))], dim=-1)
+    else:  # fisheye (KB8): each pixel's ray by the model's Newton unprojection
+        vv, uu = torch.meshgrid(torch.arange(h, dtype=torch.float32), torch.arange(w, dtype=torch.float32),
+                                indexing="ij")
+        dirs_c = unproject(cam, torch.stack([uu, vv], dim=-1))
     d_w = torch.einsum("ij,hwj->hwi", R_wc, dirs_c)
     o_w = t_wc
     t_best = torch.full((h, w), 1e9)

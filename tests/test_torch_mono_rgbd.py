@@ -451,15 +451,16 @@ def test_mono_relocalization_lockstep(mono_run):
 
 
 def test_sensor_checks():
-    """mono_imu and rgbd_imu wait for the inertial variants; a KB8 camera
-    runs only with the monocular sensor; the tracker keeps the raw camera
-    for the frame build and tracks on its pinhole twin."""
+    """mono_imu and rgbd_imu build (tests/test_torch_mono_inertial.py,
+    tests/test_torch_rgbd_inertial.py); a KB8 camera raises ValueError with
+    an RGB-D sensor and with a stereo one given no rig extrinsics, as in the
+    reference (tests/test_torch_fisheye.py runs a KB8 rig); the tracker keeps
+    the raw camera for the frame build and tracks on its pinhole twin."""
     kb8 = TCamera.kannala_brandt8(120.0, 120.0, 64.0, 48.0, KB8_K, width=128, height=96)
     for sensor in ("mono_imu", "rgbd_imu"):
-        with pytest.raises(NotImplementedError, match="sensor"):
-            Tracker(TC, port_cfg(_cfg(sensor)), "cpu")
+        assert Tracker(TC, port_cfg(_cfg(sensor)), "cpu").use_imu
     for sensor in ("stereo", "rgbd"):
-        with pytest.raises(NotImplementedError, match="KB8"):
+        with pytest.raises(ValueError, match="KB8"):
             Tracker(kb8, port_cfg(_cfg(sensor)), "cpu")
     tr = Tracker(kb8, port_cfg(_cfg("mono")), "cpu")
     assert tr.cam_raw == kb8 and tr.cam.model == 0 and tr.cam.k == kb8.k

@@ -331,11 +331,11 @@ def test_other_sensors_through_system(sensor):
 
 
 def test_sensors_the_system_refuses():
-    """mono_imu and rgbd_imu wait for the inertial variants of the port
-    (NotImplementedError); an unknown sensor is a ValueError, as in the
-    reference."""
-    for sensor in ("mono_imu", "rgbd_imu"):
-        with pytest.raises(NotImplementedError):
-            System(TC, port_cfg(SlamConfig.tiny_test().replace(sensor=sensor)), device="cpu")
+    """`System` takes the reference's sensors: mono_imu is taken, rgbd_imu
+    (which the Tracker runs) and an unknown sensor are ValueErrors, as in
+    the reference."""
+    assert System(TC, port_cfg(SlamConfig.tiny_test().replace(sensor="mono_imu")), device="cpu").tracker.use_imu
+    with pytest.raises(ValueError, match="unknown sensor"):
+        System(TC, port_cfg(SlamConfig.tiny_test().replace(sensor="rgbd_imu")), device="cpu")
     with pytest.raises(ValueError, match="unknown sensor"):
         System(TC, dataclasses.replace(port_cfg(SlamConfig.tiny_test()), sensor="lidar"), device="cpu")

@@ -120,16 +120,17 @@ def test_streaming_matches_blocking():
 
 
 def test_rare_paths_raise():
-    """Only the sensors of later slices raise now: the tracker builds with
-    loop closing on, a frame older than its predecessor resets the active
-    map (and the next frame initializes it again), and relocalization with a
-    map and a frame runs and answers."""
+    """No sensor of the reference raises now (a sensor it does not know is a
+    ValueError): the tracker builds with loop closing on, a frame older than
+    its predecessor resets the active map (and the next frame initializes it
+    again), and relocalization with a map and a frame runs and answers."""
     tiny = SlamConfig.tiny_test()
     cam = convert.camera(jax.tree_util.tree_map(
         np.asarray, JCamera.pinhole(fx=120.0, fy=120.0, cx=64.0, cy=48.0, bf=0.11 * 120.0, width=128, height=96)))
     assert Tracker(cam, tiny, "cpu").loop_closer is not None
-    with pytest.raises(NotImplementedError, match="sensor"):
-        Tracker(cam, dataclasses.replace(tiny, sensor="mono_imu", loop=LoopConfig(enabled=False)), "cpu")
+    assert Tracker(cam, dataclasses.replace(tiny, sensor="mono_imu", loop=LoopConfig(enabled=False)), "cpu").use_imu
+    with pytest.raises(ValueError, match="sensor"):
+        Tracker(cam, dataclasses.replace(tiny, sensor="stereo_fisheye", loop=LoopConfig(enabled=False)), "cpu")
     tr = Tracker(cam, tiny, "cpu")
     frames = list(tsyn.make_sequence(cam, 3, "cpu", fps=tiny.fps, traj=tsyn.Trajectory(**TRAJ), room_half=2.55))
     tr.process(frames[0]["img_l"], frames[0]["img_r"], 1.0)

@@ -271,14 +271,18 @@ def test_whole_slice_imu_init_and_fused_vi(ref_run):
 
 
 def test_sensors_not_ported_raise():
-    """The inertial variants of mono and RGB-D are not ported yet; mono and
-    RGB-D themselves are (tests/test_torch_mono_rgbd.py)."""
+    """No sensor of the reference is left unported: the inertial variants of
+    mono and RGB-D build with the IMU on (tests/test_torch_mono_inertial.py,
+    tests/test_torch_rgbd_inertial.py), their visual ones without it; a
+    sensor the reference does not know is a ValueError."""
     _, tcam = _cams()
     for sensor in ("mono_imu", "rgbd_imu"):
-        with pytest.raises(NotImplementedError, match="sensor"):
-            Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu")
+        tr = Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu")
+        assert tr.use_imu and (tr.is_mono, tr.is_rgbd) == (sensor == "mono_imu", sensor == "rgbd_imu")
     for sensor in ("mono", "rgbd"):
         assert not Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu").use_imu
+    with pytest.raises(ValueError, match="sensor"):
+        Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor="lidar"), "cpu")
 
 
 def test_host_path_lockstep(ref_run):
