@@ -172,6 +172,29 @@ Phases (each prints one line; any failure raises and exits non-zero):
                reference's run (REF_RGBD_VI), ATE before it to phase 7's bound
                on the same deployment, the run after it loosely (2.0 m, phase
                5's: visual-inertial BA drifts, in the reference too).
+ 13. distribution on `torch.distributed` -- 13a: `utils.production.
+               dryrun_multichip` at production shapes (W=32 poses, 16384
+               points, 1024 lines, ~124k observations; a 256-node pose graph)
+               on 4 gloo ranks that all compute on the card (read from 13c's
+               group, which runs every world size): distributed Schur
+               BA (cost after 6 iterations below half the cost after 0), whole-
+               map BA (12 iterations below 0.6 of the initial robust cost), se3
+               PGO (mean translation error below 0.3 of the drift's), every
+               rank's replicated poses the same bits; the 1-rank group's poses
+               and cost the same bits as the in-process `solve_ba` on the card,
+               on that problem and on the same one with 0.2 px of noise on the
+               point observations (`production.with_point_noise`: the optimum
+               then depends on every shard's observations); on the noisy
+               problem 4 ranks against the in-process solve within R
+               5e-6, t 3e-5 m and 1e-5 of the cost, while a solve that loses one
+               shard lies more than 10x those away (the check can see a
+               reduction that drops or averages a shard); 13b: two
+               `scripts.run_multihost_ba` processes over a file:// rendezvous
+               on the card, the same cost below 1.0; 13c:
+               `scripts.bench_scaling`'s rows for world sizes 1/2/4 (per-shard
+               rows, a whole Schur solve / 6 and PGO / 12, and one iteration's
+               all-reduce bytes with their time issued on their own). The NCCL
+               branch needs one card per rank and is not run on one card.
 Phases 7, 8 and 9 print fps and p50/p99 (9 also the ingest stage's ms a
 frame), and phase 7 the map's save and load times. Phase 4 prints the
 SHA-256 of its first frame pair, which must equal the CPU's
@@ -1670,6 +1693,118 @@ def phase_rgbd_vi(dev, smi):
     return launches, len(frames) - 1
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: distribution on torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 4
+# 4 ranks against one process on the noisy problem (`production.with_point_noise`): ~5x the H100's reading (R
+# 1.07e-6, t 7.33e-6 m, relative cost 0); a reduction that loses one shard moves them by 1.66e-4, 1.33e-3 m and
+# 0.25, one that averages moves the cost by 0.75
+DIST_R_TOL, DIST_T_TOL, DIST_COST_RTOL = 5e-6, 3e-5, 1e-5
+
+
+def _pose_cost_diff(res, R, t, cost):
+    """(max |dR|, max |dt|, relative cost difference) of a BA result against poses and a cost."""
+    import numpy as np
+
+    return (float(np.abs(res.R.cpu().numpy() - R).max()), float(np.abs(res.t.cpu().numpy() - t).max()),
+            abs(float(res.cost) - cost) / abs(float(res.cost)))
+
+
+def phase_distribution(dev, smi):
+    """13a-13c (see the module docstring). One group of 4 ranks serves the
+    dry runs of every world size (13c's rows); 13a reads its 1- and 4-rank
+    results."""
+    import tempfile
+
+    import torch
+
+    from pli_slam_tpu_torch.scripts import bench_scaling
+    from pli_slam_tpu_torch.solve import ba
+    from pli_slam_tpu_torch.utils import production
+    from pli_slam_tpu_torch.utils.config import OptimizerConfig
+
+    t0 = time.perf_counter()
+    scaling = bench_scaling.scaling_rows([1, 2, DIST_WORLD], "gloo", dev, timeout=400.0)
+    wall = time.perf_counter() - t0
+    one, out = scaling[0][1], scaling[-1][1]
+    cam, prob_host, _ = production.build_production_ba_problem(DIST_WORLD)
+    prob = _to(prob_host, dev)
+    cfg = OptimizerConfig(local_ba_window=32)
+    ba.solve_ba(cam, prob, cfg, iters=0)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    single = ba.solve_ba(cam, prob, cfg, iters=6)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t1) * 1e3
+    noisy = _to(production.with_point_noise(prob_host), dev)
+    ref = ba.solve_ba(cam, noisy, cfg, iters=6)
+    d1 = _pose_cost_diff(single, one["ba_R"], one["ba_t"], one["cost1"])
+    d1n = _pose_cost_diff(ref, one["noisy_R"], one["noisy_t"], one["noisy_cost"])
+    ms = out["ms_max"]
+    log(f"distribution 13a: dryrun_multichip({DIST_WORLD}, gloo, {dev}) at production shapes (W=32, P=16384, L=1024, "
+        f"{out['n_obs']} observation rows; PGO 256 nodes / {out['n_edges']} edges): Schur BA cost {out['cost0']:.4f} "
+        f"-> {out['cost1']:.6f} in {ms['ba']:.1f} ms (6 iterations), whole-map BA {out['c_init']:.1f} -> "
+        f"{out['gcost']:.4f} in {ms['gba']:.1f} ms (12), se3 PGO mean t-error {out['t_err0']:.4f} -> "
+        f"{out['t_err1']:.2e} m in {ms['pgo']:.1f} ms (12; slowest rank, synchronised); the {DIST_WORLD} ranks' "
+        f"poses bit-identical; the 1-rank group against the in-process solve_ba on the card ({single_ms:.1f} ms "
+        f"warm, cost {float(single.cost):.6f}): max |dR|, |dt| and relative cost {d1} on the dry run's problem, "
+        f"{d1n} on the noisy one (must be 0) [{smi}]")
+    if any(d1) or any(d1n):
+        raise AssertionError(f"distribution: the 1-rank group differs from the in-process solve_ba by {d1}, {d1n}")
+
+    # The dry run's problem is exact, so any solver that converges lands on the truth, a wrong reduction too.
+    # With observation noise the optimum depends on every observation: 4 ranks against the in-process solve,
+    # and beside it the answer of a reduction that loses one shard (shard 3's observations masked).
+    lost = dataclasses.replace(noisy, po_mask=noisy.po_mask & (noisy.po_pt % DIST_WORLD != DIST_WORLD - 1),
+                               lo_mask=noisy.lo_mask & (noisy.lo_ln % DIST_WORLD != DIST_WORLD - 1))
+    d4 = _pose_cost_diff(ref, out["noisy_R"], out["noisy_t"], out["noisy_cost"])
+    lres = ba.solve_ba(cam, lost, cfg, iters=6)
+    dl = _pose_cost_diff(ref, lres.R.cpu().numpy(), lres.t.cpu().numpy(), float(lres.cost))
+    tol = (DIST_R_TOL, DIST_T_TOL, DIST_COST_RTOL)
+    log(f"distribution 13a: {production.NOISE_PX} px of noise on the point observations, {DIST_WORLD} ranks against "
+        f"the in-process solve_ba (cost {float(ref.cost):.4f}): max |dR| {d4[0]:.3e}, max |dt| {d4[1]:.3e} m, "
+        f"relative cost {d4[2]:.3e} (tolerances {tol}); one shard's observations lost: {dl[0]:.3e}, {dl[1]:.3e} m, "
+        f"{dl[2]:.3e} [{smi}]")
+    if not all(d <= x for d, x in zip(d4, tol)):
+        raise AssertionError(f"distribution 13a: {DIST_WORLD}-rank BA off the in-process solve by {d4} (tol {tol})")
+    if not all(d > 10 * x for d, x in zip(dl, tol)):
+        raise AssertionError(f"distribution 13a: the tolerances {tol} would not see a lost shard ({dl})")
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="rdv_", dir=os.path.join(ROOT, "build")) as tmp:
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        cmd = [sys.executable, "-m", "pli_slam_tpu_torch.scripts.run_multihost_ba", "--init-method",
+               f"file://{os.path.join(tmp, 'rdv')}", "--world-size", "2", "--backend", "gloo", "--timeout", "240"]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True, cwd=ROOT, env=env) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+    costs = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        line = [ln for ln in text.splitlines() if ln.startswith(f"MULTIHOST rank={r} world=2 cost=")]
+        if p.returncode != 0 or not line:
+            raise AssertionError(f"distribution 13b: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        costs.append(float(line[0].split("cost=")[1]))
+    log(f"distribution 13b: two run_multihost_ba processes (gloo over file://, both on {dev}): costs {costs} in "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    if not (costs[0] == costs[1] and costs[0] < 1.0):
+        raise AssertionError(f"distribution 13b: costs {costs} (must be equal and below 1.0)")
+
+    log(f"distribution 13c: bench_scaling over world sizes 1/2/4 (gloo; {wall:.1f} s for the one group of 4 ranks, "
+        f"size n on ranks 0..n-1): the ranks share this one card's SMs, so these rows measure the per-shard work and "
+        f"gloo's host-staged all-reduce, not multi-card scaling [{smi}]")
+    for row, _ in scaling:
+        log(f"distribution 13c: {bench_scaling.format_row(row)} [{smi}]")
+    return scaling
+
+
 def main() -> int:
     import torch
 
@@ -1707,6 +1842,7 @@ def main() -> int:
     fisheye, fisheye_vi, assoc_ms = phase_fisheye(dev, smi)
     slice6 = {"fisheye": fisheye, "fisheye_vi": fisheye_vi, "mono_vi": phase_mono_vi(dev, smi),
               "rgbd_vi": phase_rgbd_vi(dev, smi)}
+    phase_distribution(dev, smi)
 
     from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
 

@@ -49,6 +49,11 @@ class Camera:
     def baseline(self) -> float:
         return float(np.float32(self.bf) / np.float32(self.fx))
 
+    def K(self, device=None) -> torch.Tensor:
+        """The 3x3 intrinsic matrix, float32."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+                            dtype=torch.float32, device=device)
+
 
 def _kb8_theta_d(cam: Camera, theta):
     t2 = theta * theta
@@ -123,3 +128,7 @@ def stereo_project(cam: Camera, xyz: torch.Tensor) -> torch.Tensor:
 def back_project_stereo(cam: Camera, uv: torch.Tensor, disparity: torch.Tensor) -> torch.Tensor:
     z = cam.bf / torch.clamp(disparity, min=1e-6)
     return unproject(cam, uv) * z[..., None]
+
+
+def depth_from_disparity(cam: Camera, disparity: torch.Tensor) -> torch.Tensor:
+    return cam.bf / torch.clamp(disparity, min=1e-6)

@@ -81,3 +81,24 @@ def sobel_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     gx = _sep_filter(_sep_filter(img, smooth, -2), diff, -1)
     gy = _sep_filter(_sep_filter(img, smooth, -1), diff, -2)
     return gx, gy
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Sample `img` [H, W] at float pixel coordinates uv [..., 2] = (x, y), clamped to the image."""
+    h, w = img.shape
+    x = torch.clamp(uv[..., 0], 0.0, w - 1.001)
+    y = torch.clamp(uv[..., 1], 0.0, h - 1.001)
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0f, y - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    v00, v01 = img[y0, x0], img[y0, x0 + 1]
+    v10, v11 = img[y0 + 1, x0], img[y0 + 1, x0 + 1]
+    return (v00 * (1 - fx) + v01 * fx) * (1 - fy) + (v10 * (1 - fx) + v11 * fx) * fy
+
+
+def nearest_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Nearest pixel (rounded half to even, as rBRIEF's GET_VALUE) at uv [..., 2] = (x, y), clamped."""
+    h, w = img.shape
+    x = torch.clamp(torch.round(uv[..., 0]).long(), 0, w - 1)
+    y = torch.clamp(torch.round(uv[..., 1]).long(), 0, h - 1)
+    return img[y, x]

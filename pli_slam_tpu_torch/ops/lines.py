@@ -1,6 +1,6 @@
-"""Line-segment detection, LBD-style description and geometric stereo
-association (port of the parts of pli_slam_tpu.ops.lines that
-`build_frame` uses).
+"""Line-segment detection, LBD-style description and stereo association,
+geometric (`match_stereo_lines_geom`, what `build_frame` uses) and by
+descriptor (`match_stereo_lines`) (port of pli_slam_tpu.ops.lines).
 
 Pipeline as in the reference: Sobel -> directional-NMS edge map ->
 gradient-guided Hough voting over the strongest voters -> 3x3 peak NMS
@@ -51,6 +51,13 @@ class LineFeatures:
     response: torch.Tensor  # [N] float32
     desc: torch.Tensor  # [N, 256] int8 ±1
     valid: torch.Tensor  # [N] bool
+
+    @property
+    def capacity(self) -> int:
+        return self.p0.shape[0]
+
+    def count(self) -> torch.Tensor:
+        return torch.sum(self.valid, dtype=torch.int32)
 
     def midpoint(self) -> torch.Tensor:
         return 0.5 * (self.p0 + self.p1)
@@ -358,6 +365,39 @@ def vertical_overlap(l0: LineFeatures, l1: LineFeatures) -> torch.Tensor:
     inter = torch.clamp(torch.minimum(y0max, y1max) - torch.maximum(y0min, y1min), min=0.0)
     shorter = torch.clamp(torch.minimum(y0max - y0min, y1max - y1min), min=1e-6)
     return inter / shorter
+
+
+def match_stereo_lines(left: LineFeatures, right: LineFeatures, max_dist: float = 60.0, min_disparity: float = 0.1,
+                       max_disparity: float = 192.0, min_overlap: float = 0.5, max_angle_diff_deg: float = 10.0):
+    """Match left lines to right lines by descriptor (angle- and
+    row-overlap-gated, mutual nearest neighbours), then intersect each left
+    endpoint's row with the matched right line for its disparity and keep
+    pairs whose two disparities are in range and within a ratio of 0.6
+    (reference filterLineSegmentDisparity). Returns (disp0 [N], disp1 [N],
+    idx_r [N], ok [N]) aligned with the left slots."""
+    from pli_slam_tpu_torch.ops import matching
+
+    dist = matching.hamming_matrix(left.desc, right.desc)
+    da = torch.abs(left.angle[:, None] - right.angle[None, :])
+    da = torch.minimum(da, 2 * math.pi - da)
+    da = torch.minimum(da, math.pi - da)  # direction sign-agnostic
+    gate = (da <= _deg2rad_f32(max_angle_diff_deg)) & (vertical_overlap(left, right) >= min_overlap)
+    idx_r, best, ok = matching.match_nn(dist, left.valid, right.valid, gate, max_dist=max_dist)
+    ok = matching.mutual_consistency(idx_r, ok, dist, left.valid, right.valid, gate)
+
+    lr = right.line_coeffs()[idx_r.long()]
+    a, b, c = lr[:, 0], lr[:, 1], lr[:, 2]
+    stable = torch.abs(a) > 0.05  # a near-horizontal right line intersects a row unstably
+
+    def xr_at(y):
+        return -(c + b * y) / torch.where(torch.abs(a) < 1e-6, torch.full_like(a, 1e-6), a)
+
+    d0 = left.p0[:, 0] - xr_at(left.p0[:, 1])
+    d1 = left.p1[:, 0] - xr_at(left.p1[:, 1])
+    ratio = torch.minimum(d0, d1) / torch.clamp(torch.maximum(d0, d1), min=1e-6)
+    ok = (ok & stable & (d0 > min_disparity) & (d1 > min_disparity) & (d0 < max_disparity)
+          & (d1 < max_disparity) & (ratio > 0.6))
+    return d0, d1, idx_r, ok
 
 
 def match_stereo_lines_geom(left: LineFeatures, right: LineFeatures, img_l, img_r,

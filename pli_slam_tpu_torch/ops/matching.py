@@ -10,7 +10,11 @@ this module is the dense path for lines, stereo and triangulation.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from pli_slam_tpu_torch.ops.indexing import top_k
 
 BIG = 1e9
 
@@ -74,5 +78,41 @@ def window_gate(uv1, uv2, radius) -> torch.Tensor:
     return d2 <= radius * radius
 
 
+def row_band_gate(v1, v2, band) -> torch.Tensor:
+    """Epipolar row band for rectified stereo: |v1_i - v2_j| <= band, [N1,N2]."""
+    return torch.abs(v1[:, None] - v2[None, :]) <= band
+
+
 def scale_gate(octave1, octave2, max_diff: int = 1) -> torch.Tensor:
     return torch.abs(octave1[:, None] - octave2[None, :]) <= max_diff
+
+
+def _mod(x: torch.Tensor, y: float) -> torch.Tensor:
+    """`jnp.mod` for a positive float divisor: the exact fmod, moved into
+    [0, y) (torch.remainder rounds x - y * floor(x / y) instead)."""
+    r = torch.fmod(x, y)
+    return torch.where(r < 0, r + y, r)
+
+
+def rotation_consistency(angle1, angle2, idx2, ok, n_bins: int = 30, top: int = 3) -> torch.Tensor:
+    """Rotation-histogram filter (reference ORBmatcher's HISTO_LENGTH voting):
+    keep matches whose angle difference falls in one of the `top` most
+    popular of `n_bins` bins (ties to the lower bin, as `jax.lax.top_k`)."""
+    dtheta = _mod(angle1 - angle2[idx2.long()], 2.0 * math.pi)
+    bins = torch.clamp((dtheta * (n_bins / (2.0 * math.pi))).to(torch.int32), 0, n_bins - 1).long()
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=ok.device).index_add_(0, bins, ok.to(torch.int32))
+    top_bins = top_k(counts, top)[1]
+    return ok & torch.any(bins[:, None] == top_bins[None, :], dim=1)
+
+
+def match_descriptors(d1, d2, valid1, valid2, gate=None, max_dist: float = 50.0, ratio: float = 1.0,
+                      mutual: bool = True):
+    """Hamming -> nearest neighbour -> mutual check (or, without `mutual`,
+    one match per d2 row). Returns (idx2, best, ok)."""
+    dist = hamming_matrix(d1, d2)
+    idx2, best, ok = match_nn(dist, valid1, valid2, gate, max_dist, ratio)
+    if mutual:
+        ok = mutual_consistency(idx2, ok, dist, valid1, valid2, gate)
+    else:
+        ok = dedup_matches(idx2, best, ok, d2.shape[0])
+    return idx2, best, ok

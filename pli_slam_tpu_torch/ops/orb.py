@@ -26,6 +26,14 @@ EDGE_MARGIN = 19
 _POOL_N = 128
 
 
+def brief_pattern(seed: int = 1234, n_bits: int = 256, sigma: float = 31.0 / 5.0) -> np.ndarray:
+    """The classic seeded Gaussian BRIEF pair pattern: [n_bits, 2, 2] int
+    offsets in [-13, 13]. Extraction uses the pool pattern below instead."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0.0, sigma, size=(n_bits, 2, 2))
+    return np.clip(np.round(pts), -13, 13).astype(np.int32)
+
+
 def _brief_pool_and_pairs(seed: int = 1234, n_bits: int = 256, sigma: float = 31.0 / 5.0):
     rng = np.random.default_rng(seed)
     pool = np.clip(np.round(rng.normal(0.0, sigma, size=(_POOL_N, 2))), -13, 13)
@@ -56,6 +64,13 @@ class Features:
     scale: torch.Tensor  # [N] float32
     desc: torch.Tensor  # [N, 256] int8 ±1 (0 rows for invalid)
     valid: torch.Tensor  # [N] bool
+
+    @property
+    def capacity(self) -> int:
+        return self.uv.shape[0]
+
+    def count(self) -> torch.Tensor:
+        return torch.sum(self.valid, dtype=torch.int32)
 
 
 def level_feature_counts(n_features: int, n_levels: int, scale_factor: float) -> list[int]:
@@ -171,3 +186,20 @@ def extract(img: torch.Tensor, cfg: OrbConfig) -> Features:
     cat = [torch.cat([p[i] for p in parts], dim=0) for i in range(7)]
     return Features(uv=cat[0], response=cat[1], angle=cat[2], octave=cat[3], scale=cat[4], desc=cat[5], valid=cat[6])
 
+
+
+def pack_descriptors(desc_pm1: torch.Tensor) -> torch.Tensor:
+    """±1 int8 [N, 256] -> packed words [N, 8] (bit i set where desc > 0): the
+    reference's uint32 words, held as int32 bit patterns (the port's storage
+    for uint32, as worldmap.stores)."""
+    bits = (desc_pm1 > 0).to(torch.int64).reshape(desc_pm1.shape[0], 8, 32)
+    words = torch.sum(bits << torch.arange(32, device=desc_pm1.device), dim=-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def unpack_descriptors(packed: torch.Tensor) -> torch.Tensor:
+    """Packed words [N, 8] (int32 bit patterns, or int64 in [0, 2^32)) -> ±1 int8 [N, 256]."""
+    words = packed.to(torch.int64) & 0xFFFFFFFF
+    bits = (words[..., None] >> torch.arange(32, device=packed.device)) & 1
+    pm1 = torch.where(bits > 0, 1, -1).to(torch.int8)
+    return pm1.reshape(packed.shape[0], 256)

@@ -18,6 +18,11 @@ def huber_weight(r2: torch.Tensor, delta=1.0) -> torch.Tensor:
     return torch.where(r <= delta, torch.ones_like(r), delta / r)
 
 
+def tukey_weight(r2: torch.Tensor, c=4.685) -> torch.Tensor:
+    u2 = r2 / (c * c)
+    return torch.where(u2 < 1.0, (1.0 - u2) ** 2, torch.zeros_like(u2))
+
+
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Median over mask==True entries of a 1-D tensor (sort with +inf padding)."""
     n = torch.sum(mask.to(torch.int64))

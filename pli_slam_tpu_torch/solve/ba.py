@@ -9,6 +9,13 @@ reference's `fori_loop`s are Python loops; the reduced system is solved
 with `torch.linalg.solve_ex` (no host-side `info` check, so no sync).
 Accept/reject decisions stay on the device as selects.
 `solve_ba_alternating` is the memory-bounded whole-map solver of global BA.
+
+Every solver takes `group` (a `torch.distributed` process group, default
+none): each rank then holds one landmark shard of the problem
+(`parallel.dist_ba.partition_observations`) with the poses replicated, and
+the sums the reference reduces with `jax.lax.psum` over its shard axis are
+all-reduced over the group at the same points: the reduced camera system,
+its right-hand side and the cost; the pose blocks of the alternating solver.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 from pli_slam_tpu_torch.utils.config import OptimizerConfig
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import lie, robust
+from pli_slam_tpu_torch.ops.collective import psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,15 +320,30 @@ def back_substitute(Wb, Hll_inv, gl, delta_p):
     return torch.einsum("iab,ib->ia", Hll_inv, rhs)
 
 
-def ba_iteration(cam, prob: BAProblem, idx_p, idx_l, R, t, pts, lns, cfg: OptimizerConfig, damping):
+def reduced_camera_system(cam, prob: BAProblem, idx_p, idx_l, R, t, pts, lns, cfg: OptimizerConfig, damping,
+                          group=None):
+    """`assemble_visual` with `damping` added to the pose blocks, then S, rhs
+    and the cost summed over `group`. As in the reference (ba.py:442-452) each
+    rank adds the damping before the sum, so with n ranks the pose blocks carry
+    n * damping and the landmark blocks damping (ROADMAP queue 3 B12)."""
+    W = prob.R.shape[0]
+    dev = R.device
+    eye6 = torch.eye(6, dtype=R.dtype, device=dev)
+    ar = torch.arange(W, device=dev)
+    S, rhs, blk_p, blk_l, cost, chi2_p, chi2_l = assemble_visual(cam, prob, idx_p, idx_l, R, t, pts, lns, cfg,
+                                                                damping)
+    S = S.clone()
+    S[ar, ar] = S[ar, ar] + damping * eye6
+    return psum(S, group), psum(rhs, group), blk_p, blk_l, psum(cost, group), chi2_p, chi2_l
+
+
+def ba_iteration(cam, prob: BAProblem, idx_p, idx_l, R, t, pts, lns, cfg: OptimizerConfig, damping, group=None):
     W = prob.R.shape[0]
     dev = R.device
     eye6 = torch.eye(6, dtype=R.dtype, device=dev)
     ar = torch.arange(W, device=dev)
     (S, rhs, (Hll_p_inv, gl_p, Wb_p, active_p), (Hll_l_inv, gl_l, Wb_l, active_l),
-     cost, chi2_p, chi2_l) = assemble_visual(cam, prob, idx_p, idx_l, R, t, pts, lns, cfg, damping)
-    S = S.clone()
-    S[ar, ar] = S[ar, ar] + damping * eye6
+     cost, chi2_p, chi2_l) = reduced_camera_system(cam, prob, idx_p, idx_l, R, t, pts, lns, cfg, damping, group)
 
     free = (prob.pose_mask & ~prob.fixed_mask).to(S.dtype)
     S = S * free[:, None, None, None] * free[None, :, None, None]
@@ -355,26 +378,26 @@ def ba_iteration(cam, prob: BAProblem, idx_p, idx_l, R, t, pts, lns, cfg: Optimi
     return R_new, t_new, pts_new, lns_new, cost, chi2_p, chi2_l
 
 
-def solve_ba(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int | None = None) -> BAResult:
+def solve_ba(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int | None = None, group=None) -> BAResult:
     """Two-stage LM solve: optimize, drop chi2 outliers, optimize again."""
     iters = cfg.local_ba_iters if iters is None else iters
     iters1 = max(iters // 3, 1)
-    res1 = _solve_ba_stage(cam, prob, cfg, iters1)
+    res1 = _solve_ba_stage(cam, prob, cfg, iters1, group)
     prob2 = dataclasses.replace(
         prob, R=res1.R, t=res1.t, pts=res1.pts, lns=res1.lns,
         po_mask=prob.po_mask & (res1.po_chi2 < cfg.prune_chi2_pt),
         lo_mask=prob.lo_mask & (res1.lo_chi2 < cfg.prune_chi2_ln),
     )
-    return _solve_ba_stage(cam, prob2, cfg, iters - iters1)
+    return _solve_ba_stage(cam, prob2, cfg, iters - iters1, group)
 
 
-def evaluate_cost(cam, prob: BAProblem, R, t, pts, lns, cfg: OptimizerConfig):
+def evaluate_cost(cam, prob: BAProblem, R, t, pts, lns, cfg: OptimizerConfig, group=None):
     r_p, _, _, ok_p = _point_obs_linearize(cam, prob, R, t, pts)
     w_p, chi2_p = _robust_weight(r_p, prob.po_sigma2, ok_p, cfg.huber_stereo)
     r_l, _, _, ok_l = _line_obs_linearize(cam, prob, R, t, lns)
     w_l, chi2_l = _robust_weight(r_l, prob.lo_sigma2, ok_l, cfg.huber_mono)
     cost = torch.sum(w_p * chi2_p * prob.po_sigma2) + torch.sum(w_l * chi2_l * prob.lo_sigma2)
-    return cost, chi2_p, chi2_l
+    return psum(cost, group), chi2_p, chi2_l
 
 
 def _pick(worse, a, b):
@@ -382,7 +405,7 @@ def _pick(worse, a, b):
     return tuple(torch.where(worse, x, y) for x, y in zip(a, b))
 
 
-def _solve_ba_stage(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int) -> BAResult:
+def _solve_ba_stage(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int, group=None) -> BAResult:
     """LM with delayed rejection (reference ba.py:664-715)."""
     idx_p, idx_l = prepare_indices(prob)
     dev = prob.R.device
@@ -391,7 +414,7 @@ def _solve_ba_stage(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int) -> B
     cost_prev = torch.tensor(float("inf"), device=dev)
     lam = torch.tensor(cfg.damping_init, dtype=torch.float32, device=dev)
     for _ in range(iters):
-        Rn, tn, ptsn, lnsn, cost, _, _ = ba_iteration(cam, prob, idx_p, idx_l, *cur, cfg, lam)
+        Rn, tn, ptsn, lnsn, cost, _, _ = ba_iteration(cam, prob, idx_p, idx_l, *cur, cfg, lam, group)
         worse = cost > cost_prev
         stepped = (Rn, tn, ptsn, lnsn)
         cur, prev = _pick(worse, prev, stepped), _pick(worse, prev, cur)
@@ -399,8 +422,8 @@ def _solve_ba_stage(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int) -> B
         lam = torch.where(worse, lam * 10.0,
                           torch.where(improved, torch.clamp(lam * 0.5, min=cfg.damping_init), lam))
         cost_prev = torch.where(worse, cost_prev, cost)
-    cost_cur, chi2_p_c, chi2_l_c = evaluate_cost(cam, prob, *cur, cfg)
-    cost_prev2, chi2_p_p, chi2_l_p = evaluate_cost(cam, prob, *prev, cfg)
+    cost_cur, chi2_p_c, chi2_l_c = evaluate_cost(cam, prob, *cur, cfg, group)
+    cost_prev2, chi2_p_p, chi2_l_p = evaluate_cost(cam, prob, *prev, cfg, group)
     worse = cost_cur > cost_prev
     R, t, pts, lns = _pick(worse, prev, cur)
     return BAResult(R=R, t=t, pts=pts, lns=lns,
@@ -410,7 +433,7 @@ def _solve_ba_stage(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int) -> B
 
 
 def solve_ba_alternating(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int | None = None,
-                         wcap: int = 16) -> BAResult:
+                         wcap: int = 16, group=None) -> BAResult:
     """Memory-bounded whole-map BA by exact block-coordinate descent: a
     landmark-only GN step (poses fixed, block-diagonal per landmark), then a
     pose-only GN step (landmarks fixed, block-diagonal per pose). No Hpl
@@ -470,6 +493,7 @@ def solve_ba_alternating(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int 
                + torch.einsum("nia,n,nib->nab", Jp_l, w_l, Jp_l).reshape(W, Sl, 6, 6).sum(1))
         gp = (torch.einsum("nia,n,ni->na", Jp_p, w_p, r_p).reshape(W, Sx, 6).sum(1)
               + torch.einsum("nia,n,ni->na", Jp_l, w_l, r_l).reshape(W, Sl, 6).sum(1))
+        Hpp, gp = psum(Hpp, group), psum(gp, group)
         act_w = _diag_sum(Hpp) > 1e-10
         Hpp_inv = _inv_spd_equilibrated(Hpp + damping * eye6 + (~act_w)[:, None, None] * eye6, _inv6x6_spd)
         dp = clip_step(-torch.einsum("wab,wb->wa", Hpp_inv, gp), cfg.ba_max_pose_step)
@@ -479,5 +503,5 @@ def solve_ba_alternating(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int 
         R = lie.normalize_rotation(torch.einsum("wij,wjk->wik", dR, R))
         t = torch.einsum("wij,wj->wi", dR, t) + dt
 
-    cost, chi2_p, chi2_l = evaluate_cost(cam, prob, R, t, pts, lns, cfg)
+    cost, chi2_p, chi2_l = evaluate_cost(cam, prob, R, t, pts, lns, cfg, group)
     return BAResult(R=R, t=t, pts=pts, lns=lns, po_chi2=chi2_p, lo_chi2=chi2_l, cost=cost)

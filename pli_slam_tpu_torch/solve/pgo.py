@@ -10,6 +10,12 @@ every run gives the same bits) and the [7K, 7K] system is
 solved with `torch.linalg.solve_ex` (no host check; a singular or
 non-finite step is dropped on the device, as the reference drops a
 non-finite one). The reference's `fori_loop` is a Python loop.
+
+`optimize(..., group=)` is the edge-sharded solver of
+`parallel.dist_pgo`: each rank of the `torch.distributed` group holds a
+block of the edges and the replicated nodes, and H and g are all-reduced
+right after assembly, where the reference's distributed solver `psum`s
+them; every rank then solves the same system.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import dataclasses
 import torch
 
 from pli_slam_tpu_torch.ops import autodiff, lie
+from pli_slam_tpu_torch.ops.collective import psum
 from pli_slam_tpu_torch.ops.indexing import deterministic_index_add, top_k
 
 
@@ -73,9 +80,11 @@ _PINNED = {"sim3": (), "se3": (6,), "4dof": (3, 4, 6)}  # xi = [rho(3), phi(3), 
 
 
 def optimize(graph: PoseGraph, iters: int = 20, se3: bool = False, damping: float = 1e-6,
-             mode: str | None = None) -> PoseGraph:
+             mode: str | None = None, group=None) -> PoseGraph:
     """`iters` GN iterations. mode "sim3" (7-DoF), "se3" (scale pinned) or
-    "4dof" (translation + yaw about world z); `se3=True` is "se3"."""
+    "4dof" (translation + yaw about world z); `se3=True` is "se3". With
+    `group`, `graph` holds this rank's edges and H, g are summed over the
+    group's ranks."""
     if mode is None:
         mode = "se3" if se3 else "sim3"
     if mode not in _PINNED:
@@ -109,9 +118,10 @@ def optimize(graph: PoseGraph, iters: int = 20, se3: bool = False, damping: floa
         H = deterministic_index_add(torch.zeros((K * K, dof, dof), dtype=dt_, device=dev),
                             torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]),
                             torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]))
-        H = H.reshape(K, K, dof, dof)
+        H = psum(H.reshape(K, K, dof, dof), group)
         g = deterministic_index_add(torch.zeros((K, dof), dtype=dt_, device=dev), torch.cat([ei, ej]),
                             torch.cat([torch.einsum("eai,e,ea->ei", Ji, w, r), torch.einsum("eai,e,ea->ei", Jj, w, r)]))
+        g = psum(g, group)
 
         H = H * free[:, None, None, None] * free[None, :, None, None]
         H[ar, ar] = H[ar, ar] + diag_add

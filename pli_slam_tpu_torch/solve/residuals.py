@@ -2,8 +2,9 @@
 IMU preintegration factor (port of pli_slam_tpu.solve.residuals).
 
 Pose convention: T_cw = (R_cw, t_cw), x_c = R_cw x_w + t_cw; updates are
-left-multiplicative twists (rho, phi). The mono point residual and
-`make_pose_prior` are on no ported path yet.
+left-multiplicative twists (rho, phi). The mono point residual, the
+landmark Jacobians and `make_pose_prior` are on no path of either package;
+the reference's tests call them.
 """
 
 from __future__ import annotations
@@ -34,12 +35,26 @@ def _stereo_jproj(cam, x_c):
     return torch.cat([J2, Jr[..., None, :]], dim=-2)
 
 
+def point_residuals_mono(cam, R_cw, t_cw, x_w, uv_obs):
+    """Mono reprojection. Returns (r [N,2], J_pose [N,2,6], x_c [N,3])."""
+    x_c = transform_points(R_cw, t_cw, x_w)
+    r = uv_obs - cam_ops.project(cam, x_c)
+    J_pose = -torch.einsum("nij,njk->nik", cam_ops.project_jacobian(cam, x_c), _dxc_dpose(x_c))
+    return r, J_pose, x_c
+
+
 def point_residuals_stereo(cam, R_cw, t_cw, x_w, uvr_obs):
     """Stereo reprojection (u_l, v_l, u_r). Returns (r [N,3], J_pose [N,3,6], x_c)."""
     x_c = transform_points(R_cw, t_cw, x_w)
     r = uvr_obs - cam_ops.stereo_project(cam, x_c)
     J_pose = -torch.einsum("nij,njk->nik", _stereo_jproj(cam, x_c), _dxc_dpose(x_c))
     return r, J_pose, x_c
+
+
+def point_residuals_landmark_jac(cam, R_cw, x_c, stereo: bool):
+    """d r / d x_w for BA: -J_proj @ R_cw, [N, 2 or 3, 3]."""
+    J_proj = _stereo_jproj(cam, x_c) if stereo else cam_ops.project_jacobian(cam, x_c)
+    return -torch.einsum("nij,jk->nik", J_proj, R_cw)
 
 
 def line_residuals(cam, R_cw, t_cw, xs_w, xe_w, l_obs):
@@ -58,6 +73,26 @@ def line_residuals(cam, R_cw, t_cw, xs_w, xe_w, l_obs):
     ds, Js, xs_c, Jd_xc_s = endpoint(xs_w)
     de, Je, xe_c, Jd_xc_e = endpoint(xe_w)
     return torch.stack([ds, de], dim=-1), torch.stack([Js, Je], dim=-2), (xs_c, xe_c, Jd_xc_s, Jd_xc_e)
+
+
+def line_residuals_landmark_jac(R_cw, Jd_xc_s, Jd_xc_e):
+    """d r / d (xs_w, xe_w) for BA, [N, 2, 6]: row 0 depends on xs_w only,
+    row 1 on xe_w only (`Jd_xc_*` from `line_residuals`)."""
+    Js = torch.einsum("nj,jk->nk", Jd_xc_s, R_cw)
+    Je = torch.einsum("nj,jk->nk", Jd_xc_e, R_cw)
+    z = torch.zeros_like(Js)
+    return torch.stack([torch.cat([Js, z], dim=-1), torch.cat([z, Je], dim=-1)], dim=-2)
+
+
+def make_pose_prior(R_prior, t_prior, weight: float):
+    """6-dof pose prior factory: prior(R_cw, t_cw) -> weight * [r_t, r_phi]
+    with dR = R_cw R_prior^T, r_phi = log(dR), r_t = t_cw - dR t_prior."""
+
+    def prior(R_cw, t_cw):
+        dR = lie._mm(R_cw, R_prior.transpose(-1, -2))
+        return weight * torch.cat([t_cw - lie._einsum("ij,j->i", dR, t_prior), lie.so3_log(dR)])
+
+    return prior
 
 
 def imu_residual(preint, R0, p0, v0, R1, p1, v1, bg, ba, gravity=9.81):

@@ -22,7 +22,9 @@ from pli_slam_tpu_torch.ops.camera import Camera
 from pli_slam_tpu_torch.ops.imu import Preintegrated, PreintStore, identity_with_bias
 from pli_slam_tpu_torch.ops.lines import LineFeatures
 from pli_slam_tpu_torch.ops.orb import Features
+from pli_slam_tpu_torch.solve.ba import BAProblem
 from pli_slam_tpu_torch.solve.inertial import BodyState, Extrinsics
+from pli_slam_tpu_torch.solve.pgo import PoseGraph
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.worldmap.stores import KeyFrameStore, LineStore, PointStore
 from pli_slam_tpu_torch.worldmap.vocab import BowDatabase, TrainedVocabulary, Vocabulary
@@ -114,6 +116,16 @@ def extrinsics(x, device=None) -> Extrinsics:
     return _tensors(Extrinsics, x, device)
 
 
+def ba_problem(x, device=None) -> BAProblem:
+    """A bundle-adjustment problem (the reference's, or the port's as numpy
+    arrays, a shard of a partitioned one included) on `device`."""
+    return _tensors(BAProblem, x, device)
+
+
+def pose_graph(x, device=None) -> PoseGraph:
+    return _tensors(PoseGraph, x, device)
+
+
 def inertial_state(tr, device=None) -> dict:
     """What `make_step_vi` starts from, read off a reference `Tracker` after
     its IMU initialization (only attribute names and `np.asarray` are used)
@@ -144,6 +156,13 @@ def vocabulary(v) -> Vocabulary:
 def vocab_from_reference(v) -> TrainedVocabulary:
     """A reference `TrainedVocabulary` (centroids and IDF as arrays) as the port's."""
     return TrainedVocabulary(centroids=np.asarray(v.centroids, np.int8), idf=np.asarray(v.idf, np.float32))
+
+
+def to_host(x):
+    """A dataclass of tensors as the same dataclass of numpy arrays (what
+    crosses into a spawned rank)."""
+    return dataclasses.replace(x, **{f.name: getattr(x, f.name).detach().cpu().numpy()
+                                     for f in dataclasses.fields(x)})
 
 
 def to_numpy(obj, prefix: str = "") -> dict[str, np.ndarray]:

@@ -22,15 +22,17 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     assert len(mods) > 20
-    # the walk reaches the stereo-inertial, loop-closing, sensor / facade and ingest slices' modules, the
-    # profiling helpers and the drivers
+    # the walk reaches the stereo-inertial, loop-closing, sensor / facade, ingest and distribution slices'
+    # modules, the profiling helpers and the drivers
     for name in ("ops.imu", "ops.autodiff", "solve.inertial", "solve.vi_ba", "solve.imu_init", "utils.profile",
                  "utils.kernel_bench", "solve.sim3", "solve.pgo", "solve.pnp", "frontend.loop_closing",
                  "worldmap.atlas", "solve.twoview", "ops.rectify", "utils.trajectory", "system", "utils.euroc",
                  "utils.datasets", "utils.native_loader", "utils.pngio", "utils.log", "utils.livefeed",
                  "utils.viewer", "utils.dataset_writers", "scripts", "scripts.common", "scripts.run_euroc",
                  "scripts.run_tum", "scripts.run_kitti", "scripts.run_synthetic", "scripts.run_live",
-                 "scripts.train_vocab", "scripts.diag_ate", "scripts.profile_stages"):
+                 "scripts.train_vocab", "scripts.diag_ate", "scripts.profile_stages", "parallel", "parallel.launch",
+                 "parallel.dist_ba", "parallel.dist_pgo", "ops.collective", "utils.production",
+                 "scripts.run_multihost_ba", "scripts.bench_scaling", "scripts.debug_pose"):
         assert f"pli_slam_tpu_torch.{name}" in mods, name
     code = (
         "import sys\n"
@@ -115,3 +117,7 @@ def test_no_module_picks_the_cpu_by_itself():
     assert not offenders, offenders
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert len(asks_cuda.findall(smoke)) == len(refuses.findall(smoke)) == 1
+    # every driver takes its device from pick_device, the distributed one per rank through launch.rank_device
+    for name in ("run_euroc", "run_tum", "run_kitti", "run_synthetic", "run_live", "train_vocab", "run_multihost_ba",
+                 "bench_scaling", "debug_pose"):
+        assert "common.pick_device(args.cpu)" in (PKG / "scripts" / f"{name}.py").read_text(), name
