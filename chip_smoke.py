@@ -131,8 +131,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
                (pushed, delivered and dropped frames printed);
                9e. trained vocabularies: `train_vocab --euroc` on 9a's folder
                (1024 point and line words), their words on the card equal to
-               the CPU's, and a Tracker with both over phase 4's frames
-               (phase 4's ATE bound), its BoW rows and best loop score printed.
+               the CPU's, and a Tracker with both over phase 4's first 20
+               frames (phase 4's ATE bound), its BoW rows and best loop
+               score printed.
                Drivers pass --no-plots when the card has no matplotlib.
  10. the fisheye rig -- TUM-VI's 512x512 Kannala-Brandt8 camera as ORB-SLAM3's
                Examples/Stereo-Inertial/TUM-VI.yaml publishes it (TUM_512), with
@@ -195,13 +196,57 @@ Phases (each prints one line; any failure raises and exits non-zero):
                rows, a whole Schur solve / 6 and PGO / 12, and one iteration's
                all-reduce bytes with their time issued on their own). The NCCL
                branch needs one card per rank and is not run on one card.
+ 14. bench.py's flagship path -- SlamConfig.euroc_stereo_inertial() with loop
+               closing ON and bench.py's IMU settings and keyframe budget
+               (`utils.profile.flagship_config()`), same widths, on phase 6a's
+               frames of bench.py's flagship trajectory with their 200 Hz IMU
+               under ImuNoiseModel.euroc() (rendered once, in phase 6a):
+               14a. the inertial loop closure (`utils.profile.inertial_loop_run`):
+               host-path frames, the IMU initialization, 8 fused stereo-inertial
+               frames (the visual-inertial drift of ROADMAP.md's queue 3 B1 loses
+               this map some 40 frames after the initialization, in the
+               reference too), then, as no loop candidate comes this early,
+               a closure planted at the newest keyframe, its candidates the
+               keyframes at least min_kf_gap (12) older, the ground-truth-nearest
+               first, the consistency counter pre-set: verification with the
+               IMU initialized, the 4-DoF essential graph, the deferred
+               full-inertial-BA sweep queued as "fiba" chunks, which 6 more
+               frames and the drain run. Guards: the closure verified with
+               imu_ready, only "fiba" chunks queued and the queue drained,
+               every keyframe's world z axis in its camera frame turned by at
+               most FLAGSHIP_ZAXIS_DEG across the correction (the 4-DoF
+               graph's free rotation is about world z, which is gravity only
+               in a gravity-aligned world; neither package aligns it:
+               ROADMAP queue 3 B13), and each keyframe's gravity direction,
+               its roll and pitch, turned by what its own rotation about
+               world z gives at gravity's tilt from z, within
+               FLAGSHIP_B13_MARGIN_DEG (a port that turns roll or pitch
+               further than the reference's B13 does fails here),
+               ATE up to the initialization under 0.10 m (phase
+               5's), finite positions, 90% of frames tracked, two gated-match
+               launches per tracked frame; the largest keyframe position
+               error against the truth printed before and after the
+               correction and after each chunk, the closure and each chunk
+               timed by SyncSpans;
+               14b. `scripts/bench.py`'s `run_flagship` (N_BENCH_FLAGSHIP frames:
+               through the IMU initialization) and `run_visual`
+               (N_BENCH_VISUAL frames of phase 4's sequence, loop closing on)
+               in this process: the printed line parses, its keys are bench.py's
+               (read from bench.py's source with `ast`), imu_ready is true,
+               both ATEs and every time are finite.
+Every phase's wall time is printed at the end. Phase 6a keeps its 180
+frames: at 148 (past the revisit at 140) its planted closure's chunks left
+ATE at 0.3875 m, over its 0.35 m guard (queue 3 B2's divergent GBA depends
+on the map), so phase 14 is paid for by 9e's tracker (20 of phase 4's 40
+frames) and by sharing phase 6a's rendered frames.
 Phases 7, 8 and 9 print fps and p50/p99 (9 also the ingest stage's ms a
 frame), and phase 7 the map's save and load times. Phase 4 prints the
 SHA-256 of its first frame pair, which must equal the CPU's
 (FRAME0_SHA256, held by tests/test_torch_datasets.py). Then one JSON line
 describing the kernels (launches on every path, per path and per frame,
 and the N=2000 shapes of KITTI's operating point; phases 10-12's
-launches and the fisheye association's time), the nvidia-smi line,
+launches and the fisheye association's time; phase 14's launches), the
+nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -716,8 +761,8 @@ def phase_loop(dev, smi):
     log(f"loop: Tracker construction ran the closure's warm-up in {tracker.loop_warmup_ms:.2f} ms [{smi}]")
     log(f"loop: {N_FRAMES_LOOP} frames, ordinary frames: fps {N_FRAMES_LOOP / r['wall']:.3f} over the run, mean "
         f"{ms.mean():.2f} ms, p50 {pct(50):.2f} ms, p99 {pct(99):.2f} ms; {r['n_kf_run']} keyframes, ATE "
-        f"{r['ate_run']:.4f} m, loops closed by the run {r['natural']} (frames with a verification: frame, ms, closed "
-        f"{r['loop_frames']}) [{smi}]")
+        f"{r['ate_run']:.4f} m, loops closed by the run {r['natural']} (frames with a verification: frame, ms, closed, "
+        f"imu_ready {r['loop_frames']}) [{smi}]")
     planted = r["planted"]
     if planted is not None:
         log(f"loop: no candidate reached the closer; planted closure keyframe {planted['kf_cur']} -> "
@@ -1140,6 +1185,7 @@ KITTI_TRAJ = dict(amp=(1.2, 0.3, 1.5), freq=(0.1, 0.12, 0.08), yaw_amp=0.3, yaw_
 N_FRAMES_KITTI = 30
 N_FRAMES_LIVE = 40
 N_FRAMES_VOCAB = 12  # frames of 9a's folder the vocabularies are trained on
+N_FRAMES_VOCAB_TRACK = 20  # phase 4's first frames, tracked with the trained vocabularies
 
 
 def _plot_args():
@@ -1320,6 +1366,7 @@ def phase_vocab(dev, smi, work, root, room):
     t_train = time.perf_counter() - t0
     voc_pt, voc_ln = TrainedVocabulary.load(prefix + "_pt.npz"), TrainedVocabulary.load(prefix + "_ln.npz")
     cfg, cam = slice_config(), slice_camera()
+    room = room[:N_FRAMES_VOCAB_TRACK]
     f = orb.extract(room[0]["img_l"].to(dev), cfg.orb)
     w_dev = voc_pt.words(f.desc, f.valid).cpu()
     w_cpu = voc_pt.words(f.desc.cpu(), f.valid.cpu())
@@ -1805,6 +1852,142 @@ def phase_distribution(dev, smi):
     return scaling
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: bench.py's flagship path (stereo-inertial, loop closing on)
+# ---------------------------------------------------------------------------
+
+# 14a: the largest turn, in degrees, of any keyframe's world z axis in its camera frame (R_cw e_z, the axis the
+# 4-DoF essential graph keeps) across the planted closure's correction: ~5x the H100's reading (3.815e-5)
+FLAGSHIP_ZAXIS_DEG = 2e-4
+# 14a: the largest difference, in degrees, between a keyframe's gravity turn across the correction and the turn
+# that its own rotation about world z gives (ROADMAP queue 3 B13; `utils.profile.b13_gravity_turn_deg`): ~5x the
+# H100's reading (3.036e-5 on a 0.2606-degree turn)
+FLAGSHIP_B13_MARGIN_DEG = 1.5e-4
+N_BENCH_FLAGSHIP = 76  # 14b: the IMU initializes at frame 69-70 on the card (the reference on its CPU: 72-74)
+N_BENCH_VISUAL = 20
+
+
+def bench_line_keys(path: str) -> tuple[list[str], list[str]]:
+    """The keys of the JSON line a bench.py-style `main` prints, read from
+    its source with `ast` (the file is not imported): (top-level keys, keys
+    of "extra")."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict) and any(isinstance(k, ast.Constant) and k.value == "extra" for k in node.keys):
+            extra = node.values[[k.value for k in node.keys].index("extra")]
+            return [k.value for k in node.keys], [k.value for k in extra.keys]
+    raise ValueError(f"no result line with an 'extra' dict in {path}")
+
+
+def phase_flagship_closure(dev, smi, run):
+    """14a (see the module docstring): the inertial loop closure on phase 6a's frames with their IMU."""
+    import numpy as np
+
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.utils.profile import flagship_config, inertial_loop_run
+
+    _, traj, frames = run
+    cfg, cam = flagship_config(), run[0].cam
+    hamming.reset_launches()
+    r = inertial_loop_run(cfg, cam, traj, frames, dev)
+    launches = hamming.launches
+    tracker, init, planted, n_frames = r["tracker"], r["init"], r["planted"], r["n_frames"]
+    if not init:
+        raise AssertionError(f"flagship 14a: the IMU never initialized in {n_frames} frames: "
+                             f"{tracker.imu_init_log[-3:]}")
+    n_host = init["frame"] + 1
+    ok_frames = _consumed_ok(tracker, n_host)
+    pct = lambda v, q: float(np.percentile(v, q))  # noqa: E731
+    rec = init["record"]
+    log(f"flagship 14a: IMU init at frame {init['frame']} ({rec['n_kf']} keyframes, accepted {rec['accepted']}), "
+        f"that frame {init['ms']:.1f} ms; ATE of frames 0-{init['frame']} {init['ate']:.4f} m; host-path frames: "
+        f"mean {np.mean(r['ms_host']):.2f} ms, p50 {pct(r['ms_host'], 50):.2f} ms; fused stereo-inertial frames: "
+        f"mean {np.mean(r['ms_fused']):.2f} ms, p99 {pct(r['ms_fused'], 99):.2f} ms [{smi}]")
+    log(f"flagship 14a: loops closed by the run {r['natural']} (frames with a verification: frame, ms, closed, "
+        f"imu_ready {r['loop_frames']}); Tracker construction ran the closure's warm-up in "
+        f"{tracker.loop_warmup_ms} ms [{smi}]")
+    if planted is not None:
+        log(f"flagship 14a: planted closure at keyframe {planted['kf_cur']} of {tracker.n_kf} (min_kf_gap "
+            f"{cfg.loop.min_kf_gap}; candidates (slot, ground-truth cost) {planted['cands']}), "
+            f"imu_ready {planted['imu_ready']}, closed {planted['closed']}, verification + 4-DoF PGO + queueing "
+            f"{planted['ms']} ms; largest keyframe position error against the truth {planted['kf_before']:.4f} m "
+            f"before, {planted['kf_after']:.4f} m after the correction; largest turn of a keyframe's world z axis "
+            f"{planted['z_deg']:.3e} deg (bound {FLAGSHIP_ZAXIS_DEG}), of its gravity direction "
+            f"{planted['gravity_deg']:.3e} deg (gravity {planted['tilt_deg']:.3f} deg off the world -z axis; the "
+            f"keyframes' rotations about world z give up to {planted['gravity_pred_deg']:.3e} deg, ROADMAP queue 3 "
+            f"B13; largest difference {planted['gravity_excess_deg']:.3e} deg, bound {FLAGSHIP_B13_MARGIN_DEG}); "
+            f"queued {planted['queued']} [{smi}]")
+    log(f"flagship 14a: {len(r['t_fiba'])} fiba chunks run, ms each {[round(t, 2) for t in r['t_fiba']]}, largest "
+        f"keyframe position error after each {[round(e, 4) for e in r['kf_errs']]} m; queue left "
+        f"{len(tracker._deferred_ba)}; ATE {r['ate']:.4f} m over {n_frames} frames, n_kf {tracker.n_kf}, ok frames "
+        f"{ok_frames}/{n_frames}, gated_match launches {launches} ({launches / (n_frames - 1):.2f} per tracked "
+        f"frame) [{smi}]")
+    if not rec["accepted"] or not init["ate"] < 0.10:
+        raise AssertionError(f"flagship 14a: at the IMU initialization {rec}, ATE {init['ate']} m")
+    closed_after_init = any(c and ready for _, _, c, ready in r["loop_frames"])
+    if planted is not None:
+        if not (planted["closed"] and planted["imu_ready"]):
+            raise AssertionError(f"flagship 14a: the planted closure did not verify with the IMU initialized: {planted}")
+        if not planted["queued"] or set(planted["queued"]) != {"fiba"}:
+            raise AssertionError(f"flagship 14a: the closure queued {planted['queued']}, not the fiba sweep")
+        if not planted["z_deg"] <= FLAGSHIP_ZAXIS_DEG:
+            raise AssertionError(f"flagship 14a: the 4-DoF correction turned a keyframe's world z axis by "
+                                 f"{planted['z_deg']} deg")
+        if not planted["gravity_excess_deg"] <= FLAGSHIP_B13_MARGIN_DEG:
+            raise AssertionError(f"flagship 14a: a keyframe's gravity direction turned {planted['gravity_excess_deg']} "
+                                 f"deg off what its rotation about world z gives (largest turn "
+                                 f"{planted['gravity_deg']} deg, predicted {planted['gravity_pred_deg']} deg)")
+    elif not closed_after_init:
+        raise AssertionError(f"flagship 14a: the run's closures {r['loop_frames']} came before the IMU initialization")
+    if tracker._deferred_ba or not r["t_fiba"]:
+        raise AssertionError(f"flagship 14a: {len(r['t_fiba'])} fiba chunks run, {len(tracker._deferred_ba)} left")
+    if not np.all(np.isfinite(r["est"])) or r["est"].shape[0] != n_frames:
+        raise AssertionError(f"flagship 14a: trajectory {r['est'].shape}, finite {np.all(np.isfinite(r['est']))}")
+    if ok_frames < 0.9 * n_frames:
+        raise AssertionError(f"flagship 14a: only {ok_frames}/{n_frames} frames tracked")
+    if launches < 2 * (n_frames - 1):
+        raise AssertionError(f"flagship 14a: gated_match launched {launches} times for {n_frames - 1} tracked frames")
+    return launches, n_frames
+
+
+def phase_bench(dev, smi, run, room):
+    """14b (see the module docstring): scripts/bench.py's two runs in this process."""
+    import numpy as np
+
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.scripts import bench
+
+    hamming.reset_launches()
+    t0 = time.perf_counter()
+    flag = bench.run_flagship(N_BENCH_FLAGSHIP, device=dev, frames=run[2])
+    vis = bench.run_visual(N_BENCH_VISUAL, device=dev, frames=room)
+    wall = time.perf_counter() - t0
+    launches = hamming.launches
+    text = json.dumps(bench.result_line(flag, vis))
+    line = json.loads(text)
+    keys, extra = bench_line_keys(os.path.join(ROOT, "bench.py"))
+    log(f"bench 14b: scripts/bench.py at BENCH_FRAMES={N_BENCH_FLAGSHIP}, BENCH_FRAMES_VISUAL={N_BENCH_VISUAL} "
+        f"({wall:.1f} s, frames rendered once for phase 6a): {text} [{smi}]")
+    n_frames = N_BENCH_FLAGSHIP + N_BENCH_VISUAL
+    log(f"bench 14b: gated_match launches {launches} ({launches / (n_frames - 2):.2f} per tracked frame) [{smi}]")
+    if sorted(line) != sorted(keys) or sorted(line["extra"]) != sorted(extra):
+        raise AssertionError(f"bench 14b: the line's keys {sorted(line)} / {sorted(line['extra'])} are not bench.py's "
+                             f"{sorted(keys)} / {sorted(extra)}")
+    if not line["extra"]["imu_ready"]:
+        raise AssertionError("bench 14b: the flagship run never initialized the IMU")
+    times = [line["value"], line["vs_baseline"]] + [line["extra"][k] for k in ("p99_ms", "p50_ms", "worst_ms",
+                                                                                 "visual_fps")]
+    ates = [line["extra"]["ate_m_synthetic"], line["extra"]["visual_ate_m"]]
+    if not np.all(np.isfinite(times + ates)) or min(times) <= 0:
+        raise AssertionError(f"bench 14b: times {times}, ATEs {ates}")
+    if launches < 2 * (n_frames - 2):
+        raise AssertionError(f"bench 14b: gated_match launched {launches} times for {n_frames - 2} tracked frames")
+    return launches, n_frames
+
+
 def main() -> int:
     import torch
 
@@ -1826,23 +2009,35 @@ def main() -> int:
     t_build = hamming.build()
     log(f"build: gated_match ({KERNEL_SRC}) built and loaded in {t_build:.2f} s")
 
-    max_err, times = phase_kernels(dev)
-    phase_small_reference(dev)
-    launches, n_frames, room = phase_main_path(dev, smi)
-    launches_vi, n_frames_vi, vi = phase_vi_path(dev, smi)
-    launches_loop, n_frames_loop, run = phase_loop(dev, smi)
-    launches_kidnap = phase_kidnap(dev, smi, run)
-    launches_atlas = phase_atlas(dev, smi)
+    secs = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    max_err, times = timed("3", phase_kernels, dev)
+    timed("4 stages", phase_small_reference, dev)
+    launches, n_frames, room = timed("4", phase_main_path, dev, smi)
+    launches_vi, n_frames_vi, vi = timed("5", phase_vi_path, dev, smi)
+    launches_loop, n_frames_loop, run = timed("6a", phase_loop, dev, smi)
+    launches_kidnap = timed("6b", phase_kidnap, dev, smi, run)
+    launches_atlas = timed("6c", phase_atlas, dev, smi)
     launches_ra = launches_kidnap + launches_atlas
-    launches_rgbd, n_fused_rgbd, rgbd_frames = phase_rgbd(dev, smi)
-    launches_mono, n_frames_mono = phase_mono(dev, smi)
-    phase_rectifier(dev, smi)
-    ingest = phase_ingest(dev, smi, vi, rgbd_frames, room)
+    launches_rgbd, n_fused_rgbd, rgbd_frames = timed("7", phase_rgbd, dev, smi)
+    launches_mono, n_frames_mono = timed("8", phase_mono, dev, smi)
+    timed("rectifier", phase_rectifier, dev, smi)
+    ingest = timed("9", phase_ingest, dev, smi, vi, rgbd_frames, room)
     launches_ingest = sum(n for n, _ in ingest.values())
-    fisheye, fisheye_vi, assoc_ms = phase_fisheye(dev, smi)
-    slice6 = {"fisheye": fisheye, "fisheye_vi": fisheye_vi, "mono_vi": phase_mono_vi(dev, smi),
-              "rgbd_vi": phase_rgbd_vi(dev, smi)}
-    phase_distribution(dev, smi)
+    fisheye, fisheye_vi, assoc_ms = timed("10", phase_fisheye, dev, smi)
+    slice6 = {"fisheye": fisheye, "fisheye_vi": fisheye_vi, "mono_vi": timed("11", phase_mono_vi, dev, smi),
+              "rgbd_vi": timed("12", phase_rgbd_vi, dev, smi)}
+    timed("13", phase_distribution, dev, smi)
+    launches_14a, n_frames_14a = timed("14a", phase_flagship_closure, dev, smi, run)
+    launches_14b, n_frames_14b = timed("14b", phase_bench, dev, smi, run, room)
+    launches_flagship = launches_14a + launches_14b
+    log(f"chip_smoke: seconds per phase {secs}")
 
     from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
 
@@ -1855,7 +2050,7 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": "gated_match", "route": "cuda", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
         "launches": launches + launches_vi + launches_loop + launches_ra + launches_rgbd + launches_mono
-        + launches_ingest + sum(n for n, _ in slice6.values()),
+        + launches_ingest + sum(n for n, _ in slice6.values()) + launches_flagship,
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "call_ms": c_ms, "shape": "N=1200 x P=4096",
         "ms_fuse": kf_ms, "plain_ms_fuse": pf_ms, "bound_ms_fuse": bf_ms, "call_ms_fuse": cf_ms,
@@ -1872,7 +2067,8 @@ def main() -> int:
         **{f"launches_per_frame_{name}": n / max(frames - 1, 1) for name, (n, frames) in ingest.items()},
         **{f"launches_{name}": n for name, (n, _) in slice6.items()},
         **{f"launches_per_frame_{name}": n / frames for name, (n, frames) in slice6.items()},
-        "fisheye_association_ms": assoc_ms,
+        "fisheye_association_ms": assoc_ms, "launches_flagship": launches_flagship,
+        "launches_per_frame_flagship": launches_flagship / (n_frames_14a - 1 + n_frames_14b - 2),
     }]}))
     log(smi)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T_START:.1f} s")

@@ -15,4 +15,5 @@ without a GPU and without `--cpu` they exit with an error. Each also writes
   train_vocab     trained point / line vocabularies from imagery
   diag_ate        frame against keyframe ATE on the bench scene
   profile_stages  utils/profile.py's synchronised stage pass
+  bench           bench.py's flagship and visual runs on the port; prints bench.py's one JSON line, writes no file
 """

@@ -1,8 +1,8 @@
 """Where the port's main paths spend their time on one GPU.
 
 Run from the repository root:
-  python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono|loop
-                                              | --first-closure | --nondet rgbd|mono | --stages]
+  python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono|loop|flagship
+                                              | --first-closure | --nondet rgbd|mono|flagship | --stages]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -35,12 +35,12 @@ synchronised stage pass with `preintegrate`, `track_step_inertial`,
 runs N frames of that path twice and prints, per frame after the
 initialization, how far velocity, accelerometer bias and trajectory have
 drifted from the truth.
-`--spread rgbd|mono|loop` runs chip_smoke.py's RGB-D, mono or loop-closing
-(6a) phase N_SPREAD times on the same frames and prints each run's
-accuracy, a digest of its trajectory, and whether all runs were
-bit-identical. `--first-closure` runs phase 6a twice in a fresh process:
+`--spread rgbd|mono|loop|flagship` runs chip_smoke.py's RGB-D, mono,
+loop-closing (6a) or inertial-closure (14a) phase N_SPREAD times on the
+same frames and prints each run's accuracy, a digest of its trajectory,
+and whether all runs were bit-identical. `--first-closure` runs phase 6a twice in a fresh process:
 the closure warm-up's time at Tracker construction, the first closure's
-wall time and the second's. `--nondet rgbd|mono` runs phase 7 or 8 once
+wall time and the second's. `--nondet rgbd|mono|flagship` runs phase 7, 8 or 14a once
 under `torch.use_deterministic_algorithms(True, warn_only=True)` (a
 diagnostic switched off again after the run) and `NondetSites`, and lists
 the ops that can make two runs differ. `--stages` runs only pass 3 (the
@@ -269,31 +269,32 @@ N_AFTER_LOOP = 6  # frames after the planted closure: the queued GBA chunks run 
 def loop_frames(dev):
     """(cfg, cam, traj, frames) of chip_smoke.py's phase 6a: loop_config() on
     slice_camera(), N_FRAMES_LOOP + N_AFTER_LOOP frames of bench.py's
-    flagship trajectory."""
+    flagship trajectory, each with its 200 Hz IMU batch under
+    ImuNoiseModel.euroc() (under "imu"), as bench.py's flagship run renders
+    them: the images do not depend on the IMU, so phase 14 tracks the same
+    frames with their IMU."""
     from pli_slam_tpu_torch.utils import synthetic
 
     cfg, cam = loop_config(), slice_camera()
     traj = synthetic.Trajectory(**FLAGSHIP_TRAJ)
-    return cfg, cam, traj, list(synthetic.make_sequence(cam, N_FRAMES_LOOP + N_AFTER_LOOP, dev, fps=cfg.fps,
-                                                        traj=traj))
+    frames = list(synthetic.make_sequence(cam, N_FRAMES_LOOP + N_AFTER_LOOP, dev, fps=cfg.fps, traj=traj,
+                                          imu_noise=synthetic.ImuNoiseModel.euroc()))
+    for fr in frames:
+        fr["imu"] = imu_batch(fr)
+    return cfg, cam, traj, frames
 
 
 def overlapping_pair(tracker, traj, min_gap: int):
     """The keyframe pair (newer, older), at least `min_gap` slots apart, whose
-    ground-truth poses are nearest (distance in m plus viewing-direction
-    angle in rad), from the keyframes' stamps: (newer, older, cost)."""
-    n = tracker.n_kf
-    stamps = tracker.kstore.stamp[:n].cpu().numpy()
-    valid = tracker.kstore.valid[:n].cpu().numpy()
-    poses = [traj.pose(float(t)) for t in stamps]
+    ground-truth poses are nearest (`loop_candidates`' cost), from the
+    keyframes' stamps: (newer, older, cost)."""
+    stamps = tracker.kstore.stamp[:tracker.n_kf].cpu().numpy()
+    valid = tracker.kstore.valid[:tracker.n_kf].cpu().numpy()
     best = (np.inf, -1, -1)
-    for i in range(n):
-        for j in range(i - min_gap + 1):
-            if not (valid[i] and valid[j]):
-                continue
-            (Ri, pi), (Rj, pj) = poses[i], poses[j]
-            cost = np.linalg.norm(pi - pj) + np.arccos(np.clip(Ri[:, 2] @ Rj[:, 2], -1.0, 1.0))
-            best = min(best, (cost, i, j))
+    for i in np.nonzero(valid)[0]:
+        cands = loop_candidates(stamps, valid, traj, int(i), min_gap)
+        if cands:
+            best = min(best, (cands[0][1], int(i), cands[0][0]))
     return best[1], best[2], best[0]
 
 
@@ -307,36 +308,70 @@ def kf_error(tracker, traj) -> float:
     return float(np.linalg.norm(-np.einsum("kji,kj->ki", R, t) - gt, axis=1)[valid].max())
 
 
+class _ClosureRun:
+    """The skeleton that `loop_run` (phase 6a) and `inertial_loop_run`
+    (phase 14a) share: a fresh tracker in streaming mode whose rare paths
+    SyncSpans times (ordinary frames run unsynchronised), driven frame by
+    frame, and the drain of the BA chunks a closure queued ("gba" or
+    "fiba": `chunk`). Records the frames that ran a loop verification
+    (frame, ms, closed, imu_ready) and the largest keyframe position error
+    after each chunk."""
+
+    def __init__(self, cam, cfg, dev, traj, chunk: str):
+        from pli_slam_tpu_torch.frontend.tracker import Tracker
+
+        self.tracker = Tracker(cam, cfg, dev)
+        self.tracker.streaming = True
+        self.tracker.span = self.spans = SyncSpans(dev)
+        self.t_loop, self.t_chunk = self.spans.ms["loop"], self.spans.ms[chunk]
+        self.dev, self.traj = dev, traj
+        self.loop_frames, self.kf_errs = [], []
+
+    def frame(self, fr, i: int, imu=None) -> tuple[float, bool]:
+        """Tracks frame `i`: (its wall ms, whether it ran neither a loop verification nor a chunk)."""
+        tr, lc = self.tracker, self.tracker.loop_closer
+        n_chunk, n_loop, n_closed = len(self.t_chunk), len(self.t_loop), lc.n_loops_closed
+        f0 = time.perf_counter()
+        tr.process(fr["img_l"], fr["img_r"], fr["t"], imu=imu)
+        dt = (time.perf_counter() - f0) * 1e3
+        if len(self.t_loop) > n_loop:
+            self.loop_frames.append((i, round(dt, 2), lc.n_loops_closed > n_closed, tr.imu_ready))
+        elif len(self.t_chunk) > n_chunk:
+            self.kf_errs.append(kf_error(tr, self.traj))
+        return dt, len(self.t_loop) == n_loop and len(self.t_chunk) == n_chunk
+
+    def drain(self, gt: np.ndarray) -> tuple[np.ndarray, float]:
+        """The queued chunks one by one, then `finalize`: (positions, ATE against `gt`)."""
+        from pli_slam_tpu_torch.utils import synthetic
+
+        tr = self.tracker
+        while tr._deferred_ba:
+            tr.run_deferred_ba(1)
+            self.kf_errs.append(kf_error(tr, self.traj))
+        tr.finalize()
+        est = tr.positions()
+        _sync(self.dev)
+        return est, synthetic.ate_rmse(est, gt) if est.shape == gt.shape else float("nan")
+
+
 def loop_run(cfg, cam, traj, frames, dev) -> dict:
-    """Phase 6a on `frames` (from `loop_frames`): a fresh tracker in streaming
-    mode, its rare paths timed by SyncSpans, over the first N_FRAMES_LOOP
-    frames; then, if the run closed no loop (no candidate reaches the closer
-    on this trajectory, in the reference too), a closure planted between the
-    keyframes that ground truth says overlap, the consistency counter
-    pre-set, and the correction once more, warm (its result dropped); then
-    the remaining frames and the queued GBA chunks, and `finalize`.
-    Returns what chip_smoke.py logs and guards."""
+    """Phase 6a on `frames` (from `loop_frames`): a `_ClosureRun` over the
+    first N_FRAMES_LOOP frames; then, if the run closed no loop (no
+    candidate reaches the closer on this trajectory, in the reference too),
+    a closure planted between the keyframes that ground truth says overlap,
+    the consistency counter pre-set, and the correction once more, warm (its
+    result dropped); then the remaining frames and the queued GBA chunks,
+    and `finalize`. Returns what chip_smoke.py logs and guards."""
     from pli_slam_tpu_torch.frontend.loop_closing import apply_loop_correction
-    from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.utils import synthetic
 
-    tracker = Tracker(cam, cfg, dev)
-    tracker.streaming = True
-    tracker.span = spans = SyncSpans(dev)  # times the rare paths only: ordinary frames run unsynchronised
-    t_loop, t_gba = spans.ms["loop"], spans.ms["gba"]
-    lc = tracker.loop_closer
-    kf_errs, ms_plain, loop_frames_ = [], [], []  # kf_errs: the largest keyframe error after each GBA chunk
+    cr = _ClosureRun(cam, cfg, dev, traj, "gba")
+    tracker, spans, lc = cr.tracker, cr.spans, cr.tracker.loop_closer
+    ms_plain = []
 
     def run(fr, i):
-        n_gba, n_loop, n_closed = len(t_gba), len(t_loop), lc.n_loops_closed
-        f0 = time.perf_counter()
-        tracker.process(fr["img_l"], fr["img_r"], fr["t"])
-        dt = (time.perf_counter() - f0) * 1e3
-        if len(t_loop) > n_loop:  # a loop verification ran in this frame
-            loop_frames_.append((i, round(dt, 2), lc.n_loops_closed > n_closed))
-        elif len(t_gba) > n_gba:
-            kf_errs.append(kf_error(tracker, traj))
-        elif i > 0:
+        dt, plain = cr.frame(fr, i)
+        if plain and i > 0:
             ms_plain.append(dt)
 
     wall0 = time.perf_counter()
@@ -358,21 +393,143 @@ def loop_run(cfg, cam, traj, frames, dev) -> dict:
         with spans("correction"):
             apply_loop_correction(tracker.kstore, tracker.pstore, tracker.lstore, kf_cur, kf_loop,
                                   torch.eye(3, device=dev), torch.zeros(3, device=dev), cfg)
-        planted = dict(kf_cur=kf_cur, kf_loop=kf_loop, cost=cost, ms=t_loop[-1], closed=closed,
+        planted = dict(kf_cur=kf_cur, kf_loop=kf_loop, cost=cost, ms=cr.t_loop[-1], closed=closed,
                        kf_before=kf_before, kf_after=kf_after, warm_ms=spans.ms["correction"][0])
     n_queued = len(tracker._deferred_ba)
     for i, fr in enumerate(frames[N_FRAMES_LOOP:], N_FRAMES_LOOP):
         run(fr, i)
-    while tracker._deferred_ba:
-        tracker.run_deferred_ba(1)
-        kf_errs.append(kf_error(tracker, traj))
-    tracker.finalize()
-    est = tracker.positions()
-    _sync(dev)
-    ate = synthetic.ate_rmse(est, gt) if est.shape == gt.shape else float("nan")
-    return dict(tracker=tracker, t_gba=t_gba, t_loop=t_loop, kf_errs=kf_errs, ms_plain=ms_plain,
-                loop_frames=loop_frames_, wall=wall, ate_run=ate_run, natural=natural, n_kf_run=n_kf_run,
+    est, ate = cr.drain(gt)
+    return dict(tracker=tracker, t_gba=cr.t_chunk, t_loop=cr.t_loop, kf_errs=cr.kf_errs, ms_plain=ms_plain,
+                loop_frames=cr.loop_frames, wall=wall, ate_run=ate_run, natural=natural, n_kf_run=n_kf_run,
                 planted=planted, n_queued=n_queued, est=est, ate=ate)
+
+
+def flagship_config() -> SlamConfig:
+    """bench.py's flagship configuration (bench.py:84-91): the EuRoC
+    stereo-inertial operating point with loop closing on, the IMU initialized
+    after 1.5 s from 16-sample batches, and the long run's per-keyframe
+    creation budget (kf_max_new_points 256)."""
+    cfg = SlamConfig.euroc_stereo_inertial()
+    return dataclasses.replace(cfg, imu=dataclasses.replace(cfg.imu, init_time_sec=1.5, max_samples_per_frame=16),
+                               tracking=dataclasses.replace(cfg.tracking, kf_max_new_points=256))
+
+
+# chip_smoke.py's phase 14a: fused stereo-inertial frames between the IMU
+# initialization and the planted closure (the visual-inertial drift of queue 3
+# B1 loses this map some 40 frames after the initialization, in the reference too)
+N_FUSED_BEFORE_CLOSURE = 8
+
+
+def axis_in_cameras(tracker, axis) -> np.ndarray:
+    """A world direction in each keyframe's camera frame, R_cw axis / |axis|,
+    [n_kf, 3]: with `tracker.gravity_w` every keyframe's roll and pitch; with
+    the world z axis what the 4-DoF essential graph keeps (its free rotation
+    is about world z: ROADMAP queue 3 B13)."""
+    a = torch.as_tensor(axis, dtype=torch.float32, device=tracker.device)
+    return torch.einsum("kij,j->ki", tracker.kstore.R[:tracker.n_kf], a / torch.linalg.norm(a)).cpu().numpy().astype(
+        np.float64)
+
+
+def gravity_turn_deg(before: np.ndarray, after: np.ndarray) -> np.ndarray:
+    """The angle, in degrees, between two `axis_in_cameras` readings, per keyframe."""
+    cos = np.sum(before * after, axis=1) / np.linalg.norm(before, axis=1) / np.linalg.norm(after, axis=1)
+    return np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+
+
+def b13_gravity_turn_deg(R_before: np.ndarray, R_after: np.ndarray, gravity_w) -> np.ndarray:
+    """The turn of each keyframe's gravity direction in its camera frame that
+    a correction rotating the keyframe's world frame about world z alone
+    gives (ROADMAP queue 3 B13), from the keyframes' R_cw before and after:
+    the correction's world rotation D = R_after^T R_before turns by theta,
+    and gravity, alpha off the z axis, turns by 2 asin(sin alpha
+    sin(theta / 2)), in degrees, per keyframe."""
+    D = np.einsum("kji,kjl->kil", np.asarray(R_after, np.float64), np.asarray(R_before, np.float64))
+    half = np.clip(np.linalg.norm(D - np.eye(3), axis=(1, 2)) / (2.0 * np.sqrt(2.0)), 0.0, 1.0)  # sin(theta / 2)
+    g = np.asarray(gravity_w, np.float64)
+    sin_alpha = np.linalg.norm(np.cross(g, (0.0, 0.0, 1.0))) / np.linalg.norm(g)
+    return np.degrees(2.0 * np.arcsin(np.clip(sin_alpha * half, 0.0, 1.0)))
+
+
+def loop_candidates(stamps: np.ndarray, valid: np.ndarray, traj, kf_cur: int, min_gap: int) -> list[tuple[int, float]]:
+    """The valid keyframes at least `min_gap` slots older than `kf_cur` (by
+    the keyframes' stamps and validity), the ground-truth-nearest first
+    (distance in m plus viewing-direction angle in rad, as `overlapping_pair`):
+    [(slot, cost)]."""
+    Ri, pi = traj.pose(float(stamps[kf_cur]))
+    out = []
+    for j in range(kf_cur - min_gap + 1):
+        if valid[j]:
+            Rj, pj = traj.pose(float(stamps[j]))
+            out.append((j, float(np.linalg.norm(pi - pj) + np.arccos(np.clip(Ri[:, 2] @ Rj[:, 2], -1.0, 1.0)))))
+    return sorted(out, key=lambda c: c[1])
+
+
+def inertial_loop_run(cfg, cam, traj, frames, dev, n_before: int = N_FUSED_BEFORE_CLOSURE,
+                      n_after: int = N_AFTER_LOOP, min_gap: int | None = None) -> dict:
+    """Phase 14a on `frames` (each with its IMU batch under "imu"): a
+    `_ClosureRun` through the IMU initialization and `n_before` fused
+    stereo-inertial frames; then, if the run closed no loop after the
+    initialization, a closure planted at the newest keyframe, its candidates
+    the keyframes at least `min_gap` (default `cfg.loop.min_kf_gap`) older,
+    the ground-truth-nearest first, the consistency counter pre-set, each
+    keyframe's gravity direction and world z axis read before and after (and
+    the gravity turn that `b13_gravity_turn_deg` predicts from the
+    correction's own rotations); then `n_after` more frames and the rest of
+    the queued "fiba" chunks one by one. Returns what chip_smoke.py logs and
+    guards."""
+    from pli_slam_tpu_torch.frontend.tracker import TrackingState
+
+    cr = _ClosureRun(cam, cfg, dev, traj, "fiba")
+    tracker, lc = cr.tracker, cr.tracker.loop_closer
+    ms_host, ms_fused = [], []
+    init = {}
+
+    def run(fr, i):
+        fused = tracker.imu_ready and tracker.gravity_w is not None and tracker.state == TrackingState.OK
+        dt, plain = cr.frame(fr, i, imu=fr["imu"])
+        if tracker.imu_ready and not init:
+            init.update(frame=i, ms=dt, ate=peek_ate(tracker, frames), record=dict(tracker.imu_init_log[-1]))
+        elif plain and i > 0:
+            (ms_fused if fused else ms_host).append(dt)
+
+    n_run = 0
+    for i, fr in enumerate(frames[:len(frames) - n_after]):
+        run(fr, i)
+        n_run = i + 1
+        if init and i >= init["frame"] + n_before:
+            break
+    natural, planted = lc.n_loops_closed, None
+    if init and not any(closed and ready for _, _, closed, ready in cr.loop_frames):
+        kf_cur = tracker.n_kf - 1
+        stamps = tracker.kstore.stamp[:tracker.n_kf].cpu().numpy()
+        valid = tracker.kstore.valid[:tracker.n_kf].cpu().numpy()
+        z_axis, g = (0.0, 0.0, 1.0), tracker.gravity_w.cpu().numpy().astype(np.float64)
+        g_before, z_before = axis_in_cameras(tracker, g), axis_in_cameras(tracker, z_axis)
+        R_before = tracker.kstore.R[:tracker.n_kf].cpu().numpy()
+        kf_before = kf_error(tracker, traj)
+        cands = loop_candidates(stamps, valid, traj, kf_cur, cfg.loop.min_kf_gap if min_gap is None else min_gap)
+        closed, imu_ready = False, tracker.imu_ready
+        if cands:
+            lc._consistency, lc._consistent_with = cfg.loop.consistency_kfs, cands[0][0]
+            closed = lc.on_keyframe(tracker, kf_cur, [(j, 1.0) for j, _ in cands])
+        turn = gravity_turn_deg(g_before, axis_in_cameras(tracker, g))
+        pred = b13_gravity_turn_deg(R_before, tracker.kstore.R[:tracker.n_kf].cpu().numpy(), g)
+        z_turn = gravity_turn_deg(z_before, axis_in_cameras(tracker, z_axis))
+        planted = dict(kf_cur=kf_cur, cands=cands, closed=closed, imu_ready=imu_ready,
+                       ms=cr.t_loop[-1] if closed else None, kf_before=kf_before, kf_after=kf_error(tracker, traj),
+                       gravity_deg=float(turn[valid].max(initial=0.0)),
+                       gravity_pred_deg=float(pred[valid].max(initial=0.0)),
+                       gravity_excess_deg=float(np.abs(turn - pred)[valid].max(initial=0.0)),
+                       z_deg=float(z_turn[valid].max(initial=0.0)),
+                       tilt_deg=float(np.degrees(np.arccos(np.clip(-g[2] / np.linalg.norm(g), -1.0, 1.0)))),
+                       queued=[kind for kind, _ in tracker._deferred_ba])
+    for i, fr in enumerate(frames[n_run:n_run + n_after], n_run):
+        run(fr, i)
+    n_frames = n_run + n_after
+    est, ate = cr.drain(np.stack([fr["p_w"] for fr in frames[:n_frames]]))
+    return dict(tracker=tracker, init=init, n_frames=n_frames, natural=natural, planted=planted, t_fiba=cr.t_chunk,
+                t_loop=cr.t_loop, kf_errs=cr.kf_errs, ms_host=ms_host, ms_fused=ms_fused, loop_frames=cr.loop_frames,
+                est=est, ate=ate)
 
 
 def _sync(dev):
@@ -577,8 +734,8 @@ def _digest(a: np.ndarray) -> str:
 
 
 def main_spread(dev, which: str, n_runs: int = N_SPREAD) -> int:
-    """`n_runs` runs of chip_smoke.py's phase 7 (`rgbd`), 8 (`mono`) or 6a
-    (`loop`) on the same rendered frames, each on a fresh tracker: do the
+    """`n_runs` runs of chip_smoke.py's phase 7 (`rgbd`), 8 (`mono`), 6a
+    (`loop`) or 14a (`flagship`) on the same rendered frames, each on a fresh tracker: do the
     card's runs of one build give the same bits? Per run: ATE (mono: after a
     Sim(3) alignment), keyframes, the largest position error, a digest of
     the trajectory; `loop` also the closure's and the warm-up's wall time
@@ -588,7 +745,20 @@ def main_spread(dev, which: str, n_runs: int = N_SPREAD) -> int:
     from pli_slam_tpu_torch.utils import trajectory as tio
 
     digests = []
-    if which == "loop":
+    if which == "flagship":
+        _, cam, traj, frames = loop_frames(dev)
+        for rep in range(n_runs):
+            r = inertial_loop_run(flagship_config(), cam, traj, frames, dev)
+            digests.append(_digest(r["est"]))
+            pl = r["planted"] or {}
+            print(f"spread[flagship {rep}]: IMU init at frame {r['init'].get('frame')}, ATE to it "
+                  f"{r['init'].get('ate')} m; closure {pl.get('kf_cur')} -> {pl.get('cands', [None])[:1]} closed "
+                  f"{pl.get('closed')}, gravity turned {pl.get('gravity_deg')} deg (B13 predicts "
+                  f"{pl.get('gravity_pred_deg')} deg, largest difference {pl.get('gravity_excess_deg')} deg), "
+                  f"world z {pl.get('z_deg')} deg; "
+                  f"ATE {r['ate']:.6f} m over {r['n_frames']} frames, {r['tracker'].n_kf} keyframes, trajectory "
+                  f"digest {digests[-1]}", flush=True)
+    elif which == "loop":
         cfg, cam, traj, frames = loop_frames(dev)
         closures = []
         for rep in range(n_runs):
@@ -703,25 +873,34 @@ class NondetSites(TorchDispatchMode):
 
 
 def main_nondet(dev, sensor: str) -> int:
-    """One run of chip_smoke.py's phase 7 (or 8) under
+    """One run of chip_smoke.py's phase 7, 8 or 14a (`flagship`) under
     `torch.use_deterministic_algorithms(True, warn_only=True)`, which warns
     once for every op that has no deterministic CUDA path, and under
     `NondetSites`; prints both lists. The switch is restored after the run."""
     from pli_slam_tpu_torch.system import System
 
-    cfg, cam, frames = sensor_run(sensor, dev)
-    sysm = System(cam, cfg, device=dev)
-    sysm.tracker.streaming = sensor == "rgbd"
-    mode = NondetSites()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught, mode:
-            warnings.simplefilter("always")
+    if sensor == "flagship":
+        _, cam, traj, frames = loop_frames(dev)
+
+        def drive():
+            inertial_loop_run(flagship_config(), cam, traj, frames, dev)
+    else:
+        cfg, cam, frames = sensor_run(sensor, dev)
+        sysm = System(cam, cfg, device=dev)
+        sysm.tracker.streaming = sensor == "rgbd"
+
+        def drive():
             for fr in frames:
                 if sensor == "rgbd":
                     sysm.track_rgbd(fr["img_l"], fr["depth"], fr["t"])
                 else:
                     sysm.track_monocular(fr["img_l"], fr["t"])
+    mode = NondetSites()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, mode:
+            warnings.simplefilter("always")
+            drive()
     finally:
         torch.use_deterministic_algorithms(False)
     ops = sorted({str(w.message).split("\n")[0][:160] for w in caught if "deterministic" in str(w.message)})
@@ -739,15 +918,16 @@ def main(argv=None) -> int:
     ap.add_argument("--vi", action="store_true", help="profile the stereo-inertial path instead of the visual one")
     ap.add_argument("--vi-drift", type=int, metavar="N", default=0,
                     help="instead: N frames of the stereo-inertial path, twice, printing the drift per frame")
-    ap.add_argument("--spread", choices=("rgbd", "mono", "loop"),
-                    help="instead: chip_smoke.py's RGB-D, mono or loop-closing (6a) phase, N_SPREAD times, printing "
+    ap.add_argument("--spread", choices=("rgbd", "mono", "loop", "flagship"),
+                    help="instead: chip_smoke.py's RGB-D, mono, loop-closing (6a) or inertial-closure (14a) phase, "
+                         "N_SPREAD times, printing "
                          "each run's accuracy and whether the runs were bit-identical")
     ap.add_argument("--first-closure", action="store_true",
                     help="instead: phase 6a twice in this fresh process: the warm-up at construction, the first "
                          "closure's wall time and the second's")
     ap.add_argument("--stages", action="store_true", help="instead: only the synchronised stage pass (pass 3)")
-    ap.add_argument("--nondet", choices=("rgbd", "mono"),
-                    help="instead: one run of phase 7 or 8 listing the ops that can make the card's runs differ")
+    ap.add_argument("--nondet", choices=("rgbd", "mono", "flagship"),
+                    help="instead: one run of phase 7, 8 or 14a listing the ops that can make the card's runs differ")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
