@@ -17,6 +17,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                settings; the kernel's device time per launch (50 launches in
                one CUDA graph), the whole call and the plain version timed
                with CUDA events;
+  3b. the closest-rotation kernel (csrc/rot3.cu: torch.linalg.svd checks its
+               status on the host, which a CUDA graph capture refuses)
+               against its twin (torch.linalg.svd + det): near rotations
+               within 1e-5, general matrices within 1e-4, the sign of det
+               exactly equal, at batch 1, 10 and 4096; its time per launch,
+               the twin's and one torch.linalg.svd call's;
   4. main path -- first its stages on a 128x96 input (build_frame, keyframe
                insertion, one tracking step; IMU preintegration and
                composition, one inertial pose solve, one visual-inertial
@@ -234,6 +240,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
                in this process: the printed line parses, its keys are bench.py's
                (read from bench.py's source with `ast`), imu_ready is true,
                both ATEs and every time are finite.
+  15. CUDA graphs -- on a GPU every fused frame above ran its step as CUDA
+               graphs (frontend.graphs: the tracking graph, the one read, the
+               keyframe graph), the default of `Tracker`. Phase 15 runs phase
+               4's 40 frames and phase 5's 52 frames through a graph Tracker,
+               and their first N_EAGER_VISUAL / N_EAGER_VI frames through a
+               `cuda_graphs=False` one: over those, every frame's (R, t),
+               every fused frame's stats vector and the stores after the
+               last and both kernels' launch counts must be bit-identical
+               (the first frame and tensor that differ are printed
+               otherwise). Each side prints fps, p50, p99
+               and worst over its fused frames (the captures included),
+               host-issued kernel and graph launches per frame and the
+               device's busy share over its last N_GRAPH_TRACE frames
+               (traced, CUDA activity only, kept out of the timing), capture
+               ms, graph-pool size, peak memory and both kernels' launches.
+               bench.py's graphs against eager is `python3 -m
+               pli_slam_tpu_torch.scripts.bench [--no-graphs]`.
 Every phase's wall time is printed at the end. Phase 6a keeps its 180
 frames: at 148 (past the revisit at 140) its planted closure's chunks left
 ATE at 0.3875 m, over its 0.35 m guard (queue 3 B2's divergent GBA depends
@@ -265,6 +288,10 @@ TIMED_CASES = ("track_r15", "fuse", "kitti_track_r15", "kitti_fuse")
 KITTI_FX = 718.856  # KITTI 00's P0 (phase 9c)
 TPU_KERNEL = "pli_slam_tpu/ops/pallas/hamming.py:28"
 KERNEL_SRC = "pli_slam_tpu_torch/csrc/gated_match.cu"
+ROT3_SRC = "pli_slam_tpu_torch/csrc/rot3.cu"
+ROT3_REPLACES = "pli_slam_tpu/ops/lie.py:157"  # normalize_rotation: jnp.linalg.svd, lowered by XLA inside the jit
+ROT3_TOL = {"near_rotation": 1e-5, "general": 1e-4}  # float32; general: the twin's SVD conditioning
+ROT3_LAUNCHES: dict[str, int] = {}  # closest_rotation launches of each phase's run, by phase function
 
 
 def log(msg: str) -> None:
@@ -280,6 +307,79 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # Phase 3: gated-match kernel vs its plain version
 # ---------------------------------------------------------------------------
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a phase drives its path."""
+    from pli_slam_tpu_torch.ops.kernels import hamming, rot3
+
+    hamming.reset_launches()
+    rot3.reset_launches()
+
+
+def count_rot3() -> int:
+    """Add closest_rotation's launches since the last reset to the calling
+    phase's count (ROT3_LAUNCHES) and return them; the counter is 0 again."""
+    from pli_slam_tpu_torch.ops.kernels import rot3
+
+    name, n = sys._getframe(1).f_code.co_name, rot3.launches
+    ROT3_LAUNCHES[name] = ROT3_LAUNCHES.get(name, 0) + n
+    rot3.reset_launches()
+    return n
+
+
+def phase_rot3(dev):
+    """3b: the closest-rotation kernel against its twin (torch.linalg.svd +
+    det): near rotations (what the solvers hand it) and general matrices of
+    both determinant signs at batch 1 (pose GN, preintegration), 10 (a BA
+    window) and 4096; the sign of det exactly equal. Times at batch 1: the
+    kernel per launch (50 launches in a CUDA graph), the twin and one
+    torch.linalg.svd call (the library yardstick), and the bound from the
+    sweeps this input took."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import rot3
+    from pli_slam_tpu_torch.utils.kernel_bench import eager_ms, graph_ms
+
+    g = torch.Generator().manual_seed(7)
+    max_err = 0.0
+    for n in (1, 10, 4096):
+        base = rot3.closest_rotation_reference(torch.randn(n, 3, 3, generator=g))
+        for label, x in (("near_rotation", base + 1e-3 * torch.randn(n, 3, 3, generator=g)),
+                         ("general", torch.randn(n, 3, 3, generator=g))):
+            xd = x.to(dev)
+            got, want = rot3.closest_rotation_cuda(xd), rot3.closest_rotation_reference(xd)
+            err = float((got - want).abs().max())
+            if not err <= ROT3_TOL[label]:
+                raise AssertionError(f"closest_rotation: {label} batch {n} differs from its twin by {err}")
+            if not torch.equal(torch.sign(torch.linalg.det(got)), torch.sign(torch.linalg.det(want))):
+                raise AssertionError(f"closest_rotation: {label} batch {n}: the sign of det differs")
+            if label == "near_rotation":
+                max_err = max(max_err, err)
+            log(f"kernels: closest_rotation {label} batch {n}: max |kernel - twin| {err:.3e} "
+                f"(tolerance {ROT3_TOL[label]}), det signs equal")
+    x = (rot3.closest_rotation_reference(torch.randn(1, 3, 3, generator=g)) + 1e-4 * torch.randn(1, 3, 3, generator=g)
+         ).to(dev)
+    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    rot3.closest_rotation_cuda(x, sweeps)
+    n_sweeps = int(sweeps[0])
+    t_plain_a = eager_ms(lambda: rot3.closest_rotation_reference(x))
+    t_lib_a = eager_ms(lambda: torch.linalg.svd(x))
+    t_kern_a = graph_ms(lambda: rot3.closest_rotation_cuda(x))
+    t_kern_b = graph_ms(lambda: rot3.closest_rotation_cuda(x))
+    t_lib_b = eager_ms(lambda: torch.linalg.svd(x))
+    t_plain_b = eager_ms(lambda: rot3.closest_rotation_reference(x))
+    # the bound: 72 bytes per matrix; per Jacobi sweep 3 pairs of ~66 float32 operations, ~95 to finish
+    bytes_moved, ops = 72, 198 * n_sweeps + 95
+    bound = max(bytes_moved / 3.35e12, ops / 67e12) * 1e3
+    out = {"max_abs_err": max_err, "ms": 0.5 * (t_kern_a + t_kern_b), "plain_ms": 0.5 * (t_plain_a + t_plain_b),
+           "library_ms": 0.5 * (t_lib_a + t_lib_b), "bound_ms": bound,
+           "bound_by": "bytes" if bytes_moved / 3.35e12 >= ops / 67e12 else "operations", "sweeps": n_sweeps}
+    log(f"kernels: closest_rotation batch 1: kernel {out['ms']:.4f} ms per launch (50 launches in a CUDA graph), "
+        f"twin {out['plain_ms']:.4f} ms, torch.linalg.svd alone {out['library_ms']:.4f} ms; {n_sweeps} Jacobi "
+        f"sweeps, bound {bound:.3e} ms ({out['bound_by']})")
+    return out
 
 
 def _special_cases(rng):
@@ -569,7 +669,7 @@ def phase_main_path(dev, smi):
 
     tracker = Tracker(cam, cfg, dev)
     tracker.streaming = True
-    hamming.reset_launches()
+    reset_counts()
     times = []
     t_start = None
     for i, fr in enumerate(frames):
@@ -585,6 +685,7 @@ def phase_main_path(dev, smi):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t_start
     launches = hamming.launches
+    count_rot3()
 
     fps = (N_FRAMES - N_WARM) / elapsed
     ms = np.asarray(times) * 1e3
@@ -606,6 +707,13 @@ def phase_main_path(dev, smi):
         raise AssertionError(f"ATE {ate} m >= 0.10 m (divergence guard)")
     if launches < 2 * n_fused:
         raise AssertionError(f"gated_match launched {launches} times for {n_fused} fused frames")
+    n_rot3 = ROT3_LAUNCHES["phase_main_path"]
+    log(f"main path: closest_rotation launches {n_rot3} ({n_rot3 / n_fused:.1f} per fused frame); fused step "
+        f"captured in {tracker._step.capture_ms:.1f} ms, graph pool {tracker._step.pool_bytes / 2**20:.1f} MiB, "
+        f"{tracker._step.replays} graph replays [{smi}]")
+    if n_rot3 < n_fused or tracker._step.replays < n_fused:
+        raise AssertionError(f"closest_rotation launched {n_rot3} times and the graphs replayed "
+                             f"{tracker._step.replays} times for {n_fused} fused frames")
     return launches, N_FRAMES, frames
 
 
@@ -628,13 +736,14 @@ def phase_vi_path(dev, smi):
 
     tracker = Tracker(cam, cfg, dev)
     tracker.streaming = True
-    hamming.reset_launches()
+    reset_counts()
     ms_host, ms_fused, launches_host = [], [], None
     init_frame = init_ms = None
     for i, fr in enumerate(frames):
         fused = tracker.imu_ready and tracker.gravity_w is not None and tracker.state == TrackingState.OK
         if fused and launches_host is None:
             launches_host = hamming.launches
+            count_rot3()
         f0 = time.perf_counter()
         tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
         dt_ms = (time.perf_counter() - f0) * 1e3
@@ -651,6 +760,7 @@ def phase_vi_path(dev, smi):
     est = tracker.positions()
     torch.cuda.synchronize()
     launches = hamming.launches
+    count_rot3()
 
     if not tracker.imu_ready or init_frame is None:
         raise AssertionError(f"IMU initialization never fired: {tracker.imu_init_log[-3:]}")
@@ -702,6 +812,13 @@ def phase_vi_path(dev, smi):
     if launches < 2 * (N_FRAMES_VI - 1) or launches_host < 2 * (n_host - 1) or launches_fused < 2 * n_fused:
         raise AssertionError(f"gated_match launched {launches_host} + {launches_fused} times for {n_host - 1} host-path "
                              f"and {n_fused} fused frames")
+    n_rot3, vi_step = ROT3_LAUNCHES["phase_vi_path"], tracker._step_vi
+    log(f"vi path: closest_rotation launches {n_rot3}; fused stereo-inertial step captured in "
+        f"{vi_step.capture_ms:.1f} ms, graph pool {vi_step.pool_bytes / 2**20:.1f} MiB, {vi_step.replays} graph "
+        f"replays [{smi}]")
+    if n_rot3 < N_FRAMES_VI - 1 or vi_step.replays < 0.9 * n_fused:
+        raise AssertionError(f"closest_rotation launched {n_rot3} times and the graphs replayed {vi_step.replays} "
+                             f"times for {n_fused} fused frames")
     return launches, N_FRAMES_VI, (cfg, frames)
 
 
@@ -746,9 +863,10 @@ def phase_loop(dev, smi):
     cfg, cam, traj, frames = loop_frames(dev)
     torch.cuda.synchronize()
     log(f"loop: rendered {len(frames)} frames of bench.py's flagship trajectory in {time.perf_counter() - t0:.2f} s")
-    hamming.reset_launches()
+    reset_counts()
     r = loop_run(cfg, cam, traj, frames, dev)
     launches = hamming.launches
+    count_rot3()
     tracker, lc, t_gba = r["tracker"], r["tracker"].loop_closer, r["t_gba"]
     n_frames = len(frames)
     ok_frames = _consumed_ok(tracker)
@@ -860,9 +978,10 @@ def phase_kidnap(dev, smi, run):
 
     tracker, traj, frames = run
     img_l, img_r, p_ref, n_ref = _kidnap(dev, tracker, traj)
-    hamming.reset_launches()
+    reset_counts()
     rec, err, states, inliers, attempts = _feed_kidnap(tracker, img_l, img_r, frames[-1]["t"], p_ref)
     launches = hamming.launches
+    count_rot3()
     log(f"kidnap, 6a's tracker (inlier floors {tracker.cfg.tracking.min_inliers_track} / "
         f"{tracker.cfg.tracking.min_inliers_local_map}): states {states}, reported inliers {inliers}, relocalization "
         f"attempts (ms, accepted) {attempts}, recovered at kidnap frame {rec}, {err:.3f} m from the oracle-seeded "
@@ -874,14 +993,16 @@ def phase_kidnap(dev, smi, run):
     tr = Tracker(tracker.cam, cfg, dev)
     tr.streaming = True
     tr.span = SyncSpans(dev)
-    hamming.reset_launches()
+    reset_counts()
     for fr in frames[:20]:
         tr.process(fr["img_l"], fr["img_r"], fr["t"])
     launches_map = hamming.launches
+    count_rot3()
     img_l, img_r, p_ref, n_ref = _kidnap(dev, tr, traj)
-    hamming.reset_launches()
+    reset_counts()
     rec, err, states, inliers, attempts = _feed_kidnap(tr, img_l, img_r, frames[19]["t"], p_ref)
     launches_kid = hamming.launches
+    count_rot3()
     launches += launches_map + launches_kid
     log(f"kidnap, floors 60 / 60 after 20 frames: states {states}, reported inliers {inliers}, relocalization attempts "
         f"(ms, accepted) {attempts}, recovered at kidnap frame {rec} with {err:.3f} m from the oracle-seeded re-track "
@@ -911,7 +1032,7 @@ def phase_atlas(dev, smi):
     frames = list(synthetic.make_sequence(cam, 24, dev, fps=cfg.fps, traj=traj, room_half=2.55))
     tracker = Tracker(cam, cfg, dev)
     tracker.streaming = True
-    hamming.reset_launches()
+    reset_counts()
     for fr in frames[:20]:
         tracker.process(fr["img_l"], fr["img_r"], fr["t"])
     n_kf1 = tracker.n_kf
@@ -937,6 +1058,7 @@ def phase_atlas(dev, smi):
             errs.append(float(np.linalg.norm(est_p - R0.T @ (fr["p_w"] - p0))))
     torch.cuda.synchronize()
     launches = hamming.launches
+    count_rot3()
     log(f"atlas: map 1 {n_kf1} keyframes; after the blackout {maps_after_blackout} maps ({state_after}); merged at "
         f"revisit frame {merged_at}, that frame {merge_ms if merge_ms is None else round(merge_ms, 2)} ms; position "
         f"errors after the merge {[round(e, 4) for e in errs]} m; gated_match launches {launches} [{smi}]")
@@ -1015,7 +1137,7 @@ def phase_rgbd(dev, smi):
         f"{time.perf_counter() - t0:.2f} s")
     sysm = System(cam, cfg, device=dev)
     sysm.tracker.streaming = True
-    hamming.reset_launches()
+    reset_counts()
     ms = []
     for i, fr in enumerate(frames):
         f0 = time.perf_counter()
@@ -1026,6 +1148,7 @@ def phase_rgbd(dev, smi):
             raise AssertionError(f"rgbd: frame {i} pose not finite")
     torch.cuda.synchronize()
     launches = hamming.launches
+    count_rot3()
     tracker = sysm.tracker
     ok_frames = _consumed_ok(tracker)
     sysm.shutdown()
@@ -1058,13 +1181,14 @@ def phase_rgbd(dev, smi):
     t_load = (time.perf_counter() - t0) * 1e3
     loaded.activate_localization_mode()
     n_pts, n_kf = int(loaded.tracker.pstore.valid.sum()), loaded.tracker.n_kf
-    hamming.reset_launches()
+    reset_counts()
     states, ms_loc = [], []
     for fr in ahead:
         f0 = time.perf_counter()
         states.append(loaded.track_rgbd(fr["img_l"], fr["depth"], fr["t"])["state"])
         ms_loc.append((time.perf_counter() - f0) * 1e3)
     launches_loc = hamming.launches
+    count_rot3()
     grown = (int(loaded.tracker.pstore.valid.sum()) - n_pts, loaded.tracker.n_kf - n_kf)
     lines = {}
     for name in ("trajectory_tum", "trajectory_euroc", "trajectory_kitti", "keyframe_trajectory_tum"):
@@ -1104,7 +1228,7 @@ def phase_mono(dev, smi):
 
     cfg, cam, frames = sensor_run("mono", dev)
     sysm = System(cam, cfg, device=dev)
-    hamming.reset_launches()
+    reset_counts()
     ms, states = [], []
     init = None
     for i, fr in enumerate(frames):
@@ -1118,6 +1242,7 @@ def phase_mono(dev, smi):
             ms.append(dt)
     torch.cuda.synchronize()
     launches = hamming.launches
+    count_rot3()
     tracker = sysm.tracker
     sysm.shutdown()
     est = np.stack([p for _, _, p in tracker.trajectory])
@@ -1212,9 +1337,10 @@ def _run_driver(module, argv):
     from pli_slam_tpu_torch.ops.kernels import hamming
 
     out = argv[argv.index("--out") + 1]
-    hamming.reset_launches()
+    reset_counts()
     rc = importlib.import_module(f"pli_slam_tpu_torch.scripts.{module}").main(argv)
     launches = hamming.launches
+    count_rot3()
     if rc != 0:
         raise AssertionError(f"{module} returned {rc}")
     with open(os.path.join(out, "summary.json")) as f:
@@ -1374,11 +1500,12 @@ def phase_vocab(dev, smi, work, root, room):
         raise AssertionError(f"vocab: words differ between card and CPU in {(w_dev != w_cpu).sum().item()} rows")
     tracker = Tracker(cam, cfg, dev, vocab_pt=voc_pt, vocab_ln=voc_ln)
     tracker.streaming = True
-    hamming.reset_launches()
+    reset_counts()
     for fr in room:
         tracker.process(fr["img_l"], fr["img_r"], fr["t"])
     tracker.finalize()
     launches = hamming.launches
+    count_rot3()
     est, gt = tracker.positions(), np.stack([fr["p_w"] for fr in room])
     ate = synthetic.ate_rmse(est, gt)
     db, n_kf = tracker.bow_db, tracker.n_kf
@@ -1518,7 +1645,7 @@ def phase_fisheye(dev, smi):
     run = frames[:N_FRAMES_FISHEYE]
     tracker = Tracker(cam, cfg, dev, T_rl=fisheye_rig())
     tracker.streaming = True
-    hamming.reset_launches()
+    reset_counts()
     ms, init = [], None
     for i, fr in enumerate(run):
         f0 = time.perf_counter()
@@ -1531,6 +1658,7 @@ def phase_fisheye(dev, smi):
     tracker.finalize()
     torch.cuda.synchronize()
     launches_a = hamming.launches
+    count_rot3()
     if init is None:
         raise AssertionError("fisheye: the stereo map never initialized")
     est, gt = tracked_positions(tracker, run)
@@ -1556,13 +1684,14 @@ def phase_fisheye(dev, smi):
     # 10b: stereo-inertial: host-path frames until the IMU initialization, then the fused VI step
     tracker = Tracker(cam, cfg_vi, dev, T_rl=fisheye_rig())
     tracker.streaming = True
-    hamming.reset_launches()
+    reset_counts()
     ms_host, ms_fused, launches_host = [], [], None
     map_init = imu_init = init_ms = ate_init = ate_pre = None
     for i, fr in enumerate(frames):
         fused = tracker.imu_ready and tracker.gravity_w is not None and tracker.state == TrackingState.OK
         if fused and launches_host is None:
             launches_host = hamming.launches
+            count_rot3()
         f0 = time.perf_counter()
         tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
         dt = (time.perf_counter() - f0) * 1e3
@@ -1578,6 +1707,7 @@ def phase_fisheye(dev, smi):
     tracker.finalize()
     torch.cuda.synchronize()
     launches_b = hamming.launches
+    count_rot3()
     if imu_init is None:
         raise AssertionError(f"fisheye 10b: the IMU never initialized: {tracker.imu_init_log[-3:]}")
     rec = tracker.imu_init_log[-1]
@@ -1624,7 +1754,7 @@ def phase_mono_vi(dev, smi):
         f"samples each in {time.perf_counter() - t0:.2f} s")
     sysm = System(cam, cfg, device=dev)
     tracker = sysm.tracker
-    hamming.reset_launches()
+    reset_counts()
     ms, states = [], []
     mono_init = imu_init = init_ms = ate_init = ate_pre = None
     launches_init = None
@@ -1644,6 +1774,7 @@ def phase_mono_vi(dev, smi):
             ate_pre = peek_ate(tracker, frames, with_scale=True)
     torch.cuda.synchronize()
     launches = hamming.launches
+    count_rot3()
     sysm.shutdown()
     if mono_init is None or imu_init is None:
         raise AssertionError(f"mono-inertial: initialized at frame {mono_init}, the IMU at {imu_init}: "
@@ -1694,7 +1825,7 @@ def phase_rgbd_vi(dev, smi):
     log(f"rgbd-inertial: rendered {len(frames)} frames {cam.width}x{cam.height} with depth and "
         f"{len(frames[0]['imu_gyro'])} IMU samples each in {time.perf_counter() - t0:.2f} s")
     tracker = Tracker(cam, cfg, dev)
-    hamming.reset_launches()
+    reset_counts()
     ms_before, ms_after, init_frame, ate_pre = [], [], None, None
     for i, fr in enumerate(frames):
         f0 = time.perf_counter()
@@ -1711,6 +1842,7 @@ def phase_rgbd_vi(dev, smi):
     tracker.finalize()
     torch.cuda.synchronize()
     launches = hamming.launches
+    count_rot3()
     if init_frame is None:
         raise AssertionError(f"rgbd-inertial: the IMU never initialized: {tracker.imu_init_log[-3:]}")
     rec = tracker.imu_init_log[-1]
@@ -1891,9 +2023,10 @@ def phase_flagship_closure(dev, smi, run):
 
     _, traj, frames = run
     cfg, cam = flagship_config(), run[0].cam
-    hamming.reset_launches()
+    reset_counts()
     r = inertial_loop_run(cfg, cam, traj, frames, dev)
     launches = hamming.launches
+    count_rot3()
     tracker, init, planted, n_frames = r["tracker"], r["init"], r["planted"], r["n_frames"]
     if not init:
         raise AssertionError(f"flagship 14a: the IMU never initialized in {n_frames} frames: "
@@ -1960,12 +2093,13 @@ def phase_bench(dev, smi, run, room):
     from pli_slam_tpu_torch.ops.kernels import hamming
     from pli_slam_tpu_torch.scripts import bench
 
-    hamming.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     flag = bench.run_flagship(N_BENCH_FLAGSHIP, device=dev, frames=run[2])
     vis = bench.run_visual(N_BENCH_VISUAL, device=dev, frames=room)
     wall = time.perf_counter() - t0
     launches = hamming.launches
+    count_rot3()
     text = json.dumps(bench.result_line(flag, vis))
     line = json.loads(text)
     keys, extra = bench_line_keys(os.path.join(ROOT, "bench.py"))
@@ -1988,6 +2122,156 @@ def phase_bench(dev, smi, run, room):
     return launches, n_frames
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the fused steps as CUDA graphs against the same steps run eagerly
+# ---------------------------------------------------------------------------
+
+
+N_GRAPH_TRACE = 4  # each phase-15 run's last frames, traced (CUDA activity only): launches and busy share
+# phase 15's eager runs are cut to these depths (graphs run the whole sequences): the eager frames cost
+# ~1-2 s each, and the script keeps its time (700-770 s). 40 frames of phase 5 pass its IMU initialization
+# (frame 30).
+N_EAGER_VISUAL, N_EAGER_VI = 20, 40
+STORES = ("pstore", "lstore", "kstore", "bow_db")
+
+
+def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: int) -> dict:
+    """One run of phase 15 over `frames`: every frame's (R, t) and every fused
+    frame's stats vector recorded, the stores copied after `snapshot_after`
+    frames; fused frames timed, except the last N_GRAPH_TRACE, which run
+    inside a CUDA-activity trace."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.frontend import graphs
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.ops.kernels import hamming, rot3
+    from pli_slam_tpu_torch.utils.profile import capture_stats, trace_busy
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    tracker = Tracker(cam, cfg, dev, cuda_graphs=cuda_graphs)
+    tracker.streaming = True
+    stats, poses, ms = [], [], []
+    finish = tracker._finish_fused
+
+    def record(stamp, stats_dev, img_args):
+        stats.append(stats_dev.clone())
+        return finish(stamp, stats_dev, img_args)
+
+    tracker._finish_fused = record
+
+    snapshot = {}
+
+    def one(fr):
+        n0 = len(stats)
+        f0 = time.perf_counter()
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr.get("imu"))
+        dt = (time.perf_counter() - f0) * 1e3
+        poses.append((tracker.R.clone(), tracker.t.clone()))
+        if len(poses) == snapshot_after:
+            snapshot.update({name: graphs.tree_clone(getattr(tracker, name)) for name in STORES})
+            snapshot["launches"] = (hamming.launches, rot3.launches)
+        return dt if len(stats) > n0 else None
+
+    reset_counts()
+    n_timed = len(frames) - N_GRAPH_TRACE
+    ms = [dt for dt in map(one, frames[:n_timed]) if dt is not None]
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for fr in frames[n_timed:]:
+            one(fr)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    trace = os.path.join(ROOT, "build", "graph_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    busy_us, _, launches, graph_launches = trace_busy(trace)
+    os.remove(trace)
+    torch.cuda.synchronize(dev)
+    cap_ms, pool = capture_stats(tracker)
+    return dict(snapshot=snapshot, poses=poses, stats=stats, ms=np.asarray(ms), busy=busy_us / 1e6 / wall,
+                launches=launches / N_GRAPH_TRACE, graph_launches=graph_launches / N_GRAPH_TRACE,
+                capture_ms=cap_ms, pool=pool, peak=torch.cuda.max_memory_allocated(dev) - mem0,
+                gated_match=hamming.launches, closest_rotation=count_rot3())
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if torch.equal(a, b):
+        return True
+    return a.is_floating_point() and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _first_difference(g: dict, e: dict) -> str | None:
+    """Where two runs of phase 15 first differ in any bit over the frames
+    both ran (`e` may be the shorter), or None."""
+    if len(g["poses"]) < len(e["poses"]) or len(g["stats"]) < len(e["stats"]):
+        return f"{len(g['poses'])} / {len(e['poses'])} frames, {len(g['stats'])} / {len(e['stats'])} fused frames"
+    for i, ((Rg, tg), (Re, te)) in enumerate(zip(g["poses"], e["poses"])):
+        for name, a, b in (("R", Rg, Re), ("t", tg, te)):
+            if not _bits_equal(a, b):
+                return f"frame {i}: {name} (largest difference {float((a - b).abs().max()):.3e})"
+    for i, (a, b) in enumerate(zip(g["stats"], e["stats"])):
+        if not _bits_equal(a, b):
+            return f"fused frame {i}: the stats vector ({a.tolist()} / {b.tolist()})"
+    if not g["snapshot"] or not e["snapshot"]:
+        return "the stores: not copied"
+    if g["snapshot"]["launches"] != e["snapshot"]["launches"]:
+        return f"the kernels' launch counts (gated_match, closest_rotation): {g['snapshot']['launches']} / " \
+               f"{e['snapshot']['launches']}"
+    for store in STORES:
+        sg, se = g["snapshot"][store], e["snapshot"][store]
+        for f in dataclasses.fields(sg):
+            if not _bits_equal(getattr(sg, f.name), getattr(se, f.name)):
+                return f"{store}.{f.name} after frame {len(e['poses']) - 1}"
+    return None
+
+
+def _side_line(label: str, r: dict) -> str:
+    import numpy as np
+
+    ms = r["ms"]
+    return (f"{label}: fps {1e3 / ms.mean():.3f}, p50 {np.percentile(ms, 50):.2f} ms, p99 {np.percentile(ms, 99):.2f} "
+            f"ms, worst {ms.max():.2f} ms over {len(ms)} fused frames; from the host per traced frame "
+            f"{r['launches']:.0f} kernel launches and {r['graph_launches']:.1f} graph launches; device busy "
+            f"{100 * r['busy']:.1f}% of the traced window; capture {r['capture_ms']:.1f} ms, graph pool "
+            f"{r['pool'] / 2**20:.1f} MiB; peak memory {r['peak'] / 2**20:.1f} MiB; launches: gated_match "
+            f"{r['gated_match']}, closest_rotation {r['closest_rotation']}")
+
+
+def phase_graphs(dev, smi, room, vi):
+    """15 (see the module docstring): graphs against eager on phase 4's and
+    phase 5's frames, bit for bit over the eager runs' depths."""
+    import torch
+
+    from pli_slam_tpu_torch.utils.profile import slice_camera, slice_config
+
+    cam = slice_camera()
+    for name, cfg, frames, n_eager in (("visual", slice_config(), room, N_EAGER_VISUAL),
+                                        ("stereo-inertial", vi[0], vi[1], N_EAGER_VI)):
+        g = phase_graphs_run(dev, cam, cfg, frames, True, n_eager)
+        e = phase_graphs_run(dev, cam, cfg, frames[:n_eager], False, n_eager)
+        log(f"graphs 15 {name}: " + _side_line(f"graphs, {len(frames)} frames", g) + f" [{smi}]")
+        log(f"graphs 15 {name}: " + _side_line(f"eager, {n_eager} frames", e) + f" [{smi}]")
+        diff = _first_difference(g, e)
+        if diff is not None:
+            raise AssertionError(f"graphs 15 {name}: graphs and eager differ first at {diff}")
+        if not g["graph_launches"] > 0 or e["graph_launches"] != 0:
+            raise AssertionError(f"graphs 15 {name}: graph launches per frame {g['graph_launches']} with graphs, "
+                                 f"{e['graph_launches']} eager")
+        log(f"graphs 15 {name}: over the eager run's {len(e['poses'])} frames every frame's (R, t), every fused "
+            f"frame's stats vector ({len(e['stats'])}), the stores after the last and the kernels' launches "
+            f"{e['snapshot']['launches']} are bit-identical")
+        del g, e
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2006,8 +2290,14 @@ def main() -> int:
 
     from pli_slam_tpu_torch.ops.kernels import hamming
 
-    t_build = hamming.build()
-    log(f"build: gated_match ({KERNEL_SRC}) built and loaded in {t_build:.2f} s")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pli_slam_tpu_torch.ops.kernels import rot3
+
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        t_build, t_build_rot3 = pool.map(lambda build: build(), (hamming.build, rot3.build))
+    log(f"build: gated_match ({KERNEL_SRC}) built and loaded in {t_build:.2f} s, closest_rotation ({ROT3_SRC}) in "
+        f"{t_build_rot3:.2f} s, in parallel")
 
     secs = {}
 
@@ -2018,6 +2308,7 @@ def main() -> int:
         return out
 
     max_err, times = timed("3", phase_kernels, dev)
+    rot3_line = timed("3b", phase_rot3, dev)
     timed("4 stages", phase_small_reference, dev)
     launches, n_frames, room = timed("4", phase_main_path, dev, smi)
     launches_vi, n_frames_vi, vi = timed("5", phase_vi_path, dev, smi)
@@ -2037,6 +2328,7 @@ def main() -> int:
     launches_14a, n_frames_14a = timed("14a", phase_flagship_closure, dev, smi, run)
     launches_14b, n_frames_14b = timed("14b", phase_bench, dev, smi, run, room)
     launches_flagship = launches_14a + launches_14b
+    timed("15", phase_graphs, dev, smi, room, vi)
     log(f"chip_smoke: seconds per phase {secs}")
 
     from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
@@ -2069,6 +2361,12 @@ def main() -> int:
         **{f"launches_per_frame_{name}": n / frames for name, (n, frames) in slice6.items()},
         "fisheye_association_ms": assoc_ms, "launches_flagship": launches_flagship,
         "launches_per_frame_flagship": launches_flagship / (n_frames_14a - 1 + n_frames_14b - 2),
+    }, {
+        "name": "closest_rotation", "route": "cuda", "source": ROT3_SRC, "replaces": ROT3_REPLACES,
+        "launches": sum(ROT3_LAUNCHES.values()), "max_abs_err": rot3_line["max_abs_err"], "ms": rot3_line["ms"],
+        "plain_ms": rot3_line["plain_ms"], "bound_ms": rot3_line["bound_ms"], "bound_by": rot3_line["bound_by"],
+        "library_ms": rot3_line["library_ms"], "shape": "1 x 3 x 3", "sweeps": rot3_line["sweeps"],
+        **{f"launches_{name.removeprefix('phase_')}": n for name, n in ROT3_LAUNCHES.items()},
     }]}))
     log(smi)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T_START:.1f} s")

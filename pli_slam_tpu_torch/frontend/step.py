@@ -17,15 +17,27 @@ afterwards. (The reference's CPU branch puts the depth band inside the
 argmin gate instead, so on the CPU the two packages fuse differently;
 the parity tests run the reference's accelerator branch.)
 
-Control flow. The reference's `jax.lax.cond` on `need_kf`
-(tracker.py:1186) and on `n_kf2 >= 3` (:1102) are host `if`s here. The
-keyframe decision needs the frame's match outcome, so each frame makes
-exactly one device->host read (ok, inlier count, reference-KF inliers:
-three int32s); everything downstream of it is known on the host
-(keyframe count, frames since keyframe) or stays on the device. That
-one sync per frame is accepted for bring-up; CUDA graphs and an
-asynchronous keyframe branch are later work. GN and BA `fori_loop`s are
-Python loops (solve.gn, solve.ba).
+Control flow and CUDA graphs. Each fused step is cut at its one
+device->host read into two segments (`Segments`, `visual_segments`,
+`vi_segments`): T builds the frame, predicts (motion model, or
+preintegration + `compose` + IMU prediction) and tracks; K is the keyframe
+branch. Between them the host reads three int32s (ok, inlier count, the
+reference keyframe's inliers: `out["read"]`) and takes the reference's
+`lax.cond` on `need_kf` (tracker.py:1186) as a host `if`
+(`keyframe_decision`). The keyframe counters are 0-d device int32s, as in
+the reference (`n_kf`, `fs` frames since the keyframe, `last` its
+inliers); the host keeps exact mirrors of `n_kf` and `fs` for its own
+paths and its decision. Every per-frame value enters a segment as a tensor
+(the stamp, the counters, the widened-window flag) and every constant comes
+from ops.consts, so a segment captured at one frame is right at the next.
+On a GPU frontend.graphs captures T at the first fused frame and K at the
+first keyframe with windowed BA, and replays both every frame after; the
+reference's second cond, `n_kf2 >= 3` (:1102, windowed BA), is K's host
+argument `with_ba`, and the keyframes without it (the map's second and
+third) run K eagerly on the graphs' buffers. `run_segments` composes T,
+the read and K eagerly (the CPU, `cuda_graphs=False`, and
+`make_step_visual` / `make_step_vi`). GN and BA `fori_loop`s are Python
+loops (solve.gn, solve.ba), unrolled in the graphs.
 
 Index semantics. JAX clamps gathers and wraps negative scatter indices;
 every gather here clamps explicitly (`clamp(idx, min=0)`), sentinel
@@ -37,6 +49,8 @@ repeated scatter indices go through `ops.indexing.scatter_set`
 from __future__ import annotations
 
 import dataclasses
+import numbers
+from typing import Callable
 
 import numpy as np
 import torch
@@ -46,7 +60,7 @@ from pli_slam_tpu_torch.frontend.frame import FrameData
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie, matching
-from pli_slam_tpu_torch.ops.indexing import nanmedian, scatter_add, scatter_set, top_k, unique_fixed
+from pli_slam_tpu_torch.ops.indexing import nanmedian, row, scatter_add, scatter_set, set_row, top_k, unique_fixed
 from pli_slam_tpu_torch.ops.kernels.hamming import gated_match
 from pli_slam_tpu_torch.ops.lines import _deg2rad_f32
 from pli_slam_tpu_torch.solve import ba as ba_mod
@@ -66,6 +80,15 @@ N_LOOP_CANDS = 3
 
 def _f32(x) -> float:
     return float(np.float32(x))
+
+
+def _dev_int(x, device) -> torch.Tensor:
+    """A keyframe slot or count as a 0-d int32 tensor on `device`: device
+    counters pass through, host ints (the host paths) are written by a fill
+    kernel."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32)
+    return torch.full((), int(x), dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -250,17 +273,20 @@ def _mono_triangulated_depths(cam, cfg: SlamConfig, frame: FrameData, R, t, kf_u
 # ---------------------------------------------------------------------------
 
 
-def _local_map_ids(cfg: SlamConfig, kstore: st.KeyFrameStore, pstore: st.PointStore, kf_slot: int):
+def _local_map_ids(cfg: SlamConfig, kstore: st.KeyFrameStore, pstore: st.PointStore, kf_slot):
     """Local-map point ids [C] (-1 padded): landmarks observed by `kf_slot`
-    and its top covisible neighbours; the smallest ids are kept on overflow."""
+    (a host int or a 0-d device int) and its top covisible neighbours; the
+    smallest ids are kept on overflow."""
     K = kstore.covis.shape[0]
     dev = kstore.covis.device
     C = min(cfg.map.local_map_points, cfg.map.max_points)
     J = min(cfg.map.local_map_kfs, K)
+    kf = _dev_int(kf_slot, dev)
     ids_k = torch.arange(K, device=dev)
-    w = torch.where(kstore.valid & (ids_k != kf_slot), kstore.covis[kf_slot], torch.full_like(kstore.covis[kf_slot], -1))
+    covis_row = row(kstore.covis, kf)
+    w = torch.where(kstore.valid & (ids_k != kf), covis_row, torch.full_like(covis_row, -1))
     nb_w, nb = top_k(w, max(J - 1, 1))
-    rows = torch.cat([torch.tensor([kf_slot], device=dev), nb])
+    rows = torch.cat([kf.long().reshape(1), nb])
     row_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), nb_w > 0])
     obs = kstore.obs_pt[rows]
     P = pstore.x.shape[0]
@@ -324,14 +350,20 @@ def _incidence_counts(bits_words, has, K: int):
     return torch.sum(torch.where(has[:, None], unpacked, torch.zeros_like(unpacked)), dim=0, dtype=torch.int32)
 
 
-def insert_keyframe(cam, cfg: SlamConfig, frame: FrameData, R, t, stamp: float, pt_idx, pt_in, ln_idx, ln_in,
-                    kf_slot: int, pstore: st.PointStore, lstore: st.LineStore, kstore: st.KeyFrameStore,
+def insert_keyframe(cam, cfg: SlamConfig, frame: FrameData, R, t, stamp, pt_idx, pt_in, ln_idx, ln_in,
+                    kf_slot, pstore: st.PointStore, lstore: st.LineStore, kstore: st.KeyFrameStore,
                     tri_depth=None):
     """Create keyframe `kf_slot`: fuse-before-create and allocate landmarks,
     maintain descriptor banks, covisibility and incidence bits, write the
-    keyframe row, cull young bad landmarks. Returns (pstore, lstore, kstore, n_new)."""
+    keyframe row, cull young bad landmarks. `stamp` is a float or a 0-d
+    float32 tensor, `kf_slot` a host int or a 0-d device int (the fused
+    steps pass device values, so a captured graph reads them at replay).
+    Returns (pstore, lstore, kstore, n_new)."""
     dev = R.device
     i32 = torch.int32
+    kf = _dev_int(kf_slot, dev)
+    stamp = (stamp.to(device=dev, dtype=torch.float32) if isinstance(stamp, torch.Tensor)
+             else torch.full((), _f32(stamp), dtype=torch.float32, device=dev))
     R_wc = R.T
     t_wc = -lie._einsum("ij,j->i", R.T, t)
 
@@ -363,15 +395,15 @@ def insert_keyframe(cam, cfg: SlamConfig, frame: FrameData, R, t, stamp: float, 
     want_new = want_new & ~fuse_ok
     N = want_new.shape[0]
     cap = min(cfg.tracking.kf_max_new_points, N)
-    if cap < N and kf_slot > 0:
+    if cap < N:  # the cap applies from the second keyframe on
         create_score = torch.where(want_new, 1.0 / torch.clamp(frame.depth, min=1e-3), torch.full_like(frame.depth, -1.0))
         kth = top_k(create_score, cap)[0][-1]
         keep = (create_score >= torch.clamp(kth, min=1e-9)) & (create_score > 0)
-        want_new = want_new & keep
+        want_new = want_new & (keep | (kf == 0))
     slots, ok_new = st.alloc_slots(~pstore.valid, want_new)
     safe_slots = torch.clamp(slots, min=0)
     ss = safe_slots.long()
-    kf_t = torch.full_like(slots, kf_slot)
+    kf_t = kf.expand(slots.shape)
     one_t = torch.ones_like(slots)
     p = pstore
     pstore = dataclasses.replace(
@@ -430,7 +462,7 @@ def insert_keyframe(cam, cfg: SlamConfig, frame: FrameData, R, t, stamp: float, 
     seg_w = torch.cat([lie._einsum("ij,nj->ni", R_wc, xs_c) + t_wc, lie._einsum("ij,nj->ni", R_wc, xe_c) + t_wc], dim=-1)
     safe_l = torch.clamp(lslots, min=0)
     sl = safe_l.long()
-    kf_l = torch.full_like(lslots, kf_slot)
+    kf_l = kf.expand(lslots.shape)
     one_l = torch.ones_like(lslots)
     q = lstore
     lstore = dataclasses.replace(
@@ -451,7 +483,7 @@ def insert_keyframe(cam, cfg: SlamConfig, frame: FrameData, R, t, stamp: float, 
         lstore,
         n_obs=scatter_add(lstore.n_obs, safe_ln, reobs_l.to(i32)),
         last_kf=scatter_set(lstore.last_kf, safe_ln,
-                            torch.where(reobs_l, torch.full_like(ln_idx, kf_slot), lstore.last_kf[safe_ln.long()])),
+                            torch.where(reobs_l, kf.expand(ln_idx.shape), lstore.last_kf[safe_ln.long()])),
     )
 
     # covisibility row from the landmark->KF incidence bitsets, then stamp this KF's bit
@@ -465,14 +497,13 @@ def insert_keyframe(cam, cfg: SlamConfig, frame: FrameData, R, t, stamp: float, 
     words_l = lstore.obs_bits[safe_lml.long()]
     covis_row = (_incidence_counts(words, has_lm & ~ok_new, K)
                  + _incidence_counts(words_l, has_lml & ~lok_new, K))
-    covis_row[kf_slot] = 0
-    covis = kstore.covis.clone()
-    covis[kf_slot] = covis_row
-    covis[:, kf_slot] = covis_row
+    kfl = kf.long().reshape(1)
+    covis_row = covis_row.index_fill(0, kfl, 0)
+    covis = kstore.covis.index_copy(0, kfl, covis_row[None]).index_copy(1, kfl, covis_row[:, None])
     kstore = dataclasses.replace(kstore, covis=covis)
-    bit = 1 << (kf_slot % 32)
-    bit_val = torch.tensor(bit - (1 << 32) if bit >= (1 << 31) else bit, dtype=i32, device=dev)
-    col = torch.arange(KW, device=dev)[None, :] == kf_slot // 32
+    bit = torch.bitwise_left_shift(torch.ones((), dtype=torch.int64, device=dev), torch.remainder(kfl[0], 32))
+    bit_val = torch.where(bit >= 1 << 31, bit - (1 << 32), bit).to(i32)  # bit 31 is the int32 sign bit
+    col = torch.arange(KW, device=dev)[None, :] == torch.div(kf, 32, rounding_mode="floor")
     zero_w = torch.zeros((), dtype=i32, device=dev)
     cleared = torch.where(ok_new[:, None], zero_w, words)
     stamped = torch.where(col, cleared | bit_val, cleared)
@@ -484,23 +515,18 @@ def insert_keyframe(cam, cfg: SlamConfig, frame: FrameData, R, t, stamp: float, 
     # the keyframe row
     uvr = torch.cat([frame.feats.uv, frame.u_right[:, None]], dim=-1)
     k = kstore
-    fields = dict(R=R, t=t, stamp=torch.tensor(_f32(stamp), device=dev), valid=True, obs_pt=lm_id, obs_uvr=uvr,
+    fields = dict(R=R, t=t, stamp=stamp, valid=True, obs_pt=lm_id, obs_uvr=uvr,
                   obs_sigma2=frame.sigma2, obs_stereo=frame.stereo_ok, obs_ln=lml_id, obs_l=frame.lines.line_coeffs(),
                   obs_ln_sigma2=torch.full_like(frame.lines.angle, cfg.lines.sigma_px ** 2))
-    new = {}
-    for name, val in fields.items():
-        arr = getattr(k, name).clone()
-        arr[kf_slot] = val
-        new[name] = arr
-    kstore = dataclasses.replace(k, **new)
+    kstore = dataclasses.replace(k, **{name: set_row(getattr(k, name), kf, val) for name, val in fields.items()})
 
     # landmark culling (young low found-ratio landmarks)
     ratio = pstore.found.float() / torch.clamp(pstore.visible.float(), min=1.0)
-    young = (kf_slot - pstore.first_kf) <= 3
+    young = (kf - pstore.first_kf) <= 3
     bad = pstore.valid & young & (pstore.visible > 8) & (ratio < cfg.map.cull_found_ratio)
     pstore = dataclasses.replace(pstore, valid=pstore.valid & ~bad)
     ratio_l = lstore.found.float() / torch.clamp(lstore.visible.float(), min=1.0)
-    young_l = (kf_slot - lstore.first_kf) <= 3
+    young_l = (kf - lstore.first_kf) <= 3
     bad_l = lstore.valid & young_l & (lstore.visible > 8) & (ratio_l < cfg.map.cull_found_ratio)
     lstore = dataclasses.replace(lstore, valid=lstore.valid & ~bad_l)
     return pstore, lstore, kstore, torch.sum(ok_new.to(i32))
@@ -671,25 +697,24 @@ def _device_cull_keyframes(cfg: SlamConfig, kstore, pstore, n_kf: int):
     return dataclasses.replace(kstore, valid=kstore.valid & ~cull)
 
 
-def _covis_window(cfg: SlamConfig, kstore, kf_slot: int, n_kf: int):
+def _covis_window(cfg: SlamConfig, kstore, kf_slot, n_kf):
     """BA window: the new keyframe + its W-1 most covisible keyframes (the
-    temporal predecessor always included); the two oldest members fixed."""
+    temporal predecessor always included); the two oldest members fixed.
+    `kf_slot` and `n_kf` are host ints or 0-d device ints."""
     W = cfg.opt.local_ba_window
     K = kstore.covis.shape[0]
     dev = kstore.covis.device
+    kf, n = _dev_int(kf_slot, dev), _dev_int(n_kf, dev)
     ids = torch.arange(K, dtype=torch.int32, device=dev)
-    eligible = kstore.valid & (ids < n_kf) & (ids != kf_slot)
-    score = torch.where(eligible, kstore.covis[kf_slot].float(), torch.full((K,), -1.0, device=dev))
-    if kf_slot > 0:
-        score = score.clone()
-        score[kf_slot - 1] += 1e6
+    eligible = kstore.valid & (ids < n) & (ids != kf)
+    score = torch.where(eligible, row(kstore.covis, kf).float(), torch.full((K,), -1.0, device=dev))
+    score = score + torch.where(ids == kf - 1, 1e6, 0.0)  # the temporal predecessor (none for slot 0)
     top_s, top_i = top_k(score, W - 1)
-    neighbors = torch.where(top_s > 0, top_i.to(torch.int32), torch.full((W - 1,), kf_slot, dtype=torch.int32, device=dev))
-    window = torch.cat([torch.tensor([kf_slot], dtype=torch.int32, device=dev), neighbors])
+    neighbors = torch.where(top_s > 0, top_i.to(torch.int32), kf.expand(W - 1))
+    window = torch.cat([kf.reshape(1), neighbors])
     order = torch.argsort(window, stable=True)
-    fixed = torch.zeros(W, dtype=torch.bool, device=dev)
-    fixed[order[0]] = True
-    fixed[order[1]] = window[order[1]] != kf_slot
+    ar = torch.arange(W, device=dev)
+    fixed = (ar == order[0]) | ((ar == order[1]) & (window.index_select(0, order[1:2]) != kf))
     return window, fixed
 
 
@@ -702,37 +727,36 @@ def vocab_query(db, bow_pt, bow_ln, exclude_mask, n_best: int = 3, covis=None):
 # ---------------------------------------------------------------------------
 
 
-def _keyframe_decision(cfg: SlamConfig, ok, n_in, n_kf: int, frames_since_kf: int, last_kf_inliers, allow_mapping):
-    """The frame's one device->host read (ok, inlier count, the reference
-    keyframe's inliers) and the keyframe decision made from it on the host.
-    Returns (need_kf, frames since keyframe incl. this one, last_kf_inliers
-    as a device int32)."""
-    last_kf_inliers = torch.as_tensor(last_kf_inliers, dtype=torch.int32, device=ok.device)
-    ok_h, n_in_h, last_h = torch.stack([ok.to(torch.int32), n_in.to(torch.int32), last_kf_inliers]).tolist()
+def keyframe_decision(cfg: SlamConfig, ok: int, n_in: int, last_kf_inliers: int, n_kf: int, frames_since_kf: int,
+                      allow_mapping) -> bool:
+    """The keyframe decision, made on the host from the frame's one read
+    (ok, inlier count, the reference keyframe's inliers) and the host's
+    exact mirrors of the keyframe counters."""
     fs = frames_since_kf + 1
     tc = cfg.tracking
-    need_kf = (bool(ok_h) and bool(allow_mapping) and n_in_h >= tc.kf_min_inliers
-               and fs > max(tc.kf_min_interval, 1)
-               and (fs >= tc.kf_max_interval or n_in_h < tc.kf_ref_ratio * max(last_h, 1))
-               and n_kf < cfg.map.max_keyframes)
-    return need_kf, fs, last_kf_inliers
+    return (bool(ok) and bool(allow_mapping) and n_in >= tc.kf_min_inliers
+            and fs > max(tc.kf_min_interval, 1)
+            and (fs >= tc.kf_max_interval or n_in < tc.kf_ref_ratio * max(last_kf_inliers, 1))
+            and n_kf < cfg.map.max_keyframes)
 
 
-def _index_keyframe(cfg: SlamConfig, voc_pt, voc_ln, frame, n_kf: int, kstore, pstore, bow_db, kf_view):
+def _index_keyframe(cfg: SlamConfig, voc_pt, voc_ln, frame, n_kf, kstore, pstore, bow_db, kf_view):
     """What follows a keyframe's insertion and BA on both fused paths: the
-    BoW add and loop-candidate query, the view ring, the local-map refresh."""
+    BoW add and loop-candidate query, the view ring, the local-map refresh.
+    `n_kf` (the new keyframe's slot) is a 0-d device int."""
     dev = kstore.R.device
+    n_kf = _dev_int(n_kf, dev)
     n_kf2 = n_kf + 1
-    bow_p = voc_pt.bow(frame.feats.desc, frame.feats.valid & (kstore.obs_pt[n_kf] >= 0))
+    bow_p = voc_pt.bow(frame.feats.desc, frame.feats.valid & (row(kstore.obs_pt, n_kf) >= 0))
     bow_l = voc_ln.bow(frame.lines.desc, frame.lines.valid)
     bow_db = bow_db.add(n_kf, bow_p, bow_l)
     K = bow_db.valid.shape[0]
-    excl = (torch.arange(K, device=dev) >= max(n_kf2 - cfg.loop.min_kf_gap, 0)) | (kstore.covis[n_kf] > 10)
+    excl = ((torch.arange(K, device=dev) >= torch.clamp(n_kf2 - cfg.loop.min_kf_gap, min=0))
+            | (row(kstore.covis, n_kf) > 10))
     slots, scores = vocab_query(bow_db, bow_p, bow_l, excl, n_best=N_LOOP_CANDS, covis=kstore.covis)
-    if n_kf < cfg.loop.min_kf_gap:
-        slots, scores = torch.full_like(slots, -1), torch.full_like(scores, -1.0)
-    new_view = (frame.feats.uv, frame.feats.desc, frame.feats.valid,
-                torch.tensor(n_kf, dtype=torch.int32, device=dev))
+    young = n_kf < cfg.loop.min_kf_gap  # no loop candidates before min_kf_gap keyframes
+    slots, scores = torch.where(young, -1, slots), torch.where(young, -1.0, scores)
+    new_view = (frame.feats.uv, frame.feats.desc, frame.feats.valid, n_kf)
     kf_view2 = tuple(torch.cat([nv[None], old[:-1]], dim=0) for nv, old in zip(new_view, kf_view))
     local_pt2 = _local_map_ids(cfg, kstore, pstore, n_kf)
     return bow_db, slots, scores, kf_view2, local_pt2
@@ -745,22 +769,137 @@ def _no_keyframe(dev):
             torch.full((N_LOOP_CANDS,), -1.0, device=dev))
 
 
-def _step_outputs(ok, n_in, n_kf2: int, need_kf: bool, fs2: int, last_in2, n_new, loop_slot, loop_score,
+def _step_outputs(ok, n_in, n_kf2, made_kf: bool, fs2, last_in2, n_new, loop_slot, loop_score,
                   pstore, lstore, kstore, R_new, t_new):
-    """(counters, stats vector, trajectory record relative to the newest keyframe)."""
-    dev = R_new.device
+    """(stats vector, trajectory record relative to the newest keyframe),
+    all on the device; `made_kf` is a constant of the segment."""
     f32 = torch.float32
-    host = torch.tensor([n_kf2, float(need_kf), fs2, n_kf2 - 1 if need_kf else -1], dtype=f32).to(dev)
+    kf_slot = n_kf2 - 1 if made_kf else torch.full_like(n_kf2, -1)
     stats = torch.cat([
-        torch.stack([ok.to(f32), n_in.to(f32), host[0], host[1], n_new.to(f32),
-                     torch.sum(pstore.valid.to(f32)), torch.sum(lstore.valid.to(f32)), host[2],
+        torch.stack([ok.to(f32), n_in.to(f32), n_kf2.to(f32), torch.full((), float(made_kf), device=ok.device),
+                     n_new.to(f32), torch.sum(pstore.valid.to(f32)), torch.sum(lstore.valid.to(f32)), fs2.to(f32),
                      last_in2.to(f32)]),
-        loop_slot.to(f32), loop_score.to(f32), host[3:]])
-    counters = (n_kf2, fs2, last_in2.to(torch.int32))
-    ref = max(n_kf2 - 1, 0)
-    R_cr = lie._mm(R_new, kstore.R[ref].T)
-    t_cr = t_new - lie._einsum("ij,j->i", R_cr, kstore.t[ref])
-    return counters, stats, (ref, R_cr, t_cr)
+        loop_slot.to(f32), loop_score.to(f32), kf_slot.to(f32)[None]])
+    ref = torch.clamp(n_kf2 - 1, min=0)
+    R_cr = lie._mm(R_new, row(kstore.R, ref).T)
+    t_cr = t_new - lie._einsum("ij,j->i", R_cr, row(kstore.t, ref))
+    return stats, (ref, R_cr, t_cr)
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A fused step cut at its one device->host read.
+
+    `track(inputs, state) -> (new_state, out, carry)` is T: the frame build,
+    the motion-model or IMU prediction and tracking, with the stats vector
+    and trajectory record of a frame that makes no keyframe, and
+    `out["read"]` = (ok, inliers, reference-keyframe inliers) as int32.
+    `keyframe(inputs, state, carry, with_ba) -> (new_state, out)` is K: the
+    keyframe branch on T's state and `carry`, windowed BA when `with_ba`
+    (the reference's `n_kf2 >= 3` cond, a host bool here), and the stats
+    and record of a keyframe frame. `state` maps names to tensors, stores
+    and tuples; `new_state` holds the entries a segment changes. Every
+    value that varies between frames enters as a tensor -- the keyframe
+    counters `n_kf`, `fs` (frames since the keyframe) and `last` (its
+    inliers) are 0-d device int32s, the stamp a 0-d float32 -- so a
+    segment traced or captured at one frame is right at the next."""
+
+    cfg: SlamConfig
+    track: Callable
+    keyframe: Callable
+
+
+def run_segments(segs: Segments, inputs: dict, state: dict, n_kf: int, frames_since_kf: int, allow_mapping):
+    """T, the read, the host's keyframe decision and K, eagerly: the
+    composition that the CUDA graphs of frontend.graphs replay. `n_kf` and
+    `frames_since_kf` are the host's mirrors of the device counters.
+    Returns (state, out of the last segment run, T's carry, need_kf)."""
+    new, out, carry = segs.track(inputs, state)
+    state = {**state, **new}
+    ok, n_in, last = out["read"].tolist()
+    need_kf = keyframe_decision(segs.cfg, ok, n_in, last, n_kf, frames_since_kf, allow_mapping)
+    if need_kf:
+        new, out = segs.keyframe(inputs, state, carry, n_kf + 1 >= 3)
+        state = {**state, **new}
+    return state, out, carry, need_kf
+
+
+def scalar_inputs(inputs: dict, device) -> dict:
+    """A segment's inputs with the per-frame scalars (stamp, flags) as 0-d
+    tensors on `device`: bools as bool, other numbers as float32 (rounded
+    as the reference's jit rounds a Python float)."""
+    def conv(v):
+        if isinstance(v, (bool, np.bool_)):
+            return torch.full((), bool(v), dtype=torch.bool, device=device)
+        if isinstance(v, numbers.Number):
+            return torch.full((), float(v), dtype=torch.float32, device=device)
+        return v
+
+    return {k: conv(v) for k, v in inputs.items()}
+
+
+def _tri_depth(cam, cfg, frame, R, t, kf_view, kstore, n_kf):
+    """The far-point channel of a keyframe: views before KF0 carry no
+    valid features, so the first keyframe takes none (reference :1086-1090)."""
+    if cam.bf <= 0:
+        return None
+    return torch.where(n_kf > 0, far_point_depths(cam, cfg, frame, R, t, kf_view, kstore),
+                       torch.full_like(frame.depth, -1.0))
+
+
+def visual_segments(cam, cfg: SlamConfig, voc_pt, voc_ln, build) -> Segments:
+    """T and K of the stereo / RGB-D visual step. inputs: `img` (the
+    arguments of `build`), `stamp`. state: R, t, R_prev, t_prev, vel_xi,
+    has_vel, n_kf, fs, last, pstore, lstore, kstore, bow_db, kf_view,
+    local_pt."""
+
+    def track(inputs, state):
+        frame = build(*inputs["img"])
+        R, t = state["R"], state["t"]
+        dR, dt = lie.se3_exp(state["vel_xi"])
+        use_mm = state["has_vel"] & bool(cfg.tracking.motion_model)
+        R0 = torch.where(use_mm, lie._mm(dR, R), R)
+        t0 = torch.where(use_mm, lie._einsum("ij,j->i", dR, t) + dt, t)
+        (R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore) = track_step(
+            cam, cfg, frame, R0, t0, state["pstore"], state["lstore"], wide=~use_mm, local_pt_ids=state["local_pt"])
+        ok = n_in >= cfg.tracking.min_inliers_track
+        R_new = torch.where(ok, R1, R0)
+        t_new = torch.where(ok, t1, t0)
+        R_rel = lie._mm(R_new, R.T)
+        t_rel = t_new - lie._einsum("ij,j->i", R_rel, t)
+        vel_xi = torch.where(ok, lie.se3_log(R_rel, t_rel), state["vel_xi"])
+        fs, last = state["fs"] + 1, state["last"]
+        stats, (ref, R_cr, t_cr) = _step_outputs(ok, n_in, state["n_kf"], False, fs, last, *_no_keyframe(R.device),
+                                                 pstore, lstore, state["kstore"], R_new, t_new)
+        new = dict(R=R_new, t=t_new, R_prev=R, t_prev=t, vel_xi=vel_xi, has_vel=ok | state["has_vel"],
+                   pstore=pstore, lstore=lstore, fs=fs)
+        out = dict(stats=stats, ref=ref, rel_R=R_cr, rel_t=t_cr,
+                   read=torch.stack([ok.to(torch.int32), n_in.to(torch.int32), last.to(torch.int32)]))
+        carry = dict(frame=frame, pt_idx=pt_idx, pt_in=pt_in, ln_idx=ln_idx, ln_in=ln_in, n_in=n_in, ok=ok)
+        return new, out, carry
+
+    def keyframe(inputs, state, carry, with_ba):
+        frame, n_kf, R, t = carry["frame"], state["n_kf"], state["R"], state["t"]
+        tri_depth = _tri_depth(cam, cfg, frame, R, t, state["kf_view"], state["kstore"], n_kf)
+        pstore, lstore, kstore, n_new = insert_keyframe(
+            cam, cfg, frame, R, t, inputs["stamp"], carry["pt_idx"], carry["pt_in"], carry["ln_idx"], carry["ln_in"],
+            n_kf, state["pstore"], state["lstore"], state["kstore"], tri_depth)
+        n_kf2 = n_kf + 1
+        if with_ba:
+            window, fixed = _covis_window(cfg, kstore, n_kf, n_kf2)
+            kstore, pstore, lstore = local_ba(cam, cfg, kstore, pstore, lstore, window, fixed)
+        kstore = _device_cull_keyframes(cfg, kstore, pstore, n_kf2)
+        R2, t2 = row(kstore.R, n_kf), row(kstore.t, n_kf)
+        bow_db, slots, scores, kf_view2, local_pt2 = _index_keyframe(cfg, voc_pt, voc_ln, frame, n_kf, kstore,
+                                                                      pstore, state["bow_db"], state["kf_view"])
+        fs2, last2 = torch.zeros_like(state["fs"]), carry["n_in"] + n_new
+        stats, (ref, R_cr, t_cr) = _step_outputs(carry["ok"], carry["n_in"], n_kf2, True, fs2, last2, n_new, slots,
+                                                 scores, pstore, lstore, kstore, R2, t2)
+        new = dict(R=R2, t=t2, pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db, kf_view=kf_view2,
+                   local_pt=local_pt2, n_kf=n_kf2, fs=fs2, last=last2)
+        return new, dict(stats=stats, ref=ref, rel_R=R_cr, rel_t=t_cr)
+
+    return Segments(cfg=cfg, track=track, keyframe=keyframe)
 
 
 def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
@@ -774,64 +913,110 @@ def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
           bow_db, kf_view, local_pt, pt_idx, pt_in, ln_idx, ln_in,
           counters, stats, rel)
 
-    with the reference's argument and result order. `n_kf` and
-    `frames_since_kf` are host ints; `last_kf_inliers` is an int or a
-    0-d device tensor; `has_vel` a 0-d device bool. `counters` =
-    (n_kf, frames_since_kf: host ints, last_kf_inliers: device int32)
-    and `rel` = (ref slot: host int, R_cr, t_cr)."""
-
-    def kf_branch(frame, stamp, R, t, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore, lstore, kstore, bow_db,
-                  kf_view, local_pt):
-        tri_depth = None
-        if cam.bf > 0:
-            tri_depth = (far_point_depths(cam, cfg, frame, R, t, kf_view, kstore) if n_kf > 0
-                         else torch.full_like(frame.depth, -1.0))
-        pstore, lstore, kstore, n_new = insert_keyframe(
-            cam, cfg, frame, R, t, stamp, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore, lstore, kstore, tri_depth)
-        n_kf2 = n_kf + 1
-        if n_kf2 >= 3:
-            window, fixed = _covis_window(cfg, kstore, n_kf, n_kf2)
-            kstore, pstore, lstore = local_ba(cam, cfg, kstore, pstore, lstore, window, fixed)
-        kstore = _device_cull_keyframes(cfg, kstore, pstore, n_kf2)
-        R2, t2 = kstore.R[n_kf], kstore.t[n_kf]
-        bow_db, slots, scores, kf_view2, local_pt2 = _index_keyframe(cfg, voc_pt, voc_ln, frame, n_kf, kstore,
-                                                                      pstore, bow_db, kf_view)
-        return R2, t2, pstore, lstore, kstore, bow_db, n_kf2, n_new, slots, scores, kf_view2, local_pt2
+    with the reference's argument and result order: `visual_segments` run
+    by `run_segments`. The counters may be host ints or 0-d device ints;
+    `counters` = (n_kf, frames_since_kf, last_kf_inliers) and `rel` =
+    (ref slot, R_cr, t_cr) come back on the device, as in the reference."""
+    segs = visual_segments(cam, cfg, voc_pt, voc_ln, build)
 
     def step(img_args, stamp, R, t, R_prev, t_prev, vel_xi, has_vel, n_kf, frames_since_kf, last_kf_inliers,
              allow_mapping, pstore, lstore, kstore, bow_db, kf_view, local_pt):
-        frame = build(*img_args)
-        dR, dt = lie.se3_exp(vel_xi)
-        use_mm = has_vel & bool(cfg.tracking.motion_model)
-        R0 = torch.where(use_mm, lie._mm(dR, R), R)
-        t0 = torch.where(use_mm, lie._einsum("ij,j->i", dR, t) + dt, t)
-        (R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore) = track_step(
-            cam, cfg, frame, R0, t0, pstore, lstore, wide=~use_mm, local_pt_ids=local_pt)
-        ok = n_in >= cfg.tracking.min_inliers_track
-        R_new = torch.where(ok, R1, R0)
-        t_new = torch.where(ok, t1, t0)
-        R_rel = lie._mm(R_new, R.T)
-        t_rel = t_new - lie._einsum("ij,j->i", R_rel, t)
-        vel_xi = torch.where(ok, lie.se3_log(R_rel, t_rel), vel_xi)
-        has_vel = ok | has_vel
-
-        need_kf, fs, last_kf_inliers = _keyframe_decision(cfg, ok, n_in, n_kf, frames_since_kf, last_kf_inliers,
-                                                          allow_mapping)
-        if need_kf:
-            (R_new, t_new, pstore, lstore, kstore, bow_db, n_kf2, n_new, loop_slot, loop_score, kf_view,
-             local_pt) = kf_branch(frame, stamp, R_new, t_new, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore,
-                                   lstore, kstore, bow_db, kf_view, local_pt)
-            fs2 = 0
-            last_in2 = n_in + n_new
-        else:
-            n_kf2, fs2, last_in2 = n_kf, fs, last_kf_inliers
-            n_new, loop_slot, loop_score = _no_keyframe(R.device)
-        counters, stats, rel = _step_outputs(ok, n_in, n_kf2, need_kf, fs2, last_in2, n_new, loop_slot, loop_score,
-                                             pstore, lstore, kstore, R_new, t_new)
-        return (R_new, t_new, R, t, vel_xi, has_vel, pstore, lstore, kstore, bow_db, kf_view, local_pt,
-                pt_idx, pt_in, ln_idx, ln_in, counters, stats, rel)
+        dev = R.device
+        state = dict(R=R, t=t, R_prev=R_prev, t_prev=t_prev, vel_xi=vel_xi, has_vel=has_vel,
+                     n_kf=_dev_int(n_kf, dev), fs=_dev_int(frames_since_kf, dev), last=_dev_int(last_kf_inliers, dev),
+                     pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db, kf_view=kf_view, local_pt=local_pt)
+        inputs = scalar_inputs(dict(img=tuple(img_args), stamp=stamp), dev)
+        s, out, c, _ = run_segments(segs, inputs, state, int(n_kf), int(frames_since_kf), allow_mapping)
+        return (s["R"], s["t"], s["R_prev"], s["t_prev"], s["vel_xi"], s["has_vel"], s["pstore"], s["lstore"],
+                s["kstore"], s["bow_db"], s["kf_view"], s["local_pt"], c["pt_idx"], c["pt_in"], c["ln_idx"], c["ln_in"],
+                (s["n_kf"], s["fs"], s["last"]), out["stats"], (out["ref"], out["rel_R"], out["rel_t"]))
 
     return step
+
+
+def vi_segments(cam, cfg: SlamConfig, voc_pt, voc_ln, build) -> Segments:
+    """T and K of the stereo-inertial step after IMU initialization.
+    inputs: `img`, `imu` (the packed [T, 8] batch g | a | dt | mask),
+    `stamp`, `wide` (0-d bool: the tripled round-1 window after a
+    map-changing event). state: R, t, R_prev, t_prev, v_w, bg, ba,
+    gravity_w, preint_acc, ext, n_kf, fs, last, pstore, lstore, kstore,
+    bow_db, kf_view, local_pt, pints."""
+
+    def track(inputs, state):
+        frame = build(*inputs["img"])
+        imu_args = inputs["imu"]
+        R, t, bg, ba, ext, gravity_w = state["R"], state["t"], state["bg"], state["ba"], state["ext"], state["gravity_w"]
+        # this frame's preintegration and the per-keyframe accumulator
+        p = imu_ops.preintegrate(imu_args[:, 0:3], imu_args[:, 3:6], imu_args[:, 6], imu_args[:, 7] > 0.5,
+                                 bg, ba, cfg.imu)
+        acc = imu_ops.compose(state["preint_acc"], p)
+        prev_state = inr.body_state_from_camera(R, t, state["v_w"], bg, ba, ext)
+        Rp, vp, pp = imu_ops.predict_state(prev_state.R_wb, prev_state.v_w, prev_state.p_w, p, bg, ba, gravity_w)
+        init_state = inr.BodyState(R_wb=Rp, p_w=pp, v_w=vp, bg=bg, ba=ba)
+        (st2, R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore) = track_step_inertial(
+            cam, cfg, frame, p, prev_state, init_state, gravity_w, ext, state["pstore"], state["lstore"],
+            state["local_pt"], wide=inputs["wide"])
+        ok = n_in >= cfg.tracking.min_inliers_track
+        # on failure hold the IMU dead-reckoned state, its velocity clamped
+        # (bias and gravity error integrate without bound during loss)
+        R_pred, t_pred = inr.camera_pose(init_state, ext)
+        R_new = torch.where(ok, R1, R_pred)
+        t_new = torch.where(ok, t1, t_pred)
+        vp_safe = vp * torch.clamp(5.0 / torch.clamp(torch.linalg.norm(vp), min=1e-9), max=1.0)
+        fs, last = state["fs"] + 1, state["last"]
+        stats, (ref, R_cr, t_cr) = _step_outputs(ok, n_in, state["n_kf"], False, fs, last, *_no_keyframe(R.device),
+                                                 pstore, lstore, state["kstore"], R_new, t_new)
+        new = dict(R=R_new, t=t_new, R_prev=R, t_prev=t, v_w=torch.where(ok, st2.v_w, vp_safe),
+                   bg=torch.where(ok, st2.bg, bg), ba=torch.where(ok, st2.ba, ba), preint_acc=acc,
+                   pstore=pstore, lstore=lstore, fs=fs)
+        out = dict(stats=stats, ref=ref, rel_R=R_cr, rel_t=t_cr,
+                   read=torch.stack([ok.to(torch.int32), n_in.to(torch.int32), last.to(torch.int32)]))
+        carry = dict(frame=frame, pt_idx=pt_idx, pt_in=pt_in, ln_idx=ln_idx, ln_in=ln_in, n_in=n_in, ok=ok)
+        return new, out, carry
+
+    def keyframe(inputs, state, carry, with_ba):
+        frame, n_kf, R, t = carry["frame"], state["n_kf"], state["R"], state["t"]
+        dev = R.device
+        tri_depth = _tri_depth(cam, cfg, frame, R, t, state["kf_view"], state["kstore"], n_kf)
+        pstore, lstore, kstore, n_new = insert_keyframe(
+            cam, cfg, frame, R, t, inputs["stamp"], carry["pt_idx"], carry["pt_in"], carry["ln_idx"], carry["ln_in"],
+            n_kf, state["pstore"], state["lstore"], state["kstore"], tri_depth)
+        n_kf2 = n_kf + 1
+        # inertial state on the new keyframe row, and the chain factor KF(k-1) -> KF(k)
+        kstore = dataclasses.replace(kstore, **{name: set_row(getattr(kstore, name), n_kf, state[name])
+                                               for name in ("v_w", "bg", "ba")})
+        acc = state["preint_acc"]
+        pints = state["pints"].set(n_kf, acc, valid=(acc.dt > 1e-6) & (n_kf > 0))
+
+        # temporal-window VI BA: the last W keyframes, padded with the newest
+        W = cfg.opt.local_ba_window
+        lo = torch.clamp(n_kf2 - W, min=0)
+        window = torch.minimum(lo + torch.arange(W, dtype=torch.int32, device=dev), torch.clamp(n_kf2 - 1, min=0))
+        dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), window[1:] <= window[:-1]])
+        # the first local_ba_fixed poses are pinned (a 1-pose gauge lets the
+        # window's bias/velocity states wander)
+        fixed = (torch.arange(W, device=dev) < max(cfg.opt.local_ba_fixed, 1)) | dup
+        if with_ba:
+            stacked = pints.gather(window[1:])
+            imu_mask = pints.valid[window[1:].long()] & (window[1:] == window[:-1] + 1)
+            kstore, pstore, lstore = local_inertial_ba(cam, cfg, kstore, pstore, lstore, window, fixed, stacked,
+                                                       imu_mask, state["gravity_w"], state["ext"])
+        # continue from the refined keyframe state. No keyframe culling here:
+        # it would break the preintegration chain's adjacency
+        R2, t2 = row(kstore.R, n_kf), row(kstore.t, n_kf)
+        v2, bg2, ba2 = row(kstore.v_w, n_kf), row(kstore.bg, n_kf), row(kstore.ba, n_kf)
+        bow_db, slots, scores, kf_view2, local_pt2 = _index_keyframe(cfg, voc_pt, voc_ln, frame, n_kf, kstore,
+                                                                      pstore, state["bow_db"], state["kf_view"])
+        fs2, last2 = torch.zeros_like(state["fs"]), carry["n_in"] + n_new
+        stats, (ref, R_cr, t_cr) = _step_outputs(carry["ok"], carry["n_in"], n_kf2, True, fs2, last2, n_new, slots,
+                                                 scores, pstore, lstore, kstore, R2, t2)
+        # the accumulator starts again, linearized at the refined biases
+        new = dict(R=R2, t=t2, v_w=v2, bg=bg2, ba=ba2, preint_acc=imu_ops.identity_with_bias(bg2, ba2),
+                   pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db, kf_view=kf_view2, local_pt=local_pt2,
+                   pints=pints, n_kf=n_kf2, fs=fs2, last=last2)
+        return new, dict(stats=stats, ref=ref, rel_R=R_cr, rel_t=t_cr)
+
+    return Segments(cfg=cfg, track=track, keyframe=keyframe)
 
 
 def make_step_vi(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
@@ -849,92 +1034,23 @@ def make_step_vi(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
           kstore, bow_db, kf_view, local_pt, pints, pt_idx, pt_in, ln_idx,
           ln_in, counters, stats, rel)
 
-    with the reference's argument and result order. `imu_args` is the packed
-    [T, 8] batch g | a | dt | mask; `wide` a host bool; the counters are as
-    in make_step_visual. As there, the reference's two `lax.cond`s are host
-    `if`s and the frame makes one device->host read."""
-
-    def kf_branch(frame, stamp, R, t, v_w, bg, ba, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore, lstore, kstore,
-                  bow_db, kf_view, pints, preint_acc, gravity_w, ext):
-        dev = R.device
-        tri_depth = None
-        if cam.bf > 0:
-            tri_depth = (far_point_depths(cam, cfg, frame, R, t, kf_view, kstore) if n_kf > 0
-                         else torch.full_like(frame.depth, -1.0))
-        pstore, lstore, kstore, n_new = insert_keyframe(
-            cam, cfg, frame, R, t, stamp, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore, lstore, kstore, tri_depth)
-        n_kf2 = n_kf + 1
-        # inertial state on the new keyframe row, and the chain factor KF(k-1) -> KF(k)
-        new = {}
-        for name, val in (("v_w", v_w), ("bg", bg), ("ba", ba)):
-            arr = getattr(kstore, name).clone()
-            arr[n_kf] = val
-            new[name] = arr
-        kstore = dataclasses.replace(kstore, **new)
-        pints = pints.set(n_kf, preint_acc, valid=(preint_acc.dt > 1e-6) & (n_kf > 0))
-
-        # temporal-window VI BA: the last W keyframes, padded with the newest
-        W = cfg.opt.local_ba_window
-        lo = max(n_kf2 - W, 0)
-        window = torch.clamp(lo + torch.arange(W, dtype=torch.int32, device=dev), 0, max(n_kf2 - 1, 0))
-        dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), window[1:] <= window[:-1]])
-        # the first local_ba_fixed poses are pinned (a 1-pose gauge lets the
-        # window's bias/velocity states wander)
-        fixed = (torch.arange(W, device=dev) < max(cfg.opt.local_ba_fixed, 1)) | dup
-        if n_kf2 >= 3:
-            stacked = pints.gather(window[1:])
-            imu_mask = pints.valid[window[1:].long()] & (window[1:] == window[:-1] + 1)
-            kstore, pstore, lstore = local_inertial_ba(cam, cfg, kstore, pstore, lstore, window, fixed, stacked,
-                                                       imu_mask, gravity_w, ext)
-        # continue from the refined keyframe state. No keyframe culling here:
-        # it would break the preintegration chain's adjacency
-        R2, t2 = kstore.R[n_kf], kstore.t[n_kf]
-        v2, bg2, ba2 = kstore.v_w[n_kf], kstore.bg[n_kf], kstore.ba[n_kf]
-        bow_db, slots, scores, kf_view2, local_pt2 = _index_keyframe(cfg, voc_pt, voc_ln, frame, n_kf, kstore,
-                                                                      pstore, bow_db, kf_view)
-        # the accumulator starts again, linearized at the refined biases
-        acc2 = imu_ops.identity_with_bias(bg2, ba2)
-        return (R2, t2, v2, bg2, ba2, pstore, lstore, kstore, bow_db, n_kf2, n_new, slots, scores, kf_view2,
-                local_pt2, pints, acc2)
+    with the reference's argument and result order: `vi_segments` run by
+    `run_segments`. `wide` is a bool or a 0-d device bool; the counters are
+    as in make_step_visual."""
+    segs = vi_segments(cam, cfg, voc_pt, voc_ln, build)
 
     def step(img_args, imu_args, stamp, R, t, v_w, bg, ba, gravity_w, preint_acc, ext, n_kf, frames_since_kf,
              last_kf_inliers, allow_mapping, wide, pstore, lstore, kstore, bow_db, kf_view, local_pt, pints):
-        frame = build(*img_args)
-        # this frame's preintegration and the per-keyframe accumulator
-        p = imu_ops.preintegrate(imu_args[:, 0:3], imu_args[:, 3:6], imu_args[:, 6], imu_args[:, 7] > 0.5,
-                                 bg, ba, cfg.imu)
-        acc = imu_ops.compose(preint_acc, p)
-        prev_state = inr.body_state_from_camera(R, t, v_w, bg, ba, ext)
-        Rp, vp, pp = imu_ops.predict_state(prev_state.R_wb, prev_state.v_w, prev_state.p_w, p, bg, ba, gravity_w)
-        init_state = inr.BodyState(R_wb=Rp, p_w=pp, v_w=vp, bg=bg, ba=ba)
-        (st2, R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore) = track_step_inertial(
-            cam, cfg, frame, p, prev_state, init_state, gravity_w, ext, pstore, lstore, local_pt, wide=wide)
-        ok = n_in >= cfg.tracking.min_inliers_track
-        # on failure hold the IMU dead-reckoned state, its velocity clamped
-        # (bias and gravity error integrate without bound during loss)
-        R_pred, t_pred = inr.camera_pose(init_state, ext)
-        R_new = torch.where(ok, R1, R_pred)
-        t_new = torch.where(ok, t1, t_pred)
-        vp_safe = vp * torch.clamp(5.0 / torch.clamp(torch.linalg.norm(vp), min=1e-9), max=1.0)
-        v_new = torch.where(ok, st2.v_w, vp_safe)
-        bg_new = torch.where(ok, st2.bg, bg)
-        ba_new = torch.where(ok, st2.ba, ba)
-
-        need_kf, fs, last_kf_inliers = _keyframe_decision(cfg, ok, n_in, n_kf, frames_since_kf, last_kf_inliers,
-                                                          allow_mapping)
-        if need_kf:
-            (R_new, t_new, v_new, bg_new, ba_new, pstore, lstore, kstore, bow_db, n_kf2, n_new, loop_slot,
-             loop_score, kf_view, local_pt, pints, acc) = kf_branch(
-                frame, stamp, R_new, t_new, v_new, bg_new, ba_new, pt_idx, pt_in, ln_idx, ln_in, n_kf, pstore,
-                lstore, kstore, bow_db, kf_view, pints, acc, gravity_w, ext)
-            fs2 = 0
-            last_in2 = n_in + n_new
-        else:
-            n_kf2, fs2, last_in2 = n_kf, fs, last_kf_inliers
-            n_new, loop_slot, loop_score = _no_keyframe(R.device)
-        counters, stats, rel = _step_outputs(ok, n_in, n_kf2, need_kf, fs2, last_in2, n_new, loop_slot, loop_score,
-                                             pstore, lstore, kstore, R_new, t_new)
-        return (R_new, t_new, R, t, v_new, bg_new, ba_new, acc, pstore, lstore, kstore, bow_db, kf_view, local_pt,
-                pints, pt_idx, pt_in, ln_idx, ln_in, counters, stats, rel)
+        dev = R.device
+        state = dict(R=R, t=t, R_prev=R, t_prev=t, v_w=v_w, bg=bg, ba=ba, gravity_w=gravity_w, preint_acc=preint_acc,
+                     ext=ext, n_kf=_dev_int(n_kf, dev), fs=_dev_int(frames_since_kf, dev),
+                     last=_dev_int(last_kf_inliers, dev), pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db,
+                     kf_view=kf_view, local_pt=local_pt, pints=pints)
+        inputs = scalar_inputs(dict(img=tuple(img_args), imu=imu_args, stamp=stamp, wide=wide), dev)
+        s, out, c, _ = run_segments(segs, inputs, state, int(n_kf), int(frames_since_kf), allow_mapping)
+        return (s["R"], s["t"], s["R_prev"], s["t_prev"], s["v_w"], s["bg"], s["ba"], s["preint_acc"], s["pstore"],
+                s["lstore"], s["kstore"], s["bow_db"], s["kf_view"], s["local_pt"], s["pints"], c["pt_idx"],
+                c["pt_in"], c["ln_idx"], c["ln_in"], (s["n_kf"], s["fs"], s["last"]), out["stats"],
+                (out["ref"], out["rel_R"], out["rel_t"]))
 
     return step

@@ -49,6 +49,15 @@ keyframe after VIBA2.
 `streaming` mode, as in the reference, so the stats read overlaps the next
 frame's work.
 
+CUDA graphs. On a GPU every fused frame (stereo, RGB-D and KB8 fisheye
+stereo after the map's first frame; stereo-inertial after the IMU
+initialization) replays captured graphs (frontend.graphs.FusedStep, the
+counterpart of the reference's jitted step): T, then the frame's one read
+of three ints, then K on a keyframe. The tracker's fused-step tensors are
+then the graphs' static buffers; a rare path replaces them with new
+tensors, which are copied in before the next replay, and the Atlas parks
+copies. Host-orchestrated frames run eagerly everywhere.
+
 The rare paths. With `cfg.loop.enabled` a `LoopCloser` sees every new
 keyframe's BoW candidates (verification, essential-graph correction, then
 the global BA queued as per-frame "gba" chunks). After two lost frames
@@ -76,6 +85,7 @@ import numpy as np
 import torch
 
 from pli_slam_tpu_torch.utils.config import SlamConfig
+from pli_slam_tpu_torch.frontend import graphs
 from pli_slam_tpu_torch.frontend import step as step_mod
 from pli_slam_tpu_torch.frontend.frame import (FrameData, build_frame, build_frame_fisheye_stereo, build_frame_mono,
                                                build_frame_rgbd)
@@ -114,12 +124,24 @@ class Tracker:
     LSH vocabularies by default. The BoW database is sized by each one's
     `n_words` (the reference sizes both halves by the point vocabulary's).
     On a GPU with loop closing on, construction runs
-    `LoopCloser.warm_up` (its time in `loop_warmup_ms`)."""
+    `LoopCloser.warm_up` (its time in `loop_warmup_ms`).
+
+    On a GPU the fused steps (visual, RGB-D, fisheye stereo and
+    stereo-inertial after IMU initialization) run as CUDA graphs, captured
+    at the first fused frame and at the first keyframe with windowed BA
+    and replayed every frame after (frontend.graphs.FusedStep; the frame's
+    one read sits between the tracking graph and the keyframe graph).
+    `cuda_graphs=False` runs them eagerly, for comparison (None: the class
+    attribute `default_cuda_graphs`, True); on the CPU they always run
+    eagerly. The host-orchestrated paths (the first frame, the
+    stereo-inertial frames before IMU initialization, mono, mono- and
+    RGB-D-inertial, the rare paths) run eagerly everywhere."""
 
     SENSORS = ("stereo", "stereo_imu", "rgbd", "rgbd_imu", "mono", "mono_imu")
+    default_cuda_graphs = True
 
     def __init__(self, cam: Camera, cfg: SlamConfig, device=None, rectifier=None, cam_right: Camera | None = None,
-                 T_rl=None, vocab_pt=None, vocab_ln=None):
+                 T_rl=None, vocab_pt=None, vocab_ln=None, cuda_graphs: bool | None = None):
         if cfg.sensor not in self.SENSORS:
             raise ValueError(f"unknown sensor {cfg.sensor!r}: the tracker runs {', '.join(self.SENSORS)}")
         self.is_mono = cfg.sensor.startswith("mono")
@@ -159,7 +181,9 @@ class Tracker:
         self.voc_pt = vocab_pt if vocab_pt is not None else vocab_mod.Vocabulary(seed=17)  # the reference's LSH defaults
         self.voc_ln = vocab_ln if vocab_ln is not None else vocab_mod.Vocabulary(seed=23)
         self.bow_db = self._empty_bow_db()
-        self._step = step_mod.make_step_visual(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame)
+        self.cuda_graphs = bool(self.default_cuda_graphs if cuda_graphs is None else cuda_graphs) and dev.type == "cuda"
+        self._step = graphs.FusedStep(step_mod.visual_segments(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame),
+                                      dev, self.cuda_graphs)
         # deferred BA chunks, one executed per later non-keyframe frame
         self._deferred_ba: list[tuple] = []
         m = cfg.map
@@ -222,7 +246,8 @@ class Tracker:
         # full inertial BA, a deferred chunk)
         self._map_event_cooldown = 0
         if self.use_imu and not self.is_mono:  # the RGB-D-inertial sensor never runs it, as in the reference
-            self._step_vi = step_mod.make_step_vi(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame)
+            self._step_vi = graphs.FusedStep(step_mod.vi_segments(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame),
+                                             dev, self.cuda_graphs)
         self.loop_warmup_ms = None
         if self.loop_closer is not None and dev.type == "cuda":
             self.loop_warmup_ms = self.loop_closer.warm_up(self)
@@ -583,8 +608,10 @@ class Tracker:
 
     # -- Atlas: a new map on persistent loss, merging back -------------------
     def _park_active(self):
+        # copies: under CUDA graphs the live stores are the graphs' buffers, which the next replay overwrites
         self.atlas.maps[self.atlas.active_idx] = MapBundle(
-            pstore=self.pstore, lstore=self.lstore, kstore=self.kstore, n_kf=self.n_kf, bow_db=self.bow_db)
+            pstore=graphs.tree_clone(self.pstore), lstore=graphs.tree_clone(self.lstore),
+            kstore=graphs.tree_clone(self.kstore), n_kf=self.n_kf, bow_db=graphs.tree_clone(self.bow_db))
 
     def _clear_map_state(self):
         """What a fresh active map starts from (shared by the new-map switch
@@ -1143,16 +1170,34 @@ class Tracker:
         self._record(stamp)
         return self._info(n_inliers, n_new)
 
+    # the tracker's attribute for each entry of a fused step's state
+    _FUSED_STATE = dict(R="R", t="t", R_prev="R_prev", t_prev="t_prev", last="last_kf_inliers", pstore="pstore",
+                        lstore="lstore", kstore="kstore", bow_db="bow_db", kf_view="_kf_view_dev",
+                        local_pt="_local_pt")
+    _VISUAL_STATE = dict(_FUSED_STATE, vel_xi="vel_xi", has_vel="has_vel")
+    _VI_STATE = dict(_FUSED_STATE, v_w="v_w", bg="bg", ba="ba", gravity_w="gravity_w", preint_acc="_preint_acc",
+                     ext="ext", pints="_pints")
+
+    def _run_fused(self, fused: graphs.FusedStep, names: dict, inputs: dict, stamp: float, allow_mapping: bool):
+        """One fused frame: the step on the tracker's state, which the tracker
+        then adopts (under CUDA graphs, the graphs' buffers), the host's
+        counter mirrors moved as the device's were, and the frame's record."""
+        state = {k: getattr(self, a) for k, a in names.items()}
+        s, out, need_kf = fused(state, inputs, self.n_kf, self.frames_since_kf, allow_mapping)
+        for k, a in names.items():
+            setattr(self, a, s[k])
+        if need_kf:
+            self.n_kf, self.frames_since_kf = self.n_kf + 1, 0
+        else:
+            self.frames_since_kf += 1
+        self._traj_pending.append((stamp, max(self.n_kf - 1, 0), out["rel_R"], out["rel_t"], self.R.clone(),
+                                   self.t.clone()))
+        return out["stats"]
+
     def _process_fused(self, img_args, stamp: float, allow_mapping: bool) -> dict:
-        (R, t, R_prev, t_prev, self.vel_xi, self.has_vel,
-         self.pstore, self.lstore, self.kstore, self.bow_db, self._kf_view_dev, self._local_pt,
-         _pt_idx, _pt_in, _ln_idx, _ln_in, counters, stats_dev, rel) = self._step(
-            img_args, stamp, self.R, self.t, self.R_prev, self.t_prev, self.vel_xi, self.has_vel,
-            self.n_kf, self.frames_since_kf, self.last_kf_inliers, allow_mapping,
-            self.pstore, self.lstore, self.kstore, self.bow_db, self._kf_view_dev, self._local_pt)
-        self.R, self.t, self.R_prev, self.t_prev = R, t, R_prev, t_prev
-        self._traj_pending.append((stamp, rel[0], rel[1], rel[2], R, t))
-        return self._finish_fused(stamp, stats_dev, img_args, counters)
+        stats_dev = self._run_fused(self._step, self._VISUAL_STATE, dict(img=tuple(img_args), stamp=stamp), stamp,
+                                    allow_mapping)
+        return self._finish_fused(stamp, stats_dev, img_args)
 
     def _process_fused_vi(self, img_args, stamp: float, allow_mapping: bool, imu: dict | None) -> dict:
         """One fused stereo-inertial frame (after IMU init): the whole
@@ -1169,16 +1214,10 @@ class Tracker:
         wide = self._map_event_cooldown > 0
         if wide:
             self._map_event_cooldown -= 1
-        (R, t, R_prev, t_prev, self.v_w, self.bg, self.ba, self._preint_acc,
-         self.pstore, self.lstore, self.kstore, self.bow_db, self._kf_view_dev, self._local_pt, self._pints,
-         _pt_idx, _pt_in, _ln_idx, _ln_in, counters, stats_dev, rel) = self._step_vi(
-            img_args, imu_packed, stamp, self.R, self.t, self.v_w, self.bg, self.ba, self.gravity_w,
-            self._preint_acc, self.ext, self.n_kf, self.frames_since_kf, self.last_kf_inliers, allow_mapping,
-            wide, self.pstore, self.lstore, self.kstore, self.bow_db, self._kf_view_dev, self._local_pt,
-            self._pints)
-        self.R, self.t, self.R_prev, self.t_prev = R, t, R_prev, t_prev
-        self._traj_pending.append((stamp, rel[0], rel[1], rel[2], R, t))
-        info = self._finish_fused(stamp, stats_dev, img_args, counters)
+        stats_dev = self._run_fused(self._step_vi, self._VI_STATE,
+                                    dict(img=tuple(img_args), imu=imu_packed, stamp=stamp, wide=wide), stamp,
+                                    allow_mapping)
+        info = self._finish_fused(stamp, stats_dev, img_args)
         # staged refinement (VIBA1 at +5 s, VIBA2 at +15 s), queued as
         # per-frame chunks so the full-map sweep never lands on one frame
         if (self.state == TrackingState.OK and self._viba_stage is not None and self._viba_stage < 2
@@ -1196,11 +1235,9 @@ class Tracker:
             self._preint_since_kf = self._preint_acc
             self._preint_acc = None
 
-    def _finish_fused(self, stamp, stats_dev, img_args, counters) -> dict:
+    def _finish_fused(self, stamp, stats_dev, img_args) -> dict:
         """Consume a fused step's stats vector (the previous frame's in
         streaming mode): shared by the visual and the stereo-inertial step."""
-        # the keyframe counters are exact on the host already (see frontend.step)
-        self.n_kf, self.frames_since_kf, self.last_kf_inliers = counters
         if self.streaming:
             pending, self._pending_stats = self._pending_stats, (stamp, stats_dev, img_args)
             if pending is None:

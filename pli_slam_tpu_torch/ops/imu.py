@@ -21,6 +21,8 @@ import dataclasses
 import torch
 
 from pli_slam_tpu_torch.ops import lie
+from pli_slam_tpu_torch.ops.consts import device_const
+from pli_slam_tpu_torch.ops.indexing import set_row
 from pli_slam_tpu_torch.utils.config import ImuConfig
 
 
@@ -80,15 +82,11 @@ class PreintStore:
         data = _map(lambda x: x.expand((capacity,) + x.shape).clone(), Preintegrated.identity(device))
         return PreintStore(data=data, valid=torch.zeros(capacity, dtype=torch.bool, device=device))
 
-    def set(self, k: int, p: Preintegrated, valid=True) -> "PreintStore":
-        """Slot `k` (a host int) <- `p`; `valid` is a bool or a 0-d bool tensor."""
-
-        def put(A, x):
-            A = A.clone()
-            A[k] = x
-            return A
-
-        return PreintStore(data=_map(put, self.data, p), valid=put(self.valid, valid))
+    def set(self, k, p: Preintegrated, valid=True) -> "PreintStore":
+        """Slot `k` (a host int or a 0-d device int) <- `p`; `valid` is a
+        bool or a 0-d bool tensor."""
+        return PreintStore(data=_map(lambda A, x: set_row(A, k, x), self.data, p),
+                           valid=set_row(self.valid, k, valid))
 
     def gather(self, idx: torch.Tensor) -> Preintegrated:
         idx = idx.long()
@@ -234,7 +232,7 @@ def gravity_vector(gravity, like: torch.Tensor) -> torch.Tensor:
     """`gravity` as a world vector [..., 3] on `like`'s device: a magnitude acts along world -z."""
     if isinstance(gravity, torch.Tensor) and gravity.ndim > 0:
         return gravity
-    return torch.tensor([0.0, 0.0, -1.0], dtype=like.dtype, device=like.device) * gravity
+    return device_const(("down", like.dtype), like.device, lambda: torch.tensor([0.0, 0.0, -1.0], dtype=like.dtype)) * gravity
 
 
 def predict_state(Rwb0, vw0, pw0, p: Preintegrated, bg, ba, gravity=9.81):

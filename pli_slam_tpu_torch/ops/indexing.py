@@ -22,6 +22,11 @@ The reference leans on XLA behaviours that torch does not share:
   fixed point (`fixed_point_index_add`), where integer additions give the
   same bits in any order.
 
+`row` / `set_row` read and write row `k` of a store where `k` is a host
+int or a 0-d device tensor (a keyframe counter kept on the device): the
+tensor form goes through `index_select` / `index_copy`, which neither read
+`k` on the host nor freeze it into a captured CUDA graph.
+
 Gathers and scatters here never see an out-of-range index: callers clamp
 and mask explicitly (an out-of-range index is a device assert on CUDA).
 """
@@ -42,6 +47,25 @@ def scatter_set(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torc
     out = dst.clone()
     out[idx] = src[last[idx]].to(dst.dtype)
     return out
+
+
+def row(A: torch.Tensor, k) -> torch.Tensor:
+    """A[k] for a host int or a 0-d integer tensor `k`."""
+    if not isinstance(k, torch.Tensor):
+        return A[k]
+    return torch.index_select(A, 0, k.reshape(1).long())[0]
+
+
+def set_row(A: torch.Tensor, k, val) -> torch.Tensor:
+    """Functional `A.at[k].set(val)` for a host int or a 0-d integer tensor
+    `k`; `val` is a tensor or a Python scalar broadcast over the row."""
+    if not isinstance(val, torch.Tensor):
+        val = torch.full(A.shape[1:], val, dtype=A.dtype, device=A.device)
+    if not isinstance(k, torch.Tensor):
+        A = A.clone()
+        A[k] = val
+        return A
+    return A.index_copy(0, k.reshape(1).long(), val.to(A.dtype).expand(A.shape[1:])[None])
 
 
 def scatter_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -112,5 +136,5 @@ def nanmedian(d: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     low, high = torch.floor(pos), torch.ceil(pos)
     hw = pos - low
     last = torch.clamp(n - 1, min=0)
-    med = srt[torch.clamp(low.long(), min=0)] * (1.0 - hw) + srt[torch.minimum(torch.clamp(high.long(), min=0), last)] * hw
+    med = row(srt, torch.clamp(low.long(), min=0)) * (1.0 - hw) + row(srt, torch.minimum(torch.clamp(high.long(), min=0), last)) * hw
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))

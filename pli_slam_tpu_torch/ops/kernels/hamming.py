@@ -25,6 +25,7 @@ card and by `accept_reference` on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,6 +53,47 @@ _chunks: dict = {}  # (device index, N, P) -> chunks of the store, as the source
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+class ReplayCounter:
+    """Launch accounting for a CUDA graph that holds kernel launches.
+
+    A wrapper counts a launch when it runs, and inside a capture it runs
+    once, at capture time, while the graph launches the kernel at every
+    replay. Around the capture, `capturing()` takes the launches it made
+    back off each module's `launches` and keeps their number; `replay(graph)`
+    replays the graph and adds that number again, so a replayed step counts
+    what the same step run eagerly counts. `uncounted()` drops the launches
+    of a warm-up run. `modules` are the kernel modules (each with an int
+    `launches`: this one, ops.kernels.rot3)."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+        self.per_replay = [0] * len(modules)
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        before = [m.launches for m in self.modules]
+        try:
+            yield
+        finally:
+            for m, b in zip(self.modules, before):
+                m.launches = b
+
+    @contextlib.contextmanager
+    def capturing(self):
+        before = [m.launches for m in self.modules]
+        try:
+            yield
+        finally:
+            self.per_replay = [m.launches - b for m, b in zip(self.modules, before)]
+            for m, b in zip(self.modules, before):
+                m.launches = b
+
+    def replay(self, graph) -> None:
+        graph.replay()
+        for m, n in zip(self.modules, self.per_replay):
+            m.launches += n
 
 
 def _nvcc() -> str:
@@ -215,10 +257,16 @@ def gated_match_cuda(fdesc, fuv, fvalid, sdesc, suv, svalid, radius, max_dist: f
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_tiles = -(-n // _block_rows)
     tickets = _tickets.get((dev.index, stream))
+    if (tickets is None or tickets.numel() < n_tiles) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("gated_match: the kernel's tickets for this stream must exist before a CUDA graph "
+                           "capture; launch it once on the capture stream first")
     if tickets is None or tickets.numel() < n_tiles:
         # one counter per tile of frame rows; the kernel leaves them at zero
         tickets = _tickets[(dev.index, stream)] = torch.zeros(max(n_tiles, 64), dtype=torch.int32, device=dev)
     n_chunks = _chunks.get((dev.index, n, p))  # the kernel's split of the store for this shape and card
+    if n_chunks is None and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"gated_match: shape N={n} x P={p} first seen inside a CUDA graph capture; "
+                           "launch it once on the capture stream first")
     if n_chunks is None:
         n_chunks = _chunks[(dev.index, n, p)] = _lib.gated_match_chunks(n, p)
     scratch = torch.empty(3 * n_chunks * n, dtype=torch.float32, device=dev)  # partial best, second, idx

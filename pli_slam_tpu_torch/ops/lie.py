@@ -23,6 +23,9 @@ import math
 
 import torch
 
+from pli_slam_tpu_torch.ops.kernels import rot3
+from pli_slam_tpu_torch.ops.consts import device_const
+
 _EPS = 1e-6
 
 
@@ -100,7 +103,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     S = (R + R.transpose(-1, -2)) * 0.5
     rows = torch.gather(S, -2, k[..., None, None].expand(S.shape[:-2] + (1, 3)))[..., 0, :]
     axis_unnorm = rows / (one_minus_cos * a_k)[..., None]
-    onehot_k = torch.nn.functional.one_hot(k, 3).to(torch.bool)
+    onehot_k = torch.arange(3, device=k.device) == k[..., None]  # one_hot checks its range on the host
     axis_unnorm = torch.where(onehot_k, a_k[..., None].expand(axis_unnorm.shape), axis_unnorm)
     norm = torch.linalg.norm(axis_unnorm, dim=-1, keepdim=True)
     axis_pi = axis_unnorm / torch.clamp(norm, min=1e-12)
@@ -140,11 +143,9 @@ def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
-    """Closest rotation via SVD (reference NormalizeRotation)."""
-    u, _, vt = torch.linalg.svd(R, full_matrices=False)
-    det = torch.linalg.det(_mm(u, vt))
-    u = torch.cat([u[..., :, :2], u[..., :, 2:] * torch.sign(det)[..., None, None]], dim=-1)
-    return _mm(u, vt)
+    """Closest rotation (reference NormalizeRotation): SVD + det on the CPU,
+    the sync-free kernel of ops.kernels.rot3 on a GPU."""
+    return rot3.closest_rotation(R)
 
 
 def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -197,7 +198,8 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Pack (R, t) into a homogeneous [..., 4, 4] matrix."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     top = torch.cat([R.expand(batch + (3, 3)), t.expand(batch + (3,))[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device).expand(batch + (1, 4))
+    bottom = device_const(("se3_bottom_row", R.dtype), R.device,
+                          lambda: torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype)).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -34,6 +34,7 @@ from pli_slam_tpu_torch.utils.config import LineConfig
 from pli_slam_tpu_torch.ops import image as image_ops
 from pli_slam_tpu_torch.ops.fast import max_pool_same
 from pli_slam_tpu_torch.ops.indexing import deterministic_index_add, top_k
+from pli_slam_tpu_torch.ops.consts import device_const
 
 
 def _deg2rad_f32(deg: float) -> float:
@@ -313,7 +314,7 @@ def lbd_descriptor(img, p0, p1, valid, cfg: LineConfig) -> torch.Tensor:
     rows_per_band = -(-Wb // 3)
     row_in_band = np.arange(0, Wb, 3, dtype=np.float32)
     offs_np = (np.arange(B, dtype=np.float32)[:, None] * Wb + row_in_band[None, :]).reshape(-1) - half
-    offs = torch.as_tensor(offs_np.astype(np.float32), device=dev)
+    offs = device_const(("line_offsets", B, Wb), dev, lambda: offs_np.astype(np.float32))
 
     base = p0[:, None, :] + d[:, None, :] * ts[None, :, None]
     uv = base[:, :, None, :] + nn[:, None, None, :] * offs[None, None, :, None]
@@ -345,7 +346,7 @@ def lbd_descriptor(img, p0, p1, valid, cfg: LineConfig) -> torch.Tensor:
     vec = torch.cat([mean, std], dim=-1).reshape(n, B * 8)
     vec = vec / torch.clamp(torch.linalg.norm(vec, dim=-1, keepdim=True), min=1e-6)
 
-    proj = torch.as_tensor(_projection_matrix(B * 8), device=dev)
+    proj = device_const(("line_projection", B * 8), dev, lambda: _projection_matrix(B * 8))
     bits = torch.matmul(vec, proj) >= 0
     one = torch.ones((), dtype=torch.int8, device=dev)
     desc = torch.where(bits, one, -one)
@@ -435,8 +436,7 @@ def match_stereo_lines_geom(left: LineFeatures, right: LineFeatures, img_l, img_
     g_cost = torch.where(gate, 2.0 * torch.rad2deg(da) + 20.0 * (1.0 - ov), big)
     c1 = torch.argmin(g_cost, dim=1)
     rows = torch.arange(g_cost.shape[0], device=dev)
-    g2 = g_cost.clone()
-    g2[rows, c1] = 1e9
+    g2 = g_cost.index_put((rows, c1), big)
     c2 = torch.argmin(g2, dim=1)
     cands = torch.stack([c1, c2], dim=1)
 

@@ -20,6 +20,7 @@ from pli_slam_tpu_torch.utils.config import OrbConfig
 from pli_slam_tpu_torch.ops import fast as fast_ops
 from pli_slam_tpu_torch.ops import image as image_ops
 from pli_slam_tpu_torch.ops.indexing import top_k
+from pli_slam_tpu_torch.ops.consts import device_const
 
 PATCH_RADIUS = 15
 EDGE_MARGIN = 19
@@ -103,7 +104,7 @@ def _cell_topk_candidates(score: torch.Tensor, cell: int, k_cell: int):
     nc = ncy * ncx
     col = torch.arange(cell * cell, device=score.device)
     top_s, top_i = [], []
-    neg_inf = torch.tensor(float("-inf"), device=score.device)
+    neg_inf = torch.full((), float("-inf"), device=score.device)
     for _ in range(k_cell):
         i = torch.argmax(cells, dim=-1)
         top_s.append(torch.gather(cells, -1, i[:, None])[:, 0])
@@ -139,7 +140,7 @@ def _extract_level(img: torch.Tensor, k_level: int, cfg: OrbConfig):
     angle = torch.atan2(m01[ky, kx], m10[ky, kx])
 
     blurred = image_ops.gaussian_blur(img, sigma=2.0, radius=3)
-    pool = torch.as_tensor(_POOL, device=dev)
+    pool = device_const("orb_pool", dev, lambda: _POOL)
     ca, sa = torch.cos(angle), torch.sin(angle)
     px, py = pool[:, 0], pool[:, 1]
     rx = ca[:, None] * px[None] - sa[:, None] * py[None]
@@ -149,8 +150,8 @@ def _extract_level(img: torch.Tensor, k_level: int, cfg: OrbConfig):
     vals = blurred[sy, sx]  # [K, pool]
     # the reference realizes the pair comparisons as one-hot matmuls at
     # HIGHEST precision, which select values exactly: a gather is the same
-    pa = torch.as_tensor(_PAIRS[:, 0], device=dev).long()
-    pb = torch.as_tensor(_PAIRS[:, 1], device=dev).long()
+    pa = device_const("orb_pairs_a", dev, lambda: torch.as_tensor(_PAIRS[:, 0]).long())
+    pb = device_const("orb_pairs_b", dev, lambda: torch.as_tensor(_PAIRS[:, 1]).long())
     bits = vals[:, pa] < vals[:, pb]
     one = torch.ones((), dtype=torch.int8, device=dev)
     desc = torch.where(bits, one, -one)

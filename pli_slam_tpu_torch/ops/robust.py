@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from pli_slam_tpu_torch.ops.indexing import row
+
 
 def cauchy_weight(r2: torch.Tensor, c2=1.0) -> torch.Tensor:
     return 1.0 / (1.0 + r2 / c2)
@@ -30,7 +32,7 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     lo = torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), min=0)
     hi = torch.clamp(torch.div(n, 2, rounding_mode="floor"), min=0)
     last = x.shape[0] - 1
-    med = 0.5 * (xs[torch.clamp(lo, max=last)] + xs[torch.clamp(hi, max=last)])
+    med = 0.5 * (row(xs, torch.clamp(lo, max=last)) + row(xs, torch.clamp(hi, max=last)))
     return torch.where(n > 0, med, torch.zeros_like(med))
 
 

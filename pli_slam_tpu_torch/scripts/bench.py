@@ -2,7 +2,7 @@
 stereo-inertial run with loop closing on, and the visual run, measured on
 one GPU, printed as bench.py's one JSON line.
 
-  python3 -m pli_slam_tpu_torch.scripts.bench [--cpu]
+  python3 -m pli_slam_tpu_torch.scripts.bench [--cpu] [--no-graphs]
 
 BENCH_FRAMES (default 220) and BENCH_FRAMES_VISUAL (default 40) set the
 depths, as in bench.py. The line has bench.py's keys and nothing else:
@@ -10,7 +10,8 @@ depths, as in bench.py. The line has bench.py's keys and nothing else:
    "unit": "fps", "vs_baseline": <fps / 20.0>, "extra": {"p99_ms", "p50_ms",
    "worst_ms", "ate_m_synthetic", "loops_closed", "imu_ready", "frames",
    "n_keyframes", "n_points", "n_lines", "visual_fps", "visual_ate_m"}}
-The card's name and power limit (nvidia-smi) and the progress go to stderr.
+The card's name and power limit (nvidia-smi), the progress, and the
+captures' time, graph-pool size and peak memory go to stderr.
 
 `run_flagship` is bench.py's north-star configuration:
 SlamConfig.euroc_stereo_inertial() with loop closing on, the IMU
@@ -21,7 +22,9 @@ ImuNoiseModel.euroc(); streaming mode, 3 untimed frames, then every
 frame's host wall time, `finalize` (the queued BA chunks) inside the timed
 region. `run_visual` is bench.py's visual run: SlamConfig.euroc_stereo()
 with loop closing on, 12 untimed frames. Every frame is rendered on the
-host before the run, so the card tracks a CPU's pixels.
+host before the run, so the card tracks a CPU's pixels. On a GPU the fused
+steps run as CUDA graphs (frontend.graphs), captured inside the timed
+frames; `--no-graphs` runs them eagerly.
 
 Not ported: bench.py's persistent XLA compile cache and its whole warm pass
 over the sequence with the tracker reset after it (PASS 1); both exist so
@@ -65,13 +68,14 @@ def _device(device) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
-def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None) -> dict:
+def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None, cuda_graphs: bool = True) -> dict:
     """Stereo-inertial tracking with loop closing on, over the revisiting
     Lissajous path (bench.py:78-176 without its warm pass). `cam` and `cfg`
     default to bench.py's camera (752x480, fx 435.2, bf 0.11 fx) and
     configuration (bench.py:84-91). `frames`: the sequence already rendered on
     `device` (`utils.profile.loop_frames`' form), of which the first
-    `n_frames` are run."""
+    `n_frames` are run. `cuda_graphs=False` runs the fused steps eagerly
+    (for comparison). The returned dict also holds the `tracker`."""
     from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.utils import synthetic
 
@@ -84,7 +88,7 @@ def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None) ->
                                          traj=synthetic.Trajectory(**profile.FLAGSHIP_TRAJ),
                                          imu_noise=synthetic.ImuNoiseModel.euroc())
     frames = [(fr["img_l"], fr["img_r"], fr["t"], fr["p_w"], profile.imu_batch(fr)) for fr in frames][:n_frames]
-    tracker = Tracker(cam, cfg, dev)
+    tracker = Tracker(cam, cfg, dev, cuda_graphs=cuda_graphs)
     tracker.streaming = True
     log(f"bench[flagship]: rendering done; measuring (loop warm-up at construction: {tracker.loop_warmup_ms} ms)")
     for img_l, img_r, t, _, imu in frames[:N_WARM_FLAGSHIP]:
@@ -117,14 +121,15 @@ def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None) ->
         "n_points": int(tracker.pstore.valid.sum()),
         "n_lines": int(tracker.lstore.valid.sum()),
         "frames": n_frames,
+        "tracker": tracker,
     }
 
 
-def run_visual(n_frames: int, cam=None, cfg=None, device=None, frames=None) -> dict:
+def run_visual(n_frames: int, cam=None, cfg=None, device=None, frames=None, cuda_graphs: bool = True) -> dict:
     """The visual-only run (bench.py:178-212): `cfg` defaults to
     SlamConfig.euroc_stereo() (bench.py:184), `cam` and `frames` as in
     `run_flagship` (the room sequence of `synthetic.make_sequence`'s default
-    trajectory)."""
+    trajectory), as is `cuda_graphs`."""
     from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.utils import synthetic
 
@@ -136,7 +141,7 @@ def run_visual(n_frames: int, cam=None, cfg=None, device=None, frames=None) -> d
         frames = synthetic.make_sequence(cam, n_frames, dev, fps=cfg.fps)
     frames = [(fr["img_l"], fr["img_r"], fr["t"], fr["p_w"]) for fr in frames][:n_frames]
     n_warm = min(N_WARM_VISUAL, n_frames // 3)
-    tracker = Tracker(cam, cfg, dev)
+    tracker = Tracker(cam, cfg, dev, cuda_graphs=cuda_graphs)
     tracker.streaming = True
     for img_l, img_r, t, _ in frames[:n_warm]:
         tracker.process(img_l, img_r, t)
@@ -151,7 +156,7 @@ def run_visual(n_frames: int, cam=None, cfg=None, device=None, frames=None) -> d
     fps = (n_frames - n_warm) / elapsed
     gt = np.stack([p for _, _, _, p in frames])
     ate = synthetic.ate_rmse(tracker.positions(), gt)
-    return {"fps": round(fps, 2), "ate_m": round(float(ate), 4)}
+    return {"fps": round(fps, 2), "ate_m": round(float(ate), 4), "tracker": tracker}
 
 
 def result_line(flag: dict, vis: dict) -> dict:
@@ -187,6 +192,7 @@ def _nvidia_smi() -> str:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
+    ap.add_argument("--no-graphs", action="store_true", help="run the fused steps eagerly instead of as CUDA graphs")
     args = ap.parse_args(argv)
     dev = common.pick_device(args.cpu)
     n_flag = int(os.environ.get("BENCH_FRAMES", "220"))
@@ -197,7 +203,15 @@ def main(argv=None) -> dict:
         log(f"bench: {torch.cuda.get_device_name(dev)}; nvidia-smi: {_nvidia_smi()}; torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}")
         log(f"bench: gated_match built and loaded in {hamming.build():.2f} s")
-    result = result_line(run_flagship(n_flag, device=dev), run_visual(n_vis, device=dev))
+    graphs = not args.no_graphs
+    flag = run_flagship(n_flag, device=dev, cuda_graphs=graphs)
+    vis = run_visual(n_vis, device=dev, cuda_graphs=graphs)
+    if dev.type == "cuda":
+        caps = [profile.capture_stats(r["tracker"]) for r in (flag, vis)]
+        log(f"bench: fused steps {'as CUDA graphs' if graphs else 'eager'}; captures {sum(c for c, _ in caps):.1f} ms, "
+            f"graph pools {sum(p for _, p in caps) / 2**20:.1f} MiB, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    result = result_line(flag, vis)
     print(json.dumps(result), flush=True)
     return result
 

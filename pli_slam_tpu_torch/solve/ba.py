@@ -411,8 +411,8 @@ def _solve_ba_stage(cam, prob: BAProblem, cfg: OptimizerConfig, iters: int, grou
     dev = prob.R.device
     state0 = (prob.R, prob.t, prob.pts, prob.lns)
     cur, prev = state0, state0
-    cost_prev = torch.tensor(float("inf"), device=dev)
-    lam = torch.tensor(cfg.damping_init, dtype=torch.float32, device=dev)
+    cost_prev = torch.full((), float("inf"), device=dev)
+    lam = torch.full((), cfg.damping_init, dtype=torch.float32, device=dev)
     for _ in range(iters):
         Rn, tn, ptsn, lnsn, cost, _, _ = ba_iteration(cam, prob, idx_p, idx_l, *cur, cfg, lam, group)
         worse = cost > cost_prev

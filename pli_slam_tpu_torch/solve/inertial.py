@@ -28,6 +28,7 @@ from pli_slam_tpu_torch.ops import lie, robust
 from pli_slam_tpu_torch.solve import residuals as res
 from pli_slam_tpu_torch.solve.gn import PoseObservations
 from pli_slam_tpu_torch.utils.config import ImuConfig, OptimizerConfig
+from pli_slam_tpu_torch.ops.consts import device_const
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +113,9 @@ def solve_pose_inertial(cam, ext: Extrinsics, obs: PoseObservations, preint: imu
     # state's uncertainty as fixed floors on the (phi, v, p) blocks: the
     # previous frame is an estimate, and with the raw ~1e-10 covariance the
     # factor would freeze the pose at the IMU prediction
-    floor = torch.tensor([imu_cfg.prev_sigma_rot ** 2] * 3 + [imu_cfg.prev_sigma_vel ** 2] * 3
-                         + [imu_cfg.prev_sigma_pos ** 2] * 3, dtype=dtype, device=dev)
+    sig = (imu_cfg.prev_sigma_rot, imu_cfg.prev_sigma_vel, imu_cfg.prev_sigma_pos)
+    floor = device_const(("prev_state_floor", sig, dtype), dev,
+                         lambda: torch.tensor([s ** 2 for s in sig for _ in range(3)], dtype=dtype))
     eye9 = torch.eye(9, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye15 = torch.eye(15, dtype=dtype, device=dev)
@@ -229,7 +231,7 @@ def estimate_gyro_bias(preints: list, dRs_visual: list, prior_info: float = 0.0)
 def gravity_rotation(dirG: torch.Tensor) -> torch.Tensor:
     """R_wg that turns world -z onto the direction `dirG` (normalized here)."""
     dirG = dirG / torch.clamp(torch.linalg.norm(dirG), min=1e-9)
-    gI = torch.tensor([0.0, 0.0, -1.0], dtype=dirG.dtype, device=dirG.device)
+    gI = device_const(("down", dirG.dtype), dirG.device, lambda: torch.tensor([0.0, 0.0, -1.0], dtype=dirG.dtype))
     v = torch.linalg.cross(gI, dirG)
     ang = torch.acos(torch.clamp(torch.dot(gI, dirG), -1.0, 1.0))
     axis = v / torch.clamp(torch.linalg.norm(v), min=1e-9)

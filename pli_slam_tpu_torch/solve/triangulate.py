@@ -13,6 +13,7 @@ import torch
 
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import lie
+from pli_slam_tpu_torch.ops.consts import device_const
 
 
 def triangulate_dlt(R1, t1, R2, t2, ray1, ray2):
@@ -117,9 +118,10 @@ def epipolar_gate(cam, R1, t1, R2, t2, uv1, uv2, thresh: float = 3.84):
     (R, t) = T_c2w o T_wc1, on a pinhole camera with `cam`'s intrinsics."""
     R12, t12 = lie.se3_compose(R2, t2, *lie.se3_inverse(R1, t1))
     E = lie._mm(lie.hat(t12), R12)
-    K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], dtype=torch.float32,
-                     device=uv1.device)
-    Kinv = torch.linalg.inv(K)
+    dev = uv1.device
+    Kinv = device_const(("inverse_intrinsics", cam.fx, cam.fy, cam.cx, cam.cy), dev, lambda: torch.linalg.inv(
+        torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], dtype=torch.float32,
+                     device=dev)))
     F = lie._mm(Kinv.T, lie._mm(E, Kinv))
     h1 = torch.cat([uv1, torch.ones_like(uv1[:, :1])], dim=1)  # [N1, 3]
     h2 = torch.cat([uv2, torch.ones_like(uv2[:, :1])], dim=1)

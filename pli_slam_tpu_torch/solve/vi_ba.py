@@ -26,6 +26,7 @@ from pli_slam_tpu_torch.ops import lie
 from pli_slam_tpu_torch.solve import ba as ba_mod
 from pli_slam_tpu_torch.solve import residuals as res
 from pli_slam_tpu_torch.utils.config import ImuConfig, OptimizerConfig
+from pli_slam_tpu_torch.ops.consts import device_const
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +134,8 @@ def vi_ba_iteration(cam, prob: VIBAProblem, idx_p, idx_l, R, t, v, bg, ba_, pts,
     S = S * dof_free[:, None, :, None] * dof_free[None, :, None, :]
     # soft priors on the boundary keyframes' inertial states: velocity
     # information 1e2, bias information 1e4
-    prior = torch.tensor([0.0] * 6 + [1e2] * 3 + [1e4] * 6, dtype=dtype, device=dev)
+    prior = device_const(("viba_boundary_prior", dtype), dev,
+                         lambda: torch.tensor([0.0] * 6 + [1e2] * 3 + [1e4] * 6, dtype=dtype))
     fixed_f = (base.fixed_mask & base.pose_mask).to(dtype)
     ar = torch.arange(W, device=dev)
     S[ar, ar] += eyeD[None] * ((1.0 - dof_free)[:, None, :] + fixed_f[:, None, None] * prior[None, None, :]) \
@@ -173,7 +175,7 @@ def vi_ba_iteration(cam, prob: VIBAProblem, idx_p, idx_l, R, t, v, bg, ba_, pts,
 def solve_vi_ba(cam, prob: VIBAProblem, cfg: OptimizerConfig, imu_cfg: ImuConfig, iters: int | None = None):
     """Fixed-iteration damped GN over the visual-inertial window."""
     iters = cfg.local_ba_iters if iters is None else iters
-    damping = torch.tensor(cfg.damping_init, dtype=torch.float32, device=prob.base.R.device)
+    damping = torch.full((), cfg.damping_init, dtype=torch.float32, device=prob.base.R.device)
     idx_p, idx_l = ba_mod.prepare_indices(prob.base)
     state = (prob.base.R, prob.base.t, prob.v, prob.bg, prob.ba, prob.base.pts, prob.base.lns)
     for _ in range(iters):

@@ -1,0 +1,150 @@
+"""Which operations of the fused per-frame steps can be captured into a
+CUDA graph on this card, and the closest-rotation kernel against its twin.
+
+    python3 -m pli_slam_tpu_torch.utils.capture_probe [--only NAME]
+
+Each probe runs in a process of its own (a refused capture can leave the
+stream unusable): the operation is run once eagerly on a side stream, then
+captured with `torch.cuda.graph` and replayed. It prints one line per
+probe, `ok` or the first line of the error, then the kernel check (largest
+difference from `torch.linalg.svd`'s closest rotation, agreement of the
+sign of det, time per call of both). Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures as cf
+import json
+import subprocess
+import sys
+
+import torch
+
+
+def _probes(dev):
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    def spd(b, n):
+        a = rnd(b, n, n)
+        return a @ a.transpose(-1, -2) + n * torch.eye(n, device=dev)
+
+    idx0 = torch.tensor(3, device=dev)
+    pinned = torch.empty(3, dtype=torch.int32).pin_memory()
+    vec = rnd(64)
+    ints = torch.arange(3, dtype=torch.int32, device=dev)
+    return {
+        "linalg.svd[16,3,3]": lambda: torch.linalg.svd(rnd_fixed["r16"], full_matrices=False),
+        "linalg.det[16,3,3]": lambda: torch.linalg.det(rnd_fixed["r16"]),
+        "linalg.solve_ex[6x6]": lambda: torch.linalg.solve_ex(rnd_fixed["s6"], rnd_fixed["b6"]),
+        "linalg.solve_ex[60x60]": lambda: torch.linalg.solve_ex(rnd_fixed["s60"], rnd_fixed["b60"]),
+        "linalg.solve_ex[150x150]": lambda: torch.linalg.solve_ex(rnd_fixed["s150"], rnd_fixed["b150"]),
+        "linalg.inv_ex[9,9,9]": lambda: torch.linalg.inv_ex(rnd_fixed["s9"]),
+        "linalg.cholesky_ex[9,9,9]": lambda: torch.linalg.cholesky_ex(rnd_fixed["s9"]),
+        "linalg.inv[3,3]": lambda: torch.linalg.inv(rnd_fixed["s3"]),
+        "index with 0-d tensor": lambda: vec[idx0] + 1,
+        "index_put with 0-d tensor": lambda: vec.clone().index_put_((idx0,), torch.ones((), device=dev)),
+        "copy to pinned (non_blocking)": lambda: pinned.copy_(ints, non_blocking=True),
+        "torch.tensor(list, device)": lambda: torch.tensor([1.0, 2.0], device=dev) + 1,
+        "sort stable / topk / searchsorted": lambda: (torch.sort(vec, stable=True), torch.topk(vec, 5),
+                                                      torch.searchsorted(torch.sort(vec)[0], vec)),
+        "rot3 kernel": lambda: _rot3(rnd_fixed["r16"]),
+    }, rnd, spd
+
+
+rnd_fixed: dict = {}
+
+
+def _rot3(x):
+    from pli_slam_tpu_torch.ops.kernels import rot3
+    return rot3.closest_rotation_cuda(x)
+
+
+def run_probe(name: str) -> str:
+    dev = torch.device("cuda", 0)
+    probes, rnd, spd = _probes(dev)
+    rnd_fixed.update(r16=rnd(16, 3, 3), s6=spd(1, 6), b6=rnd(1, 6), s60=spd(1, 60), b60=rnd(1, 60),
+                     s150=spd(1, 150), b150=rnd(1, 150), s9=spd(9, 9), s3=spd(1, 3)[0])
+    fn = probes[name]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(side):
+            fn()
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return "ok"
+    except Exception as exc:  # the refusal is the result
+        return (str(exc).strip().splitlines() or [type(exc).__name__])[0][:200]
+
+
+def kernel_check() -> dict:
+    from pli_slam_tpu_torch.ops.kernels import rot3
+    dev = torch.device("cuda", 0)
+    build_s = rot3.build()
+    g = torch.Generator().manual_seed(1)
+    out = {"build_s": build_s}
+    for n in (1, 16, 4096):
+        # near rotations (what the solvers hand it), arbitrary matrices and reflections
+        base = rot3.closest_rotation_reference(torch.randn(n, 3, 3, generator=g))
+        cases = {"near_rotation": base + 1e-3 * torch.randn(n, 3, 3, generator=g),
+                 "random": torch.randn(n, 3, 3, generator=g),
+                 "reflection": base @ torch.diag(torch.tensor([3.0, 2.0, -1.0]))}  # det < 0, distinct values
+        for label, x in cases.items():
+            xd = x.to(dev)
+            got = rot3.closest_rotation_cuda(xd)
+            want = rot3.closest_rotation_reference(xd)
+            err = float((got - want).abs().max())
+            det_same = bool(torch.equal(torch.sign(torch.linalg.det(got)), torch.sign(torch.linalg.det(want))))
+            out[f"{label}[{n}]"] = {"max_abs_err": err, "det_sign_equal": det_same}
+    x = rot3.closest_rotation_reference(torch.randn(1, 3, 3, generator=g)).to(dev)
+    for label, fn in (("kernel_ms", lambda: rot3.closest_rotation_cuda(x)),
+                      ("plain_ms", lambda: rot3.closest_rotation_reference(x))):
+        for _ in range(10):
+            fn()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        for _ in range(200):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        out[label] = s.elapsed_time(e) / 200
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", help="run one probe in this process and print its result")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("capture_probe needs a GPU", file=sys.stderr)
+        return 2
+    if args.only:
+        print(run_probe(args.only))
+        return 0
+    names = list(_probes(torch.device("cuda", 0))[0])
+
+    def one(name):
+        proc = subprocess.run([sys.executable, "-m", "pli_slam_tpu_torch.utils.capture_probe", "--only", name],
+                              capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        return name, lines[-1] if lines else f"exit {proc.returncode}: {proc.stderr.strip()[-200:]}"
+
+    with cf.ThreadPoolExecutor(4) as pool:
+        results = dict(pool.map(one, names))
+    for name in names:
+        print(f"capture {name}: {results[name]}")
+    print(json.dumps({"capture": results, "rot3": kernel_check()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

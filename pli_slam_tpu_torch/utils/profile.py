@@ -17,12 +17,15 @@ steady frames (frames 12-21):
    the host, so the window's wall time is printed beside pass 0's and the
    share holds for the traced window; the union over pass 0's wall time is
    printed as a derived estimate for the untraced run, named as such.
-   Launches are the trace's `cudaLaunchKernel` calls.
+   Launches are what the host issues: the trace's `cudaLaunchKernel*` calls
+   and, apart, its `cudaGraphLaunch` calls (the fused steps run as CUDA
+   graphs); with them the capture time and the graph pool's size.
 2. ops: torch.profiler with CPU and CUDA activity: the top ops by device
    time and by call count (written to DIR/ops.txt).
 3. stages: all 40 frames with `torch.cuda.synchronize()` around each stage
    (build_frame and the step's stages), which makes the stage times exclusive
-   and inflates the frame.
+   and inflates the frame; the fused steps run eagerly here (a synchronise
+   cannot sit inside a captured graph).
 
 With `--vi` it profiles the stereo-inertial path instead
 (`slice_config_vi()`: SlamConfig.euroc_stereo_inertial() with loop closing
@@ -569,18 +572,30 @@ def union_us(intervals) -> float:
     return total
 
 
-def trace_busy(trace_path: str) -> tuple[float, int, int]:
-    """(device busy us, device activities, cudaLaunchKernel calls) of a chrome trace."""
+def trace_busy(trace_path: str) -> tuple[float, int, int, int]:
+    """(device busy us, device activities, kernel launches, graph launches)
+    of a chrome trace: the host-issued `cudaLaunchKernel*` and
+    `cudaGraphLaunch` calls. The kernels a graph launch replays are device
+    activities, not host calls."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     dev = [(e["ts"], e["dur"]) for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    launches = sum(1 for e in events if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaLaunchKernel")
-    return union_us(dev), len(dev), launches
+    runtime = [e.get("name", "") for e in events if e.get("cat") == "cuda_runtime"]
+    launches = sum(1 for n in runtime if n.startswith("cudaLaunchKernel"))
+    graph_launches = sum(1 for n in runtime if n == "cudaGraphLaunch")
+    return union_us(dev), len(dev), launches, graph_launches
 
 
-def _window(cam, cfg, frames, dev, profiler=None) -> float:
-    """Fresh tracker, warm frames untimed, then the window's host wall time
-    (seconds, ending in a device sync), inside `profiler` when given."""
+def capture_stats(tracker) -> tuple[float, int]:
+    """(capture ms, graph-pool bytes) of a tracker's captured fused steps."""
+    steps = [s for s in (tracker._step, getattr(tracker, "_step_vi", None)) if s is not None]
+    return sum(s.capture_ms for s in steps), sum(s.pool_bytes for s in steps)
+
+
+def _window(cam, cfg, frames, dev, profiler=None):
+    """Fresh tracker (its fused steps as CUDA graphs), warm frames untimed,
+    then the window's host wall time (seconds, ending in a device sync),
+    inside `profiler` when given. Returns (wall, tracker)."""
     from pli_slam_tpu_torch.frontend.tracker import Tracker
 
     tracker = Tracker(cam, cfg, dev)
@@ -594,7 +609,7 @@ def _window(cam, cfg, frames, dev, profiler=None) -> float:
             tracker.process(fr["img_l"], fr["img_r"], fr["t"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall
+    return wall, tracker
 
 
 def _stages(cam, cfg, frames, dev, vi: bool = False):
@@ -624,7 +639,8 @@ def _stages(cam, cfg, frames, dev, vi: bool = False):
     try:
         for mod, name, fn in saved:
             setattr(mod, name, timed(name, fn))
-        tracker = tr_mod.Tracker(cam, cfg, dev)
+        # eager: a synchronisation inside a stage would break a graph capture
+        tracker = tr_mod.Tracker(cam, cfg, dev, cuda_graphs=False)
         tracker.streaming = True
         frame_ms = []
         for i, fr in enumerate(frames):
@@ -655,12 +671,13 @@ def _traced(tracker, frames, label: str):
     trace = os.path.join("build", "profile_trace.json")
     os.makedirs("build", exist_ok=True)
     prof.export_chrome_trace(trace)
-    busy_us, n_dev, launches = trace_busy(trace)
+    busy_us, n_dev, launches, graph_launches = trace_busy(trace)
     os.remove(trace)
     n = len(frames)
     print(f"profile[vi]: {label}: {n} frames traced (CUDA activity only), wall {wall * 1e3:.1f} ms "
           f"({wall * 1e3 / n:.1f} ms/frame); device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / 1e6 / wall:.1f}% "
-          f"of the traced window; {launches} cudaLaunchKernel calls ({launches / n:.0f} per frame)", flush=True)
+          f"of the traced window; {launches} kernel launches ({launches / n:.0f} per frame) and {graph_launches} "
+          f"graph launches ({graph_launches / n:.1f} per frame) from the host", flush=True)
 
 
 def main_vi(dev) -> int:
@@ -873,10 +890,21 @@ class NondetSites(TorchDispatchMode):
 
 
 def main_nondet(dev, sensor: str) -> int:
-    """One run of chip_smoke.py's phase 7, 8 or 14a (`flagship`) under
+    """One eager run (no CUDA graphs: the scan reads every scatter's
+    indices) of chip_smoke.py's phase 7, 8 or 14a (`flagship`) under
     `torch.use_deterministic_algorithms(True, warn_only=True)`, which warns
     once for every op that has no deterministic CUDA path, and under
-    `NondetSites`; prints both lists. The switch is restored after the run."""
+    `NondetSites`; prints both lists. The switches are restored after the run."""
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+
+    Tracker.default_cuda_graphs = False
+    try:
+        return _nondet_run(dev, sensor)
+    finally:
+        Tracker.default_cuda_graphs = True
+
+
+def _nondet_run(dev, sensor: str) -> int:
     from pli_slam_tpu_torch.system import System
 
     if sensor == "flagship":
@@ -953,24 +981,26 @@ def main(argv=None) -> int:
         return main_stages(cam, cfg, frames, dev)
     acts = torch.profiler.ProfilerActivity
 
-    wall0 = _window(cam, cfg, frames, dev)
+    wall0, _ = _window(cam, cfg, frames, dev)
     prof1 = torch.profiler.profile(activities=[acts.CUDA])
-    wall1 = _window(cam, cfg, frames, dev, prof1)
+    wall1, tracker1 = _window(cam, cfg, frames, dev, prof1)
     trace = os.path.join("build", "profile_trace.json")
     os.makedirs("build", exist_ok=True)
     prof1.export_chrome_trace(trace)
-    busy_us, n_dev, launches = trace_busy(trace)
+    busy_us, n_dev, launches, graph_launches = trace_busy(trace)
+    cap_ms, pool = capture_stats(tracker1)
     os.remove(trace)
     print(f"profile: window of {N_WINDOW} frames (frames {N_WARM}-{N_WARM + N_WINDOW - 1}); "
           f"untraced wall {wall0 * 1e3:.1f} ms ({wall0 * 1e3 / N_WINDOW:.1f} ms/frame); "
           f"traced (CUDA activity only) wall {wall1 * 1e3:.1f} ms ({wall1 / wall0:.2f}x the untraced)", flush=True)
     print(f"profile: device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / 1e6 / wall1:.1f}% of the traced window; "
           f"over the untraced window's wall time (derived estimate) {100 * busy_us / 1e6 / wall0:.1f}%; "
-          f"{n_dev} device activities, {launches} cudaLaunchKernel calls "
-          f"({launches / N_WINDOW:.0f} per frame)", flush=True)
+          f"{n_dev} device activities; from the host {launches} kernel launches ({launches / N_WINDOW:.0f} per "
+          f"frame) and {graph_launches} graph launches ({graph_launches / N_WINDOW:.1f} per frame); the fused step "
+          f"captured in {cap_ms:.1f} ms (warm-up included), graph pool {pool / 2**20:.1f} MiB", flush=True)
 
     prof2 = torch.profiler.profile(activities=[acts.CPU, acts.CUDA])
-    wall2 = _window(cam, cfg, frames, dev, prof2)
+    wall2, _ = _window(cam, cfg, frames, dev, prof2)
     ka = prof2.key_averages()
     with open(os.path.join(args.out, "ops.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40, max_name_column_width=70) + "\n")

@@ -24,7 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from pli_slam_tpu_torch.ops.indexing import top_k
+from pli_slam_tpu_torch.ops.consts import device_const
+from pli_slam_tpu_torch.ops.indexing import set_row, top_k
 
 
 def _hyperplanes(seed: int, n_bits: int, dim: int = 256) -> np.ndarray:
@@ -42,7 +43,7 @@ class Vocabulary:
         return 1 << self.n_bits
 
     def planes(self, device=None) -> torch.Tensor:
-        return torch.as_tensor(_hyperplanes(self.seed, self.n_bits), device=device)
+        return device_const(("lsh_planes", self.seed, self.n_bits), device, lambda: _hyperplanes(self.seed, self.n_bits))
 
     def words(self, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         proj = torch.matmul(desc.float(), self.planes(desc.device))
@@ -175,12 +176,10 @@ class BowDatabase:
             valid=torch.zeros(capacity, dtype=torch.bool, device=device),
         )
 
-    def add(self, slot: int, bow_pt, bow_ln) -> "BowDatabase":
-        hist_pt, hist_ln, valid = self.hist_pt.clone(), self.hist_ln.clone(), self.valid.clone()
-        hist_pt[slot] = bow_pt
-        hist_ln[slot] = bow_ln
-        valid[slot] = True
-        return BowDatabase(hist_pt=hist_pt, hist_ln=hist_ln, valid=valid)
+    def add(self, slot, bow_pt, bow_ln) -> "BowDatabase":
+        """Row `slot` (a host int or a 0-d device int) <- the keyframe's histograms."""
+        return BowDatabase(hist_pt=set_row(self.hist_pt, slot, bow_pt), hist_ln=set_row(self.hist_ln, slot, bow_ln),
+                           valid=set_row(self.valid, slot, True))
 
 
 def query(db: BowDatabase, bow_pt, bow_ln, exclude_mask, n_best: int = 3, line_weight: float = 0.3,
@@ -206,7 +205,7 @@ def query(db: BowDatabase, bow_pt, bow_ln, exclude_mask, n_best: int = 3, line_w
     acc = s + torch.matmul(nb.to(s.dtype), s)
     acc = torch.where(score > -0.5, acc, torch.full_like(acc, -1.0))
     top_acc, anchors = top_k(acc, n_best)
-    member = nb[anchors] | torch.nn.functional.one_hot(anchors, K).to(torch.bool)
+    member = nb[anchors] | (anchors[:, None] == torch.arange(K, device=dev))  # one_hot checks its range on the host
     member_s = torch.where(member & (score > -0.5)[None], s[None], neg)
     best = torch.argmax(member_s, dim=1)
     best_s = torch.gather(member_s, 1, best[:, None])[:, 0]

@@ -83,6 +83,7 @@ from pli_slam_tpu.utils.config import SlamConfig
 from pli_slam_tpu.worldmap import stores as jst
 from pli_slam_tpu_torch.frontend import loop_closing as tlc
 from pli_slam_tpu_torch.frontend import step as tstep
+from pli_slam_tpu_torch.frontend.graphs import FusedStep
 from pli_slam_tpu_torch.frontend.tracker import Tracker, TrackingState
 from pli_slam_tpu_torch.ops.camera import Camera as TCamera
 from pli_slam_tpu_torch.scripts import bench
@@ -357,8 +358,8 @@ def test_keyframe_added_after_the_queue(ref_run):
     n_queued = len(jt._deferred_ba)
     fr = frames[0]
     jt.frames_since_kf = tt.frames_since_kf = cfg.tracking.kf_max_interval
-    tt._step_vi = tstep.make_step_vi(TC, port_cfg(cfg), convert.vocabulary(jt.voc_pt), convert.vocabulary(jt.voc_ln),
-                                     lambda fd: fd)
+    tt._step_vi = FusedStep(tstep.vi_segments(TC, port_cfg(cfg), convert.vocabulary(jt.voc_pt),
+                                              convert.vocabulary(jt.voc_ln), lambda fd: fd), "cpu", graphs=False)
     fd = convert.frame_data(np_tree(jt.build_frame(fr["il"], fr["ir"])))
     n_kf = int(jt.n_kf)
     info_t = tt._process_fused_vi((fd,), fr["t"], True, fr["imu"])

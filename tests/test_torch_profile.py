@@ -58,13 +58,15 @@ def test_trace_busy_counts_device_activity_and_launches(tmp_path):
         {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 9.0, "dur": 1.0},
         {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 11.0, "dur": 1.0},
         {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 29.0, "dur": 1.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernelExC", "ts": 40.0, "dur": 1.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 50.0, "dur": 1.0},
         {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 9.5},
     ]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
-    busy, n_dev, launches = profile.trace_busy(str(path))
+    busy, n_dev, launches, graph_launches = profile.trace_busy(str(path))
     assert busy == pytest.approx(9.0)
-    assert (n_dev, launches) == (3, 2)
+    assert (n_dev, launches, graph_launches) == (3, 3, 1)
 
 
 def test_main_refuses_without_a_gpu(monkeypatch, tmp_path):
