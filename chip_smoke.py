@@ -22,7 +22,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                against its twin (torch.linalg.svd + det): near rotations
                within 1e-5, general matrices within 1e-4, the sign of det
                exactly equal, at batch 1, 10 and 4096; its time per launch,
-               the twin's and one torch.linalg.svd call's;
+               the whole call's, the twin's and one torch.linalg.svd call's;
+               then both against the float64 closest rotation of the same
+               float32 input (ROADMAP queue 3 A4), on the main path's
+               matrices (preintegration's 16-increment products, Gauss-Newton
+               and BA pose updates, formed on the card) and on general ones:
+               the kernel's largest error no larger than the twin's;
   4. main path -- first its stages on a 128x96 input (build_frame, keyframe
                insertion, one tracking step; IMU preintegration and
                composition, one inertial pose solve, one visual-inertial
@@ -241,20 +246,29 @@ Phases (each prints one line; any failure raises and exits non-zero):
                (read from bench.py's source with `ast`), imu_ready is true,
                both ATEs and every time are finite.
   15. CUDA graphs -- on a GPU every fused frame above ran its step as CUDA
-               graphs (frontend.graphs: the tracking graph, the one read, the
-               keyframe graph), the default of `Tracker`. Phase 15 runs phase
-               4's 40 frames and phase 5's 52 frames through a graph Tracker,
-               and their first N_EAGER_VISUAL / N_EAGER_VI frames through a
-               `cuda_graphs=False` one: over those, every frame's (R, t),
-               every fused frame's stats vector and the stores after the
-               last and both kernels' launch counts must be bit-identical
-               (the first frame and tensor that differ are printed
-               otherwise). Each side prints fps, p50, p99
-               and worst over its fused frames (the captures included),
-               host-issued kernel and graph launches per frame and the
-               device's busy share over its last N_GRAPH_TRACE frames
-               (traced, CUDA activity only, kept out of the timing), capture
-               ms, graph-pool size, peak memory and both kernels' launches.
+               graphs (frontend.graphs.FusedStep: the tracking graph, the one
+               read, the keyframe graph), and every host-orchestrated frame
+               its stages (frontend.graphs.StageProgram: preintegration,
+               build, tracking, insertion, windowed BA, BoW, culling, local
+               map), the default of `Tracker`. Phase 15 runs phase
+               4's 40 frames and phase 5's 52 frames (host-path frames until
+               the IMU initialization at frame ~30, fused ones after)
+               through a graph Tracker, and their first N_EAGER_VISUAL /
+               N_EAGER_VI frames through a `cuda_graphs=False` one: over
+               those, every frame's (R, t) and record, every fused frame's
+               stats vector and the stores after the last and both kernels'
+               launch counts must be bit-identical (the first frame and
+               tensor that differ are printed otherwise). Each side prints
+               fps, p50, p99 and worst over its fused frames and over its
+               host-path frames apart (the captures included), host-issued
+               kernel and graph launches per frame and the device's busy
+               share over its last N_GRAPH_TRACE frames (traced, CUDA
+               activity only, kept out of the timing), the launches of
+               phase 5's host-path frames traced one by one (a keyframe and
+               a tracking-only frame among them: under graphs at most
+               HOST_LAUNCH_LIMIT kernel launches each, or a stage ran
+               eagerly), each stage's capture ms, capture ms, graph-pool
+               size, peak memory and both kernels' launches.
                bench.py's graphs against eager is `python3 -m
                pli_slam_tpu_torch.scripts.bench [--no-graphs]`.
 Every phase's wall time is printed at the end. Phase 6a keeps its 180
@@ -364,6 +378,7 @@ def phase_rot3(dev):
     sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
     rot3.closest_rotation_cuda(x, sweeps)
     n_sweeps = int(sweeps[0])
+    t_call = eager_ms(lambda: rot3.closest_rotation_cuda(x))
     t_plain_a = eager_ms(lambda: rot3.closest_rotation_reference(x))
     t_lib_a = eager_ms(lambda: torch.linalg.svd(x))
     t_kern_a = graph_ms(lambda: rot3.closest_rotation_cuda(x))
@@ -374,11 +389,57 @@ def phase_rot3(dev):
     bytes_moved, ops = 72, 198 * n_sweeps + 95
     bound = max(bytes_moved / 3.35e12, ops / 67e12) * 1e3
     out = {"max_abs_err": max_err, "ms": 0.5 * (t_kern_a + t_kern_b), "plain_ms": 0.5 * (t_plain_a + t_plain_b),
-           "library_ms": 0.5 * (t_lib_a + t_lib_b), "bound_ms": bound,
+           "library_ms": 0.5 * (t_lib_a + t_lib_b), "bound_ms": bound, "call_ms": t_call,
            "bound_by": "bytes" if bytes_moved / 3.35e12 >= ops / 67e12 else "operations", "sweeps": n_sweeps}
     log(f"kernels: closest_rotation batch 1: kernel {out['ms']:.4f} ms per launch (50 launches in a CUDA graph), "
-        f"twin {out['plain_ms']:.4f} ms, torch.linalg.svd alone {out['library_ms']:.4f} ms; {n_sweeps} Jacobi "
-        f"sweeps, bound {bound:.3e} ms ({out['bound_by']})")
+        f"whole call eager {t_call:.4f} ms, twin {out['plain_ms']:.4f} ms, torch.linalg.svd alone "
+        f"{out['library_ms']:.4f} ms; {n_sweeps} Jacobi sweeps, bound {bound:.3e} ms ({out['bound_by']})")
+    out["float64"] = rot3_accuracy(dev, g)
+    return out
+
+
+def rot3_main_path_matrices(dev, g, n=512):
+    """What the main path hands the closest rotation, formed on the card in
+    float32 as the port forms it: preintegration's product of 16 rotation
+    increments (ops.imu.preintegrate: gyro up to 2 rad/s over 5 ms samples)
+    and Gauss-Newton / BA pose updates (so3_exp(delta) @ R, solve.gn and
+    solve.ba, delta up to ~0.03 rad)."""
+    import torch
+
+    from pli_slam_tpu_torch.ops import lie
+    from pli_slam_tpu_torch.ops.kernels import rot3
+
+    w = (torch.rand(n, 16, 3, generator=g) * 2 - 1) * 2.0 * 0.005
+    inc = lie.so3_exp(w.to(dev))
+    dR = inc[:, 0]
+    for i in range(1, 16):
+        dR = lie._mm(dR, inc[:, i])
+    R = rot3.closest_rotation_reference(torch.randn(n, 3, 3, generator=g)).to(dev)
+    delta = lie.so3_exp((torch.randn(n, 3, generator=g) * 0.01).to(dev))
+    return torch.cat([dR, lie._mm(delta, R)])
+
+
+def rot3_accuracy(dev, g) -> dict:
+    """ROADMAP queue 3 A4: the kernel and its twin (torch.linalg.svd + det,
+    cuSOLVER on the card) against the closest rotation of the same float32
+    input in float64, on the main path's matrices and on general ones. The
+    kernel's largest error must be no larger than the twin's on both."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import rot3
+
+    out = {}
+    for label, x in (("main_path", rot3_main_path_matrices(dev, g)),
+                     ("general", torch.randn(1024, 3, 3, generator=g).to(dev))):
+        exact = rot3.closest_rotation_reference(x.double())
+        e_kern = float((rot3.closest_rotation_cuda(x).double() - exact).abs().max())
+        e_twin = float((rot3.closest_rotation_reference(x).double() - exact).abs().max())
+        out[label] = {"kernel": e_kern, "twin": e_twin}
+        log(f"kernels: closest_rotation against float64 ({label}, {x.shape[0]} matrices): max error kernel "
+            f"{e_kern:.3e}, twin {e_twin:.3e}")
+        if not e_kern <= e_twin:
+            raise AssertionError(f"closest_rotation ({label}) lies farther from float64 than its twin: "
+                                 f"{e_kern:.3e} > {e_twin:.3e}")
     return out
 
 
@@ -725,7 +786,8 @@ def phase_vi_path(dev, smi):
     from pli_slam_tpu_torch.frontend.tracker import Tracker, TrackingState
     from pli_slam_tpu_torch.ops.kernels import hamming
     from pli_slam_tpu_torch.utils import synthetic
-    from pli_slam_tpu_torch.utils.profile import N_FRAMES_VI, slice_camera, slice_config_vi, vi_frames
+    from pli_slam_tpu_torch.utils.profile import (N_FRAMES_VI, slice_camera, slice_config_vi, stage_captures,
+                                                  vi_frames)
 
     cfg, cam = slice_config_vi(), slice_camera()
     t0 = time.perf_counter()
@@ -815,7 +877,9 @@ def phase_vi_path(dev, smi):
     n_rot3, vi_step = ROT3_LAUNCHES["phase_vi_path"], tracker._step_vi
     log(f"vi path: closest_rotation launches {n_rot3}; fused stereo-inertial step captured in "
         f"{vi_step.capture_ms:.1f} ms, graph pool {vi_step.pool_bytes / 2**20:.1f} MiB, {vi_step.replays} graph "
-        f"replays [{smi}]")
+        f"replays; host-path stages captured in (ms) {stage_captures(tracker)}, graph pool "
+        f"{sum(p.pool_bytes for p in tracker.stage_programs()) / 2**20:.1f} MiB, "
+        f"{sum(p.replays for p in tracker.stage_programs())} stage replays [{smi}]")
     if n_rot3 < N_FRAMES_VI - 1 or vi_step.replays < 0.9 * n_fused:
         raise AssertionError(f"closest_rotation launched {n_rot3} times and the graphs replayed {vi_step.replays} "
                              f"times for {n_fused} fused frames")
@@ -2123,7 +2187,7 @@ def phase_bench(dev, smi, run, room):
 
 
 # ---------------------------------------------------------------------------
-# Phase 15: the fused steps as CUDA graphs against the same steps run eagerly
+# Phase 15: the fused steps and the host-path stages as CUDA graphs against the same run eagerly
 # ---------------------------------------------------------------------------
 
 
@@ -2132,28 +2196,54 @@ N_GRAPH_TRACE = 4  # each phase-15 run's last frames, traced (CUDA activity only
 # ~1-2 s each, and the script keeps its time (700-770 s). 40 frames of phase 5 pass its IMU initialization
 # (frame 30).
 N_EAGER_VISUAL, N_EAGER_VI = 20, 40
+HOST_TRACE_FROM, HOST_TRACE_MAX = 12, 8  # phase 5's host-path frames traced one by one from frame 12 until a
+# keyframe and a tracking-only frame are both among them
+HOST_LAUNCH_LIMIT = 2000  # host kernel launches a host-path frame under graphs: more means a stage ran eagerly
 STORES = ("pstore", "lstore", "kstore", "bow_db")
 
 
-def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: int) -> dict:
+def _traced(dev, fn) -> tuple[float, float, int, int]:
+    """`fn()` inside a CUDA-activity trace, the device synchronised after it:
+    (wall s, device busy us, host kernel launches, host graph launches)."""
+    import torch
+
+    from pli_slam_tpu_torch.utils.profile import trace_busy
+
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    trace = os.path.join(ROOT, "build", "graph_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    busy_us, _, launches, graph_launches = trace_busy(trace)
+    os.remove(trace)
+    return wall, busy_us, launches, graph_launches
+
+
+def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: int, host_trace: bool = False) -> dict:
     """One run of phase 15 over `frames`: every frame's (R, t) and every fused
-    frame's stats vector recorded, the stores copied after `snapshot_after`
-    frames; fused frames timed, except the last N_GRAPH_TRACE, which run
-    inside a CUDA-activity trace."""
+    frame's stats vector recorded, the frames' records and the stores copied
+    after `snapshot_after` frames; host-path and fused frames timed apart,
+    except the host-path frames traced one by one (with `host_trace`: from
+    HOST_TRACE_FROM until a keyframe and a tracking-only frame are among
+    them) and the last N_GRAPH_TRACE (fused frames, traced together)."""
     import numpy as np
     import torch
 
     from pli_slam_tpu_torch.frontend import graphs
     from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.ops.kernels import hamming, rot3
-    from pli_slam_tpu_torch.utils.profile import capture_stats, trace_busy
+    from pli_slam_tpu_torch.utils.profile import capture_stats, stage_captures
 
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     mem0 = torch.cuda.memory_allocated(dev)
     tracker = Tracker(cam, cfg, dev, cuda_graphs=cuda_graphs)
     tracker.streaming = True
-    stats, poses, ms = [], [], []
+    stats, poses = [], []
     finish = tracker._finish_fused
 
     def record(stamp, stats_dev, img_args):
@@ -2165,7 +2255,8 @@ def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: i
     snapshot = {}
 
     def one(fr):
-        n0 = len(stats)
+        """(fused?, made a keyframe?, ms) of one frame."""
+        n0, k0 = len(stats), tracker.n_kf
         f0 = time.perf_counter()
         tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr.get("imu"))
         dt = (time.perf_counter() - f0) * 1e3
@@ -2173,28 +2264,31 @@ def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: i
         if len(poses) == snapshot_after:
             snapshot.update({name: graphs.tree_clone(getattr(tracker, name)) for name in STORES})
             snapshot["launches"] = (hamming.launches, rot3.launches)
-        return dt if len(stats) > n0 else None
+            snapshot["infos"] = [dict(info) for info in tracker.stats]
+        return len(stats) > n0, tracker.n_kf > k0, dt
 
     reset_counts()
     n_timed = len(frames) - N_GRAPH_TRACE
-    ms = [dt for dt in map(one, frames[:n_timed]) if dt is not None]
-    torch.cuda.synchronize(dev)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for fr in frames[n_timed:]:
-            one(fr)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    trace = os.path.join(ROOT, "build", "graph_trace.json")
-    os.makedirs(os.path.dirname(trace), exist_ok=True)
-    prof.export_chrome_trace(trace)
-    busy_us, _, launches, graph_launches = trace_busy(trace)
-    os.remove(trace)
-    torch.cuda.synchronize(dev)
+    timed, host_traced = [], []
+    for i, fr in enumerate(frames[:n_timed]):
+        kinds = {kf for kf, _, _ in host_traced}
+        if host_trace and i >= HOST_TRACE_FROM and len(kinds) < 2 and i < HOST_TRACE_FROM + HOST_TRACE_MAX:
+            res = []
+            _, _, launches, graph_launches = _traced(dev, lambda: res.append(one(fr)))
+            fused, kf, _ = res[0]
+            if not fused:
+                host_traced.append((kf, launches, graph_launches))
+        else:
+            timed.append(one(fr))
+    wall, busy_us, launches, graph_launches = _traced(dev, lambda: [one(fr) for fr in frames[n_timed:]])
     cap_ms, pool = capture_stats(tracker)
-    return dict(snapshot=snapshot, poses=poses, stats=stats, ms=np.asarray(ms), busy=busy_us / 1e6 / wall,
+    return dict(snapshot=snapshot, poses=poses, stats=stats, busy=busy_us / 1e6 / wall,
+                fused_ms=np.asarray([dt for fused, _, dt in timed if fused]),
+                host_ms=np.asarray([dt for fused, _, dt in timed if not fused]),
+                host_kf=sum(1 for fused, kf, _ in timed if kf and not fused), host_traced=host_traced,
                 launches=launches / N_GRAPH_TRACE, graph_launches=graph_launches / N_GRAPH_TRACE,
-                capture_ms=cap_ms, pool=pool, peak=torch.cuda.max_memory_allocated(dev) - mem0,
+                capture_ms=cap_ms, pool=pool, stage_ms=stage_captures(tracker),
+                peak=torch.cuda.max_memory_allocated(dev) - mem0,
                 gated_match=hamming.launches, closest_rotation=count_rot3())
 
 
@@ -2222,6 +2316,9 @@ def _first_difference(g: dict, e: dict) -> str | None:
             return f"fused frame {i}: the stats vector ({a.tolist()} / {b.tolist()})"
     if not g["snapshot"] or not e["snapshot"]:
         return "the stores: not copied"
+    for i, (a, b) in enumerate(zip(g["snapshot"]["infos"], e["snapshot"]["infos"])):
+        if a != b:
+            return f"the record of frame {i} ({a} / {b})"
     if g["snapshot"]["launches"] != e["snapshot"]["launches"]:
         return f"the kernels' launch counts (gated_match, closest_rotation): {g['snapshot']['launches']} / " \
                f"{e['snapshot']['launches']}"
@@ -2233,40 +2330,64 @@ def _first_difference(g: dict, e: dict) -> str | None:
     return None
 
 
-def _side_line(label: str, r: dict) -> str:
+def _pcts(ms) -> str:
     import numpy as np
 
-    ms = r["ms"]
-    return (f"{label}: fps {1e3 / ms.mean():.3f}, p50 {np.percentile(ms, 50):.2f} ms, p99 {np.percentile(ms, 99):.2f} "
-            f"ms, worst {ms.max():.2f} ms over {len(ms)} fused frames; from the host per traced frame "
+    if not len(ms):
+        return "none"
+    return (f"fps {1e3 / ms.mean():.3f}, p50 {np.percentile(ms, 50):.2f} ms, p99 {np.percentile(ms, 99):.2f} ms, "
+            f"worst {ms.max():.2f} ms over {len(ms)} frames")
+
+
+def _side_line(label: str, r: dict) -> str:
+    return (f"{label}: fused frames {_pcts(r['fused_ms'])}; from the host per traced fused frame "
             f"{r['launches']:.0f} kernel launches and {r['graph_launches']:.1f} graph launches; device busy "
-            f"{100 * r['busy']:.1f}% of the traced window; capture {r['capture_ms']:.1f} ms, graph pool "
+            f"{100 * r['busy']:.1f}% of the traced window; captures {r['capture_ms']:.1f} ms, graph pools "
             f"{r['pool'] / 2**20:.1f} MiB; peak memory {r['peak'] / 2**20:.1f} MiB; launches: gated_match "
             f"{r['gated_match']}, closest_rotation {r['closest_rotation']}")
 
 
+def _host_line(label: str, r: dict) -> str:
+    traced = "; ".join(f"{'keyframe' if kf else 'tracking only'}: {n} kernel and {ng} graph launches"
+                       for kf, n, ng in r["host_traced"])
+    return (f"{label}: host-path frames {_pcts(r['host_ms'])} ({r['host_kf']} keyframes among them), the "
+            f"first's stage captures included; traced one by one: {traced or 'none'}; stage captures (ms) "
+            f"{r['stage_ms']}")
+
+
 def phase_graphs(dev, smi, room, vi):
     """15 (see the module docstring): graphs against eager on phase 4's and
-    phase 5's frames, bit for bit over the eager runs' depths."""
+    phase 5's frames, bit for bit over the eager runs' depths, host-path
+    frames included."""
     import torch
 
     from pli_slam_tpu_torch.utils.profile import slice_camera, slice_config
 
     cam = slice_camera()
-    for name, cfg, frames, n_eager in (("visual", slice_config(), room, N_EAGER_VISUAL),
-                                        ("stereo-inertial", vi[0], vi[1], N_EAGER_VI)):
-        g = phase_graphs_run(dev, cam, cfg, frames, True, n_eager)
-        e = phase_graphs_run(dev, cam, cfg, frames[:n_eager], False, n_eager)
-        log(f"graphs 15 {name}: " + _side_line(f"graphs, {len(frames)} frames", g) + f" [{smi}]")
-        log(f"graphs 15 {name}: " + _side_line(f"eager, {n_eager} frames", e) + f" [{smi}]")
+    for name, cfg, frames, n_eager, host_trace in (("visual", slice_config(), room, N_EAGER_VISUAL, False),
+                                                    ("stereo-inertial", vi[0], vi[1], N_EAGER_VI, True)):
+        g = phase_graphs_run(dev, cam, cfg, frames, True, n_eager, host_trace)
+        e = phase_graphs_run(dev, cam, cfg, frames[:n_eager], False, n_eager, host_trace)
+        for label, r in ((f"graphs, {len(frames)} frames", g), (f"eager, {n_eager} frames", e)):
+            log(f"graphs 15 {name}: " + _side_line(label, r) + f" [{smi}]")
+            log(f"graphs 15 {name}: " + _host_line(label, r) + f" [{smi}]")
         diff = _first_difference(g, e)
         if diff is not None:
             raise AssertionError(f"graphs 15 {name}: graphs and eager differ first at {diff}")
         if not g["graph_launches"] > 0 or e["graph_launches"] != 0:
             raise AssertionError(f"graphs 15 {name}: graph launches per frame {g['graph_launches']} with graphs, "
                                  f"{e['graph_launches']} eager")
-        log(f"graphs 15 {name}: over the eager run's {len(e['poses'])} frames every frame's (R, t), every fused "
-            f"frame's stats vector ({len(e['stats'])}), the stores after the last and the kernels' launches "
+        if host_trace:
+            if not g["host_traced"] or not any(kf for kf, _, _ in g["host_traced"]):
+                raise AssertionError(f"graphs 15 {name}: no host-path keyframe among the traced frames "
+                                     f"({g['host_traced']})")
+            worst = max(n for _, n, _ in g["host_traced"])
+            if worst > HOST_LAUNCH_LIMIT or any(ng == 0 for _, _, ng in g["host_traced"]):
+                raise AssertionError(f"graphs 15 {name}: a host-path frame under graphs issued {worst} kernel "
+                                     f"launches (limit {HOST_LAUNCH_LIMIT}): a stage ran eagerly "
+                                     f"({g['host_traced']})")
+        log(f"graphs 15 {name}: over the eager run's {len(e['poses'])} frames every frame's (R, t) and record, every "
+            f"fused frame's stats vector ({len(e['stats'])}), the stores after the last and the kernels' launches "
             f"{e['snapshot']['launches']} are bit-identical")
         del g, e
         torch.cuda.empty_cache()
@@ -2366,6 +2487,7 @@ def main() -> int:
         "launches": sum(ROT3_LAUNCHES.values()), "max_abs_err": rot3_line["max_abs_err"], "ms": rot3_line["ms"],
         "plain_ms": rot3_line["plain_ms"], "bound_ms": rot3_line["bound_ms"], "bound_by": rot3_line["bound_by"],
         "library_ms": rot3_line["library_ms"], "shape": "1 x 3 x 3", "sweeps": rot3_line["sweeps"],
+        "call_ms": rot3_line["call_ms"], "max_abs_err_float64": rot3_line["float64"],
         **{f"launches_{name.removeprefix('phase_')}": n for name, n in ROT3_LAUNCHES.items()},
     }]}))
     log(smi)

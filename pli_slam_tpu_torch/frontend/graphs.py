@@ -1,9 +1,11 @@
-"""The fused per-frame steps as CUDA graphs: the port's counterpart of the
-reference's `jax.jit(step)` (pli_slam_tpu/frontend/tracker.py:1225, :1425).
+"""The per-frame programs as CUDA graphs: the port's counterpart of the
+reference's `jax.jit(step)` (pli_slam_tpu/frontend/tracker.py:1225, :1425)
+and of its jitted stage programs (`jax.jit(partial(stage, cam, cfg))`,
+tracker.py:1518-1579, :1612, :1676-1678).
 
-A step is cut at its one device->host read (frontend.step.Segments): T
-builds and tracks the frame, K is the keyframe branch. `FusedStep` runs them
-for a `Tracker`:
+`FusedStep` runs a fused step, cut at its one device->host read
+(frontend.step.Segments): T builds and tracks the frame, K is the keyframe
+branch.
 
 - with `graphs=True` (CUDA only) T is captured into one CUDA graph at the
   first fused frame and K (for keyframes with windowed BA, n_kf >= 2) at
@@ -28,14 +30,33 @@ the host's keyframe counters when they differ from what the last fused
 frame left on the device. Per-frame inputs (images, IMU batch, stamp, the
 widened-window flag) are copied into static input buffers.
 
-Capture. Each segment is run once eagerly on a side stream first, without
-committing its results (kernel builds, cuBLAS / cuSOLVER handles, the
-gated-match kernel's tickets on that stream, the constants of ops.consts),
-then captured on that stream; T and K share one memory pool. A capture that
-fails raises, naming the segment (PyTorch's error names the operation);
-nothing falls back to eager. The hand-written kernels' launch counters
-count per replay (ops.kernels.hamming.ReplayCounter), so a graph frame
-counts what an eager frame counts.
+`StageProgram` runs one stage of the host-orchestrated frames
+(preintegration, the frame build, tracking, keyframe insertion, windowed
+BA, BoW, culling, the local map: frontend.step's host-path stages): it
+captures the stage once per input signature -- the tree structure, shapes
+and dtypes of its arguments and the values of their non-tensor leaves,
+which is jit's cache -- and replays it on every later call. Values that
+change from call to call (keyframe slots and counts, the stamp, flags)
+enter as 0-d device tensors, so they are copied in, not captured. Each
+call copies its arguments into the signature's static input buffers
+(`copy_into`, which skips a source that already is its buffer) and returns
+its results as copies: the host path keeps results across frames (the
+previous pose, the trajectory record, the per-keyframe accumulator, the
+Atlas's parked stores), and the next replay overwrites the graph's own
+output buffers. A result that is one of the stage's inputs passed through
+unchanged (a store field the stage does not write) is returned as the
+caller's own tensor, as the eager stage returns it. With `graphs=False`
+(and always on the CPU) the stage runs eagerly.
+
+Capture (`capture_graph`, both classes). The body is run once eagerly on a
+side stream first, its launches uncounted and its results dropped (kernel
+builds, cuBLAS / cuSOLVER handles, the gated-match kernel's tickets on that
+stream, the constants of ops.consts), then captured on that stream into
+the caller's memory pool. A capture that fails raises, naming the segment
+or stage (PyTorch's error names the operation); nothing falls back to
+eager. The hand-written kernels' launch counters count per replay
+(ops.kernels.hamming.ReplayCounter), so a graph frame counts what an eager
+frame counts.
 """
 
 from __future__ import annotations
@@ -71,17 +92,37 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [a for a, _ in tree_pairs(tree, tree, [])]
 
 
+def tree_map(fn, tree):
+    """The same structure with `fn` applied to every tensor leaf."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: tree_map(fn, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    return tree
+
+
 def tree_clone(tree):
     """The same structure with every tensor leaf cloned into memory of its own."""
+    return tree_map(torch.Tensor.clone, tree)
+
+
+def signature(tree):
+    """What a capture is keyed on: the structure, every tensor leaf's shape,
+    dtype and device, and every other leaf's value (which must hash)."""
     if isinstance(tree, torch.Tensor):
-        return tree.clone()
+        return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
     if isinstance(tree, dict):
-        return {k: tree_clone(v) for k, v in tree.items()}
+        return ("dict", tuple((k, signature(v)) for k, v in tree.items()))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_clone(v) for v in tree)
+        return (type(tree), tuple(signature(v) for v in tree))
     if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{f.name: tree_clone(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
-    return tree
+        return (type(tree), tuple(signature(getattr(tree, f.name)) for f in dataclasses.fields(tree)))
+    return ("static", tree)
 
 
 def copy_into(pairs: list, static_storages: set) -> None:
@@ -102,6 +143,49 @@ def copy_into(pairs: list, static_storages: set) -> None:
             dst.copy_(src)
         else:
             dst.fill_(src)
+
+
+@dataclasses.dataclass
+class Captured:
+    """One captured graph: what `capture_graph` returns."""
+
+    graph: object  # torch.cuda.CUDAGraph, or anything with `replay()`
+    counter: hamming.ReplayCounter
+    outs: object  # the body's outputs from the capture: the graph rewrites them at every replay
+    ms: float  # wall time of the warm-up and the capture
+    pool_bytes: int  # device memory the capture reserved
+
+    def replay(self) -> None:
+        self.counter.replay(self.graph)
+
+
+def capture_graph(device, pool, what: str, body, stream=None) -> Captured:
+    """Warm `body` up on a side stream (`body(False)`: its launches
+    uncounted, its results dropped), then capture `body(True)` on that
+    stream into `pool`. A failed capture raises, naming `what`."""
+    dev = torch.device(device)
+    side = stream if stream is not None else torch.cuda.Stream(dev)
+    t0 = time.perf_counter()
+    counter = hamming.ReplayCounter(hamming, rot3)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with counter.uncounted():
+            body(False)
+        # what torch.cuda.graph releases on entry, released first: the growth is then the private pool's
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        try:
+            with counter.capturing(), torch.cuda.graph(graph, pool=pool, stream=side,
+                                                       capture_error_mode="thread_local"):
+                outs = body(True)
+        except Exception as exc:
+            raise RuntimeError(f"capturing {what} failed: {exc}") from exc
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return Captured(graph, counter, outs, (time.perf_counter() - t0) * 1e3,
+                    torch.cuda.memory_reserved(dev) - reserved0)
 
 
 class FusedStep:
@@ -172,36 +256,14 @@ class FusedStep:
             self._commit(new)
         return out
 
-    def _capture(self, name: str, body):
-        """Warm `body` up on the side stream (its launches uncounted, its
-        results dropped), capture it, and return (graph, counter, outputs)."""
-        dev, side = self.device, self._stream
-        t0 = time.perf_counter()
-        counter = hamming.ReplayCounter(hamming, rot3)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            with counter.uncounted():
-                body(False)
-            # what torch.cuda.graph releases on entry, released first: the growth is then the private pool's
-            torch.cuda.synchronize(dev)
-            gc.collect()
-            torch.cuda.empty_cache()
-            reserved0 = torch.cuda.memory_reserved(dev)
-            try:
-                with counter.capturing(), torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                                           capture_error_mode="thread_local"):
-                    outs = body(True)
-            except Exception as exc:
-                raise RuntimeError(f"capturing segment {name} of the fused step failed: {exc}") from exc
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.capture_ms += (time.perf_counter() - t0) * 1e3
-        self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved0
-        return graph, counter, outs
+    def _capture(self, name: str, body) -> Captured:
+        cap = capture_graph(self.device, self._pool, f"segment {name} of the fused step", body, self._stream)
+        self.capture_ms += cap.ms
+        self.pool_bytes += cap.pool_bytes
+        return cap
 
-    def _replay(self, seg) -> None:
-        graph, counter, _ = seg
-        counter.replay(graph)
+    def _replay(self, seg: Captured) -> None:
+        seg.replay()
         self.replays += 1
 
     def __call__(self, state: dict, inputs: dict, n_kf: int, fs: int, allow_mapping):
@@ -211,7 +273,7 @@ class FusedStep:
         if self.T is None:
             self.T = self._capture("T (track)", self._run_track)
         self._replay(self.T)
-        out, self.carry = self.T[2]
+        out, self.carry = self.T.outs
         self._read.copy_(out["read"], non_blocking=True)
         self._event.record()
         self._event.synchronize()
@@ -221,10 +283,72 @@ class FusedStep:
             if self.K is None:
                 self.K = self._capture("K (keyframe)", self._run_keyframe)
             self._replay(self.K)
-            out = self.K[2]
+            out = self.K.outs
         elif need_kf:  # the first keyframes, without windowed BA, run eagerly on the buffers
             new, out = self.segs.keyframe(self.inputs, self.static, self.carry, False)
             self._commit(new)
         self._counters = (n_kf + 1, 0) if need_kf else (n_kf, fs + 1)
         out = {k: out[k].clone() for k in ("stats", "ref", "rel_R", "rel_t")}  # the next replay overwrites them
         return self.static, out, need_kf
+
+
+class StageProgram:
+    """One stage of the host-orchestrated frames (`fn`, a function of
+    tensors, trees of tensors and hashable static values) run on `device`,
+    as CUDA graphs when `graphs` is set: captured at the first call with
+    each input signature and replayed at every later one (see the module
+    docstring). `pool`: the graph memory pool the captures share (a
+    tracker's stages share one). `capture`: what captures a graph,
+    `capture_graph` unless a test hands in a stand-in."""
+
+    max_signatures = 8  # more means a per-call host value in the signature: it would capture every call
+
+    def __init__(self, fn, device, graphs: bool, name: str, pool=None, capture=None):
+        self.fn = fn
+        self.name = name
+        self.device = torch.device(device)
+        self.graphs = bool(graphs)
+        if self.graphs and capture is None and self.device.type != "cuda":
+            raise ValueError(f"stage {name}: CUDA graphs need a CUDA device, not {self.device}")
+        self._capture = capture_graph if capture is None else capture
+        self._pool = pool
+        self._entries: dict = {}  # signature -> (static inputs, Captured, output leaf -> input leaf index)
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self.replays = 0
+
+    @property
+    def captures(self) -> int:
+        return len(self._entries)
+
+    def _new_entry(self, args):
+        if len(self._entries) >= self.max_signatures:
+            raise RuntimeError(f"stage {self.name}: input signature {len(self._entries) + 1}; a value that changes "
+                               f"between calls must enter as a device tensor")
+        inputs = tree_clone(args)
+        leaves = tree_leaves(inputs)
+        versions = [t._version for t in leaves]
+        cap = self._capture(self.device, self._pool, f"stage {self.name}", lambda commit: self.fn(*inputs))
+        if [t._version for t in leaves] != versions:
+            raise RuntimeError(f"stage {self.name} writes into its inputs")
+        where = {(t.data_ptr(), t.shape, t.stride(), t.dtype): i for i, t in enumerate(leaves)}
+        alias = [where.get((t.data_ptr(), t.shape, t.stride(), t.dtype)) for t in tree_leaves(cap.outs)]
+        self.capture_ms += cap.ms
+        self.pool_bytes += cap.pool_bytes
+        return inputs, cap, alias
+
+    def __call__(self, *args):
+        if not self.graphs:
+            return self.fn(*args)
+        key = signature(args)
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = self._new_entry(args)
+        else:
+            copy_into(tree_pairs(entry[0], args, []), set())
+        _, cap, alias = entry
+        cap.replay()
+        self.replays += 1
+        sources = tree_leaves(args)
+        results = iter([t.clone() if a is None else sources[a] for t, a in zip(tree_leaves(cap.outs), alias)])
+        return tree_map(lambda _: next(results), cap.outs)

@@ -723,6 +723,140 @@ def vocab_query(db, bow_pt, bow_ln, exclude_mask, n_best: int = 3, covis=None):
 
 
 # ---------------------------------------------------------------------------
+# The host-orchestrated frames' stages (frontend.graphs.StageProgram)
+# ---------------------------------------------------------------------------
+
+
+def _motion_twist(R, t, R_prev, t_prev):
+    """The motion model's velocity twist: T_cw composed with the previous T_wc."""
+    R_rel = lie._mm(R, R_prev.T)
+    return lie.se3_log(R_rel, t - lie._einsum("ij,j->i", R_rel, t_prev))
+
+
+def _motion_prediction(cfg: SlamConfig, R, t, vel_xi, has_vel):
+    """The motion model's predicted pose (R0, t0) and whether it applies
+    (`use_mm`, a 0-d device bool: a velocity exists and the model is on)."""
+    dR, dt = lie.se3_exp(vel_xi)
+    use_mm = has_vel & bool(cfg.tracking.motion_model)
+    return (torch.where(use_mm, lie._mm(dR, R), R), torch.where(use_mm, lie._einsum("ij,j->i", dR, t) + dt, t),
+            use_mm)
+
+
+def _imu_prediction(R, t, v_w, bg, ba, ext, preint, gravity_w):
+    """The IMU prediction across `preint`: the body state before (prev), the
+    predicted one (init) and the dead-reckoned camera pose and velocity
+    (the velocity clamped to 5 m/s: bias and gravity error integrate
+    without bound while tracking is lost)."""
+    prev = inr.body_state_from_camera(R, t, v_w, bg, ba, ext)
+    R_pred, v_pred, p_pred = imu_ops.predict_state(prev.R_wb, prev.v_w, prev.p_w, preint, bg, ba, gravity_w)
+    init = inr.BodyState(R_wb=R_pred, p_w=p_pred, v_w=v_pred, bg=bg, ba=ba)
+    R0, t0 = inr.camera_pose(init, ext)
+    v0 = v_pred * torch.clamp(5.0 / torch.clamp(torch.linalg.norm(v_pred), min=1e-9), max=1.0)
+    return prev, init, R0, t0, v0
+
+
+def _track_read(n_in, pstore, lstore):
+    """The host path's tracking read: (inliers, valid points, valid lines) as int32."""
+    i32 = torch.int32
+    return torch.stack([n_in.to(i32), torch.sum(pstore.valid, dtype=i32), torch.sum(lstore.valid, dtype=i32)])
+
+
+def preintegrate_packed(cfg: SlamConfig, imu, bg, ba):
+    """This frame's preintegration (the reference's `_preintegrate`) from the
+    packed [T, 8] batch g | a | dt | mask."""
+    return imu_ops.preintegrate(imu[:, 0:3], imu[:, 3:6], imu[:, 6], imu[:, 7] > 0.5, bg, ba, cfg.imu)
+
+
+def host_track(cam, cfg: SlamConfig, frame: FrameData, R, t, vel_xi, has_vel, pstore, lstore):
+    """A host-path frame's visual tracking (the reference's `_track`, with the
+    motion-model prediction before it and the model's new twist after it):
+    the prediction (R0, t0), the solved pose (R, t), the twist from the
+    previous pose (R, t here) to the solved one, the matches, the stores and
+    `read` (`_track_read`)."""
+    R0, t0, use_mm = _motion_prediction(cfg, R, t, vel_xi, has_vel)
+    R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore = track_step(cam, cfg, frame, R0, t0, pstore, lstore,
+                                                                            wide=~use_mm)
+    return dict(R0=R0, t0=t0, R=R1, t=t1, vel_xi=_motion_twist(R1, t1, R, t), matches=(pt_idx, pt_in, ln_idx, ln_in),
+                pstore=pstore, lstore=lstore, read=_track_read(n_in, pstore, lstore))
+
+
+def host_track_inertial(cam, cfg: SlamConfig, frame: FrameData, preint, R, t, v_w, bg, ba, gravity_w, ext, pstore,
+                        lstore):
+    """A host-path frame's inertial tracking with the IMU initialized (the
+    reference's `_track_inertial`, with the IMU prediction before it): the
+    solved state, the dead-reckoned one (R0, t0, v0: the velocity clamped
+    to 5 m/s), the motion model's twist, the matches, the stores and `read`."""
+    prev, init, R0, t0, v0 = _imu_prediction(R, t, v_w, bg, ba, ext, preint, gravity_w)
+    st2, R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore = track_step_inertial(
+        cam, cfg, frame, preint, prev, init, gravity_w, ext, pstore, lstore)
+    return dict(R0=R0, t0=t0, v0=v0, R=R1, t=t1, v_w=st2.v_w, bg=st2.bg, ba=st2.ba, vel_xi=_motion_twist(R1, t1, R, t),
+                matches=(pt_idx, pt_in, ln_idx, ln_in), pstore=pstore, lstore=lstore,
+                read=_track_read(n_in, pstore, lstore))
+
+
+def host_insert(cam, cfg: SlamConfig, frame: FrameData, R, t, stamp, matches, kf_slot, pstore, lstore, kstore, v_w,
+                bg, ba, snap):
+    """`insert_keyframe` (the reference's `_insert`) at `kf_slot` (a 0-d
+    device int), then where `snap` (a 0-d device bool: an inertial sensor's
+    keyframe) the inertial state into the new keyframe's row. Returns
+    (pstore, lstore, kstore, n_new)."""
+    pstore, lstore, kstore, n_new = insert_keyframe(cam, cfg, frame, R, t, stamp, *matches, kf_slot, pstore, lstore,
+                                                    kstore)
+    kstore = dataclasses.replace(kstore, **{
+        name: set_row(getattr(kstore, name), kf_slot, torch.where(snap, val, row(getattr(kstore, name), kf_slot)))
+        for name, val in (("v_w", v_w), ("bg", bg), ("ba", ba))})
+    return pstore, lstore, kstore, n_new
+
+
+def host_bow(cfg: SlamConfig, voc_pt, voc_ln, bow_db, kstore, desc, fvalid, ldesc, lvalid, kf_slot, n_kf, n_new,
+             pvalid, lvalid_store):
+    """The host path's BoW add and loop-candidate query (the reference's
+    jitted `_bow_kf`, tracker.py:1566-1579): the exclusion of the newest
+    keyframes and the `kf_slot >= min_kf_gap` gate from the device ints
+    `kf_slot` and `n_kf`. Returns (bow_db, slots, scores, read): `read` is
+    the keyframe's one host read, int32 (new landmarks, valid points, valid
+    lines, the candidates' slots, their scores' float32 bits)."""
+    bow_p = voc_pt.bow(desc, fvalid & (row(kstore.obs_pt, kf_slot) >= 0))
+    bow_l = voc_ln.bow(ldesc, lvalid)
+    bow_db = bow_db.add(kf_slot, bow_p, bow_l)
+    K = bow_db.valid.shape[0]
+    excl = torch.arange(K, device=kstore.obs_pt.device) >= torch.clamp(n_kf - cfg.loop.min_kf_gap, min=0)
+    slots, scores = vocab_query(bow_db, bow_p, bow_l, excl, n_best=N_LOOP_CANDS, covis=kstore.covis)
+    can = kf_slot >= cfg.loop.min_kf_gap
+    slots, scores = torch.where(can, slots, -1), torch.where(can, scores, -1.0)
+    i32 = torch.int32
+    read = torch.cat([torch.stack([n_new.to(i32), torch.sum(pvalid, dtype=i32), torch.sum(lvalid_store, dtype=i32)]),
+                      slots.to(i32), scores.view(i32)])
+    return bow_db, slots, scores, read
+
+
+def keyframe_read(read: np.ndarray) -> tuple[int, int, int, list[tuple[int, float]]]:
+    """`host_bow`'s read on the host: (new landmarks, valid points, valid
+    lines, the loop candidates as (slot, score) pairs, best first)."""
+    if read.dtype != np.int32 or read.shape != (3 + 2 * N_LOOP_CANDS,):
+        raise ValueError(f"a keyframe read is {3 + 2 * N_LOOP_CANDS} int32, not {read.shape} {read.dtype}")
+    slots, scores = read[3:3 + N_LOOP_CANDS].tolist(), read[3 + N_LOOP_CANDS:].view(np.float32).tolist()
+    return int(read[0]), int(read[1]), int(read[2]), list(zip(slots, scores))
+
+
+def cull_keyframes(cfg: SlamConfig, kstore, pstore, n_kf):
+    """Keyframe culling over every slot (`n_kf` a 0-d device int): slots 1 ..
+    n_kf - W - 1 whose landmarks are >= kf_cull_redundancy seen by more than
+    cull_min_obs keyframes are invalidated; KF 0 and the active window are
+    kept. The quotient redundant / max(has, 1) is the reference's
+    (tracker.py:2436-2454), row for row, with the rows outside that range
+    masked instead of sliced away."""
+    K = kstore.valid.shape[0]
+    ids = torch.arange(K, device=kstore.valid.device)
+    in_scope = (ids >= 1) & (ids < n_kf - cfg.opt.local_ba_window)
+    has = kstore.obs_pt >= 0
+    n_obs = pstore.n_obs[torch.clamp(kstore.obs_pt, min=0).long()]
+    redundant = torch.sum((n_obs >= cfg.map.cull_min_obs + 1) & has, dim=1) / torch.clamp(torch.sum(has, dim=1), min=1)
+    cull = (redundant >= cfg.map.kf_cull_redundancy) & kstore.valid & in_scope
+    return dataclasses.replace(kstore, valid=kstore.valid & ~cull)
+
+
+# ---------------------------------------------------------------------------
 # The fused steps: visual, and stereo-inertial after IMU initialization
 # ---------------------------------------------------------------------------
 
@@ -856,18 +990,13 @@ def visual_segments(cam, cfg: SlamConfig, voc_pt, voc_ln, build) -> Segments:
     def track(inputs, state):
         frame = build(*inputs["img"])
         R, t = state["R"], state["t"]
-        dR, dt = lie.se3_exp(state["vel_xi"])
-        use_mm = state["has_vel"] & bool(cfg.tracking.motion_model)
-        R0 = torch.where(use_mm, lie._mm(dR, R), R)
-        t0 = torch.where(use_mm, lie._einsum("ij,j->i", dR, t) + dt, t)
+        R0, t0, use_mm = _motion_prediction(cfg, R, t, state["vel_xi"], state["has_vel"])
         (R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore) = track_step(
             cam, cfg, frame, R0, t0, state["pstore"], state["lstore"], wide=~use_mm, local_pt_ids=state["local_pt"])
         ok = n_in >= cfg.tracking.min_inliers_track
         R_new = torch.where(ok, R1, R0)
         t_new = torch.where(ok, t1, t0)
-        R_rel = lie._mm(R_new, R.T)
-        t_rel = t_new - lie._einsum("ij,j->i", R_rel, t)
-        vel_xi = torch.where(ok, lie.se3_log(R_rel, t_rel), state["vel_xi"])
+        vel_xi = torch.where(ok, _motion_twist(R_new, t_new, R, t), state["vel_xi"])
         fs, last = state["fs"] + 1, state["last"]
         stats, (ref, R_cr, t_cr) = _step_outputs(ok, n_in, state["n_kf"], False, fs, last, *_no_keyframe(R.device),
                                                  pstore, lstore, state["kstore"], R_new, t_new)
@@ -947,22 +1076,17 @@ def vi_segments(cam, cfg: SlamConfig, voc_pt, voc_ln, build) -> Segments:
         imu_args = inputs["imu"]
         R, t, bg, ba, ext, gravity_w = state["R"], state["t"], state["bg"], state["ba"], state["ext"], state["gravity_w"]
         # this frame's preintegration and the per-keyframe accumulator
-        p = imu_ops.preintegrate(imu_args[:, 0:3], imu_args[:, 3:6], imu_args[:, 6], imu_args[:, 7] > 0.5,
-                                 bg, ba, cfg.imu)
+        p = preintegrate_packed(cfg, imu_args, bg, ba)
         acc = imu_ops.compose(state["preint_acc"], p)
-        prev_state = inr.body_state_from_camera(R, t, state["v_w"], bg, ba, ext)
-        Rp, vp, pp = imu_ops.predict_state(prev_state.R_wb, prev_state.v_w, prev_state.p_w, p, bg, ba, gravity_w)
-        init_state = inr.BodyState(R_wb=Rp, p_w=pp, v_w=vp, bg=bg, ba=ba)
+        prev_state, init_state, R_pred, t_pred, vp_safe = _imu_prediction(R, t, state["v_w"], bg, ba, ext, p,
+                                                                          gravity_w)
         (st2, R1, t1, pt_idx, pt_in, ln_idx, ln_in, n_in, pstore, lstore) = track_step_inertial(
             cam, cfg, frame, p, prev_state, init_state, gravity_w, ext, state["pstore"], state["lstore"],
             state["local_pt"], wide=inputs["wide"])
         ok = n_in >= cfg.tracking.min_inliers_track
-        # on failure hold the IMU dead-reckoned state, its velocity clamped
-        # (bias and gravity error integrate without bound during loss)
-        R_pred, t_pred = inr.camera_pose(init_state, ext)
+        # on failure hold the IMU dead-reckoned state
         R_new = torch.where(ok, R1, R_pred)
         t_new = torch.where(ok, t1, t_pred)
-        vp_safe = vp * torch.clamp(5.0 / torch.clamp(torch.linalg.norm(vp), min=1e-9), max=1.0)
         fs, last = state["fs"] + 1, state["last"]
         stats, (ref, R_cr, t_cr) = _step_outputs(ok, n_in, state["n_kf"], False, fs, last, *_no_keyframe(R.device),
                                                  pstore, lstore, state["kstore"], R_new, t_new)

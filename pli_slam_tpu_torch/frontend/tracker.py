@@ -56,7 +56,16 @@ counterpart of the reference's jitted step): T, then the frame's one read
 of three ints, then K on a keyframe. The tracker's fused-step tensors are
 then the graphs' static buffers; a rare path replaces them with new
 tensors, which are copied in before the next replay, and the Atlas parks
-copies. Host-orchestrated frames run eagerly everywhere.
+copies. The host-orchestrated frames run their stages as captured graphs
+(frontend.graphs.StageProgram, the counterpart of the reference's jitted
+stage programs): preintegration and its composition, the frame build,
+tracking (one read: inliers and the stores' counts), and on a keyframe the
+insertion, windowed BA, BoW add and candidate query (one read: new
+landmarks, counts, candidates), culling and the local map. What stays
+eager on those frames: the map's initializations, relocalization, the IMU
+initialization and the full and windowed visual-inertial BA (its chain is
+gathered on the host), the loop closer, merging, the deferred BA chunks,
+the mono keyframes' triangulated depths.
 
 The rare paths. With `cfg.loop.enabled` a `LoopCloser` sees every new
 keyframe's BoW candidates (verification, essential-graph correction, then
@@ -133,9 +142,11 @@ class Tracker:
     one read sits between the tracking graph and the keyframe graph).
     `cuda_graphs=False` runs them eagerly, for comparison (None: the class
     attribute `default_cuda_graphs`, True); on the CPU they always run
-    eagerly. The host-orchestrated paths (the first frame, the
-    stereo-inertial frames before IMU initialization, mono, mono- and
-    RGB-D-inertial, the rare paths) run eagerly everywhere."""
+    eagerly. The stages of the host-orchestrated frames (the
+    stereo-inertial frames before IMU initialization and after a loss,
+    mono, mono- and RGB-D-inertial) run as CUDA graphs too, captured at
+    their first use (frontend.graphs.StageProgram), under the same switch;
+    the rare paths run eagerly everywhere."""
 
     SENSORS = ("stereo", "stereo_imu", "rgbd", "rgbd_imu", "mono", "mono_imu")
     default_cuda_graphs = True
@@ -184,6 +195,20 @@ class Tracker:
         self.cuda_graphs = bool(self.default_cuda_graphs if cuda_graphs is None else cuda_graphs) and dev.type == "cuda"
         self._step = graphs.FusedStep(step_mod.visual_segments(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame),
                                       dev, self.cuda_graphs)
+        # the host-orchestrated frames' stages, sharing one graph memory pool
+        self._stage_pool = torch.cuda.graph_pool_handle() if self.cuda_graphs else None
+        self._stages = {name: self._program(fn, name) for name, fn in (
+            ("preintegrate", partial(step_mod.preintegrate_packed, cfg)),
+            ("compose", imu_ops.compose),
+            ("track", partial(step_mod.host_track, cam, cfg)),
+            ("track_inertial", partial(step_mod.host_track_inertial, cam, cfg)),
+            ("insert", partial(step_mod.host_insert, cam, cfg)),
+            ("local_ba", partial(step_mod.local_ba, cam, cfg)),
+            ("bow", partial(step_mod.host_bow, cfg, self.voc_pt, self.voc_ln)),
+            ("cull", partial(step_mod.cull_keyframes, cfg)),
+            ("local_map", partial(step_mod._local_map_ids, cfg)))}
+        self._build_stage = None  # the frame build's stage, made for the current `build_frame`
+        self._counts = None  # (pstore, lstore, valid points, valid lines) of the last read
         # deferred BA chunks, one executed per later non-keyframe frame
         self._deferred_ba: list[tuple] = []
         m = cfg.map
@@ -252,26 +277,31 @@ class Tracker:
         if self.loop_closer is not None and dev.type == "cuda":
             self.loop_warmup_ms = self.loop_closer.warm_up(self)
 
+    def _program(self, fn, name: str) -> graphs.StageProgram:
+        return graphs.StageProgram(fn, self.device, self.cuda_graphs, name, self._stage_pool)
+
+    def _build_host(self, *images) -> FrameData:
+        """A host-path frame's build through its stage (`build_frame` may be
+        replaced after construction: the stage follows it)."""
+        if self._build_stage is None or self._build_stage.fn is not self.build_frame:
+            self._build_stage = self._program(self.build_frame, "build_frame")
+        return self._build_stage(*images)
+
+    def stage_programs(self) -> list[graphs.StageProgram]:
+        """Every stage program the host-orchestrated frames have used."""
+        return list(self._stages.values()) + ([self._build_stage] if self._build_stage is not None else [])
+
+    def _dev(self, x, dtype=torch.int32) -> torch.Tensor:
+        """A per-call host value (slot, count, stamp, flag) as a 0-d device tensor."""
+        return torch.full((), x, dtype=dtype, device=self.device)
+
     def _empty_bow_db(self):
         return vocab_mod.BowDatabase.empty(self.cfg.map.max_keyframes, self.voc_pt.n_words, self.device,
                                            n_words_ln=self.voc_ln.n_words)
 
     # -- pose helpers --------------------------------------------------------
-    def _use_motion_model(self) -> torch.Tensor:
-        """0-d device bool: a velocity exists and the motion model is on."""
-        return self.has_vel & bool(self.cfg.tracking.motion_model)
-
-    def _predict_pose(self):
-        dR, dt = lie.se3_exp(self.vel_xi)
-        use_mm = self._use_motion_model()
-        return (torch.where(use_mm, lie._mm(dR, self.R), self.R),
-                torch.where(use_mm, lie._einsum("ij,j->i", dR, self.t) + dt, self.t))
-
     def _update_motion_model(self):
-        # velocity twist: the current T_cw composed with the previous T_wc
-        R_rel = lie._mm(self.R, self.R_prev.T)
-        t_rel = self.t - lie._einsum("ij,j->i", R_rel, self.t_prev)
-        self.vel_xi = lie.se3_log(R_rel, t_rel)
+        self.vel_xi = step_mod._motion_twist(self.R, self.t, self.R_prev, self.t_prev)
         self.has_vel = torch.ones((), dtype=torch.bool, device=self.device)
 
     def _reset_motion(self):
@@ -366,12 +396,11 @@ class Tracker:
     def _ingest_imu(self, imu: dict, stamp: float):
         """Preintegrate this frame's IMU batch with the current biases and
         add it to the per-keyframe accumulator."""
-        g, a, dts, mask = self._imu_batch_arrays(imu)
-        self.last_preint = imu_ops.preintegrate(g, a, dts, mask, self.bg, self.ba, self.cfg.imu)
+        self.last_preint = self._stages["preintegrate"](self._imu_batch_arrays(imu, packed=True), self.bg, self.ba)
         if self._preint_since_kf is None:
             self._preint_since_kf = self.last_preint
         else:
-            self._preint_since_kf = imu_ops.compose(self._preint_since_kf, self.last_preint)
+            self._preint_since_kf = self._stages["compose"](self._preint_since_kf, self.last_preint)
 
     def _kf_chain(self, window: np.ndarray):
         """Stacked preintegration chain and mask (numpy) for consecutive
@@ -383,9 +412,6 @@ class Tracker:
         adjacent = nxt == window[:-1] + 1
         imu_mask = self._pints.valid.cpu().numpy()[nxt] & adjacent
         return stacked, imu_mask
-
-    def _body_state(self):
-        return inr.body_state_from_camera(self.R, self.t, self.v_w, self.bg, self.ba, self.ext)
 
     def _kf_body_poses(self, n: int):
         """The first `n` keyframes' body poses (R_wb [n,3,3], p_wb [n,3]) through T_cb."""
@@ -858,39 +884,12 @@ class Tracker:
                 self.reset_active_map()
 
     # -- keyframes on the host path -----------------------------------------
-    def _bow_kf(self, frame: FrameData, kf_slot: int, n_kf: int):
-        """BoW add and loop-candidate query for a host-path keyframe (the
-        same database the fused steps maintain)."""
-        bow_p = self.voc_pt.bow(frame.feats.desc, frame.feats.valid & (self.kstore.obs_pt[kf_slot] >= 0))
-        bow_l = self.voc_ln.bow(frame.lines.desc, frame.lines.valid)
-        self.bow_db = self.bow_db.add(kf_slot, bow_p, bow_l)
-        K = self.bow_db.valid.shape[0]
-        excl = torch.arange(K, device=self.device) >= max(n_kf - self.cfg.loop.min_kf_gap, 0)
-        slots, scores = step_mod.vocab_query(self.bow_db, bow_p, bow_l, excl, n_best=step_mod.N_LOOP_CANDS,
-                                             covis=self.kstore.covis)
-        if kf_slot < self.cfg.loop.min_kf_gap:
-            slots, scores = torch.full_like(slots, -1), torch.full_like(scores, -1.0)
-        return slots, scores
-
-    def _cull_keyframes(self):
-        """Invalidate redundant keyframes: >= kf_cull_redundancy of their
-        landmarks are seen by more than cull_min_obs keyframes. KF 0 and the
-        active window are kept."""
-        W = self.cfg.opt.local_ba_window
-        lo, hi = 1, self.n_kf - W
-        if self.n_kf < W + 2 or hi <= lo:
-            return
-        obs = self.kstore.obs_pt[lo:hi]
-        has = obs >= 0
-        n_obs = self.pstore.n_obs[torch.clamp(obs, min=0).long()]
-        redundant = torch.sum((n_obs >= self.cfg.map.cull_min_obs + 1) & has, dim=1) / torch.clamp(
-            torch.sum(has, dim=1), min=1)
-        cull = (redundant >= self.cfg.map.kf_cull_redundancy) & self.kstore.valid[lo:hi]
-        valid = self.kstore.valid.clone()
-        valid[lo:hi] &= ~cull
-        self.kstore = dataclasses.replace(self.kstore, valid=valid)
-
-    def _create_keyframe(self, frame, stamp, pt_idx, pt_in, ln_idx, ln_in) -> int:
+    def _create_keyframe(self, frame, stamp, matches) -> int:
+        """A host-path keyframe from the frame's tracking `matches` (pt_idx,
+        pt_in, ln_idx, ln_in): insertion (with the inertial state), the
+        chain factor, windowed BA, BoW add and candidate query, the loop
+        closer, a merge attempt, culling, the local map. Returns the number
+        of new landmarks."""
         if self.is_mono and self._kf_views:
             # no depth channel: triangulate against the view three keyframes
             # back (consecutive keyframes carry too little parallax), its pose
@@ -899,17 +898,12 @@ class Tracker:
             depth = step_mod._mono_triangulated_depths(self.cam, self.cfg, frame, self.R, self.t, uvk, desck, validk,
                                                        self.kstore.R[slotk], self.kstore.t[slotk])
             frame = dataclasses.replace(frame, depth=depth)
-        self.pstore, self.lstore, self.kstore, n_new = step_mod.insert_keyframe(
-            self.cam, self.cfg, frame, self.R, self.t, stamp, pt_idx, pt_in, ln_idx, ln_in, self.n_kf,
-            self.pstore, self.lstore, self.kstore)
+        kf = self._dev(self.n_kf)
+        self.pstore, self.lstore, self.kstore, n_new = self._stages["insert"](
+            frame, self.R, self.t, self._dev(stamp, torch.float32), matches, kf, self.pstore, self.lstore,
+            self.kstore, self.v_w, self.bg, self.ba, self._dev(self.use_imu, torch.bool))
         if self.use_imu:
             k = self.n_kf
-            new = {}
-            for name, val in (("v_w", self.v_w), ("bg", self.bg), ("ba", self.ba)):
-                arr = getattr(self.kstore, name).clone()
-                arr[k] = val
-                new[name] = arr
-            self.kstore = dataclasses.replace(self.kstore, **new)
             # snapshot the chain factor KF(k-1) -> KF(k) and start the accumulator again
             if k > 0 and self._preint_since_kf is not None:
                 self._pints = self._pints.set(k, self._preint_since_kf)
@@ -930,22 +924,26 @@ class Tracker:
                 self._adopt_keyframe_state(k)
             else:
                 dev = self.device
-                self.kstore, self.pstore, self.lstore = step_mod.local_ba(
-                    self.cam, self.cfg, self.kstore, self.pstore, self.lstore,
-                    torch.as_tensor(window, dtype=torch.int32, device=dev), torch.as_tensor(fixed, device=dev))
+                self.kstore, self.pstore, self.lstore = self._stages["local_ba"](
+                    self.kstore, self.pstore, self.lstore, torch.as_tensor(window, dtype=torch.int32, device=dev),
+                    torch.as_tensor(fixed, device=dev))
             # tracking continues from the refined latest keyframe
             self.R, self.t = self.kstore.R[k], self.kstore.t[k]
         if self.is_mono:
             self._kf_views = (self._kf_views + [(frame.feats.uv, frame.feats.desc, frame.feats.valid,
                                                  self.n_kf - 1)])[-3:]
-        slots, scores = self._bow_kf(frame, self.n_kf - 1, self.n_kf)
+        n_kf = self._dev(self.n_kf)
+        self.bow_db, _, _, read = self._stages["bow"](
+            self.bow_db, self.kstore, frame.feats.desc, frame.feats.valid, frame.lines.desc, frame.lines.valid, kf,
+            n_kf, n_new, self.pstore.valid, self.lstore.valid)
+        n_new, n_points, n_lines, cands = step_mod.keyframe_read(read.cpu().numpy())  # the keyframe's one read
+        self._counts = (self.pstore, self.lstore, n_points, n_lines)
         if self.loop_closer is not None:
-            self.loop_closer.on_keyframe(self, self.n_kf - 1,
-                                         list(zip(slots.cpu().tolist(), scores.cpu().tolist())))
+            self.loop_closer.on_keyframe(self, self.n_kf - 1, cands)
         self._try_merge(self.n_kf - 1)
-        self._cull_keyframes()
+        self.kstore = self._stages["cull"](self.kstore, self.pstore, n_kf)
         self._refresh_local_map(self.n_kf - 1)
-        return int(n_new)
+        return n_new
 
     # -- main entries ---------------------------------------------------------
     def process(self, img_l, img_r, stamp: float, allow_mapping: bool = True, imu: dict | None = None) -> dict:
@@ -962,9 +960,9 @@ class Tracker:
                 return self._process_fused_vi(img_args, stamp, allow_mapping, imu)
             if self._vi_fused_active:
                 self._exit_vi_fused()
-            return self._process_frame(self.build_frame(*img_args), stamp, allow_mapping, imu)
+            return self._process_frame(self._build_host(*img_args), stamp, allow_mapping, imu)
         if self.state == TrackingState.NOT_INITIALIZED:
-            return self._initialize(self.build_frame(*img_args), stamp)
+            return self._initialize(self._build_host(*img_args), stamp)
         return self._process_fused(img_args, stamp, allow_mapping)
 
     def process_rgbd(self, img, depth, stamp: float, allow_mapping: bool = True, imu: dict | None = None) -> dict:
@@ -975,22 +973,28 @@ class Tracker:
         self._check_timestamp(stamp)
         img_args = (self._image(img), self._image(depth))
         if self.use_imu or self.state == TrackingState.NOT_INITIALIZED:
-            return self._process_frame(self.build_frame(*img_args), stamp, allow_mapping, imu)
+            return self._process_frame(self._build_host(*img_args), stamp, allow_mapping, imu)
         return self._process_fused(img_args, stamp, allow_mapping)
 
     def process_mono(self, img, stamp: float, allow_mapping: bool = True, imu: dict | None = None) -> dict:
         """Monocular / mono-inertial frame (`imu` as in `process`): every
         frame is host-orchestrated."""
         self._check_timestamp(stamp)
-        return self._process_frame(self.build_frame(self._image(img)), stamp, allow_mapping, imu)
+        return self._process_frame(self._build_host(self._image(img)), stamp, allow_mapping, imu)
 
     def _image(self, img) -> torch.Tensor:
         return torch.as_tensor(img, dtype=torch.float32, device=self.device)
 
     def _info(self, n_inliers: int, n_new: int) -> dict:
-        info = {"state": self.state, "n_inliers": int(n_inliers), "n_kf": self.n_kf,
-                "n_points": int(self.pstore.valid.sum()), "n_lines": int(self.lstore.valid.sum()),
-                "new_landmarks": int(n_new)}
+        """The frame's record. The stores' counts come from the frame's last
+        read unless a path after it replaced a store."""
+        c = self._counts
+        if c is not None and c[0] is self.pstore and c[1] is self.lstore:
+            n_points, n_lines = c[2], c[3]
+        else:
+            n_points, n_lines = int(self.pstore.valid.sum()), int(self.lstore.valid.sum())
+        info = {"state": self.state, "n_inliers": int(n_inliers), "n_kf": self.n_kf, "n_points": n_points,
+                "n_lines": n_lines, "new_landmarks": int(n_new)}
         self.stats.append(info)
         return info
 
@@ -998,13 +1002,9 @@ class Tracker:
         n_stereo = int((frame.stereo_ok & frame.feats.valid).sum())
         if n_stereo < self.cfg.tracking.min_init_features:
             return {"state": self.state, **_EMPTY_INFO}
-        dev = self.device
-        n, nl = frame.feats.uv.shape[0], frame.lines.angle.shape[0]
-        neg = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        negl = torch.full((nl,), -1, dtype=torch.int32, device=dev)
-        self.pstore, self.lstore, self.kstore, n_new = step_mod.insert_keyframe(
-            self.cam, self.cfg, frame, self.R, self.t, stamp, neg, torch.zeros(n, dtype=torch.bool, device=dev),
-            negl, torch.zeros(nl, dtype=torch.bool, device=dev), self.n_kf, self.pstore, self.lstore, self.kstore)
+        self.pstore, self.lstore, self.kstore, n_new = self._stages["insert"](
+            frame, self.R, self.t, self._dev(stamp, torch.float32), self._no_matches(frame), self._dev(self.n_kf),
+            self.pstore, self.lstore, self.kstore, self.v_w, self.bg, self.ba, self._dev(False, torch.bool))
         self.n_kf = 1
         self.state = TrackingState.OK
         self.last_kf_inliers = n_stereo
@@ -1016,6 +1016,13 @@ class Tracker:
         # KF0's view is deliberately not seeded into the triangulation ring (reference :2965)
         self._record(stamp)
         return self._info(n_stereo, n_new)
+
+    def _no_matches(self, frame: FrameData) -> tuple:
+        """(pt_idx, pt_in, ln_idx, ln_in) of a frame matched to nothing (a map's first keyframe)."""
+        dev = self.device
+        n, nl = frame.feats.uv.shape[0], frame.lines.angle.shape[0]
+        return (torch.full((n,), -1, dtype=torch.int32, device=dev), torch.zeros(n, dtype=torch.bool, device=dev),
+                torch.full((nl,), -1, dtype=torch.int32, device=dev), torch.zeros(nl, dtype=torch.bool, device=dev))
 
     def _initialize_mono(self, frame: FrameData, stamp: float) -> dict:
         """Two-view bootstrapping: hold the first well-featured frame, and
@@ -1039,12 +1046,10 @@ class Tracker:
             return self._info(n_inl, 0)
 
         dev = self.device
-        n, nl = prev.feats.uv.shape[0], prev.lines.angle.shape[0]
-        self.pstore, self.lstore, self.kstore, n_new0 = step_mod.insert_keyframe(
-            self.cam, self.cfg, dataclasses.replace(prev, depth=depth1), torch.eye(3, device=dev),
-            torch.zeros(3, device=dev), prev_stamp, torch.full((n,), -1, dtype=torch.int32, device=dev),
-            torch.zeros(n, dtype=torch.bool, device=dev), torch.full((nl,), -1, dtype=torch.int32, device=dev),
-            torch.zeros(nl, dtype=torch.bool, device=dev), 0, self.pstore, self.lstore, self.kstore)
+        self.pstore, self.lstore, self.kstore, n_new0 = self._stages["insert"](
+            dataclasses.replace(prev, depth=depth1), torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            self._dev(prev_stamp, torch.float32), self._no_matches(prev), self._dev(0), self.pstore, self.lstore,
+            self.kstore, self.v_w, self.bg, self.ba, self._dev(False, torch.bool))
         self.n_kf = 1
         self._kf_views = [(prev.feats.uv, prev.feats.desc, prev.feats.valid, 0)]
         self._mono_init_frame = None
@@ -1057,17 +1062,33 @@ class Tracker:
         self.R_prev, self.t_prev = torch.eye(3, device=dev), torch.zeros(3, device=dev)
         self.R, self.t = R2, t2
         self._update_motion_model()
-        n_new = self._create_keyframe(frame, stamp, pt_idx, pt_in, ln_idx, ln_in)
+        n_new = self._create_keyframe(frame, stamp, (pt_idx, pt_in, ln_idx, ln_in))
         self.last_kf_inliers = int(n_in) + n_new
         self.frames_since_kf = 0
         self._record(stamp)
         return self._info(n_in, int(n_new0) + n_new)
 
+    def _tracked(self, o: dict) -> int:
+        """Adopt a tracking stage's stores and, if it held, its pose and the
+        motion model; the frame's one read before the keyframe decision.
+        Returns the inlier count."""
+        self.pstore, self.lstore = o["pstore"], o["lstore"]
+        n_in, n_points, n_lines = o["read"].tolist()
+        self._counts = (self.pstore, self.lstore, n_points, n_lines)
+        self.R_prev, self.t_prev = self.R, self.t
+        if n_in >= self.cfg.tracking.min_inliers_track:
+            self.R, self.t = o["R"], o["t"]
+            self.state = TrackingState.OK
+            self.vel_xi = o["vel_xi"]
+            self.has_vel = torch.ones((), dtype=torch.bool, device=self.device)
+            self._lost_frames = 0
+        return n_in
+
     def _refresh_local_map(self, kf_slot: int):
         if kf_slot < 0:
             self._local_pt = step_mod._empty_local_map(self.cfg, self.device)
             return
-        self._local_pt = step_mod._local_map_ids(self.cfg, self.kstore, self.pstore, kf_slot)
+        self._local_pt = self._stages["local_map"](self.kstore, self.pstore, self._dev(kf_slot))
 
     def _process_frame(self, frame: FrameData, stamp: float, allow_mapping: bool = True,
                        imu: dict | None = None) -> dict:
@@ -1082,25 +1103,14 @@ class Tracker:
         lost_limit = tc.recently_lost_sec * self.cfg.fps
 
         if self.use_imu and self.imu_ready and self.last_preint is not None:
-            prev_state = self._body_state()
-            R_pred, v_pred, p_pred = imu_ops.predict_state(
-                prev_state.R_wb, prev_state.v_w, prev_state.p_w, self.last_preint, self.bg, self.ba, self.gravity_w)
-            init_state = inr.BodyState(R_wb=R_pred, p_w=p_pred, v_w=v_pred, bg=self.bg, ba=self.ba)
-            (state2, R, t, pt_idx, pt_in, ln_idx, ln_in, n_in, self.pstore, self.lstore) = (
-                step_mod.track_step_inertial(self.cam, self.cfg, frame, self.last_preint, prev_state, init_state,
-                                             self.gravity_w, self.ext, self.pstore, self.lstore))
-            n_inliers = int(n_in)
-            self.R_prev, self.t_prev = self.R, self.t
+            o = self._stages["track_inertial"](frame, self.last_preint, self.R, self.t, self.v_w, self.bg, self.ba,
+                                               self.gravity_w, self.ext, self.pstore, self.lstore)
+            n_inliers = self._tracked(o)
             if n_inliers >= tc.min_inliers_track:
-                self.R, self.t = R, t
-                self.v_w, self.bg, self.ba = state2.v_w, state2.bg, state2.ba
-                self.state = TrackingState.OK
-                self._update_motion_model()
-                self._lost_frames = 0
+                self.v_w, self.bg, self.ba = o["v_w"], o["bg"], o["ba"]
             else:
                 # dead-reckon on the IMU, the velocity clamped to 5 m/s
-                self.R, self.t = inr.camera_pose(init_state, self.ext)
-                self.v_w = v_pred * torch.clamp(5.0 / torch.clamp(torch.linalg.norm(v_pred), min=1e-9), max=1.0)
+                self.R, self.t, self.v_w = o["R0"], o["t0"], o["v0"]
                 self.state = TrackingState.RECENTLY_LOST
                 self._lost_frames += 1
                 # tracking lost within 10 s of IMU init on a small map: the
@@ -1116,19 +1126,11 @@ class Tracker:
                 elif self._lost_frames > lost_limit:
                     self._switch_to_new_map()
         else:
-            R0, t0 = self._predict_pose()
-            (R, t, pt_idx, pt_in, ln_idx, ln_in, n_in, self.pstore, self.lstore) = step_mod.track_step(
-                self.cam, self.cfg, frame, R0, t0, self.pstore, self.lstore, wide=~self._use_motion_model())
-            n_inliers = int(n_in)
-            self.R_prev, self.t_prev = self.R, self.t
-            if n_inliers >= tc.min_inliers_track:
-                self.R, self.t = R, t
-                self.state = TrackingState.OK
-                self._update_motion_model()
-                self._lost_frames = 0
-            else:
+            o = self._stages["track"](frame, self.R, self.t, self.vel_xi, self.has_vel, self.pstore, self.lstore)
+            n_inliers = self._tracked(o)
+            if n_inliers < tc.min_inliers_track:
                 # dead-reckon on the motion model
-                self.R, self.t = R0, t0
+                self.R, self.t = o["R0"], o["t0"]
                 self.state = TrackingState.RECENTLY_LOST
                 self._lost_frames += 1
                 if self._lost_frames >= 2 and self._relocalize(frame):
@@ -1162,7 +1164,7 @@ class Tracker:
                         or n_inliers < tc.kf_ref_ratio * max(int(self.last_kf_inliers), 1)))
         n_new = 0
         if allow_mapping and need_kf and self.n_kf < self.cfg.map.max_keyframes:
-            n_new = self._create_keyframe(frame, stamp, pt_idx, pt_in, ln_idx, ln_in)
+            n_new = self._create_keyframe(frame, stamp, o["matches"])
             self.last_kf_inliers = n_inliers + n_new
             self.frames_since_kf = 0
         elif self._deferred_ba:

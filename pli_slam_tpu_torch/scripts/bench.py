@@ -42,6 +42,7 @@ costs lie elsewhere:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -68,6 +69,44 @@ def _device(device) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
+class _SpanNames:
+    """A `Tracker.span` that only notes which rare paths ran (no sync)."""
+
+    def __init__(self):
+        self.names: list[str] = []
+
+    def __call__(self, name: str):
+        self.names.append(name)
+        return contextlib.nullcontext()
+
+
+def frame_kind(tracker, run) -> str:
+    """What one `tracker.process` call was, from the tracker's state before
+    it (`run` = (fused, n_kf, the rare paths' names so far)): "fused" or
+    "host" (host-orchestrated), "+kf" when it made a keyframe, "+reloc" when
+    it tried a relocalization, "+rare" for a loop closure or a BA chunk."""
+    fused, n_kf, n_names = run
+    kind = "fused" if fused else "host"
+    if tracker.n_kf > n_kf:
+        kind += "+kf"
+    names = tracker.span.names[n_names:]
+    if "reloc" in names:
+        kind += "+reloc"
+    if any(n != "reloc" for n in names):
+        kind += "+rare"
+    return kind
+
+
+def frame_split(kinds: list[str], times_ms) -> dict:
+    """{kind: (frames, total s, p50 ms, p99 ms)} over the timed frames."""
+    out = {}
+    for kind in sorted(set(kinds)):
+        ms = np.asarray([t for k, t in zip(kinds, times_ms) if k == kind])
+        out[kind] = (len(ms), round(float(ms.sum()) / 1e3, 3), round(float(np.percentile(ms, 50)), 1),
+                     round(float(np.percentile(ms, 99)), 1))
+    return out
+
+
 def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None, cuda_graphs: bool = True) -> dict:
     """Stereo-inertial tracking with loop closing on, over the revisiting
     Lissajous path (bench.py:78-176 without its warm pass). `cam` and `cfg`
@@ -90,15 +129,19 @@ def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None, cu
     frames = [(fr["img_l"], fr["img_r"], fr["t"], fr["p_w"], profile.imu_batch(fr)) for fr in frames][:n_frames]
     tracker = Tracker(cam, cfg, dev, cuda_graphs=cuda_graphs)
     tracker.streaming = True
+    tracker.span = _SpanNames()
     log(f"bench[flagship]: rendering done; measuring (loop warm-up at construction: {tracker.loop_warmup_ms} ms)")
     for img_l, img_r, t, _, imu in frames[:N_WARM_FLAGSHIP]:
         tracker.process(img_l, img_r, t, imu=imu)
-    times = []
+    times, kinds = [], []
     t0 = time.time()
     for i, (img_l, img_r, t, _, imu) in enumerate(frames[N_WARM_FLAGSHIP:]):
+        run = (tracker.imu_ready and tracker.gravity_w is not None and tracker.state == "OK", tracker.n_kf,
+               len(tracker.span.names))
         f0 = time.perf_counter()
         tracker.process(img_l, img_r, t, imu=imu)
         times.append(time.perf_counter() - f0)
+        kinds.append(frame_kind(tracker, run))
         if i % 40 == 0:
             log(f"bench[flagship]: frame {i}")
     tracker.finalize()  # drain the queued BA chunks inside the timed region
@@ -109,6 +152,8 @@ def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None, cu
     gt = np.stack([p for _, _, _, p, _ in frames])
     ate = synthetic.ate_rmse(tracker.positions(), gt)
     times_ms = np.asarray(times) * 1e3
+    split = frame_split(kinds, times_ms)
+    log(f"bench[flagship]: timed frames by kind (frames, s, p50 ms, p99 ms): {split}")
     return {
         "fps": round(fps, 2),
         "p99_ms": round(float(np.percentile(times_ms, 99)), 1),
@@ -121,6 +166,7 @@ def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None, cu
         "n_points": int(tracker.pstore.valid.sum()),
         "n_lines": int(tracker.lstore.valid.sum()),
         "frames": n_frames,
+        "split": split,
         "tracker": tracker,
     }
 

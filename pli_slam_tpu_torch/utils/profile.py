@@ -24,8 +24,8 @@ steady frames (frames 12-21):
    time and by call count (written to DIR/ops.txt).
 3. stages: all 40 frames with `torch.cuda.synchronize()` around each stage
    (build_frame and the step's stages), which makes the stage times exclusive
-   and inflates the frame; the fused steps run eagerly here (a synchronise
-   cannot sit inside a captured graph).
+   and inflates the frame; the fused steps and the host-path stages run
+   eagerly here (a synchronise cannot sit inside a captured graph).
 
 With `--vi` it profiles the stereo-inertial path instead
 (`slice_config_vi()`: SlamConfig.euroc_stereo_inertial() with loop closing
@@ -587,9 +587,16 @@ def trace_busy(trace_path: str) -> tuple[float, int, int, int]:
 
 
 def capture_stats(tracker) -> tuple[float, int]:
-    """(capture ms, graph-pool bytes) of a tracker's captured fused steps."""
+    """(capture ms, graph-pool bytes) of a tracker's captured fused steps and
+    host-path stages."""
     steps = [s for s in (tracker._step, getattr(tracker, "_step_vi", None)) if s is not None]
+    steps += tracker.stage_programs()
     return sum(s.capture_ms for s in steps), sum(s.pool_bytes for s in steps)
+
+
+def stage_captures(tracker) -> dict[str, float]:
+    """Each host-path stage's capture ms (warm-up included) in `tracker`, by stage."""
+    return {p.name: round(p.capture_ms, 1) for p in tracker.stage_programs() if p.captures}
 
 
 def _window(cam, cfg, frames, dev, profiler=None):
