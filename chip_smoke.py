@@ -28,6 +28,29 @@ Phases (each prints one line; any failure raises and exits non-zero):
                matrices (preintegration's 16-increment products, Gauss-Newton
                and BA pose updates, formed on the card) and on general ones:
                the kernel's largest error no larger than the twin's;
+  3c. the largest-eigenvector kernel (csrc/eig4.cu: Horn's 4x4
+               eigenproblem; torch.linalg.eigh checks its status on the host,
+               which a capture refuses) against its twin (eigh's last column)
+               on Horn's matrices of 256 PnP triplets and of a 300-point refit,
+               formed on the card, and on general symmetric ones: rotations of
+               the two quaternions within EIG4_TOL where the largest
+               eigenvalue is simple, and both against float64 there, the
+               kernel's largest error no larger than the twin's; its time per
+               launch at 256 matrices, the whole call's, the twin's, one
+               torch.linalg.eigh call's and the bound from its sweeps;
+  3d. the small-SVD kernel (csrc/svd_small.cu: the mono PnP's DLT) against
+               its twin (torch.linalg.svd) on the DLT systems [256,12,12] and
+               rotation blocks [256,3,3] that `ransac_pnp_dlt` forms on the
+               card and on general 12x12 matrices: the null vector within
+               SVD_NULL_TOL where the smallest singular value is simple, U Vh
+               and S within SVD_BLOCK_TOL of full-rank blocks, and both
+               against float64, the kernel no farther; times as in 3c;
+  3c / 3d on the main path (after phase 8) -- the RANSACs that phases 6a, 6b
+               and 8 ran (the loop verifications', the relocalizations' PnP,
+               the mono one's DLT; their inputs recorded at the stages' entry)
+               solved again with the kernels and with the twins: the winners'
+               inlier counts within RANSAC_COUNT_TOL, and the Horn matrices,
+               DLT systems and rotation blocks they formed held as in 3c / 3d;
   4. main path -- first its stages on a 128x96 input (build_frame, keyframe
                insertion, one tracking step; IMU preintegration and
                composition, one inertial pose solve, one visual-inertial
@@ -71,7 +94,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                the keyframes that ground truth says overlap, the consistency
                counter pre-set (as tests/test_loop_closing_e2e.py does):
                verification, essential-graph PGO, the queued global-BA chunks,
-               which 6 more frames and `finalize` run. Guards: a loop closed,
+               which 6 more frames and `finalize` run. The closure's
+               verification and correction (captured stages) is
+               made again from the state before it by a `cuda_graphs=False`
+               tracker: the stores, the pose, the loop counters, the queue
+               and every kernel's launches bit-identical, the graph side
+               under HOST_LAUNCH_LIMIT host kernel launches. Guards: a loop closed,
                the chunk queue empty, 90% of frames tracked, finite positions,
                ATE under 0.10 m before the closure and 0.35 m after it (the
                port's runs: 0.020 and 0.20-0.25 m; the reference on its own
@@ -89,7 +117,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
                60 / 60 (a wrong pose reached 24-32 inliers here, the true
                one ~600) and recently_lost_sec 3 over the trajectory's first
                20 frames: relocalized, within 0.2 m of the re-track seeded
-               with the true pose;
+               with the true pose; its first relocalization made again from
+               the state before it by a `cuda_graphs=False` tracker, bit for
+               bit as in 6a, and every relocalization frame under graphs
+               under HOST_LAUNCH_LIMIT host kernel launches;
                6c. a second tracker (recently_lost_sec 0.15, min_kf_gap 3) over
                the scenario of tests/test_atlas_merge.py: 20 frames, 8 blank
                ones (two maps after), the revisit until the merge (one map),
@@ -119,7 +150,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
                reference test's floor), Sim(3)-aligned ATE under
                MONO_ATE_BOUND (set from the reference's run on these frames, REF_ATE_MONO),
                two gated-match launches per tracked frame after the
-               initialization;
+               initialization; then a planted relocalization (the pose set to
+               the identity, the state to lost) of the sequence's last frame
+               through the mono PnP stage (svd_small): re-tracked, the Sim(3)
+               ATE with its pose added under MONO_ATE_BOUND;
   rectifier -- `euroc_rectifier()` on the card against the CPU on a 752x480
                pair, within 1e-3 grey levels, and one call timed.
   9. the dataset ingest path -- each dataset's on-disk layout written from
@@ -183,7 +217,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
                5's figures: the IMU initialization's frame held to the
                reference's run (REF_RGBD_VI), ATE before it to phase 7's bound
                on the same deployment, the run after it loosely (2.0 m, phase
-               5's: visual-inertial BA drifts, in the reference too).
+               5's: visual-inertial BA drifts, in the reference too). Every
+               "vi_ba" stage replay (the IMU initialization's full inertial
+               BA, the keyframes' windows, the chunks after its loop closure)
+               is also run eagerly on its inputs and must equal the replay
+               bit for bit (`check_replays`, its time kept out of the frames').
  13. distribution on `torch.distributed` -- 13a: `utils.production.
                dryrun_multichip` at production shapes (W=32 poses, 16384
                points, 1024 lines, ~124k observations; a 256-node pose graph)
@@ -268,7 +306,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
                a tracking-only frame among them: under graphs at most
                HOST_LAUNCH_LIMIT kernel launches each, or a stage ran
                eagerly), each stage's capture ms, capture ms, graph-pool
-               size, peak memory and both kernels' launches.
+               size, peak memory and the kernels' launches; the rare paths'
+               stages (relocalization's, captured at a tracker's first lost
+               frame, and the loop closer's and the BA chunks' where they
+               ran): captures and graph pools.
                bench.py's graphs against eager is `python3 -m
                pli_slam_tpu_torch.scripts.bench [--no-graphs]`.
 Every phase's wall time is printed at the end. Phase 6a keeps its 180
@@ -280,15 +321,17 @@ Phases 7, 8 and 9 print fps and p50/p99 (9 also the ingest stage's ms a
 frame), and phase 7 the map's save and load times. Phase 4 prints the
 SHA-256 of its first frame pair, which must equal the CPU's
 (FRAME0_SHA256, held by tests/test_torch_datasets.py). Then one JSON line
-describing the kernels (launches on every path, per path and per frame,
-and the N=2000 shapes of KITTI's operating point; phases 10-12's
-launches and the fisheye association's time; phase 14's launches), the
-nvidia-smi line,
+describing the kernels (gated_match, closest_rotation, largest_eigvec,
+svd_small: launches on every path, per path and per frame, and the N=2000
+shapes of KITTI's operating point; phases 10-12's launches and the fisheye
+association's time; phase 14's launches; each small kernel's errors
+against float64), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -306,6 +349,21 @@ ROT3_SRC = "pli_slam_tpu_torch/csrc/rot3.cu"
 ROT3_REPLACES = "pli_slam_tpu/ops/lie.py:157"  # normalize_rotation: jnp.linalg.svd, lowered by XLA inside the jit
 ROT3_TOL = {"near_rotation": 1e-5, "general": 1e-4}  # float32; general: the twin's SVD conditioning
 ROT3_LAUNCHES: dict[str, int] = {}  # closest_rotation launches of each phase's run, by phase function
+EIG4_SRC = "pli_slam_tpu_torch/csrc/eig4.cu"
+EIG4_REPLACES = "pli_slam_tpu/solve/sim3.py:49"  # horn_alignment: jnp.linalg.eigh, lowered by XLA inside the jit
+SVD_SRC = "pli_slam_tpu_torch/csrc/svd_small.cu"
+SVD_REPLACES = "pli_slam_tpu/solve/pnp.py:113"  # ransac_pnp_dlt: jnp.linalg.svd of A (:113) and M (:128), in the jit
+EIG4_LAUNCHES: dict[str, int] = {}  # largest_eigvec launches of each phase's run, by phase function
+SVD_LAUNCHES: dict[str, int] = {}  # svd_small launches of each phase's run, by phase function
+HBM_RATE = 3.35e12  # bytes/s, H100 SXM (NVIDIA's data sheet)
+FP64_RATE = 34e12  # float64 operations/s outside the tensor cores, H100 SXM (NVIDIA's data sheet): the Jacobi kernels'
+# the kernels against their twins where the answer is unique: rotations from the quaternions where the largest
+# eigenvalue lies more than 1e-2 of |N| above the next (float32 rounding over the gap); the DLT's null vector where
+# the smallest singular value lies more than 1e-2 of the largest below the next; U Vh and S of full-rank blocks
+EIG4_TOL, SVD_NULL_TOL, SVD_BLOCK_TOL, SIMPLE_GAP = 1e-4, 1e-3, 1e-4, 1e-2
+RANSAC_COUNT_TOL = (2, 0.01)  # RANSAC winners' inlier counts, kernel against twin: within 2 or 1 %
+RARE_ARGS: dict[str, list] = {"loop_verify": [], "reloc_pnp": []}  # the main path's RANSAC inputs (3c / 3d)
+RARE_ARGS_MAX = 6
 
 
 def log(msg: str) -> None:
@@ -325,20 +383,29 @@ def nvidia_smi() -> str:
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a phase drives its path."""
-    from pli_slam_tpu_torch.ops.kernels import hamming, rot3
+    from pli_slam_tpu_torch.ops.kernels import eig4, hamming, rot3, svd_small
 
-    hamming.reset_launches()
-    rot3.reset_launches()
+    for m in (hamming, rot3, eig4, svd_small):
+        m.reset_launches()
 
 
-def count_rot3() -> int:
-    """Add closest_rotation's launches since the last reset to the calling
-    phase's count (ROT3_LAUNCHES) and return them; the counter is 0 again."""
-    from pli_slam_tpu_torch.ops.kernels import rot3
+def kernel_counts() -> tuple[int, int, int, int]:
+    """(gated_match, closest_rotation, largest_eigvec, svd_small) launches so far."""
+    from pli_slam_tpu_torch.ops.kernels import eig4, hamming, rot3, svd_small
+
+    return hamming.launches, rot3.launches, eig4.launches, svd_small.launches
+
+
+def count_small_kernels() -> int:
+    """Add the launches since the last reset of closest_rotation, largest_eigvec
+    and svd_small to the calling phase's counts (ROT3_LAUNCHES, EIG4_LAUNCHES,
+    SVD_LAUNCHES) and return closest_rotation's; the counters are 0 again."""
+    from pli_slam_tpu_torch.ops.kernels import eig4, rot3, svd_small
 
     name, n = sys._getframe(1).f_code.co_name, rot3.launches
-    ROT3_LAUNCHES[name] = ROT3_LAUNCHES.get(name, 0) + n
-    rot3.reset_launches()
+    for counts, m in ((ROT3_LAUNCHES, rot3), (EIG4_LAUNCHES, eig4), (SVD_LAUNCHES, svd_small)):
+        counts[name] = counts.get(name, 0) + m.launches
+        m.reset_launches()
     return n
 
 
@@ -441,6 +508,338 @@ def rot3_accuracy(dev, g) -> dict:
             raise AssertionError(f"closest_rotation ({label}) lies farther from float64 than its twin: "
                                  f"{e_kern:.3e} > {e_twin:.3e}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 3c / 3d: Horn's 4x4 eigenproblem and the PnP DLT's small SVD
+# ---------------------------------------------------------------------------
+
+
+def _simple_top(N):
+    """Per matrix of N [n,4,4]: the float64 unit eigenvector of the largest
+    eigenvalue and whether that eigenvalue lies more than SIMPLE_GAP of |N|
+    above the next (where the eigenvector is unique)."""
+    import torch
+
+    w, V = torch.linalg.eigh(N.double().cpu())
+    scale = torch.clamp(w.abs().amax(-1), min=1e-30)
+    return V[..., :, -1], (w[..., -1] - w[..., -2]) > SIMPLE_GAP * scale
+
+
+def _sign_free(a, b):
+    """Largest difference of unit vectors [n, d] (float64, CPU) up to each one's sign, per vector."""
+    import torch
+
+    return torch.minimum((a - b).abs().amax(-1), (a + b).abs().amax(-1))
+
+
+def eig4_hold(label, N) -> dict:
+    """The kernel against its twin (torch.linalg.eigh, cuSOLVER on the card)
+    on Horn's matrices N [n,4,4] (on the card): the rotations of their
+    quaternions within EIG4_TOL where the largest eigenvalue is simple; then
+    both against the float64 eigenvector of the same float32 input there, the
+    kernel's largest error no larger than the twin's."""
+    import torch
+
+    from pli_slam_tpu_torch.ops import lie
+    from pli_slam_tpu_torch.ops.kernels import eig4
+
+    q_k, q_t = eig4.largest_eigvec_cuda(N), eig4.largest_eigvec_reference(N)
+    exact, simple = _simple_top(N)
+    n_simple = int(simple.sum())
+    d_rot = (lie.rotation_from_quat(q_k) - lie.rotation_from_quat(q_t)).abs().amax((-1, -2)).cpu()
+    err = float(d_rot[simple].max()) if n_simple else 0.0
+    e_k = float(_sign_free(q_k.double().cpu(), exact)[simple].max()) if n_simple else 0.0
+    e_t = float(_sign_free(q_t.double().cpu(), exact)[simple].max()) if n_simple else 0.0
+    log(f"kernels 3c: largest_eigvec {label} ({N.shape[0]} matrices, {n_simple} with a simple largest eigenvalue): "
+        f"max |R(q_kernel) - R(q_twin)| {err:.3e} (tolerance {EIG4_TOL}); against float64 max |q - q_float64| "
+        f"kernel {e_k:.3e}, twin {e_t:.3e}")
+    if not err <= EIG4_TOL:
+        raise AssertionError(f"largest_eigvec ({label}) differs from its twin by {err} in rotation")
+    if not e_k <= e_t:
+        raise AssertionError(f"largest_eigvec ({label}) lies farther from float64 than its twin: {e_k:.3e} > {e_t:.3e}")
+    return {"max_abs_err": err, "kernel": e_k, "twin": e_t, "n": int(N.shape[0]), "simple": n_simple}
+
+
+def svd_hold(label, A) -> dict:
+    """svd_small against its twin (torch.linalg.svd, cuSOLVER on the card) on
+    A [n,k,k] (on the card). DLT systems (k = 12): the null vector (Vh's
+    last row, sign-free) within SVD_NULL_TOL where the smallest singular
+    value is simple. Rotation blocks (k = 3): U Vh within SVD_BLOCK_TOL and S
+    within SVD_BLOCK_TOL of S_max where the block has full rank. Then both
+    against float64 on the same float32 input there: the kernel's largest
+    error no larger than the twin's."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import svd_small
+
+    k = A.shape[-1]
+    u_k, s_k, vt_k = svd_small.svd_cuda(A)
+    u_t, s_t, vt_t = svd_small.svd_reference(A)
+    u64, s64, vt64 = torch.linalg.svd(A.double().cpu())
+    smax = torch.clamp(s64[:, 0], min=1e-30)
+    if k == 12:
+        ok = (s64[:, -2] - s64[:, -1]) > SIMPLE_GAP * smax
+        ex = vt64[:, -1]
+        err = _sign_free(vt_k[:, -1].double().cpu(), vt_t[:, -1].double().cpu())
+        e_k = _sign_free(vt_k[:, -1].double().cpu(), ex)
+        e_t = _sign_free(vt_t[:, -1].double().cpu(), ex)
+        tol = SVD_NULL_TOL
+    else:
+        ok = s64[:, -1] > SIMPLE_GAP * smax
+        R64 = u64 @ vt64
+
+        def block_err(u, s, vt, ref, ref_s):
+            return torch.maximum((u.double().cpu() @ vt.double().cpu() - ref).abs().amax((-1, -2)),
+                                 (s.double().cpu() - ref_s).abs().amax(-1) / smax)
+
+        err = block_err(u_k, s_k, vt_k, (u_t @ vt_t).double().cpu(), s_t.double().cpu())
+        e_k, e_t = block_err(u_k, s_k, vt_k, R64, s64), block_err(u_t, s_t, vt_t, R64, s64)
+        tol = SVD_BLOCK_TOL
+    n_ok = int(ok.sum())
+    err, e_k, e_t = (float(x[ok].max()) if n_ok else 0.0 for x in (err, e_k, e_t))
+    what = "the null vector" if k == 12 else "U Vh and S / S_max"
+    log(f"kernels 3d: svd_small {label} ({A.shape[0]} of {k}x{k}, {n_ok} compared): {what}, max |kernel - twin| "
+        f"{err:.3e} (tolerance {tol}); against float64 kernel {e_k:.3e}, twin {e_t:.3e}")
+    if not err <= tol:
+        raise AssertionError(f"svd_small ({label}) differs from its twin by {err}")
+    if not e_k <= e_t:
+        raise AssertionError(f"svd_small ({label}) lies farther from float64 than its twin: {e_k:.3e} > {e_t:.3e}")
+    return {"max_abs_err": err, "kernel": e_k, "twin": e_t, "n": int(A.shape[0]), "compared": n_ok}
+
+
+def horn_cases(dev, g) -> list:
+    """Horn's matrices as the main path forms them, on the card in float32:
+    the PnP's 256 hypotheses (three points lifted by a noisy depth), one
+    consensus refit over 300 points, and general symmetric matrices."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import rot3
+    from pli_slam_tpu_torch.solve import sim3
+
+    def sets(n, k, noise):
+        x = (torch.rand(n, k, 3, generator=g) * 2 - 1) * torch.tensor([2.0, 1.5, 1.0]) + torch.tensor([0.0, 0.0, 3.0])
+        R = rot3.closest_rotation_reference(torch.randn(n, 3, 3, generator=g))
+        y = x @ R.transpose(-1, -2) + torch.randn(n, 1, 3, generator=g) + noise * torch.randn(n, k, 3, generator=g)
+        return sim3.horn_matrix(x.to(dev), y.to(dev), torch.ones(n, k, device=dev))
+
+    B = torch.randn(1024, 4, 4, generator=g)
+    return [("pnp_hypotheses", sets(256, 3, 0.02)), ("refit", sets(1, 300, 0.02)),
+            ("general", ((B + B.transpose(-1, -2)) / 2).to(dev))]
+
+
+def dlt_cases(dev, g) -> list:
+    """The mono PnP's systems as `ransac_pnp_dlt` forms them on the card: A
+    [256,12,12] and the rotation blocks M [256,3,3] of 256 six-point
+    hypotheses over a noisy view of 400 points, and general 12x12 matrices."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import svd_small
+    from pli_slam_tpu_torch.solve import pnp
+    from pli_slam_tpu_torch.utils.profile import slice_camera
+
+    cam = slice_camera()
+    x_w = (torch.rand(400, 3, generator=g) * 2 - 1) * torch.tensor([3.0, 2.0, 1.5]) + torch.tensor([0.0, 0.0, 5.0])
+    uv = torch.stack([cam.fx * x_w[:, 0] / x_w[:, 2] + cam.cx, cam.fy * x_w[:, 1] / x_w[:, 2] + cam.cy], -1)
+    uv = uv + 0.5 * torch.randn(400, 2, generator=g)
+    idx = torch.randint(0, 400, (256, 6), generator=g)
+    kept = []
+    orig = svd_small.svd
+    svd_small.svd = lambda A: kept.append(A.clone()) or orig(A)
+    try:
+        pnp.ransac_pnp_dlt(cam, x_w.to(dev), uv.to(dev), torch.ones(400, dtype=torch.bool, device=dev), idx.to(dev))
+    finally:
+        svd_small.svd = orig
+    return [("dlt_systems", kept[0]), ("rotation_blocks", kept[1]), ("general", torch.randn(256, 12, 12, generator=g)
+                                                                                .to(dev))]
+
+
+def _small_times(fn_kernel, fn_call, fn_plain, fn_library) -> dict:
+    """Per launch in a CUDA graph (50 launches), the whole call, the twin and
+    the library call, in turns (kernel, twin, library, library, twin, kernel)."""
+    from pli_slam_tpu_torch.utils.kernel_bench import eager_ms, graph_ms
+
+    k_a, p_a, l_a = graph_ms(fn_kernel), eager_ms(fn_plain), eager_ms(fn_library)
+    l_b, p_b, k_b = eager_ms(fn_library), eager_ms(fn_plain), graph_ms(fn_kernel)
+    return {"ms": 0.5 * (k_a + k_b), "call_ms": eager_ms(fn_call), "plain_ms": 0.5 * (p_a + p_b),
+            "library_ms": 0.5 * (l_a + l_b)}
+
+
+def phase_eig4(dev):
+    """3c: the largest-eigenvector kernel (csrc/eig4.cu) against its twin and
+    float64 on Horn's matrices and general ones (`eig4_hold`); its time at
+    the PnP's 256 hypotheses and the bound from the sweeps they took."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import eig4
+
+    g = torch.Generator().manual_seed(12)
+    out = {label: eig4_hold(label, N) for label, N in horn_cases(dev, g)}
+    N = horn_cases(dev, g)[0][1]
+    sweeps = torch.zeros(N.shape[0], dtype=torch.int32, device=dev)
+    eig4.largest_eigvec_cuda(N, sweeps=sweeps)
+    n_sweeps = int(sweeps.sum())
+    times = _small_times(lambda: eig4.largest_eigvec_cuda(N), lambda: eig4.largest_eigvec(N),
+                         lambda: eig4.largest_eigvec_reference(N), lambda: torch.linalg.eigh(N))
+    # 80 bytes a matrix; 402 float64 operations a sweep (six rotations), ~60 more a matrix
+    bytes_moved, ops = 80 * N.shape[0], 402 * n_sweeps + 60 * N.shape[0]
+    bound = max(bytes_moved / HBM_RATE, ops / FP64_RATE) * 1e3
+    by = "bytes" if bytes_moved / HBM_RATE >= ops / FP64_RATE else "operations"
+    log(f"kernels 3c: largest_eigvec 256 x 4x4: kernel {times['ms']:.4f} ms per launch (50 launches in a CUDA graph), "
+        f"whole call eager {times['call_ms']:.4f} ms, twin (torch.linalg.eigh + the last column) "
+        f"{times['plain_ms']:.4f} ms, torch.linalg.eigh alone {times['library_ms']:.4f} ms; {n_sweeps} Jacobi sweeps "
+        f"in all, bound {bound:.3e} ms ({by})")
+    return {**times, "bound_ms": bound, "bound_by": by, "sweeps": n_sweeps, "hold": out,
+            "max_abs_err": max(v["max_abs_err"] for v in out.values())}
+
+
+def phase_svd_small(dev):
+    """3d: the small-SVD kernel (csrc/svd_small.cu) against its twin and
+    float64 on the mono PnP's DLT systems and rotation blocks and on general
+    12x12 matrices (`svd_hold`); its time on the DLT systems and the bound
+    from the sweeps they took."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import svd_small
+
+    g = torch.Generator().manual_seed(13)
+    cases = dlt_cases(dev, g)
+    out = {label: svd_hold(label, A) for label, A in cases}
+    A = cases[0][1]
+    count, k = A.shape[0], A.shape[-1]
+    sweeps = torch.zeros(count, dtype=torch.int32, device=dev)
+    svd_small.svd_cuda(A, sweeps=sweeps)
+    n_sweeps = int(sweeps.sum())
+    times = _small_times(lambda: svd_small.svd_cuda(A), lambda: svd_small.svd(A), lambda: svd_small.svd_reference(A),
+                         lambda: torch.linalg.svd(A))
+    # 4 k^2 bytes in, 4 (2 k^2 + k) out a matrix; a pair rotation 18 k + 20 float64 operations, k (k - 1) / 2 pairs
+    # a sweep, ~4 k^2 more a matrix
+    bytes_moved = count * 4 * (3 * k * k + k)
+    ops = n_sweeps * (k * (k - 1) // 2) * (18 * k + 20) + count * 4 * k * k
+    bound = max(bytes_moved / HBM_RATE, ops / FP64_RATE) * 1e3
+    by = "bytes" if bytes_moved / HBM_RATE >= ops / FP64_RATE else "operations"
+    log(f"kernels 3d: svd_small 256 x 12x12 (DLT systems): kernel {times['ms']:.4f} ms per launch (50 launches in a "
+        f"CUDA graph), whole call eager {times['call_ms']:.4f} ms, twin (torch.linalg.svd) {times['plain_ms']:.4f} ms, "
+        f"torch.linalg.svd alone {times['library_ms']:.4f} ms; {n_sweeps} Jacobi sweeps in all, bound {bound:.3e} ms "
+        f"({by})")
+    return {**times, "bound_ms": bound, "bound_by": by, "sweeps": n_sweeps, "hold": out,
+            "max_abs_err": max(v["max_abs_err"] for v in out.values())}
+
+
+@contextlib.contextmanager
+def check_replays(names, found: list):
+    """Every call of the stages `names` under graphs also runs the stage's
+    body eagerly on copies of the same inputs, its kernel launches not
+    counted; each call appends (stage, the first output leaf that differs in
+    any bit or None, the check's seconds) to `found`."""
+    from pli_slam_tpu_torch.frontend import graphs
+
+    orig = graphs.StageProgram.__call__
+
+    def call(self, *args):
+        if self.name not in names or not self.graphs:
+            return orig(self, *args)
+        before = graphs.tree_clone(args)
+        out = orig(self, *args)
+        t0, counts = time.perf_counter(), [m.launches for m in graphs.KERNEL_MODULES]
+        want = self.fn(*before)
+        for m, n in zip(graphs.KERNEL_MODULES, counts):
+            m.launches = n
+        pairs = zip(graphs.tree_leaves(out), graphs.tree_leaves(want), strict=True)
+        found.append((self.name, next((i for i, (a, b) in enumerate(pairs) if not _bits_equal(a, b)), None),
+                      time.perf_counter() - t0))
+        return out
+
+    graphs.StageProgram.__call__ = call
+    try:
+        yield
+    finally:
+        graphs.StageProgram.__call__ = orig
+
+
+@contextlib.contextmanager
+def record_rare_args():
+    """Keep clones of the arguments of the first RARE_ARGS_MAX calls of the
+    stages `loop_verify` and `reloc_pnp` whose correspondence mask is not
+    empty (the warm-ups' are): the main path's RANSAC problems, which
+    `phase_small_main_path` solves again with each kernel and its twin.
+    Under graphs a stage's Python entry runs at every call; its body only
+    at the capture."""
+    from pli_slam_tpu_torch.frontend import graphs
+
+    orig = graphs.StageProgram.__call__
+
+    def call(self, *args):
+        kept = RARE_ARGS.get(self.name)
+        if kept is not None and len(kept) < RARE_ARGS_MAX and bool(args[4 if self.name == "loop_verify" else 3].any()):
+            kept.append((self.fn, graphs.tree_clone(args)))
+        return orig(self, *args)
+
+    graphs.StageProgram.__call__ = call
+    try:
+        yield
+    finally:
+        graphs.StageProgram.__call__ = orig
+
+
+def phase_small_main_path(dev):
+    """3c / 3d on the main path's problems (recorded in phases 6a, 6b, 8 and
+    14a): each loop verification's Sim3 / SE3 RANSAC and each
+    relocalization's PnP RANSAC (stereo: Horn; mono: the DLT) solved again
+    with the kernels and with their twins, the winners' inlier counts within
+    RANSAC_COUNT_TOL (where Horn's largest eigenvalue is not simple, e.g.
+    collinear triplets, the hypotheses may differ, the consensus not); the
+    Horn matrices, DLT systems and rotation blocks they formed held by
+    `eig4_hold` / `svd_hold`."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import eig4, svd_small
+    from pli_slam_tpu_torch.solve import pnp, sim3
+
+    mats = {"horn": [], "svd12": [], "svd3": []}
+    orig_eig, orig_svd = eig4.largest_eigvec, svd_small.svd
+
+    def solve(fn, args, twin):
+        if twin:
+            eig4.largest_eigvec, svd_small.svd = eig4.largest_eigvec_reference, svd_small.svd_reference
+        else:
+            eig4.largest_eigvec = lambda N: mats["horn"].append(N.reshape(-1, 4, 4)) or orig_eig(N)
+            svd_small.svd = lambda A: mats[f"svd{A.shape[-1]}"].append(A) or orig_svd(A)
+        try:
+            if fn.func.__name__ == "loop_verify":
+                _, _, with_scale = fn.args
+                x, y, m, thresh, hyp = args[2:7]
+                return int(sim3.ransac_sim3(x, y, m, hyp, inlier_thresh=thresh, with_scale=with_scale)[4])
+            cam, _, mono = fn.args[:3]
+            frame, x_store, idx, okm, hyp, _ = args
+            x_w = x_store[idx.long()]
+            if mono:
+                return int(pnp.ransac_pnp_dlt(cam, x_w, frame.feats.uv, okm, hyp, inlier_px=8.0, min_inliers=12)[3])
+            return int(pnp.ransac_pnp(cam, x_w, frame.feats.uv, frame.depth, okm, hyp, inlier_px=8.0,
+                                      min_inliers=12)[3])
+        finally:
+            eig4.largest_eigvec, svd_small.svd = orig_eig, orig_svd
+
+    counts = []
+    for name, calls in RARE_ARGS.items():
+        for fn, args in calls:
+            n_k, n_t = solve(fn, args, False), solve(fn, args, True)
+            counts.append((name + ("_mono" if name == "reloc_pnp" and fn.args[2] else ""), n_k, n_t))
+            if abs(n_k - n_t) > max(RANSAC_COUNT_TOL[0], RANSAC_COUNT_TOL[1] * max(n_k, n_t)):
+                raise AssertionError(f"{name}: the RANSAC winner's inliers with the kernels {n_k}, with the twins {n_t}")
+    log(f"kernels 3c / 3d, the main path's RANSACs (stage, inliers with the kernels, with the twins): {counts}")
+    if not any(c[0] == "loop_verify" for c in counts) or not any(c[0] == "reloc_pnp_mono" for c in counts):
+        raise AssertionError(f"the main path's RANSACs recorded: {[c[0] for c in counts]}")
+    out = {}
+    for key, hold, label in (("horn", eig4_hold, "main path (Horn's matrices of the RANSACs above)"),
+                             ("svd12", svd_hold, "main path (the mono PnP's DLT systems)"),
+                             ("svd3", svd_hold, "main path (the mono PnP's rotation blocks)")):
+        if mats[key]:
+            out[key] = hold(label, torch.cat(mats[key]))
+    if set(out) != {"horn", "svd12", "svd3"}:
+        raise AssertionError(f"the main path's matrices held: {sorted(out)}")
+    reset_counts()  # the launches above compare the kernels with their twins
+    return {"ransac_counts": counts, **out}
 
 
 def _special_cases(rng):
@@ -746,7 +1145,7 @@ def phase_main_path(dev, smi):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t_start
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
 
     fps = (N_FRAMES - N_WARM) / elapsed
     ms = np.asarray(times) * 1e3
@@ -805,7 +1204,7 @@ def phase_vi_path(dev, smi):
         fused = tracker.imu_ready and tracker.gravity_w is not None and tracker.state == TrackingState.OK
         if fused and launches_host is None:
             launches_host = hamming.launches
-            count_rot3()
+            count_small_kernels()
         f0 = time.perf_counter()
         tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
         dt_ms = (time.perf_counter() - f0) * 1e3
@@ -822,7 +1221,7 @@ def phase_vi_path(dev, smi):
     est = tracker.positions()
     torch.cuda.synchronize()
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
 
     if not tracker.imu_ready or init_frame is None:
         raise AssertionError(f"IMU initialization never fired: {tracker.imu_init_log[-3:]}")
@@ -914,6 +1313,89 @@ def _consumed_ok(tracker, n_host: int = 1):
             + int(pending is not None and float(pending[1][ST_OK].item()) > 0))
 
 
+RARE_TENSORS = ("kstore", "pstore", "lstore", "bow_db", "_local_pt", "R", "t", "has_vel", "gravity_w")
+RARE_HOST = ("n_kf", "state", "imu_ready", "_map_event_cooldown")
+RARE_CLOSER = ("n_loops_closed", "_last_closed_kf", "_consistency", "_consistent_with")
+
+
+def _rare_state(tracker, closer=None) -> dict:
+    """What a rare path reads and writes on `tracker` (and its loop closer):
+    the stores, the BoW database, the local map, the live pose, as copies
+    (under graphs they are buffers the next replay overwrites); the host's
+    counters, the queued BA chunks, the records' count (the relocalization's
+    draw seed)."""
+    from pli_slam_tpu_torch.frontend import graphs
+
+    out = {name: graphs.tree_clone(getattr(tracker, name)) for name in RARE_TENSORS}
+    out.update({name: getattr(tracker, name) for name in RARE_HOST})
+    out["deferred"] = [(kind, repr(arg)) for kind, arg in tracker._deferred_ba]
+    out["n_stats"] = len(tracker.stats)
+    if closer is not None:
+        out.update({name: getattr(closer, name) for name in RARE_CLOSER})
+    return out
+
+
+def _rare_install(tracker, state: dict, closer=None) -> None:
+    """Put a `_rare_state` into a tracker of the same configuration (the
+    queued chunks are dropped: both runs start from an empty queue)."""
+    for name in RARE_TENSORS + RARE_HOST:
+        setattr(tracker, name, state[name])
+    tracker._deferred_ba = []
+    tracker.stats = [{} for _ in range(state["n_stats"])]
+    if closer is not None:
+        for name in RARE_CLOSER:
+            setattr(closer, name, state[name])
+
+
+def _rare_difference(g: dict, e: dict) -> str | None:
+    """The first entry (a tensor field, or a host value) where two `_rare_state`s differ in any bit, or None."""
+    from pli_slam_tpu_torch.frontend import graphs
+
+    for name in g:
+        if name in RARE_TENSORS:
+            for i, (a, b) in enumerate(zip(graphs.tree_leaves(g[name]), graphs.tree_leaves(e[name]), strict=True)):
+                if not _bits_equal(a, b):
+                    return f"{name} (leaf {i})"
+        elif g[name] != e[name]:
+            return f"{name} ({g[name]!r} / {e[name]!r})"
+    return None
+
+
+def _rare_eager(dev, cam, cfg, held: dict, call) -> dict:
+    """The call a graph tracker made (`held`: the state before it and what it
+    did), made again from that state by a `cuda_graphs=False` tracker: `call
+    (tracker)` under a CUDA-activity trace. Fails on the first bit that
+    differs (the state after, the result, every kernel's launches). Returns
+    the eager side's numbers; the eager launches are not the phase's."""
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+
+    te = Tracker(cam, cfg, dev, cuda_graphs=False)
+    closer = te.loop_closer if "n_loops_closed" in held["before"] else None
+    _rare_install(te, held["before"], closer)
+    out, k0 = [], kernel_counts()
+    wall, _, launches, graph_launches = _traced(dev, lambda: out.append(call(te)))
+    kernels = tuple(b - a for a, b in zip(k0, kernel_counts()))
+    g = held["graphs"]
+    diff = _rare_difference(g["after"], _rare_state(te, closer))
+    if diff is None and out[0] != g["ret"]:
+        diff = f"the result ({g['ret']} / {out[0]})"
+    if diff is None and kernels != g["kernels"]:
+        diff = f"the kernels' launches (gated_match, closest_rotation, largest_eigvec, svd_small) {g['kernels']} / " \
+               f"{kernels}"
+    if diff is not None:
+        raise AssertionError(f"{held['what']}: graphs and eager differ first at {diff}")
+    reset_counts()
+    return dict(ret=out[0], wall=wall, launches=launches, graph_launches=graph_launches, kernels=kernels)
+
+
+def _rare_line(held: dict, eager: dict) -> str:
+    g = held["graphs"]
+    return (f"{held['what']}: with graphs {1e3 * g['wall']:.1f} ms, {g['launches']} kernel and {g['graph_launches']} "
+            f"graph launches from the host; eager from the same state {1e3 * eager['wall']:.1f} ms, "
+            f"{eager['launches']} kernel and {eager['graph_launches']} graph launches; bit-identical (the state after, "
+            f"the result {g['ret']}, the kernels' launches {g['kernels']})")
+
+
 def phase_loop(dev, smi):
     """6a (see the module docstring): the loop-closing run. Returns its
     launches, frame count and what 6b continues from."""
@@ -923,14 +1405,46 @@ def phase_loop(dev, smi):
     from pli_slam_tpu_torch.ops.kernels import hamming
     from pli_slam_tpu_torch.utils.profile import N_FRAMES_LOOP, loop_frames, loop_run
 
+    from pli_slam_tpu_torch.frontend.loop_closing import LoopCloser
+
     t0 = time.perf_counter()
     cfg, cam, traj, frames = loop_frames(dev)
     torch.cuda.synchronize()
     log(f"loop: rendered {len(frames)} frames of bench.py's flagship trajectory in {time.perf_counter() - t0:.2f} s")
+    held, orig = {"what": "loop 6a, the closure's verification and correction"}, LoopCloser._verify_and_close
+
+    def verify_and_close(closer, tracker, kf_slot, candidates):
+        """The first verification under graphs: the state before, then the call traced."""
+        if "graphs" in held or not tracker.cuda_graphs:
+            return orig(closer, tracker, kf_slot, candidates)
+        held["before"], held["args"] = _rare_state(tracker, closer), (kf_slot, list(candidates))
+        out, k0 = [], kernel_counts()
+        wall, _, n, ng = _traced(dev, lambda: out.append(orig(closer, tracker, kf_slot, candidates)))
+        held["graphs"] = dict(ret=out[0], wall=wall, launches=n, graph_launches=ng,
+                              kernels=tuple(b - a for a, b in zip(k0, kernel_counts())),
+                              after=_rare_state(tracker, closer))
+        return out[0]
+
     reset_counts()
-    r = loop_run(cfg, cam, traj, frames, dev)
+    LoopCloser._verify_and_close = verify_and_close
+    try:
+        with record_rare_args():
+            r = loop_run(cfg, cam, traj, frames, dev)
+    finally:
+        LoopCloser._verify_and_close = orig
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
+    if "graphs" not in held:
+        raise AssertionError("loop 6a: no verification ran under graphs")
+    eager = _rare_eager(dev, cam, cfg, held,
+                        lambda te: LoopCloser._verify_and_close(te.loop_closer, te, *held["args"]))
+    log(_rare_line(held, eager) + f" [{smi}]")
+    if held["graphs"]["kernels"][2] < 1:
+        raise AssertionError(f"loop 6a: the verification launched largest_eigvec {held['graphs']['kernels'][2]} times")
+    if held["graphs"]["launches"] > HOST_LAUNCH_LIMIT or not held["graphs"]["graph_launches"]:
+        raise AssertionError(f"loop 6a: the closure under graphs issued {held['graphs']['launches']} kernel and "
+                             f"{held['graphs']['graph_launches']} graph launches (limit {HOST_LAUNCH_LIMIT}): a stage "
+                             f"ran eagerly")
     tracker, lc, t_gba = r["tracker"], r["tracker"].loop_closer, r["t_gba"]
     n_frames = len(frames)
     ok_frames = _consumed_ok(tracker)
@@ -949,7 +1463,8 @@ def phase_loop(dev, smi):
     if planted is not None:
         log(f"loop: no candidate reached the closer; planted closure keyframe {planted['kf_cur']} -> "
             f"{planted['kf_loop']} (ground-truth pose distance {planted['cost']:.3f}), verified {planted['closed']}, "
-            f"verification + PGO + queueing {planted['ms']:.2f} ms (the correction alone once more, warm: "
+            f"verification + PGO + queueing {planted['ms']:.2f} ms with the CUDA-activity trace of the call (the line "
+            f"above: the call alone) (the correction alone once more, eagerly, warm: "
             f"{planted['warm_ms']:.2f} ms); largest keyframe position error against the truth "
             f"{planted['kf_before']:.4f} m before, {planted['kf_after']:.4f} m after the correction [{smi}]")
     log(f"loop: {r['n_queued']} GBA chunks queued, {len(t_gba)} run, ms each {gba_ms}, largest keyframe position "
@@ -999,12 +1514,15 @@ def _kidnap(dev, tracker, traj):
     return img_l, img_r, -(R_ref.T @ t_ref).cpu().numpy(), int(n_ref)
 
 
-def _feed_kidnap(tracker, img_l, img_r, t_last, p_ref):
+def _feed_kidnap(tracker, img_l, img_r, t_last, p_ref, traced=None):
     """Feed the kidnap view up to 6 times (streaming) to `tracker`, whose
     `span` is a SyncSpans. Returns (the frame at which a relocalization has
     been accepted and the pose is OK within 0.2 m of `p_ref`, or None; the
     last error in m; states; reported inliers; (ms, accepted) of each
-    relocalization attempt: accepted if its frame reports OK)."""
+    relocalization attempt: accepted if its frame reports OK). With `traced`
+    (a list) each frame runs in a CUDA-activity trace, and each frame that
+    attempted a relocalization appends (its host kernel launches, graph
+    launches, wall ms)."""
     import numpy as np
 
     from pli_slam_tpu_torch.frontend.tracker import TrackingState
@@ -1013,7 +1531,15 @@ def _feed_kidnap(tracker, img_l, img_r, t_last, p_ref):
     recovered, err, states, inliers, attempts = None, np.inf, [], [], []
     for i in range(6):
         n0 = len(reloc_ms)
-        info = tracker.process(img_l, img_r, t_last + 0.05 * (i + 1))
+        stamp = t_last + 0.05 * (i + 1)
+        if traced is None:
+            info = tracker.process(img_l, img_r, stamp)
+        else:
+            res = []
+            wall, _, n, ng = _traced(tracker.device, lambda: res.append(tracker.process(img_l, img_r, stamp)))
+            info = res[0]
+            if len(reloc_ms) > n0:
+                traced.append((n, ng, round(1e3 * wall, 1)))
         ok = info["state"] == TrackingState.OK
         states.append(info["state"])
         inliers.append(info["n_inliers"])
@@ -1036,6 +1562,9 @@ def phase_kidnap(dev, smi, run):
     the launch counts."""
     import dataclasses as dc
 
+    import torch
+
+    from pli_slam_tpu_torch.frontend import graphs
     from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.ops.kernels import hamming
     from pli_slam_tpu_torch.utils.profile import SyncSpans
@@ -1045,7 +1574,7 @@ def phase_kidnap(dev, smi, run):
     reset_counts()
     rec, err, states, inliers, attempts = _feed_kidnap(tracker, img_l, img_r, frames[-1]["t"], p_ref)
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     log(f"kidnap, 6a's tracker (inlier floors {tracker.cfg.tracking.min_inliers_track} / "
         f"{tracker.cfg.tracking.min_inliers_local_map}): states {states}, reported inliers {inliers}, relocalization "
         f"attempts (ms, accepted) {attempts}, recovered at kidnap frame {rec}, {err:.3f} m from the oracle-seeded "
@@ -1061,13 +1590,43 @@ def phase_kidnap(dev, smi, run):
     for fr in frames[:20]:
         tr.process(fr["img_l"], fr["img_r"], fr["t"])
     launches_map = hamming.launches
-    count_rot3()
+    count_small_kernels()
     img_l, img_r, p_ref, n_ref = _kidnap(dev, tr, traj)
+    held, orig = {"what": "kidnap 6b, the first relocalization under graphs"}, tr._relocalize
+
+    def relocalize(frame):
+        """The first attempt: the state before, then the call timed."""
+        if "graphs" in held:
+            return orig(frame)
+        held["before"], held["frame"] = _rare_state(tr), graphs.tree_clone(frame)
+        k0, t0 = kernel_counts(), time.perf_counter()
+        ok = orig(frame)
+        torch.cuda.synchronize(dev)
+        held["graphs"] = dict(ret=ok, wall=time.perf_counter() - t0, kernels=tuple(
+            b - a for a, b in zip(k0, kernel_counts())), after=_rare_state(tr))
+        return ok
+
+    tr._relocalize = relocalize
     reset_counts()
-    rec, err, states, inliers, attempts = _feed_kidnap(tr, img_l, img_r, frames[19]["t"], p_ref)
+    traced = []
+    with record_rare_args():
+        rec, err, states, inliers, attempts = _feed_kidnap(tr, img_l, img_r, frames[19]["t"], p_ref, traced)
     launches_kid = hamming.launches
-    count_rot3()
+    count_small_kernels()
     launches += launches_map + launches_kid
+    if "graphs" not in held or not traced:
+        raise AssertionError("kidnap 6b: no relocalization was attempted under graphs")
+    held["graphs"].update(launches=traced[0][0], graph_launches=traced[0][1])
+    eager = _rare_eager(dev, tracker.cam, cfg, held, lambda te: te._relocalize(held["frame"]))
+    log(_rare_line(held, eager) + f"; the graph side's launches are its whole frame's (the relocalization frames: "
+        f"kernel launches, graph launches, ms {traced}) [{smi}]")
+    if held["graphs"]["kernels"][2] < 1:
+        raise AssertionError(f"kidnap 6b: the relocalization launched largest_eigvec {held['graphs']['kernels'][2]} "
+                             f"times")
+    worst = max(n for n, _, _ in traced)
+    if worst > HOST_LAUNCH_LIMIT or any(ng == 0 for _, ng, _ in traced):
+        raise AssertionError(f"kidnap 6b: a relocalization frame under graphs issued {worst} kernel launches (limit "
+                             f"{HOST_LAUNCH_LIMIT}): a stage ran eagerly ({traced})")
     log(f"kidnap, floors 60 / 60 after 20 frames: states {states}, reported inliers {inliers}, relocalization attempts "
         f"(ms, accepted) {attempts}, recovered at kidnap frame {rec} with {err:.3f} m from the oracle-seeded re-track "
         f"({n_ref} inliers there); gated_match launches {launches_map} over the 20 frames and {launches_kid} over the "
@@ -1122,7 +1681,7 @@ def phase_atlas(dev, smi):
             errs.append(float(np.linalg.norm(est_p - R0.T @ (fr["p_w"] - p0))))
     torch.cuda.synchronize()
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     log(f"atlas: map 1 {n_kf1} keyframes; after the blackout {maps_after_blackout} maps ({state_after}); merged at "
         f"revisit frame {merged_at}, that frame {merge_ms if merge_ms is None else round(merge_ms, 2)} ms; position "
         f"errors after the merge {[round(e, 4) for e in errs]} m; gated_match launches {launches} [{smi}]")
@@ -1212,7 +1771,7 @@ def phase_rgbd(dev, smi):
             raise AssertionError(f"rgbd: frame {i} pose not finite")
     torch.cuda.synchronize()
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     tracker = sysm.tracker
     ok_frames = _consumed_ok(tracker)
     sysm.shutdown()
@@ -1252,7 +1811,7 @@ def phase_rgbd(dev, smi):
         states.append(loaded.track_rgbd(fr["img_l"], fr["depth"], fr["t"])["state"])
         ms_loc.append((time.perf_counter() - f0) * 1e3)
     launches_loc = hamming.launches
-    count_rot3()
+    count_small_kernels()
     grown = (int(loaded.tracker.pstore.valid.sum()) - n_pts, loaded.tracker.n_kf - n_kf)
     lines = {}
     for name in ("trajectory_tum", "trajectory_euroc", "trajectory_kitti", "keyframe_trajectory_tum"):
@@ -1306,7 +1865,7 @@ def phase_mono(dev, smi):
             ms.append(dt)
     torch.cuda.synchronize()
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     tracker = sysm.tracker
     sysm.shutdown()
     est = np.stack([p for _, _, p in tracker.trajectory])
@@ -1331,7 +1890,50 @@ def phase_mono(dev, smi):
         raise AssertionError(f"mono: Sim(3) ATE {ate} m >= {MONO_ATE_BOUND} m")
     if launches - init_launches < 2 * n_tracked:
         raise AssertionError(f"mono: gated_match launched {launches - init_launches} times for {n_tracked} frames")
+    launches += mono_planted_reloc(dev, smi, tracker, frames, est, gt)
     return launches, len(frames)
+
+
+def mono_planted_reloc(dev, smi, tracker, frames, est, gt) -> int:
+    """Phase 8's planted relocalization: the tracker's pose set to the
+    identity and its state to lost, then the last frame of its own sequence
+    relocalized through the stages (the mono PnP: the 6-point DLT on
+    svd_small, under graphs). It must be re-tracked, and the Sim(3) ATE of
+    the run with the relocalized pose added (against that frame's ground
+    truth) must stay inside phase 8's bound. Returns its gated_match launches."""
+    import numpy as np
+    import torch
+
+    from pli_slam_tpu_torch.frontend.tracker import TrackingState
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.utils import trajectory as tio
+
+    k = len(frames) - 1
+    frame = tracker._build_host(tracker._image(frames[k]["img_l"]))
+    tracker.R, tracker.t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    tracker._reset_motion()
+    tracker.state = TrackingState.LOST
+    reset_counts()
+    t0 = time.perf_counter()
+    with record_rare_args():
+        ok = tracker._relocalize(frame)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, (_, _, n_eig, n_svd) = hamming.launches, kernel_counts()
+    count_small_kernels()
+    p = -(tracker.R.T @ tracker.t).cpu().numpy()
+    ate = tio.ate_rmse(np.vstack([est, p]), np.vstack([gt, gt[k]]), with_scale=True)
+    log(f"mono: planted relocalization of frame {k} from the identity pose, lost: re-tracked {ok} in {ms:.1f} ms "
+        f"(graphs {tracker.cuda_graphs}), {float(np.linalg.norm(p - est[k])):.4f} map units from the run's own pose "
+        f"there; Sim(3) ATE with it {ate:.4f} m (bound {MONO_ATE_BOUND}); launches: svd_small {n_svd}, "
+        f"largest_eigvec {n_eig}, gated_match {launches} [{smi}]")
+    if not ok or tracker.state != TrackingState.OK:
+        raise AssertionError(f"mono: the planted relocalization of frame {k} failed")
+    if not ate < MONO_ATE_BOUND:
+        raise AssertionError(f"mono: Sim(3) ATE {ate} m with the relocalized pose >= {MONO_ATE_BOUND} m")
+    if n_svd < 2:
+        raise AssertionError(f"mono: the relocalization launched svd_small {n_svd} times (the DLT's A and M)")
+    return launches
 
 
 def phase_rectifier(dev, smi):
@@ -1404,7 +2006,7 @@ def _run_driver(module, argv):
     reset_counts()
     rc = importlib.import_module(f"pli_slam_tpu_torch.scripts.{module}").main(argv)
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     if rc != 0:
         raise AssertionError(f"{module} returned {rc}")
     with open(os.path.join(out, "summary.json")) as f:
@@ -1569,7 +2171,7 @@ def phase_vocab(dev, smi, work, root, room):
         tracker.process(fr["img_l"], fr["img_r"], fr["t"])
     tracker.finalize()
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     est, gt = tracker.positions(), np.stack([fr["p_w"] for fr in room])
     ate = synthetic.ate_rmse(est, gt)
     db, n_kf = tracker.bow_db, tracker.n_kf
@@ -1722,7 +2324,7 @@ def phase_fisheye(dev, smi):
     tracker.finalize()
     torch.cuda.synchronize()
     launches_a = hamming.launches
-    count_rot3()
+    count_small_kernels()
     if init is None:
         raise AssertionError("fisheye: the stereo map never initialized")
     est, gt = tracked_positions(tracker, run)
@@ -1755,7 +2357,7 @@ def phase_fisheye(dev, smi):
         fused = tracker.imu_ready and tracker.gravity_w is not None and tracker.state == TrackingState.OK
         if fused and launches_host is None:
             launches_host = hamming.launches
-            count_rot3()
+            count_small_kernels()
         f0 = time.perf_counter()
         tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
         dt = (time.perf_counter() - f0) * 1e3
@@ -1771,7 +2373,7 @@ def phase_fisheye(dev, smi):
     tracker.finalize()
     torch.cuda.synchronize()
     launches_b = hamming.launches
-    count_rot3()
+    count_small_kernels()
     if imu_init is None:
         raise AssertionError(f"fisheye 10b: the IMU never initialized: {tracker.imu_init_log[-3:]}")
     rec = tracker.imu_init_log[-1]
@@ -1838,7 +2440,7 @@ def phase_mono_vi(dev, smi):
             ate_pre = peek_ate(tracker, frames, with_scale=True)
     torch.cuda.synchronize()
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     sysm.shutdown()
     if mono_init is None or imu_init is None:
         raise AssertionError(f"mono-inertial: initialized at frame {mono_init}, the IMU at {imu_init}: "
@@ -1890,11 +2492,13 @@ def phase_rgbd_vi(dev, smi):
         f"{len(frames[0]['imu_gyro'])} IMU samples each in {time.perf_counter() - t0:.2f} s")
     tracker = Tracker(cam, cfg, dev)
     reset_counts()
-    ms_before, ms_after, init_frame, ate_pre = [], [], None, None
+    ms_before, ms_after, init_frame, ate_pre, replays = [], [], None, None, []
     for i, fr in enumerate(frames):
         f0 = time.perf_counter()
-        tracker.process_rgbd(fr["img_l"], fr["depth"], fr["t"], imu=fr["imu"])
-        dt = (time.perf_counter() - f0) * 1e3
+        n0 = len(replays)
+        with check_replays(("vi_ba",), replays):  # each "vi_ba" replay also run eagerly, its time taken out
+            tracker.process_rgbd(fr["img_l"], fr["depth"], fr["t"], imu=fr["imu"])
+        dt = (time.perf_counter() - f0 - sum(sec for _, _, sec in replays[n0:])) * 1e3
         if tracker.imu_ready and init_frame is None:
             init_frame, init_ms = i, dt
             v_err = float(np.linalg.norm(tracker.v_w.cpu().numpy() - fr["v_w"]))
@@ -1906,7 +2510,7 @@ def phase_rgbd_vi(dev, smi):
     tracker.finalize()
     torch.cuda.synchronize()
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     if init_frame is None:
         raise AssertionError(f"rgbd-inertial: the IMU never initialized: {tracker.imu_init_log[-3:]}")
     rec = tracker.imu_init_log[-1]
@@ -1924,7 +2528,12 @@ def phase_rgbd_vi(dev, smi):
     log(f"rgbd-inertial: frames 1-{init_frame - 1}: {_frame_times(ms_before)}; frames {init_frame + 1}-"
         f"{len(frames) - 1}: {_frame_times(ms_after)}; ATE {ate:.4f} m (the reference: {REF_RGBD_VI['ate']} m), "
         f"{tracker.n_kf} keyframes, ok frames {ok_frames}/{len(frames)}, gated_match launches {launches} "
-        f"({launches / (len(frames) - 1):.2f} per tracked frame) [{smi}]")
+        f"({launches / (len(frames) - 1):.2f} per tracked frame); each of the {len(replays)} visual-inertial BA "
+        f"replays (the IMU initialization's, the keyframes' windows, the post-closure chunks) bit-identical to "
+        f"the stage run eagerly on its inputs: {all(bad is None for _, bad, _ in replays)} [{smi}]")
+    if tracker.cuda_graphs and (not replays or any(bad is not None for _, bad, _ in replays)):
+        raise AssertionError(f"rgbd-inertial: a vi_ba replay differs from the stage run eagerly (stage, first "
+                             f"output leaf that differs): {replays}")
     if abs(init_frame - REF_RGBD_VI["imu_init"]) > INIT_MARGIN or not rec["accepted"]:
         raise AssertionError(f"rgbd-inertial: the IMU initialized at frame {init_frame}: {rec}")
     if not ate_pre < RGBD_VI_ATE_PRE_BOUND or not (np.all(np.isfinite(est)) and ate < RGBD_VI_ATE_BOUND):
@@ -2090,7 +2699,7 @@ def phase_flagship_closure(dev, smi, run):
     reset_counts()
     r = inertial_loop_run(cfg, cam, traj, frames, dev)
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     tracker, init, planted, n_frames = r["tracker"], r["init"], r["planted"], r["n_frames"]
     if not init:
         raise AssertionError(f"flagship 14a: the IMU never initialized in {n_frames} frames: "
@@ -2163,7 +2772,7 @@ def phase_bench(dev, smi, run, room):
     vis = bench.run_visual(N_BENCH_VISUAL, device=dev, frames=room)
     wall = time.perf_counter() - t0
     launches = hamming.launches
-    count_rot3()
+    count_small_kernels()
     text = json.dumps(bench.result_line(flag, vis))
     line = json.loads(text)
     keys, extra = bench_line_keys(os.path.join(ROOT, "bench.py"))
@@ -2199,6 +2808,8 @@ N_EAGER_VISUAL, N_EAGER_VI = 20, 40
 HOST_TRACE_FROM, HOST_TRACE_MAX = 12, 8  # phase 5's host-path frames traced one by one from frame 12 until a
 # keyframe and a tracking-only frame are both among them
 HOST_LAUNCH_LIMIT = 2000  # host kernel launches a host-path frame under graphs: more means a stage ran eagerly
+RARE_STAGES = ("reloc_match", "reloc_pnp", "reloc_track", "reloc_pick", "loop_match", "loop_verify", "loop_correct",
+               "vi_ba", "gba")
 STORES = ("pstore", "lstore", "kstore", "bow_db")
 
 
@@ -2282,14 +2893,15 @@ def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: i
             timed.append(one(fr))
     wall, busy_us, launches, graph_launches = _traced(dev, lambda: [one(fr) for fr in frames[n_timed:]])
     cap_ms, pool = capture_stats(tracker)
-    return dict(snapshot=snapshot, poses=poses, stats=stats, busy=busy_us / 1e6 / wall,
+    rare = [p for p in tracker.stage_programs() if p.name in RARE_STAGES]
+    return dict(rare={p.name: p.captures for p in rare}, rare_pool=sum(p.pool_bytes for p in rare), snapshot=snapshot, poses=poses, stats=stats, busy=busy_us / 1e6 / wall,
                 fused_ms=np.asarray([dt for fused, _, dt in timed if fused]),
                 host_ms=np.asarray([dt for fused, _, dt in timed if not fused]),
                 host_kf=sum(1 for fused, kf, _ in timed if kf and not fused), host_traced=host_traced,
                 launches=launches / N_GRAPH_TRACE, graph_launches=graph_launches / N_GRAPH_TRACE,
                 capture_ms=cap_ms, pool=pool, stage_ms=stage_captures(tracker),
                 peak=torch.cuda.max_memory_allocated(dev) - mem0,
-                gated_match=hamming.launches, closest_rotation=count_rot3())
+                gated_match=hamming.launches, closest_rotation=count_small_kernels())
 
 
 def _bits_equal(a, b) -> bool:
@@ -2352,7 +2964,8 @@ def _host_line(label: str, r: dict) -> str:
                        for kf, n, ng in r["host_traced"])
     return (f"{label}: host-path frames {_pcts(r['host_ms'])} ({r['host_kf']} keyframes among them), the "
             f"first's stage captures included; traced one by one: {traced or 'none'}; stage captures (ms) "
-            f"{r['stage_ms']}")
+            f"{r['stage_ms']}; the rare paths' stages: captures {r['rare']}, their graph pools "
+            f"{r['rare_pool'] / 2**20:.1f} MiB")
 
 
 def phase_graphs(dev, smi, room, vi):
@@ -2409,16 +3022,16 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, count {torch.cuda.device_count()}")
 
-    from pli_slam_tpu_torch.ops.kernels import hamming
-
     from concurrent.futures import ThreadPoolExecutor
 
-    from pli_slam_tpu_torch.ops.kernels import rot3
+    from pli_slam_tpu_torch.ops.kernels import eig4, hamming, rot3, svd_small
 
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        t_build, t_build_rot3 = pool.map(lambda build: build(), (hamming.build, rot3.build))
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+        t_build, t_build_rot3, t_build_eig4, t_build_svd = pool.map(
+            lambda build: build(), (hamming.build, rot3.build, eig4.build, svd_small.build))
     log(f"build: gated_match ({KERNEL_SRC}) built and loaded in {t_build:.2f} s, closest_rotation ({ROT3_SRC}) in "
-        f"{t_build_rot3:.2f} s, in parallel")
+        f"{t_build_rot3:.2f} s, largest_eigvec ({EIG4_SRC}) in {t_build_eig4:.2f} s, svd_small ({SVD_SRC}) in "
+        f"{t_build_svd:.2f} s, in parallel")
 
     secs = {}
 
@@ -2430,6 +3043,8 @@ def main() -> int:
 
     max_err, times = timed("3", phase_kernels, dev)
     rot3_line = timed("3b", phase_rot3, dev)
+    eig4_line = timed("3c", phase_eig4, dev)
+    svd_line = timed("3d", phase_svd_small, dev)
     timed("4 stages", phase_small_reference, dev)
     launches, n_frames, room = timed("4", phase_main_path, dev, smi)
     launches_vi, n_frames_vi, vi = timed("5", phase_vi_path, dev, smi)
@@ -2439,6 +3054,7 @@ def main() -> int:
     launches_ra = launches_kidnap + launches_atlas
     launches_rgbd, n_fused_rgbd, rgbd_frames = timed("7", phase_rgbd, dev, smi)
     launches_mono, n_frames_mono = timed("8", phase_mono, dev, smi)
+    small_main = timed("3c/3d main path", phase_small_main_path, dev)
     timed("rectifier", phase_rectifier, dev, smi)
     ingest = timed("9", phase_ingest, dev, smi, vi, rgbd_frames, room)
     launches_ingest = sum(n for n, _ in ingest.values())
@@ -2451,6 +3067,12 @@ def main() -> int:
     launches_flagship = launches_14a + launches_14b
     timed("15", phase_graphs, dev, smi, room, vi)
     log(f"chip_smoke: seconds per phase {secs}")
+    for name, counts, phases in (("closest_rotation", ROT3_LAUNCHES, ("phase_main_path", "phase_loop")),
+                                 ("largest_eigvec", EIG4_LAUNCHES, ("phase_loop", "phase_kidnap",
+                                                                    "phase_flagship_closure")),
+                                 ("svd_small", SVD_LAUNCHES, ("mono_planted_reloc",))):
+        if any(counts.get(phase, 0) < 1 for phase in phases):
+            raise AssertionError(f"{name} was not launched on every path that runs it: {counts}")
 
     from pli_slam_tpu_torch.utils.kernel_bench import bound_ms
 
@@ -2489,7 +3111,19 @@ def main() -> int:
         "library_ms": rot3_line["library_ms"], "shape": "1 x 3 x 3", "sweeps": rot3_line["sweeps"],
         "call_ms": rot3_line["call_ms"], "max_abs_err_float64": rot3_line["float64"],
         **{f"launches_{name.removeprefix('phase_')}": n for name, n in ROT3_LAUNCHES.items()},
-    }]}))
+    }, *[{
+        "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": sum(counts.values()),
+        "max_abs_err": line["max_abs_err"], "ms": line["ms"], "plain_ms": line["plain_ms"],
+        "bound_ms": line["bound_ms"], "bound_by": line["bound_by"], "library_ms": line["library_ms"], "shape": shape,
+        "sweeps": line["sweeps"], "call_ms": line["call_ms"],
+        "max_abs_err_float64": {**{k: {"kernel": v["kernel"], "twin": v["twin"]} for k, v in line["hold"].items()},
+                                "main_path": {k: {"kernel": small_main[k]["kernel"], "twin": small_main[k]["twin"]}
+                                              for k in keys}},
+        **{f"launches_{phase.removeprefix('phase_')}": n for phase, n in counts.items()},
+        "ransac_counts_main_path": small_main["ransac_counts"],
+    } for name, src, replaces, line, counts, shape, keys in (
+        ("largest_eigvec", EIG4_SRC, EIG4_REPLACES, eig4_line, EIG4_LAUNCHES, "256 x 4 x 4", ("horn",)),
+        ("svd_small", SVD_SRC, SVD_REPLACES, svd_line, SVD_LAUNCHES, "256 x 12 x 12", ("svd12", "svd3")))]]}))
     log(smi)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,20 @@ class FrameData:
     sigma2: torch.Tensor  # [N] scale^2
 
 
+def empty_frame(cfg: SlamConfig, device=None) -> FrameData:
+    """A frame of the builders' shapes and types with nothing valid: what a
+    stage is captured on before its first real frame."""
+    n, nl = cfg.orb.n_features, cfg.lines.n_lines
+    z, z2 = torch.zeros(n, device=device), torch.zeros((n, 2), device=device)
+    no = torch.zeros(n, dtype=torch.bool, device=device)
+    feats = orb.Features(uv=z2, response=z, angle=z.clone(), octave=torch.zeros(n, dtype=torch.int32, device=device),
+                         scale=torch.ones(n, device=device),
+                         desc=torch.zeros((n, 256), dtype=torch.int8, device=device), valid=no)
+    return FrameData(feats=feats, u_right=z.clone(), stereo_ok=no.clone(), depth=torch.full((n,), -1.0, device=device),
+                     lines=LineFeatures.empty(nl, device), line_disp=torch.zeros((nl, 2), device=device),
+                     line_ok=torch.zeros(nl, dtype=torch.bool, device=device), sigma2=torch.ones(n, device=device))
+
+
 def build_frame(cam: Camera, cfg: SlamConfig, img_l: torch.Tensor, img_r: torch.Tensor) -> FrameData:
     fl = orb.extract(img_l, cfg.orb)
     fr = orb.extract(img_r, cfg.orb)

@@ -68,7 +68,10 @@ import time
 import torch
 
 from pli_slam_tpu_torch.frontend import step as step_mod
-from pli_slam_tpu_torch.ops.kernels import hamming, rot3
+from pli_slam_tpu_torch.ops.kernels import eig4, hamming, rot3, svd_small
+
+
+KERNEL_MODULES = (hamming, rot3, eig4, svd_small)  # the hand-written kernels' modules, each with its `launches`
 
 
 def tree_pairs(dst, src, out: list) -> list:
@@ -166,7 +169,7 @@ def capture_graph(device, pool, what: str, body, stream=None) -> Captured:
     dev = torch.device(device)
     side = stream if stream is not None else torch.cuda.Stream(dev)
     t0 = time.perf_counter()
-    counter = hamming.ReplayCounter(hamming, rot3)
+    counter = hamming.ReplayCounter(*KERNEL_MODULES)
     side.wait_stream(torch.cuda.current_stream(dev))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):

@@ -9,9 +9,19 @@ RANSAC (`solve.sim3`) and the projection re-check; then the essential-graph
 PGO (`solve.pgo`) with landmark re-anchoring, line endpoints included, and
 the global BA, queued on the tracker as per-frame chunks.
 
-`LoopCloser.warm_up` runs each of those solvers once on empty stores of
-the real shapes; `Tracker` calls it at construction on a GPU, so that the
-first closure in a process does not pay for loading their kernels.
+Verification and correction run as the tracker's stage programs
+(frontend.graphs.StageProgram; CUDA graphs on a GPU, eagerly on the CPU
+and with `cuda_graphs=False`): `loop_match` (3D-3D matching, the scene-
+scaled threshold, the sampling weights), the draw on the host, then
+`loop_verify` (RANSAC and both projection re-checks, one int32 read) per
+candidate, and `loop_correct` (the essential-graph correction in its mode,
+the live pose's rigid delta). Keyframe slots enter them as 0-d device ints
+(`ops.indexing.row` / `set_row`), so one capture serves every closure.
+
+`LoopCloser.warm_up` runs each of those stages once on the tracker's
+stores, results dropped; `Tracker` calls it at construction on a GPU, so
+that the first closure in a process pays neither for loading their
+kernels nor, under graphs, for capturing them.
 
 Random draws go through `LoopCloser.draw` (default `solve.sim3.sample_indices`,
 seeded with the reference's `kf_slot * 7 + candidate`); a parity test can
@@ -22,12 +32,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 
 import torch
 
+from pli_slam_tpu_torch.frontend.step import _dev_int
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import lie, matching
-from pli_slam_tpu_torch.ops.indexing import nanmedian
+from pli_slam_tpu_torch.ops.indexing import nanmedian, row, set_row
 from pli_slam_tpu_torch.solve import pgo, sim3
 from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.worldmap import stores as st
@@ -35,7 +47,7 @@ from pli_slam_tpu_torch.worldmap import stores as st
 
 def _observed(kstore, pstore, kf):
     """(landmark ids [S], valid [S], descriptors [S,256], positions [S,3]) of keyframe `kf`'s observations."""
-    ids = kstore.obs_pt[kf]
+    ids = row(kstore.obs_pt, kf)
     safe = torch.clamp(ids, min=0).long()
     return ids, (ids >= 0) & pstore.valid[safe], pstore.desc[safe], pstore.x[safe]
 
@@ -76,15 +88,15 @@ def projection_support(cam, kstore: st.KeyFrameStore, pstore: st.PointStore, kf_
     """Count `kf_src`'s landmarks that, mapped into the current region by the
     inverse of the verified Sim3 (x_loop = s R x_cur + t) and projected into
     `kf_obs`'s camera, land on one of `kf_obs`'s observed landmarks (window
-    and descriptor gate)."""
+    and descriptor gate). Slots are host ints or 0-d device ints."""
     _, va, da, X_loop = _observed(kstore, pstore, kf_src)
     Ri, ti, si = lie.sim3_inverse(R_rel, t_rel, torch.as_tensor(s_rel, dtype=R_rel.dtype, device=R_rel.device))
     X_cur = si * lie._einsum("ij,nj->ni", Ri, X_loop) + ti
-    xc = lie._einsum("ij,nj->ni", kstore.R[kf_obs], X_cur) + kstore.t[kf_obs]
+    xc = lie._einsum("ij,nj->ni", row(kstore.R, kf_obs), X_cur) + row(kstore.t, kf_obs)
     uv = cam_ops.project(cam, xc)
     va = va & (xc[:, 2] > 0.1) & cam_ops.in_image(cam, uv, margin=-radius)
     _, vb, db, _ = _observed(kstore, pstore, kf_obs)
-    gate = matching.window_gate(uv, kstore.obs_uvr[kf_obs][:, :2], radius) & vb[None, :]
+    gate = matching.window_gate(uv, row(kstore.obs_uvr, kf_obs)[:, :2], radius) & vb[None, :]
     _, _, ok = matching.match_nn(matching.hamming_matrix(da, db), va, vb, gate, max_dist=max_dist)
     return torch.sum(ok.to(torch.int32))
 
@@ -94,7 +106,8 @@ def apply_loop_correction(kstore: st.KeyFrameStore, pstore: st.PointStore, lstor
     """Essential-graph correction (chain + covisibility edges + the loop
     edge, weight 5) and landmark re-anchoring: every landmark moves with its
     last-observing keyframe. `inertial` runs the 4-DoF graph; `s_rel` (mono)
-    the 7-DoF sim3 graph, the poses SE3-ified after (t /= s); otherwise SE3."""
+    the 7-DoF sim3 graph, the poses SE3-ified after (t /= s); otherwise SE3.
+    `kf_cur` and `kf_loop` are host ints or 0-d device ints."""
     K = kstore.R.shape[0]
     dev, dt_ = kstore.R.device, kstore.R.dtype
     valid = kstore.valid
@@ -108,20 +121,17 @@ def apply_loop_correction(kstore: st.KeyFrameStore, pstore: st.PointStore, lstor
     # the loop edge: x_loop = s R x_cur + t, so S_cur' = T_cur o S^-1 and the
     # measured S_cur,loop = T_cur o S^-1 o T_loop^-1 (camera poses with s = 1)
     R_s_inv, t_s_inv, s_s_inv = lie.sim3_inverse(R_rel, t_rel, s_rel)
-    Rc, tc, sc = lie.sim3_compose(kstore.R[kf_cur], kstore.t[kf_cur], one, R_s_inv, t_s_inv, s_s_inv)
-    Rl_inv, tl_inv = lie.se3_inverse(kstore.R[kf_loop], kstore.t[kf_loop])
+    Rc, tc, sc = lie.sim3_compose(row(kstore.R, kf_cur), row(kstore.t, kf_cur), one, R_s_inv, t_s_inv, s_s_inv)
+    Rl_inv, tl_inv = lie.se3_inverse(row(kstore.R, kf_loop), row(kstore.t, kf_loop))
     Rm, tm, sm = lie.sim3_compose(Rc, tc, sc, Rl_inv, tl_inv, one)
 
     def cat1(a, b):
         return torch.cat([a, b[None]])
 
-    i32 = torch.int32
-    fixed = ~valid
-    fixed[kf_loop] = True
     graph = pgo.PoseGraph(
-        R=kstore.R, t=kstore.t, s=ones, node_mask=valid, fixed_mask=fixed,
-        e_i=cat1(ci, torch.tensor(kf_loop, dtype=i32, device=dev)),
-        e_j=cat1(cj, torch.tensor(kf_cur, dtype=i32, device=dev)),
+        R=kstore.R, t=kstore.t, s=ones, node_mask=valid, fixed_mask=set_row(~valid, kf_loop, True),
+        e_i=cat1(ci, _dev_int(kf_loop, dev)),
+        e_j=cat1(cj, _dev_int(kf_cur, dev)),
         e_R=cat1(cR, Rm), e_t=cat1(ct, tm), e_s=cat1(cs, sm),
         e_weight=cat1(torch.ones(ci.shape[0], dtype=dt_, device=dev), 5.0 * one),
         e_mask=cat1(cmask, torch.ones((), dtype=torch.bool, device=dev)))
@@ -149,6 +159,49 @@ def apply_loop_correction(kstore: st.KeyFrameStore, pstore: st.PointStore, lstor
     return kstore, pstore, lstore
 
 
+def loop_match(kstore: st.KeyFrameStore, pstore: st.PointStore, kf_cur, kf_cand):
+    """Stage `loop_match`: the 3D-3D correspondences of keyframes `kf_cur` and
+    `kf_cand` (0-d device ints), the RANSAC's scene-scaled threshold and its
+    sampling weights. Returns (x, y, mask, thresh, probs)."""
+    x, y, m = match_kf_landmarks(kstore, pstore, kf_cur, kf_cand)
+    return x, y, m, scene_scaled_thresh(x, m), sim3.mask_probs(m)
+
+
+def loop_verify(cam, cfg: SlamConfig, with_scale: bool, kstore: st.KeyFrameStore, pstore: st.PointStore, x, y, m,
+                thresh, hyp, kf_cur, kf_prev, kf_cand):
+    """Stage `loop_verify`: the Sim3 / SE3 RANSAC over `loop_match`'s
+    correspondences on the drawn triplets `hyp`, then the projection
+    re-check of the candidate's landmarks onto the current keyframe and onto
+    `kf_prev` (the one before it). Returns (R, t, s, read): `read` is int32
+    (RANSAC inliers, support on the current keyframe, on the previous)."""
+    R_rel, t_rel, s_rel, _, n_in = sim3.ransac_sim3(x, y, m, hyp, inlier_thresh=thresh, with_scale=with_scale)
+    radius = cfg.loop.proj_radius_px
+    n_cur = projection_support(cam, kstore, pstore, kf_cur, kf_cand, R_rel, t_rel, s_rel, radius=radius)
+    n_prev = projection_support(cam, kstore, pstore, kf_prev, kf_cand, R_rel, t_rel, s_rel, radius=radius)
+    return R_rel, t_rel, s_rel, torch.stack([n.to(torch.int32) for n in (n_in, n_cur, n_prev)])
+
+
+def loop_correct(cfg: SlamConfig, mode: str, kstore: st.KeyFrameStore, pstore: st.PointStore, lstore: st.LineStore,
+                 kf_cur, kf_loop, R_rel, t_rel, s_rel, R, t):
+    """Stage `loop_correct`: `apply_loop_correction` in `mode` ("se3",
+    "4dof" or "sim3"; `s_rel` is used in "sim3" only), and the live pose
+    (R, t) carried by keyframe `kf_cur`'s rigid delta. Returns (kstore,
+    pstore, lstore, R, t)."""
+    R_kf0, t_kf0 = row(kstore.R, kf_cur), row(kstore.t, kf_cur)
+    kstore, pstore, lstore = apply_loop_correction(kstore, pstore, lstore, kf_cur, kf_loop, R_rel, t_rel, cfg,
+                                                   inertial=mode == "4dof", s_rel=s_rel if mode == "sim3" else None)
+    R, t = carry_pose(kstore, kf_cur, R_kf0, t_kf0, R, t)
+    return kstore, pstore, lstore, R, t
+
+
+def carry_pose(kstore: st.KeyFrameStore, kf, R_kf0, t_kf0, R, t):
+    """The live pose (R, t) moved by the rigid delta that took keyframe `kf`
+    from (R_kf0, t_kf0) to its pose in `kstore`."""
+    R_d = lie._mm(row(kstore.R, kf), R_kf0.T)
+    t_d = row(kstore.t, kf) - lie._einsum("ij,j->i", R_d, t_kf0)
+    return lie._mm(R_d, R), lie._einsum("ij,j->i", R_d, t) + t_d
+
+
 class LoopCloser:
     """Host-side loop closing state machine: the temporal-consistency
     counter and, on a confirmed hit, verification, correction and the
@@ -166,34 +219,57 @@ class LoopCloser:
         self.draw = sim3.sample_indices if draw is None else draw
 
     def warm_up(self, tracker) -> float:
-        """Run each solver a closure uses once on `tracker`'s stores, results
-        dropped: 3D-3D matching, RANSAC, the projection re-check, the
-        essential-graph PGO in every mode the tracker can reach (one
-        iteration each, on the [7K, 7K] system of the real K) and one
-        whole-map BA iteration. The first closure in a process otherwise
-        pays for loading these kernels and creating the solver handles
-        (9-15 s on an H100, against ~2 s warm). Returns its wall time in ms,
-        the device synchronised at the end."""
+        """Run each stage a closure uses once on `tracker`'s stores, results
+        dropped: `loop_match`, `loop_verify` and `loop_correct` in every mode
+        the tracker can reach, and a "gba" chunk (`iters` gba_chunk_iters
+        under graphs, else one iteration). The first closure in a process
+        otherwise pays for loading their kernels and creating the solver
+        handles (9-15 s on an H100, against ~2 s warm) and, under graphs, for
+        capturing them. Returns its wall time in ms, the device synchronised
+        at the end."""
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(self.cfg, opt=dataclasses.replace(self.cfg.opt, pgo_iters=1))
-        ks, ps, ls = tracker.kstore, tracker.pstore, tracker.lstore
-        x, y, m = match_kf_landmarks(ks, ps, 1, 0)
-        R_rel, t_rel, s_rel, _, _ = self._ransac(x, y, m, 0)
-        projection_support(tracker.cam, ks, ps, 1, 0, R_rel, t_rel, s_rel, radius=cfg.loop.proj_radius_px)
-        for inertial in (False, True) if tracker.use_imu else (False,):
-            apply_loop_correction(ks, ps, ls, 1, 0, R_rel, t_rel, cfg, inertial=inertial,
-                                  s_rel=s_rel if self.with_scale else None)
-        if cfg.loop.run_gba:
-            from pli_slam_tpu_torch.frontend.step import global_ba
-
-            global_ba(tracker.cam, cfg, ks, ps, ls, iters=1)
+        ks, ps, ls, dev = tracker.kstore, tracker.pstore, tracker.lstore, tracker.device
+        R_rel, t_rel, s_rel = self._verify(tracker, 1, 0, 0)[:3]
+        for mode in self.modes(tracker.use_imu):
+            self._stages(tracker)["loop_correct"](mode, ks, ps, ls, _dev_int(1, dev), _dev_int(0, dev), R_rel, t_rel,
+                                                  s_rel, tracker.R, tracker.t)
+        if self.cfg.loop.run_gba:
+            iters = max(self.cfg.loop.gba_chunk_iters, 1) if tracker.cuda_graphs else 1
+            tracker._stages["gba"](ks, ps, ls, iters)
         if ks.R.device.type == "cuda":
             torch.cuda.synchronize(ks.R.device)
         return (time.perf_counter() - t0) * 1e3
 
-    def _ransac(self, x, y, m, seed: int):
-        idx = self.draw(seed, sim3.mask_probs(m), (self.cfg.loop.sim3_hypotheses, 3))
-        return sim3.ransac_sim3(x, y, m, idx, inlier_thresh=scene_scaled_thresh(x, m), with_scale=self.with_scale)
+    def modes(self, use_imu: bool) -> tuple[str, ...]:
+        """The correction modes a tracker with (`use_imu`) or without an IMU can reach."""
+        if self.with_scale:
+            return ("sim3",)
+        return ("se3", "4dof") if use_imu else ("se3",)
+
+    def _stages(self, tracker) -> dict:
+        """The tracker's stage programs ("loop_match", "loop_verify",
+        "loop_correct"); for a stand-in that carries none (tests drive the
+        closer on bare stores), the same stage bodies, run eagerly."""
+        stages = getattr(tracker, "_stages", None)
+        if stages is not None:
+            return stages
+        cfg = self.cfg
+        return {"loop_match": loop_match,
+                "loop_verify": partial(loop_verify, tracker.cam, cfg, self.with_scale),
+                "loop_correct": partial(loop_correct, cfg)}
+
+    def _verify(self, tracker, kf_slot: int, cand: int, seed: int):
+        """`loop_match`, the draw, `loop_verify` for keyframe `kf_slot` against
+        `cand`: (R, t, s, (RANSAC inliers, support on the current keyframe,
+        on the previous one))."""
+        stages, dev = self._stages(tracker), tracker.kstore.R.device
+        kf, kc = _dev_int(kf_slot, dev), _dev_int(cand, dev)
+        x, y, m, thresh, probs = stages["loop_match"](tracker.kstore, tracker.pstore, kf, kc)
+        hyp = self.draw(seed, probs, (self.cfg.loop.sim3_hypotheses, 3))
+        R_rel, t_rel, s_rel, read = stages["loop_verify"](tracker.kstore, tracker.pstore, x, y, m, thresh, hyp, kf,
+                                                          _dev_int(max(kf_slot - 1, 0), dev), kc)
+        n_in, n_cur, n_prev = read.tolist()  # the candidate's one read
+        return R_rel, t_rel, s_rel, (n_in, n_cur, n_cur if kf_slot < 1 else n_prev)
 
     def on_keyframe(self, tracker, kf_slot: int, candidates) -> bool:
         """Consume keyframe `kf_slot`'s loop candidates ((slot, bow score),
@@ -231,15 +307,9 @@ class LoopCloser:
         # then the stricter projection re-check onto the current and previous keyframes
         verified = None
         for s, _ in candidates:
-            x, y, m = match_kf_landmarks(tracker.kstore, tracker.pstore, kf_slot, s)
-            R_rel, t_rel, s_rel, _, n_in = self._ransac(x, y, m, kf_slot * 7 + s)
-            if int(n_in) < cfg.loop.sim3_min_inliers:
+            R_rel, t_rel, s_rel, (n_in, n_cur, n_prev) = self._verify(tracker, kf_slot, s, kf_slot * 7 + s)
+            if n_in < cfg.loop.sim3_min_inliers:
                 continue
-            n_cur = int(projection_support(tracker.cam, tracker.kstore, tracker.pstore, kf_slot, s, R_rel, t_rel,
-                                           s_rel, radius=cfg.loop.proj_radius_px))
-            n_prev = int(projection_support(tracker.cam, tracker.kstore, tracker.pstore, max(kf_slot - 1, 0), s,
-                                            R_rel, t_rel, s_rel, radius=cfg.loop.proj_radius_px)) if kf_slot >= 1 \
-                else n_cur
             if n_cur >= cfg.loop.proj_min_inliers and n_prev >= cfg.loop.proj_min_inliers // 2:
                 verified = (s, R_rel, t_rel, s_rel)
                 break
@@ -248,26 +318,25 @@ class LoopCloser:
         best, R_rel, t_rel, s_rel = verified
 
         inertial = bool(tracker.imu_ready)
+        mode = "sim3" if self.with_scale else ("4dof" if inertial else "se3")
         # the live pose rides the same rigid delta as keyframe kf_slot
-        R_kf0, t_kf0 = tracker.kstore.R[kf_slot], tracker.kstore.t[kf_slot]
-        tracker.kstore, tracker.pstore, tracker.lstore = apply_loop_correction(
-            tracker.kstore, tracker.pstore, tracker.lstore, kf_slot, best, R_rel, t_rel, cfg, inertial=inertial,
-            s_rel=s_rel if self.with_scale else None)
+        R_kf0, t_kf0, R0, t0 = tracker.kstore.R[kf_slot], tracker.kstore.t[kf_slot], tracker.R, tracker.t
+        dev = tracker.kstore.R.device
+        tracker.kstore, tracker.pstore, tracker.lstore, tracker.R, tracker.t = self._stages(tracker)["loop_correct"](
+            mode, tracker.kstore, tracker.pstore, tracker.lstore, _dev_int(kf_slot, dev), _dev_int(best, dev), R_rel,
+            t_rel, s_rel, tracker.R, tracker.t)
         # global BA over the corrected map: by default amortized, one chunk per later frame
-        if cfg.loop.run_gba:
-            if cfg.loop.gba_amortize:
-                tracker._queue_gba(inertial)
-            elif inertial:
+        if cfg.loop.run_gba and cfg.loop.gba_amortize:
+            tracker._queue_gba(inertial)
+        elif cfg.loop.run_gba:
+            # the BA at once, then the delta of the keyframe's pose across correction and BA
+            tracker.R, tracker.t = R0, t0
+            if inertial:
                 tracker._full_inertial_ba()
             else:
-                from pli_slam_tpu_torch.frontend.step import global_ba
-
-                tracker.kstore, tracker.pstore, tracker.lstore = global_ba(
-                    tracker.cam, cfg, tracker.kstore, tracker.pstore, tracker.lstore)
-        R_d = lie._mm(tracker.kstore.R[kf_slot], R_kf0.T)
-        t_d = tracker.kstore.t[kf_slot] - lie._einsum("ij,j->i", R_d, t_kf0)
-        tracker.t = lie._einsum("ij,j->i", R_d, tracker.t) + t_d
-        tracker.R = lie._mm(R_d, tracker.R)
+                tracker.kstore, tracker.pstore, tracker.lstore = tracker._stages["gba"](
+                    tracker.kstore, tracker.pstore, tracker.lstore, cfg.opt.gba_iters)
+            tracker.R, tracker.t = carry_pose(tracker.kstore, kf_slot, R_kf0, t_kf0, tracker.R, tracker.t)
         tracker._reset_motion()
         tracker._map_event_cooldown = 5  # widened matching while re-locking
         self.n_loops_closed += 1

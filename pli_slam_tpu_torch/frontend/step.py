@@ -66,6 +66,7 @@ from pli_slam_tpu_torch.ops.lines import _deg2rad_f32
 from pli_slam_tpu_torch.solve import ba as ba_mod
 from pli_slam_tpu_torch.solve import gn
 from pli_slam_tpu_torch.solve import inertial as inr
+from pli_slam_tpu_torch.solve import pnp, sim3
 from pli_slam_tpu_torch.solve import triangulate as tri
 from pli_slam_tpu_torch.solve import twoview
 from pli_slam_tpu_torch.solve import vi_ba as vib
@@ -854,6 +855,94 @@ def cull_keyframes(cfg: SlamConfig, kstore, pstore, n_kf):
     redundant = torch.sum((n_obs >= cfg.map.cull_min_obs + 1) & has, dim=1) / torch.clamp(torch.sum(has, dim=1), min=1)
     cull = (redundant >= cfg.map.kf_cull_redundancy) & kstore.valid & in_scope
     return dataclasses.replace(kstore, valid=kstore.valid & ~cull)
+
+
+# ---------------------------------------------------------------------------
+# The rare paths' stages (frontend.graphs.StageProgram): relocalization and
+# the inertial and whole-map BA chunks (the loop closer's: frontend.loop_closing)
+# ---------------------------------------------------------------------------
+
+
+def reloc_match(cfg: SlamConfig, mono: bool, frame: FrameData, pstore):
+    """Relocalization's pose-free matching (the reference's `_pnp_reloc_j`,
+    before its draw): the frame's descriptors against the whole point store,
+    mutual nearest neighbours under ratio 0.8, with a stereo depth unless
+    `mono`. Returns (idx [N] store rows, okm [N], the RANSAC's sampling
+    weights `mask_probs(okm)`)."""
+    dist = matching.hamming_matrix(frame.feats.desc, pstore.desc)
+    idx, _, okm = matching.match_nn(dist, frame.feats.valid, pstore.valid, max_dist=cfg.match.orb_th_low, ratio=0.8)
+    okm = matching.mutual_consistency(idx, okm, dist, frame.feats.valid, pstore.valid)
+    if not mono:
+        okm = okm & (frame.depth > 0)
+    return idx, okm, sim3.mask_probs(okm)
+
+
+def reloc_pnp(cam, cfg: SlamConfig, mono: bool, voc_pt, voc_ln, frame: FrameData, x_store, idx, okm, hyp, bow_db):
+    """Relocalization's PnP on the drawn hypotheses `hyp` ([H,3] stereo, [H,6]
+    mono: the 6-point DLT) with the GN polish, and the frame's BoW query over
+    the whole database (the reference's `_bow_query_frame`). Returns (R, t,
+    read): `read` is the stage's one host read, int32 (the RANSAC's ok, the
+    candidates' slots, their scores' float32 bits; `reloc_read`)."""
+    R, t, _, _, ok = pnp.solve_pnp(cam, x_store[idx.long()], frame.feats.uv, frame.u_right, frame.stereo_ok,
+                                   frame.depth, frame.sigma2, okm, hyp, cfg.opt, inlier_px=8.0, min_inliers=12,
+                                   mono=mono)
+    excl = torch.zeros(bow_db.valid.shape[0], dtype=torch.bool, device=bow_db.valid.device)
+    slots, scores = vocab_query(bow_db, voc_pt.bow(frame.feats.desc, frame.feats.valid),
+                                voc_ln.bow(frame.lines.desc, frame.lines.valid), excl, n_best=cfg.loop.bow_candidates)
+    i32 = torch.int32
+    return R, t, torch.cat([ok.to(i32).reshape(1), slots.to(i32), scores.view(i32)])
+
+
+def reloc_read(read: np.ndarray, n_best: int) -> tuple[bool, list[tuple[int, float]]]:
+    """`reloc_pnp`'s read on the host: (the PnP seed's ok, the BoW candidates
+    as (slot, score) pairs, best first)."""
+    if read.dtype != np.int32 or read.shape != (1 + 2 * n_best,):
+        raise ValueError(f"a relocalization read is {1 + 2 * n_best} int32, not {read.shape} {read.dtype}")
+    slots, scores = read[1:1 + n_best].tolist(), read[1 + n_best:].view(np.float32).tolist()
+    return bool(read[0]), list(zip(slots, scores))
+
+
+def reloc_track(cam, cfg: SlamConfig, frame: FrameData, R0, t0, pstore, lstore, wide):
+    """One relocalization seed's wide re-track (the reference's `_track` with
+    `wide` set): (R, t, inliers, pstore, lstore)."""
+    R, t, *_, n_in, pstore, lstore = track_step(cam, cfg, frame, R0, t0, pstore, lstore, wide=wide)
+    return R, t, n_in, pstore, lstore
+
+
+def reloc_pick(kstore, n_kf, n_ins, Rs, ts):
+    """The best of the seeds' re-tracks (`n_ins`, `Rs`, `ts`: one entry per
+    seed, in the seeds' order) and the keyframe nearest to its pose by |t_cw|
+    among the valid slots below `n_kf` (a 0-d device int). The best is the
+    first maximum, as a host loop with a strict `>` from 0 finds it; a best
+    count of 0 means no seed held. Returns (R, t, read): `read` is int32
+    (best count, the seed, the nearest keyframe)."""
+    n = torch.stack([x.reshape(()) for x in n_ins])
+    best = torch.argmax(n)
+    R, t = row(torch.stack(Rs), best), row(torch.stack(ts), best)
+    K = kstore.t.shape[0]
+    ids = torch.arange(K, device=kstore.t.device)
+    d = torch.linalg.norm(kstore.t - t[None], dim=1)
+    d = torch.where(kstore.valid & (ids < n_kf), d, torch.full_like(d, float("inf")))
+    i32 = torch.int32
+    return R, t, torch.stack([row(n, best).to(i32), best.to(i32), torch.argmin(d).to(i32)])
+
+
+def kf_chain(pints, window):
+    """The preintegration chain of a window of keyframe slots on the device:
+    factor i spans window[i] -> window[i+1] and holds only between adjacent
+    slots with a recorded accumulator. Returns (stacked [W-1], imu_mask [W-1])."""
+    nxt = window[1:]
+    adjacent = nxt == window[:-1] + 1
+    return pints.gather(nxt), pints.valid.index_select(0, nxt.long()) & adjacent
+
+
+def vi_ba_window(cam, cfg: SlamConfig, kstore, pstore, lstore, pints, window, fixed, gravity_w, ext):
+    """Visual-inertial BA over the keyframe window `window` ([W] int32 slots;
+    `fixed` [W] bool): the chain gathered on the device (`kf_chain`), slots
+    culled since the window was drawn pinned. Returns (kstore, pstore, lstore)."""
+    stacked, imu_mask = kf_chain(pints, window)
+    fixed = fixed | ~kstore.valid.index_select(0, window.long())
+    return local_inertial_ba(cam, cfg, kstore, pstore, lstore, window, fixed, stacked, imu_mask, gravity_w, ext)
 
 
 # ---------------------------------------------------------------------------

@@ -61,11 +61,15 @@ copies. The host-orchestrated frames run their stages as captured graphs
 stage programs): preintegration and its composition, the frame build,
 tracking (one read: inliers and the stores' counts), and on a keyframe the
 insertion, windowed BA, BoW add and candidate query (one read: new
-landmarks, counts, candidates), culling and the local map. What stays
-eager on those frames: the map's initializations, relocalization, the IMU
-initialization and the full and windowed visual-inertial BA (its chain is
-gathered on the host), the loop closer, merging, the deferred BA chunks,
-the mono keyframes' triangulated depths.
+landmarks, counts, candidates), culling and the local map. The rare paths
+run as stage programs too: relocalization (`reloc_match`, `reloc_pnp`,
+one `reloc_track` per seed, `reloc_pick`), the loop closer's verification
+and correction (`loop_match`, `loop_verify`, `loop_correct`), the full and
+windowed visual-inertial BA and the "fiba" chunks (`vi_ba`, the chain
+gathered on the device) and the "gba" chunks (`gba`). What stays eager:
+the map's initializations, the IMU initialization's inertial-only
+problem, merging and its welding BA, the mono keyframes' triangulated
+depths.
 
 The rare paths. With `cfg.loop.enabled` a `LoopCloser` sees every new
 keyframe's BoW candidates (verification, essential-graph correction, then
@@ -97,10 +101,11 @@ from pli_slam_tpu_torch.utils.config import SlamConfig
 from pli_slam_tpu_torch.frontend import graphs
 from pli_slam_tpu_torch.frontend import step as step_mod
 from pli_slam_tpu_torch.frontend.frame import (FrameData, build_frame, build_frame_fisheye_stereo, build_frame_mono,
-                                               build_frame_rgbd)
-from pli_slam_tpu_torch.frontend.loop_closing import LoopCloser, match_cross_map, scene_scaled_thresh
+                                               build_frame_rgbd, empty_frame)
+from pli_slam_tpu_torch.frontend.loop_closing import (LoopCloser, loop_correct, loop_match, loop_verify,
+                                                      match_cross_map, scene_scaled_thresh)
 from pli_slam_tpu_torch.ops import imu as imu_ops
-from pli_slam_tpu_torch.ops import lie, matching
+from pli_slam_tpu_torch.ops import lie
 from pli_slam_tpu_torch.ops.camera import KANNALA_BRANDT8, PINHOLE, Camera
 from pli_slam_tpu_torch.solve import imu_init as ii
 from pli_slam_tpu_torch.solve import inertial as inr
@@ -145,8 +150,9 @@ class Tracker:
     eagerly. The stages of the host-orchestrated frames (the
     stereo-inertial frames before IMU initialization and after a loss,
     mono, mono- and RGB-D-inertial) run as CUDA graphs too, captured at
-    their first use (frontend.graphs.StageProgram), under the same switch;
-    the rare paths run eagerly everywhere."""
+    their first use (frontend.graphs.StageProgram), under the same switch,
+    and so do relocalization, the loop closer's verification and
+    correction and the BA chunks."""
 
     SENSORS = ("stereo", "stereo_imu", "rgbd", "rgbd_imu", "mono", "mono_imu")
     default_cuda_graphs = True
@@ -206,7 +212,17 @@ class Tracker:
             ("local_ba", partial(step_mod.local_ba, cam, cfg)),
             ("bow", partial(step_mod.host_bow, cfg, self.voc_pt, self.voc_ln)),
             ("cull", partial(step_mod.cull_keyframes, cfg)),
-            ("local_map", partial(step_mod._local_map_ids, cfg)))}
+            ("local_map", partial(step_mod._local_map_ids, cfg)),
+            # the rare paths: relocalization, loop verification and correction, the BA chunks
+            ("reloc_match", partial(step_mod.reloc_match, cfg, self.is_mono)),
+            ("reloc_pnp", partial(step_mod.reloc_pnp, cam, cfg, self.is_mono, self.voc_pt, self.voc_ln)),
+            ("reloc_track", partial(step_mod.reloc_track, cam, cfg)),
+            ("reloc_pick", step_mod.reloc_pick),
+            ("loop_match", loop_match),
+            ("loop_verify", partial(loop_verify, cam, cfg, cfg.sensor == "mono")),
+            ("loop_correct", partial(loop_correct, cfg)),
+            ("vi_ba", partial(step_mod.vi_ba_window, cam, cfg)),
+            ("gba", partial(step_mod.global_ba, cam, cfg)))}
         self._build_stage = None  # the frame build's stage, made for the current `build_frame`
         self._counts = None  # (pstore, lstore, valid points, valid lines) of the last read
         # deferred BA chunks, one executed per later non-keyframe frame
@@ -276,6 +292,7 @@ class Tracker:
         self.loop_warmup_ms = None
         if self.loop_closer is not None and dev.type == "cuda":
             self.loop_warmup_ms = self.loop_closer.warm_up(self)
+        self.reloc_warmup_ms = None  # set by the first lost frame's `warm_up_reloc` under graphs
 
     def _program(self, fn, name: str) -> graphs.StageProgram:
         return graphs.StageProgram(fn, self.device, self.cuda_graphs, name, self._stage_pool)
@@ -405,7 +422,9 @@ class Tracker:
     def _kf_chain(self, window: np.ndarray):
         """Stacked preintegration chain and mask (numpy) for consecutive
         window slots: factor i spans window[i] -> window[i+1], valid only
-        between adjacent slots with a recorded accumulator."""
+        between adjacent slots with a recorded accumulator. The IMU
+        initialization's host form; the BA chunks gather it on the device
+        (`step.kf_chain`, inside the "vi_ba" stage)."""
         window = np.asarray(window)
         nxt = window[1:]
         stacked = self._pints.gather(torch.as_tensor(nxt, dtype=torch.int32, device=self.device))
@@ -430,7 +449,7 @@ class Tracker:
         by the frames since)."""
         rel = self._live_pose_rel()
         for window, fixed in self._fiba_schedule():
-            self._run_fiba_window(window, fixed)
+            self._run_vi_ba(window, fixed)
         self._adopt_keyframe_state(rel[0])
         self._recompose_live_pose(*rel)
         self._map_event_cooldown = 5
@@ -463,16 +482,14 @@ class Tracker:
         return out
 
     def _run_vi_ba(self, window: np.ndarray, fixed: np.ndarray):
-        stacked, imu_mask = self._kf_chain(window)
+        """Visual-inertial BA over `window` (host-computed slots and their
+        fixed flags, uploaded) through the "vi_ba" stage: the chain gathered
+        and keyframes culled since the window was drawn pinned on the device."""
         dev = self.device
-        self.kstore, self.pstore, self.lstore = step_mod.local_inertial_ba(
-            self.cam, self.cfg, self.kstore, self.pstore, self.lstore,
+        self.kstore, self.pstore, self.lstore = self._stages["vi_ba"](
+            self.kstore, self.pstore, self.lstore, self._pints,
             torch.as_tensor(window, dtype=torch.int32, device=dev), torch.as_tensor(fixed, device=dev),
-            stacked, torch.as_tensor(imu_mask, device=dev), self.gravity_w, self.ext)
-
-    def _run_fiba_window(self, window, fixed):
-        # keyframes culled since the schedule was drawn stay pinned
-        self._run_vi_ba(window, fixed | ~self.kstore.valid.cpu().numpy()[window])
+            self.gravity_w, self.ext)
 
     def _queue_gba(self, inertial: bool):
         """Schedule the post-loop global BA as per-frame chunks: the
@@ -495,10 +512,10 @@ class Tracker:
             rel = self._live_pose_rel()
             with self.span(kind):
                 if kind == "gba":
-                    self.kstore, self.pstore, self.lstore = step_mod.global_ba(
-                        self.cam, self.cfg, self.kstore, self.pstore, self.lstore, iters=arg)
+                    self.kstore, self.pstore, self.lstore = self._stages["gba"](self.kstore, self.pstore,
+                                                                                self.lstore, arg)
                 else:
-                    self._run_fiba_window(*arg)
+                    self._run_vi_ba(*arg)
                     if not self._deferred_ba:  # final chunk: refresh the live state
                         self._adopt_keyframe_state(rel[0])
             self._recompose_live_pose(*rel)
@@ -808,63 +825,73 @@ class Tracker:
             self._refresh_local_map(self.n_kf - 1)
 
     # -- relocalization ---------------------------------------------------------
-    def _bow_query_frame(self, desc, fvalid, ldesc, lvalid, n_best: int):
-        """The frame's top BoW candidates over the whole database: (slots, scores)."""
-        excl = torch.zeros(self.bow_db.valid.shape[0], dtype=torch.bool, device=self.device)
-        return step_mod.vocab_query(self.bow_db, self.voc_pt.bow(desc, fvalid), self.voc_ln.bow(ldesc, lvalid),
-                                    excl, n_best=n_best)
+    def _note_lost(self):
+        """Count a lost frame. The first one, when the relocalization stages
+        are captured programs, captures them (`warm_up_reloc`): a later lost
+        frame's relocalization then only replays, and a tracker that never
+        loses tracking never pays for them (~3 s and ~0.85 GiB of graph pool
+        at 752x480 on an H100)."""
+        self._lost_frames += 1
+        if self.reloc_warmup_ms is None and self._stages["reloc_track"].graphs:
+            self.reloc_warmup_ms = self.warm_up_reloc()
 
-    def _pnp_reloc(self, frame: FrameData, seed: int):
-        """Pose-free PnP: the frame's descriptors against the whole point
-        store (mutual nearest neighbours, ratio 0.8), RANSAC lifted by the
-        stereo depth (mono: the depth-free 6-point DLT), then the GN polish."""
-        cfg, ps = self.cfg, self.pstore
-        dist = matching.hamming_matrix(frame.feats.desc, ps.desc)
-        idx, _, okm = matching.match_nn(dist, frame.feats.valid, ps.valid, max_dist=cfg.match.orb_th_low, ratio=0.8)
-        okm = matching.mutual_consistency(idx, okm, dist, frame.feats.valid, ps.valid)
-        if not self.is_mono:
-            okm = okm & (frame.depth > 0)
-        hyp = self.draw(seed, sim3_mod.mask_probs(okm), (pnp_mod.N_HYPOTHESES, 6 if self.is_mono else 3))
-        return pnp_mod.solve_pnp(self.cam, ps.x[idx.long()], frame.feats.uv, frame.u_right, frame.stereo_ok,
-                                 frame.depth, frame.sigma2, okm, hyp, cfg.opt, inlier_px=8.0, min_inliers=12,
-                                 mono=self.is_mono)
+    def warm_up_reloc(self) -> float:
+        """Run the relocalization stages once on an empty frame and the
+        tracker's stores, results dropped, for every number of seeds: under
+        CUDA graphs that captures them, so that a relocalization frame only
+        replays. Returns its wall time in ms, the device synchronised at the
+        end."""
+        t0 = time.perf_counter()
+        st_, dev = self._stages, self.device
+        frame = empty_frame(self.cfg, dev)
+        idx, okm, _ = st_["reloc_match"](frame, self.pstore)
+        hyp = torch.zeros((pnp_mod.N_HYPOTHESES, 6 if self.is_mono else 3), dtype=torch.int64, device=dev)
+        R, t, _ = st_["reloc_pnp"](frame, self.pstore.x, idx, okm, hyp, self.bow_db)
+        R, t, n_in, _, _ = st_["reloc_track"](frame, R, t, self.pstore, self.lstore, self._dev(True, torch.bool))
+        for n_seeds in range(1, 2 + self.cfg.loop.bow_candidates):
+            st_["reloc_pick"](self.kstore, self._dev(0), [n_in] * n_seeds, [R] * n_seeds, [t] * n_seeds)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
 
     def _relocalize(self, frame: FrameData) -> bool:
         """Seeds: the PnP pose (if its RANSAC clears its floor) and the BoW
         candidates' keyframe poses. Every seed gets a wide re-track and the
         best one is kept if it reaches min_inliers_local_map; the local map
-        is then re-anchored at the keyframe nearest by |t_cw|."""
+        is then re-anchored at the keyframe nearest by |t_cw|. Stages:
+        `reloc_match` (pose-free matching against the whole point store),
+        the draw on the host, `reloc_pnp` (PnP, mono: the depth-free DLT,
+        and the BoW query; one read), one `reloc_track` per seed in the
+        seeds' order with no read between them, `reloc_pick` (the best seed
+        and the nearest keyframe; one read), `local_map`."""
         if self.n_kf == 0:
             return False
         with self.span("reloc"):
-            seeds = []
-            Rp, tp, _, _, okp = self._pnp_reloc(frame, 7000 + len(self.stats))
-            if bool(okp):
-                seeds.append((Rp, tp))
-            nb = self.cfg.loop.bow_candidates
-            slots, scores = self._bow_query_frame(frame.feats.desc, frame.feats.valid, frame.lines.desc,
-                                                  frame.lines.valid, n_best=nb)
-            slots, scores = slots.cpu().numpy(), scores.cpu().numpy()
-            for c in range(nb):
-                k = int(slots[c])
-                if k >= 0 and float(scores[c]) > 0.05:
-                    seeds.append((self.kstore.R[k], self.kstore.t[k]))
-            best_n, best_pose = 0, None
-            wide = torch.ones((), dtype=torch.bool, device=self.device)
-            for R0, t0 in seeds:
-                R, t, *_, n_in, self.pstore, self.lstore = step_mod.track_step(
-                    self.cam, self.cfg, frame, R0, t0, self.pstore, self.lstore, wide=wide)
-                if int(n_in) > best_n:
-                    best_n, best_pose = int(n_in), (R, t)
-            if best_pose is None or best_n < self.cfg.tracking.min_inliers_local_map:
+            st_ = self._stages
+            idx, okm, probs = st_["reloc_match"](frame, self.pstore)
+            hyp = self.draw(7000 + len(self.stats), probs, (pnp_mod.N_HYPOTHESES, 6 if self.is_mono else 3))
+            Rp, tp, read = st_["reloc_pnp"](frame, self.pstore.x, idx, okm, hyp, self.bow_db)
+            okp, cands = step_mod.reloc_read(read.cpu().numpy(), self.cfg.loop.bow_candidates)
+            seeds = [(Rp, tp)] if okp else []
+            seeds += [(self.kstore.R[k], self.kstore.t[k]) for k, score in cands if k >= 0 and score > 0.05]
+            if not seeds:
                 return False
-            self.R, self.t = best_pose
+            wide = self._dev(True, torch.bool)
+            n_ins, Rs, ts = [], [], []
+            for R0, t0 in seeds:
+                R, t, n_in, self.pstore, self.lstore = st_["reloc_track"](frame, R0, t0, self.pstore, self.lstore,
+                                                                           wide)
+                n_ins.append(n_in)
+                Rs.append(R)
+                ts.append(t)
+            R, t, read = st_["reloc_pick"](self.kstore, self._dev(self.n_kf), n_ins, Rs, ts)
+            best_n, _, kf_near = read.tolist()  # the attempt's last read
+            if best_n <= 0 or best_n < self.cfg.tracking.min_inliers_local_map:
+                return False
+            self.R, self.t = R, t
             self._reset_motion()
             self.state = TrackingState.OK
-            # the nearest keyframe by |t_cw| difference, as in the reference
-            d = np.linalg.norm(self.kstore.t[: self.n_kf].cpu().numpy() - self.t.cpu().numpy()[None], axis=1)
-            d[~self.kstore.valid[: self.n_kf].cpu().numpy()] = np.inf
-            self._refresh_local_map(int(np.argmin(d)))
+            self._refresh_local_map(kf_near)
             return True
 
     def _check_timestamp(self, stamp: float) -> None:
@@ -1112,7 +1139,7 @@ class Tracker:
                 # dead-reckon on the IMU, the velocity clamped to 5 m/s
                 self.R, self.t, self.v_w = o["R0"], o["t0"], o["v0"]
                 self.state = TrackingState.RECENTLY_LOST
-                self._lost_frames += 1
+                self._note_lost()
                 # tracking lost within 10 s of IMU init on a small map: the
                 # gravity estimate was bad, so the map is reset
                 if self._lost_frames > lost_limit and stamp - self._imu_init_stamp < 10.0 and self.n_kf <= 10:
@@ -1132,7 +1159,7 @@ class Tracker:
                 # dead-reckon on the motion model
                 self.R, self.t = o["R0"], o["t0"]
                 self.state = TrackingState.RECENTLY_LOST
-                self._lost_frames += 1
+                self._note_lost()
                 if self._lost_frames >= 2 and self._relocalize(frame):
                     n_inliers = tc.min_inliers_local_map
                     self._lost_frames = 0
@@ -1255,9 +1282,9 @@ class Tracker:
             self._lost_frames = 0
         else:
             self.state = TrackingState.RECENTLY_LOST
-            self._lost_frames += 1
+            self._note_lost()
             if self._lost_frames >= 2:
-                if self._relocalize(self.build_frame(*img_args)):
+                if self._relocalize(self._build_host(*img_args)):
                     n_inliers = self.cfg.tracking.min_inliers_local_map
                     self._lost_frames = 0
                 elif self._lost_frames > self.cfg.tracking.recently_lost_sec * self.cfg.fps:

@@ -26,6 +26,7 @@ import torch
 
 from pli_slam_tpu_torch.ops import autodiff, lie
 from pli_slam_tpu_torch.ops.collective import psum
+from pli_slam_tpu_torch.ops.consts import device_const
 from pli_slam_tpu_torch.ops.indexing import deterministic_index_add, top_k
 
 
@@ -101,9 +102,8 @@ def optimize(graph: PoseGraph, iters: int = 20, se3: bool = False, damping: floa
     free = (graph.node_mask & ~graph.fixed_mask).to(dt_)
     eye = torch.eye(dof, dtype=dt_, device=dev)
     ar = torch.arange(K, device=dev)
-    keep = torch.ones(dof, dtype=dt_, device=dev)
-    for d in pinned:
-        keep[d] = 0.0
+    keep = device_const(("pgo_keep", mode, dt_), dev,
+                        lambda: torch.tensor([0.0 if d in pinned else 1.0 for d in range(dof)], dtype=dt_))
     diag_add = (1.0 - free)[:, None, None] * eye + damping * eye
     pin_diag = torch.diag(1.0 - keep)
 

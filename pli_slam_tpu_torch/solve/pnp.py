@@ -2,7 +2,9 @@
 
 A fixed batch of hypotheses scored in parallel: the stereo path lifts three
 observations with their depth seed and aligns them in closed form (Horn);
-the depth-free path solves a 6-point DLT per hypothesis (one batched SVD).
+the depth-free path solves a 6-point DLT per hypothesis (one batched SVD:
+ops.kernels.svd_small, a hand-written kernel on a GPU, `torch.linalg.svd`
+on the CPU).
 The winner is polished by the frame-pose GN solver (solve.gn). As in
 solve.sim3, the functions take the drawn hypothesis indices; draw them with
 `sim3.sample_indices(seed, sim3.mask_probs(mask), (H, k))`.
@@ -13,6 +15,8 @@ from __future__ import annotations
 import torch
 
 from pli_slam_tpu_torch.ops import camera as cam_ops
+from pli_slam_tpu_torch.ops.indexing import row
+from pli_slam_tpu_torch.ops.kernels import svd_small
 from pli_slam_tpu_torch.solve import gn, sim3
 from pli_slam_tpu_torch.utils.config import OptimizerConfig
 
@@ -26,8 +30,8 @@ def _score(cam, R_h, t_h, x_w, uv, mask, inlier_px: float, min_inliers: int):
     inl = (err2 < inlier_px * inlier_px) & (xc[..., 2] > 0.05) & mask[None]
     counts = inl.sum(dim=1)
     best = torch.argmax(counts)
-    n_in = counts[best]
-    return R_h[best], t_h[best], inl[best], n_in, n_in >= min_inliers
+    n_in = row(counts, best)
+    return row(R_h, best), row(t_h, best), row(inl, best), n_in, n_in >= min_inliers
 
 
 def ransac_pnp(cam, x_w, uv, depth_seed, mask, idx, inlier_px: float = 4.0, min_inliers: int = 15):
@@ -54,11 +58,11 @@ def ransac_pnp_dlt(cam, x_w, uv, mask, idx, inlier_px: float = 4.0, min_inliers:
     r1 = torch.cat([Xh, zero, -xn[..., 0:1] * Xh], dim=-1)
     r2 = torch.cat([zero, Xh, -xn[..., 1:2] * Xh], dim=-1)
     A = torch.cat([r1, r2], dim=1)  # [H,12,12]
-    p = torch.linalg.svd(A).Vh[:, -1, :]  # null vector: smallest singular value's right vector
+    p = svd_small.svd(A)[2][:, -1, :]  # null vector: smallest singular value's right vector
     P = p.reshape(-1, 3, 4)
     sdet = torch.sign(torch.linalg.det(P[:, :, :3]))
     P = P * torch.where(sdet == 0, torch.ones_like(sdet), sdet)[:, None, None]
-    U, S, Vt = torch.linalg.svd(P[:, :, :3])
+    U, S, Vt = svd_small.svd(P[:, :, :3])
     R_h = torch.einsum("hij,hjk->hik", U, Vt)
     t_h = P[:, :, 3] / torch.clamp(torch.mean(S, dim=-1), min=1e-12)[:, None]
     return _score(cam, R_h, t_h, x_w, uv, mask, inlier_px, min_inliers)

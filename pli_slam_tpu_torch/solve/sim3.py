@@ -1,10 +1,13 @@
 """Closed-form Sim3/SE3 from 3D-3D correspondences and batched RANSAC
 (port of pli_slam_tpu.solve.sim3).
 
-Horn's quaternion method over a batch of 4x4 `eigh`s, every hypothesis
-scored against every correspondence at once, the winner refined on its
-consensus set. The eigenvector's sign is free in `eigh`; q and -q give the
-same rotation.
+Horn's quaternion method over a batch of 4x4 symmetric eigenproblems (the
+largest eigenvector: ops.kernels.eig4, a hand-written kernel on a GPU,
+`torch.linalg.eigh` on the CPU), every hypothesis scored against every
+correspondence at once, the winner refined on its consensus set. The
+eigenvector's sign is free; q and -q give the same rotation. The RANSAC
+selects its winner with `ops.indexing.row`, never by indexing with a 0-d
+tensor (a host read on CUDA), so it runs inside a captured CUDA graph.
 
 Random draws. `jax.random.choice` cannot be reproduced in torch, so the
 RANSAC functions take the drawn indices, and `sample_indices` is the one
@@ -20,6 +23,8 @@ from __future__ import annotations
 import torch
 
 from pli_slam_tpu_torch.ops import lie
+from pli_slam_tpu_torch.ops.indexing import row
+from pli_slam_tpu_torch.ops.kernels import eig4
 
 
 def sample_indices(seed: int, probs: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
@@ -43,9 +48,14 @@ def mask_probs(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(total > 0, probs / torch.clamp(total, min=1e-9), uniform)
 
 
-def horn_alignment(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, with_scale: bool = True):
-    """Weighted closed-form alignment y ~ s R x + t over [..., N, 3] sets.
-    Returns (R [..., 3, 3], t [..., 3], s [...])."""
+def horn_matrix(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Horn's symmetric 4x4 matrix [..., 4, 4] of the weighted sets x, y [..., N, 3]:
+    its largest eigenvector is the rotation's quaternion (w, x, y, z)."""
+    return _horn_moments(x, y, w)[-1]
+
+
+def _horn_moments(x, y, w):
+    """(normalized weights, the means, the centred sets, Horn's matrix)."""
     wsum = torch.sum(w, dim=-1, keepdim=True)
     wn = w / torch.clamp(wsum, min=1e-9)
     mu_x = torch.sum(x * wn[..., None], dim=-2)
@@ -65,8 +75,14 @@ def horn_alignment(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, with_scale
         ],
         dim=-2,
     )
-    _, evecs = torch.linalg.eigh(N)
-    R = lie.rotation_from_quat(evecs[..., :, -1])  # largest eigenvalue's vector, (w, x, y, z)
+    return wn, mu_x, mu_y, xc, yc, N
+
+
+def horn_alignment(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, with_scale: bool = True):
+    """Weighted closed-form alignment y ~ s R x + t over [..., N, 3] sets.
+    Returns (R [..., 3, 3], t [..., 3], s [...])."""
+    wn, mu_x, mu_y, xc, yc, N = _horn_moments(x, y, w)
+    R = lie.rotation_from_quat(eig4.largest_eigvec(N))  # largest eigenvalue's vector, (w, x, y, z)
     if with_scale:
         Rx = torch.einsum("...ij,...nj->...ni", R, xc)
         num = torch.einsum("...ni,...n,...ni->...", Rx, wn, yc)
@@ -95,11 +111,12 @@ def ransac_sim3(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, idx: torch
     best = torch.argmax(counts)
 
     # refinement on the winning consensus set
-    R_b, t_b, s_b = horn_alignment(x, y, inl[best].to(x.dtype), with_scale)
+    inl_best = row(inl, best)
+    R_b, t_b, s_b = horn_alignment(x, y, inl_best.to(x.dtype), with_scale)
     pred_b = s_b * torch.einsum("ij,nj->ni", R_b, x) + t_b
     inliers = (torch.linalg.norm(pred_b - y, dim=-1) < inlier_thresh) & mask
     # if the refinement lost the consensus, keep the raw best
-    better = inliers.sum() >= counts[best]
-    inl_f = torch.where(better, inliers, inl[best])
-    return (torch.where(better, R_b, R[best]), torch.where(better, t_b, t[best]), torch.where(better, s_b, s[best]),
-            inl_f, inl_f.sum())
+    better = inliers.sum() >= row(counts, best)
+    inl_f = torch.where(better, inliers, inl_best)
+    return (torch.where(better, R_b, row(R, best)), torch.where(better, t_b, row(t, best)),
+            torch.where(better, s_b, row(s, best)), inl_f, inl_f.sum())

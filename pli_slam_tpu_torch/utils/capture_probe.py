@@ -1,5 +1,6 @@
-"""Which operations of the fused per-frame steps can be captured into a
-CUDA graph on this card, and the closest-rotation kernel against its twin.
+"""Which operations of the fused per-frame steps and the rare paths' stages
+can be captured into a CUDA graph on this card, and the closest-rotation
+kernel against its twin.
 
     python3 -m pli_slam_tpu_torch.utils.capture_probe [--only NAME]
 
@@ -52,10 +53,31 @@ def _probes(dev):
         "sort stable / topk / searchsorted": lambda: (torch.sort(vec, stable=True), torch.topk(vec, 5),
                                                       torch.searchsorted(torch.sort(vec)[0], vec)),
         "rot3 kernel": lambda: _rot3(rnd_fixed["r16"]),
+        # the rare paths (relocalization, loop verification): Horn's 4x4 eigenproblem over the RANSAC
+        # hypotheses, the mono PnP DLT's 12x12 SVD, the relocalization's Hamming matrix against the
+        # whole point store, the loop's scene-scaled threshold
+        "linalg.eigh[256,4,4]": lambda: torch.linalg.eigh(rnd_fixed["e256"]),
+        "linalg.svd[256,12,12]": lambda: torch.linalg.svd(rnd_fixed["a256"]),
+        "hamming_matrix[1200x16384]": lambda: _hamming(rnd_fixed["d1200"], rnd_fixed["d16384"]),
+        "indexing.nanmedian[4096]": lambda: _nanmedian(rnd_fixed["m4096"], rnd_fixed["k4096"]),
     }, rnd, spd
 
 
 rnd_fixed: dict = {}
+
+
+def _hamming(a, b):
+    from pli_slam_tpu_torch.ops.matching import hamming_matrix
+    return hamming_matrix(a, b)
+
+
+def _nanmedian(d, mask):
+    from pli_slam_tpu_torch.ops.indexing import nanmedian
+    return nanmedian(d, mask)
+
+
+def _pm1(dev, n, g):
+    return (torch.randint(0, 2, (n, 256), generator=g, dtype=torch.int8) * 2 - 1).to(dev)
 
 
 def _rot3(x):
@@ -67,7 +89,10 @@ def run_probe(name: str) -> str:
     dev = torch.device("cuda", 0)
     probes, rnd, spd = _probes(dev)
     rnd_fixed.update(r16=rnd(16, 3, 3), s6=spd(1, 6), b6=rnd(1, 6), s60=spd(1, 60), b60=rnd(1, 60),
-                     s150=spd(1, 150), b150=rnd(1, 150), s9=spd(9, 9), s3=spd(1, 3)[0])
+                     s150=spd(1, 150), b150=rnd(1, 150), s9=spd(9, 9), s3=spd(1, 3)[0],
+                     e256=spd(256, 4), a256=rnd(256, 12, 12), m4096=rnd(4096).abs(), k4096=rnd(4096) > 0)
+    g = torch.Generator().manual_seed(2)
+    rnd_fixed.update(d1200=_pm1(dev, 1200, g), d16384=_pm1(dev, 16384, g))
     fn = probes[name]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
