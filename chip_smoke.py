@@ -27,7 +27,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
                float32 input (ROADMAP queue 3 A4), on the main path's
                matrices (preintegration's 16-increment products, Gauss-Newton
                and BA pose updates, formed on the card) and on general ones:
-               the kernel's largest error no larger than the twin's;
+               the kernel's largest error no larger than the twin's; and
+               the launch floor in a graph: a one-element add_, 50 in a
+               CUDA graph, printed beside each small kernel's time per
+               launch after 3d;
   3c. the largest-eigenvector kernel (csrc/eig4.cu: Horn's 4x4
                eigenproblem; torch.linalg.eigh checks its status on the host,
                which a capture refuses) against its twin (eigh's last column)
@@ -44,7 +47,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
                card and on general 12x12 matrices: the null vector within
                SVD_NULL_TOL where the smallest singular value is simple, U Vh
                and S within SVD_BLOCK_TOL of full-rank blocks, and both
-               against float64, the kernel no farther; times as in 3c;
+               against float64, the kernel no farther; first ptxas's
+               registers, stack frame and spills for it from the build
+               (-Xptxas -v; any stack frame or spill fails); times as in 3c
+               at 256 x 12x12 and 256 x 3x3;
   3c / 3d on the main path (after phase 8) -- the RANSACs that phases 6a, 6b
                and 8 ran (the loop verifications', the relocalizations' PnP,
                the mono one's DLT; their inputs recorded at the stages' entry)
@@ -445,11 +451,14 @@ def phase_rot3(dev):
     sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
     rot3.closest_rotation_cuda(x, sweeps)
     n_sweeps = int(sweeps[0])
+    one = torch.zeros(1, device=dev)
     t_call = eager_ms(lambda: rot3.closest_rotation_cuda(x))
     t_plain_a = eager_ms(lambda: rot3.closest_rotation_reference(x))
     t_lib_a = eager_ms(lambda: torch.linalg.svd(x))
+    t_floor_a = graph_ms(lambda: one.add_(1.0))
     t_kern_a = graph_ms(lambda: rot3.closest_rotation_cuda(x))
     t_kern_b = graph_ms(lambda: rot3.closest_rotation_cuda(x))
+    t_floor_b = graph_ms(lambda: one.add_(1.0))
     t_lib_b = eager_ms(lambda: torch.linalg.svd(x))
     t_plain_b = eager_ms(lambda: rot3.closest_rotation_reference(x))
     # the bound: 72 bytes per matrix; per Jacobi sweep 3 pairs of ~66 float32 operations, ~95 to finish
@@ -457,10 +466,12 @@ def phase_rot3(dev):
     bound = max(bytes_moved / 3.35e12, ops / 67e12) * 1e3
     out = {"max_abs_err": max_err, "ms": 0.5 * (t_kern_a + t_kern_b), "plain_ms": 0.5 * (t_plain_a + t_plain_b),
            "library_ms": 0.5 * (t_lib_a + t_lib_b), "bound_ms": bound, "call_ms": t_call,
-           "bound_by": "bytes" if bytes_moved / 3.35e12 >= ops / 67e12 else "operations", "sweeps": n_sweeps}
+           "bound_by": "bytes" if bytes_moved / 3.35e12 >= ops / 67e12 else "operations", "sweeps": n_sweeps,
+           "launch_floor_ms": 0.5 * (t_floor_a + t_floor_b)}
     log(f"kernels: closest_rotation batch 1: kernel {out['ms']:.4f} ms per launch (50 launches in a CUDA graph), "
         f"whole call eager {t_call:.4f} ms, twin {out['plain_ms']:.4f} ms, torch.linalg.svd alone "
-        f"{out['library_ms']:.4f} ms; {n_sweeps} Jacobi sweeps, bound {bound:.3e} ms ({out['bound_by']})")
+        f"{out['library_ms']:.4f} ms; {n_sweeps} Jacobi sweeps, bound {bound:.3e} ms ({out['bound_by']}); the launch "
+        f"floor in a graph (a one-element add_, 50 in a CUDA graph) {out['launch_floor_ms']:.4f} ms")
     out["float64"] = rot3_accuracy(dev, g)
     return out
 
@@ -696,34 +707,48 @@ def phase_eig4(dev):
 def phase_svd_small(dev):
     """3d: the small-SVD kernel (csrc/svd_small.cu) against its twin and
     float64 on the mono PnP's DLT systems and rotation blocks and on general
-    12x12 matrices (`svd_hold`); its time on the DLT systems and the bound
-    from the sweeps they took."""
+    12x12 matrices (`svd_hold`); ptxas's registers, stack frame and spills
+    for it from the build (none may fall to local memory); its times on the
+    DLT systems [256,12,12] and the rotation blocks [256,3,3], each with the
+    bound from the sweeps they took."""
     import torch
 
     from pli_slam_tpu_torch.ops.kernels import svd_small
 
+    ptxas = svd_small.ptxas_report()
+    log(f"kernels 3d: svd_small as ptxas built it (-Xptxas -v): {ptxas['registers']} registers, {ptxas['stack_frame']} "
+        f"bytes stack frame, {ptxas['spill_stores']} / {ptxas['spill_loads']} bytes spill stores / loads, "
+        f"{ptxas['smem']} bytes shared memory: {ptxas['text']!r}")
+    if ptxas["stack_frame"] or ptxas["spill_stores"] or ptxas["spill_loads"]:
+        raise AssertionError(f"svd_small_kernel uses local memory: {ptxas['text']}")
     g = torch.Generator().manual_seed(13)
     cases = dlt_cases(dev, g)
     out = {label: svd_hold(label, A) for label, A in cases}
-    A = cases[0][1]
-    count, k = A.shape[0], A.shape[-1]
-    sweeps = torch.zeros(count, dtype=torch.int32, device=dev)
-    svd_small.svd_cuda(A, sweeps=sweeps)
-    n_sweeps = int(sweeps.sum())
-    times = _small_times(lambda: svd_small.svd_cuda(A), lambda: svd_small.svd(A), lambda: svd_small.svd_reference(A),
-                         lambda: torch.linalg.svd(A))
-    # 4 k^2 bytes in, 4 (2 k^2 + k) out a matrix; a pair rotation 18 k + 20 float64 operations, k (k - 1) / 2 pairs
-    # a sweep, ~4 k^2 more a matrix
-    bytes_moved = count * 4 * (3 * k * k + k)
-    ops = n_sweeps * (k * (k - 1) // 2) * (18 * k + 20) + count * 4 * k * k
-    bound = max(bytes_moved / HBM_RATE, ops / FP64_RATE) * 1e3
-    by = "bytes" if bytes_moved / HBM_RATE >= ops / FP64_RATE else "operations"
-    log(f"kernels 3d: svd_small 256 x 12x12 (DLT systems): kernel {times['ms']:.4f} ms per launch (50 launches in a "
-        f"CUDA graph), whole call eager {times['call_ms']:.4f} ms, twin (torch.linalg.svd) {times['plain_ms']:.4f} ms, "
-        f"torch.linalg.svd alone {times['library_ms']:.4f} ms; {n_sweeps} Jacobi sweeps in all, bound {bound:.3e} ms "
-        f"({by})")
-    return {**times, "bound_ms": bound, "bound_by": by, "sweeps": n_sweeps, "hold": out,
-            "max_abs_err": max(v["max_abs_err"] for v in out.values())}
+    timed = {}
+    for label, A in cases[:2]:
+        count, k = A.shape[0], A.shape[-1]
+        sweeps = torch.zeros(count, dtype=torch.int32, device=dev)
+        svd_small.svd_cuda(A, sweeps=sweeps)
+        n_sweeps = int(sweeps.sum())
+        times = _small_times(lambda: svd_small.svd_cuda(A), lambda: svd_small.svd(A),
+                             lambda: svd_small.svd_reference(A), lambda: torch.linalg.svd(A))
+        # 4 k^2 bytes in, 4 (2 k^2 + k) out a matrix; a pair rotation 18 k + 20 float64 operations, k (k - 1) / 2
+        # pairs a sweep, ~4 k^2 more a matrix
+        bytes_moved = count * 4 * (3 * k * k + k)
+        ops = n_sweeps * (k * (k - 1) // 2) * (18 * k + 20) + count * 4 * k * k
+        bound = max(bytes_moved / HBM_RATE, ops / FP64_RATE) * 1e3
+        by = "bytes" if bytes_moved / HBM_RATE >= ops / FP64_RATE else "operations"
+        log(f"kernels 3d: svd_small {count} x {k}x{k} ({label}): kernel {times['ms']:.4f} ms per launch (50 launches "
+            f"in a CUDA graph), whole call eager {times['call_ms']:.4f} ms, twin (torch.linalg.svd) "
+            f"{times['plain_ms']:.4f} ms, torch.linalg.svd alone {times['library_ms']:.4f} ms; {n_sweeps} Jacobi "
+            f"sweeps in all, bound {bound:.3e} ms ({by})")
+        timed[k] = {**times, "bound_ms": bound, "bound_by": by, "sweeps": n_sweeps}
+    small = timed[3]
+    return {**timed[12], "hold": out, "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+            "extra": {"ms_3x3": small["ms"], "call_ms_3x3": small["call_ms"], "plain_ms_3x3": small["plain_ms"],
+                      "library_ms_3x3": small["library_ms"], "bound_ms_3x3": small["bound_ms"],
+                      "bound_by_3x3": small["bound_by"], "sweeps_3x3": small["sweeps"], "shape_3x3": "256 x 3 x 3",
+                      "ptxas": {key: val for key, val in ptxas.items() if key != "text"}}}
 
 
 @contextlib.contextmanager
@@ -3045,6 +3070,11 @@ def main() -> int:
     rot3_line = timed("3b", phase_rot3, dev)
     eig4_line = timed("3c", phase_eig4, dev)
     svd_line = timed("3d", phase_svd_small, dev)
+    floor = rot3_line["launch_floor_ms"]
+    log(f"kernels: per launch in a CUDA graph against the launch floor there ({floor:.4f} ms, a one-element add_): "
+        + ", ".join(f"{name} {line['ms']:.4f} ms ({line['ms'] - floor:+.4f})" for name, line in (
+            ("closest_rotation 1 x 3x3", rot3_line), ("largest_eigvec 256 x 4x4", eig4_line),
+            ("svd_small 256 x 12x12", svd_line), ("svd_small 256 x 3x3", {"ms": svd_line["extra"]["ms_3x3"]}))))
     timed("4 stages", phase_small_reference, dev)
     launches, n_frames, room = timed("4", phase_main_path, dev, smi)
     launches_vi, n_frames_vi, vi = timed("5", phase_vi_path, dev, smi)
@@ -3110,6 +3140,7 @@ def main() -> int:
         "plain_ms": rot3_line["plain_ms"], "bound_ms": rot3_line["bound_ms"], "bound_by": rot3_line["bound_by"],
         "library_ms": rot3_line["library_ms"], "shape": "1 x 3 x 3", "sweeps": rot3_line["sweeps"],
         "call_ms": rot3_line["call_ms"], "max_abs_err_float64": rot3_line["float64"],
+        "graph_launch_floor_ms": rot3_line["launch_floor_ms"],
         **{f"launches_{name.removeprefix('phase_')}": n for name, n in ROT3_LAUNCHES.items()},
     }, *[{
         "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": sum(counts.values()),
@@ -3120,7 +3151,7 @@ def main() -> int:
                                 "main_path": {k: {"kernel": small_main[k]["kernel"], "twin": small_main[k]["twin"]}
                                               for k in keys}},
         **{f"launches_{phase.removeprefix('phase_')}": n for phase, n in counts.items()},
-        "ransac_counts_main_path": small_main["ransac_counts"],
+        "ransac_counts_main_path": small_main["ransac_counts"], **line.get("extra", {}),
     } for name, src, replaces, line, counts, shape, keys in (
         ("largest_eigvec", EIG4_SRC, EIG4_REPLACES, eig4_line, EIG4_LAUNCHES, "256 x 4 x 4", ("horn",)),
         ("svd_small", SVD_SRC, SVD_REPLACES, svd_line, SVD_LAUNCHES, "256 x 12 x 12", ("svd12", "svd3")))]]}))

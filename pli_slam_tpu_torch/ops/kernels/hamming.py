@@ -107,10 +107,13 @@ def _nvcc() -> str:
 
 
 def compile_library(src: Path = _SRC, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Compile `src` with nvcc for sm_90a (once per content and flags) and load it."""
+    """Compile `src` with nvcc for sm_90a (once per content and flags) and load it.
+    The library's `nvcc_output` holds what nvcc printed when it built it (kept
+    beside the library, so a cached build reports it too)."""
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    log = so.with_suffix(".log")
     if not so.exists():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -120,8 +123,11 @@ def compile_library(src: Path = _SRC, flags: tuple[str, ...] = ()) -> ctypes.CDL
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    lib.nvcc_output = log.read_text() if log.exists() else ""
+    return lib
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -6,8 +6,9 @@ The port's own kernel (the reference's depth-free PnP, `solve/pnp.py`
 factors from `jnp.linalg.svd` inside its jitted relocalization program).
 `torch.linalg.svd` on a CUDA tensor reads cuSOLVER's error flag on the host,
 which a stream being captured into a CUDA graph may not do; the kernel
-(`pli_slam_tpu_torch/csrc/svd_small.cu`, one-sided Jacobi in float64, one
-thread per matrix; its header says what bounds it) never leaves the device.
+(`pli_slam_tpu_torch/csrc/svd_small.cu`, one-sided Jacobi in float64, a
+warp per matrix with B and V in shared memory, round-robin ordering; its
+header says what bounds it) never leaves the device.
 
 `svd` dispatches on the device of its input and nothing else: a CUDA tensor
 launches the kernel (built on first use with nvcc for sm_90a into
@@ -19,6 +20,7 @@ return (U, S, Vh) with S descending; the signs of a singular pair are free.
 from __future__ import annotations
 
 import ctypes
+import re
 import time
 from pathlib import Path
 
@@ -31,6 +33,7 @@ MAX_N = 12
 
 launches = 0  # kernel launches made through `svd` in this process
 _lib = None
+PTXAS_FLAGS = ("-Xptxas", "-v")  # the build prints each kernel's registers, stack frame and spills
 
 
 def reset_launches() -> None:
@@ -44,12 +47,62 @@ def build() -> float:
     if _lib is not None:
         return 0.0
     t0 = time.perf_counter()
-    lib = hamming.compile_library(_SRC)
+    lib = hamming.compile_library(_SRC, PTXAS_FLAGS)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.svd_small_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
     lib.svd_small_launch.restype = ci
     _lib = lib
     return time.perf_counter() - t0
+
+
+def ptxas_report() -> dict:
+    """What ptxas reported for the instances of `svd_small_kernel` (one for
+    each n) when the library was built (after `build`): the most registers,
+    stack frame, spill stores and loads (bytes) and static shared memory
+    (bytes) of any instance, the registers of each n, and the lines of the
+    12x12 instance as printed."""
+    lines = _lib.nvcc_output.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        entry = re.search(r"Compiling entry function '(\S*svd_small_kernel\S*)'", line)
+        if entry:
+            end = next(j for j in range(i, len(lines)) if "registers" in lines[j])
+            text = "\n".join(x.strip() for x in lines[i:end + 1])
+            stack, stores, loads = (int(x) for x in re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", text).groups())
+            smem = re.search(r"(\d+) bytes smem", text)
+            found[int(re.search(r"ILi(\d+)E", entry.group(1)).group(1))] = {
+                "registers": int(re.search(r"Used (\d+) registers", text).group(1)), "stack_frame": stack,
+                "spill_stores": stores, "spill_loads": loads, "smem": int(smem.group(1)) if smem else 0, "text": text}
+    if sorted(found) != list(range(1, MAX_N + 1)):
+        raise RuntimeError(f"ptxas reported svd_small_kernel for n = {sorted(found)}, not 1..{MAX_N}")
+    worst = {key: max(f[key] for f in found.values())
+             for key in ("registers", "stack_frame", "spill_stores", "spill_loads", "smem")}
+    return {**worst, "registers_by_n": {n: f["registers"] for n, f in sorted(found.items())},
+            "text": found[MAX_N]["text"]}
+
+
+def schedule(n: int) -> tuple[int, list[list[tuple[int, int]]]]:
+    """The kernel's round-robin sweep for n x n matrices, as the step loop of
+    `svd_small_kernel` in csrc/svd_small.cu runs it (`layout`, `first_pair`,
+    `next_pair`): (lanes a pair, steps). steps[s][k] = (p, q), p < q, is the
+    pair that slot k rotates at step s; a sweep is n' - 1 steps of n' / 2
+    slots, n' = n rounded up to even, and q == n is an odd n's phantom
+    column, whose pair the kernel skips. Lane `sub` of a slot takes the rows
+    sub, sub + lanes, ... below n; lanes is the largest power of two with
+    n' / 2 x lanes <= 32 (a warp)."""
+    pairs = (n + 1) // 2
+    lanes = 1
+    while pairs * lanes * 2 <= 32:
+        lanes *= 2
+    m = 2 * pairs - 1
+    ac = [(m, 0) if k == 0 else (k, m - k) for k in range(pairs)]  # first_pair
+    steps = []
+    for s in range(m):
+        if s > 0:  # next_pair
+            ac = [(a if k == 0 else (a + 1) % m, (c + 1) % m) for k, (a, c) in enumerate(ac)]
+        steps.append([(min(a, c), max(a, c)) for a, c in ac])
+    return lanes, steps
 
 
 def svd_reference(A: torch.Tensor):

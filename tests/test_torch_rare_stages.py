@@ -28,23 +28,31 @@ loop closing at a low inlier floor):
   (`reference_draw`, `jax.random.choice`) in both; and the stages again on
   stand-in graphs (test_torch_stages.stand_in_capture) equal eager;
 - (d) each kernel's method (csrc/eig4.cu: cyclic Jacobi in float64;
-  csrc/svd_small.cu: one-sided Jacobi in float64), mirrored in numpy,
+  csrc/svd_small.cu: one-sided Jacobi in float64, a warp a matrix in
+  round-robin order, `svd_small.schedule`), mirrored in numpy,
   against its twin (`torch.linalg.eigh` / `torch.linalg.svd`, what the CPU
   runs) and against float64 on the matrices the run hands them (Horn's
   matrices of the PnP and loop RANSACs, the mono PnP's DLT systems and
   rotation blocks) and on degenerate ones (collinear and coincident
   triplets, rank-deficient DLT systems): no farther from float64 than the
   twin, and where the largest eigenvalue is not simple, an eigenvector of
-  it.
+  it; svd_small's schedule (disjoint pairs, each pair once a sweep, the
+  phantom column of an odd n never rotated), and its source compiled for
+  the host (`svd_small_host`) equal to the numpy method bit for bit.
 
 What the CPU cannot show: that CUDA accepts the captures and that the
 kernels build and agree on the card. chip_smoke.py phases 3c / 3d (the
 kernels) and 6a / 6b / 8 (the rare paths, graphs against eager) do that.
 """
 
+import ctypes
 import dataclasses
+import os
+import shutil
+import subprocess
 from collections import defaultdict
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -485,57 +493,102 @@ def _eig4_method(N: np.ndarray):
     return (col / np.linalg.norm(col, axis=1, keepdims=True)).astype(np.float32), d[np.arange(n), k]
 
 
-def _svd_method(A: np.ndarray):
+def _svd_method(A: np.ndarray, rotated: set | None = None):
     """csrc/svd_small.cu's arithmetic, transcribed (float64, all matrices at
-    once): one-sided Jacobi on the columns, the norms sorted descending by
-    selection, zero columns of U completed by Gram-Schmidt. Returns
-    (U, S, Vh) in float32."""
-    n, k, _ = A.shape
-    c = A.astype(np.float64).transpose(0, 2, 1).copy()  # c[:, j]: column j of B
-    v = np.tile(np.eye(k), (n, 1, 1))  # v[:, j]: column j of V
-    tol = np.sqrt(k) * np.finfo(np.float64).eps
-    for _ in range(30):
-        rotated = False
-        for p in range(k - 1):
-            for q in range(p + 1, k):
-                alpha, beta = (c[:, p] ** 2).sum(-1), (c[:, q] ** 2).sum(-1)
-                gamma = (c[:, p] * c[:, q]).sum(-1)
-                with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
-                    zeta = (beta - alpha) / (2.0 * gamma)
-                    t = np.copysign(1.0, zeta) / (np.abs(zeta) + np.sqrt(1.0 + zeta * zeta))
-                m = (np.abs(gamma) > tol * np.sqrt(alpha) * np.sqrt(beta)) & (t != 0.0)
-                if not m.any():
-                    continue
-                rotated = True
-                cs = np.where(m, 1.0 / np.sqrt(1.0 + t * t), 1.0)[:, None]
-                sn = np.where(m, cs[:, 0] * t, 0.0)[:, None]
-                for M in (c, v):
-                    bp, bq = M[:, p].copy(), M[:, q].copy()
-                    M[:, p], M[:, q] = cs * bp - sn * bq, sn * bp + cs * bq
-        if not rotated:
-            break
-    nrm = (c * c).sum(-1)
-    rows = np.arange(n)
-    for i in range(k - 1):
-        j = i + np.argmax(nrm[:, i:], axis=1)
-        for M in (c, v, nrm):
-            Mi, Mj = M[rows, i].copy(), M[rows, j].copy()
-            M[rows, i], M[rows, j] = Mj, Mi
-    s = np.sqrt(nrm)
-    for b in range(n):
-        for j in range(k):
-            if nrm[b, j] > 1e-300:
-                c[b, j] /= s[b, j]
+    once, each float operation in the kernel's order): one-sided Jacobi on
+    the columns in the round-robin order of `svd_small.schedule`, each
+    pair's alpha, beta, gamma summed per lane over its rows and then over
+    the pair's lanes by the xor butterfly; the norms sorted descending by
+    rank (stable) into a permutation, zero columns of U completed by
+    Gram-Schmidt. `rotated` collects the pairs that rotated in any matrix.
+    Returns (U, S, Vh) in float32 and each matrix's sweeps."""
+    N, n, _ = A.shape
+    lanes, steps = svd_small.schedule(n)
+    b = A.astype(np.float64).transpose(0, 2, 1).copy()  # b[:, j]: column j of B
+    v = np.tile(np.eye(n), (N, 1, 1))  # v[:, j]: column j of V
+    tol2, tiny = n * np.finfo(np.float64).eps * np.finfo(np.float64).eps, np.finfo(np.float64).tiny
+    sweeps = np.full(N, 30, np.int32)
+    for sw in range(30):
+        any_rot = np.zeros(N, bool)
+        for pairs in steps:
+            live = [(p, q) for p, q in pairs if q < n]
+            if not live:
                 continue
-            for e in range(k):
-                w = np.eye(k)[e]
+            P, Q = np.array([p for p, _ in live]), np.array([q for _, q in live])
+            bp, bq = b[:, P], b[:, Q]  # [N, pairs, n]
+            part = []
+            for sub in range(lanes):
+                x = np.zeros((3,) + bp.shape[:2])
+                for r in range(sub, n, lanes):
+                    x = x + np.stack([bp[..., r] * bp[..., r], bq[..., r] * bq[..., r], bp[..., r] * bq[..., r]])
+                part.append(x)
+            off = 1
+            while off < lanes:
+                part = [part[i] + part[i ^ off] for i in range(lanes)]
+                off *= 2
+            alpha, beta, gamma = part[0]
+            d, g = beta - alpha, 2.0 * gamma
+            x = d * d + g * g
+            m = (gamma * gamma > tol2 * alpha * beta) & (np.minimum(np.minimum(alpha, beta),
+                                                                    np.minimum(np.abs(gamma), x)) >= tiny)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                h = x * (1.0 / np.sqrt(x))
+                D = np.abs(d) + h
+                r = 1.0 / np.sqrt(2.0 * h * D)
+                cs, sn = D * r, np.where(d >= 0.0, g, -g) * r
+            m &= np.abs(sn) >= tiny
+            if not m.any():
+                continue
+            any_rot |= m.any(1)
+            if rotated is not None:
+                rotated.update(live[k] for k in np.flatnonzero(m.any(0)))
+            cs, sn, m = cs[..., None], sn[..., None], m[..., None]
+            for M in (b, v):
+                x, y = M[:, P], M[:, Q]
+                M[:, P], M[:, Q] = np.where(m, cs * x - sn * y, x), np.where(m, sn * x + cs * y, y)
+        sweeps[(sweeps == 30) & ~any_rot] = sw
+        if not any_rot.any():
+            break
+    rows = np.arange(N)
+    nrm = np.zeros((N, n))
+    for r in range(n):
+        nrm = nrm + b[:, :, r] * b[:, :, r]
+    perm = np.zeros((N, n), int)  # a stable descending sort by ranks
+    for j in range(n):
+        rank = (nrm > nrm[:, j:j + 1]).sum(1) + (nrm[:, :j] == nrm[:, j:j + 1]).sum(1)
+        perm[rows, rank] = j
+    nrm = nrm[rows[:, None], perm]  # in sorted order
+    s = np.sqrt(nrm)
+    with np.errstate(divide="ignore"):
+        inv = np.where(nrm > 1e-300, 1.0 / np.sqrt(nrm), 1.0)
+    b[rows[:, None], perm] *= inv[..., None]
+
+    def dot(x, y):
+        d = 0.0
+        for r in range(n):
+            d += x[r] * y[r]
+        return d
+
+    for i_m in np.flatnonzero((nrm <= 1e-300).any(1)):
+        cols = b[i_m]
+        for j in range(n):
+            if nrm[i_m, j] > 1e-300:
+                continue
+            c = cols[perm[i_m, j]]
+            for e in range(n):
+                c[:] = np.eye(n)[e]
                 for _ in range(2):
                     for i in range(j):
-                        w = w - (c[b, i] @ w) * c[b, i]
-                if w @ w > 0.5 / k or e == k - 1:
-                    c[b, j] = w / np.sqrt(w @ w)
+                        ci = cols[perm[i_m, i]]
+                        d = dot(ci, c)
+                        c -= d * ci
+                x = dot(c, c)
+                if 2.0 * n * x > 1.0 or e == n - 1:
+                    c *= 1.0 / np.sqrt(x)
                     break
-    return (c.transpose(0, 2, 1).astype(np.float32), s.astype(np.float32), v.astype(np.float32))
+    u = b[rows[:, None], perm].transpose(0, 2, 1)
+    vt = v[rows[:, None], perm]
+    return u.astype(np.float32), s.astype(np.float32), vt.astype(np.float32), sweeps
 
 
 def _sign_free(a, b):
@@ -615,7 +668,7 @@ def test_svd_small_method_no_farther_from_float64_than_the_twin(run, capsys):
     for label, A in (("DLT systems", A_main), ("general 12x12", rng.normal(size=(200, 12, 12)).astype(np.float32))):
         _, s64, vt64 = np.linalg.svd(A.astype(np.float64))
         gap = (s64[:, -2] - s64[:, -1]) > 1e-4 * s64[:, 0]
-        _, _, vt = _svd_method(A)
+        _, _, vt, _ = _svd_method(A)
         twin = svd_small.svd_reference(torch.as_tensor(A))[2].numpy()
         e_m = _sign_free(vt[:, -1], vt64[:, -1])[gap].max()
         e_t = _sign_free(twin[:, -1], vt64[:, -1])[gap].max()
@@ -627,7 +680,7 @@ def test_svd_small_method_no_farther_from_float64_than_the_twin(run, capsys):
     for label, M in (("rotation blocks", M_main), ("general 3x3", rng.normal(size=(400, 3, 3)).astype(np.float32))):
         u64, s64, vt64 = np.linalg.svd(M.astype(np.float64))
         R64 = u64 @ vt64
-        u, s, vt = _svd_method(M)
+        u, s, vt, _ = _svd_method(M)
         tu, ts, tvt = (x.numpy() for x in svd_small.svd_reference(torch.as_tensor(M)))
         e_m = max(np.abs(u.astype(np.float64) @ vt - R64).max(), np.abs(s - s64).max() / s64.max())
         e_t = max(np.abs(tu.astype(np.float64) @ tvt - R64).max(), np.abs(ts - s64).max() / s64.max())
@@ -638,9 +691,84 @@ def test_svd_small_method_no_farther_from_float64_than_the_twin(run, capsys):
     A = A_main[:40].copy()
     A[:20, 6:] = 0.0
     A[20:, :, 3] = A[20:, :, 7] = 0.0
-    u, s, vt = _svd_method(A)
+    u, s, vt, _ = _svd_method(A)
     eye = np.eye(12)
     assert np.abs(np.einsum("nji,njk->nik", u.astype(np.float64), u) - eye).max() < 1e-6
     assert np.abs(np.einsum("nij,nkj->nik", vt.astype(np.float64), vt) - eye).max() < 1e-6
     assert np.abs(np.einsum("nij,nj,njk->nik", u.astype(np.float64), s, vt) - A).max() < 1e-5 * np.abs(A).max()
     assert (s[:, -1] == 0).all() and np.abs(np.einsum("nij,nj->ni", A.astype(np.float64), vt[:, -1])).max() < 1e-5
+
+
+@pytest.mark.parametrize("n", range(1, svd_small.MAX_N + 1))
+def test_svd_small_schedule_visits_every_pair_once_a_sweep(n):
+    """`svd_small.schedule`: the pairs of each step are disjoint, a sweep
+    visits every pair of the n' = n rounded up to even columns exactly once,
+    the slots' lanes fit in a warp with at most 3 rows a lane (the kernel's
+    kRows), and the method never rotates an odd n's phantom column."""
+    lanes, steps = svd_small.schedule(n)
+    even = n + n % 2
+    assert len(steps) == max(even - 1, 1) and all(len(pairs) == even // 2 for pairs in steps)
+    assert lanes & (lanes - 1) == 0 and even // 2 * lanes <= 32 < even // 2 * lanes * 2
+    assert -(-n // lanes) <= 3
+    for pairs in steps:
+        cols = [c for pair in pairs for c in pair]
+        assert len(set(cols)) == len(cols) and all(p < q for p, q in pairs)
+        assert sum(q == n for _, q in pairs) == n % 2
+    assert sorted(pair for pairs in steps for pair in pairs) == [(p, q) for p in range(even) for q in range(p + 1, even)]
+    rotated = set()
+    A = np.random.default_rng(n).normal(size=(32, n, n)).astype(np.float32)
+    _svd_method(A, rotated)
+    assert all(q < n for _, q in rotated) and len(rotated) == n * (n - 1) // 2
+
+
+@pytest.fixture(scope="module")
+def svd_host(tmp_path_factory):
+    """csrc/svd_small.cu built as plain C++ (no __CUDACC__: `svd_small_host`,
+    the warp's lanes run one after another), contraction into fused
+    multiply-adds off so that its float operations are numpy's."""
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    assert cxx, "no C++ compiler (g++ / c++) to build csrc/svd_small.cu for the host"
+    out = tmp_path_factory.mktemp("svd_host")
+    src = out / "svd_host.cpp"
+    src.write_text(f'#include "{Path(svd_small._SRC)}"\n')
+    so = out / "libsvd_host.so"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so),
+                    str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.svd_small_host.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.svd_small_host.restype = ci
+
+    def factor(A):
+        A = np.ascontiguousarray(A, np.float32)
+        count, n = A.shape[0], A.shape[-1]
+        u, vt, s = np.empty_like(A), np.empty_like(A), np.empty((count, n), np.float32)
+        sweeps = np.empty(count, np.int32)
+        assert lib.svd_small_host(A.ctypes.data, u.ctypes.data, s.ctypes.data, vt.ctypes.data, count, n,
+                                  sweeps.ctypes.data) == 0
+        return u, s, vt, sweeps
+
+    return factor
+
+
+@pytest.mark.parametrize("n", range(1, svd_small.MAX_N + 1))
+def test_svd_small_source_on_the_host_equals_the_method(svd_host, n):
+    """The kernel's source, compiled for the host, equals the numpy method
+    bit for bit (U, S, Vh and the sweeps) on general matrices, matrices with
+    a zero column (a zero singular value: U completed) and with a repeated
+    row. The card's build contracts into fused multiply-adds and so differs
+    in the last bits; chip_smoke.py phase 3d holds it against float64."""
+    A = np.random.default_rng(100 + n).normal(size=(48, n, n)).astype(np.float32)
+    if n > 1:
+        A[:8, :, -1] = 0.0
+        A[8:16, -1] = A[8:16, 0]
+    for got, want in zip(svd_host(A), _svd_method(A), strict=True):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_svd_small_source_on_the_host_equals_the_method_on_the_main_path(svd_host, run):
+    """As above, on the mono PnP's DLT systems and rotation blocks of the run."""
+    for key in ("svd12", "svd3"):
+        A = run["mats"][key].numpy()
+        for got, want in zip(svd_host(A), _svd_method(A), strict=True):
+            assert np.array_equal(got, want), key
