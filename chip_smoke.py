@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--baseline DIR]
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device  -- a CUDA device must exist; prints nvidia-smi's name and power limit;
@@ -21,16 +21,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
                status on the host, which a CUDA graph capture refuses)
                against its twin (torch.linalg.svd + det): near rotations
                within 1e-5, general matrices within 1e-4, the sign of det
-               exactly equal, at batch 1, 10 and 4096; its time per launch,
-               the whole call's, the twin's and one torch.linalg.svd call's;
-               then both against the float64 closest rotation of the same
-               float32 input (ROADMAP queue 3 A4), on the main path's
-               matrices (preintegration's 16-increment products, Gauss-Newton
-               and BA pose updates, formed on the card) and on general ones:
-               the kernel's largest error no larger than the twin's; and
-               the launch floor in a graph: a one-element add_, 50 in a
-               CUDA graph, printed beside each small kernel's time per
-               launch after 3d;
+               exactly equal, at batch 1, 10 and 4096; first ptxas's report
+               for it (-Xptxas -v; any stack frame or spill fails); its time
+               per launch on the main path's matrices (below) at batch 1 and
+               8 and on a rotation perturbed by 1e-4, with the branch and
+               sweeps each took; the whole call's, the twin's and one torch.linalg.svd
+               call's times; then both against the float64 closest rotation
+               of the same float32 input (ROADMAP queue 3 A4), on the main
+               path's matrices (preintegration's 16-increment products,
+               Gauss-Newton and BA pose updates, formed on the card) and on
+               general ones: the kernel's largest error no larger than the
+               twin's; and the launch floor in a graph: a one-element add_,
+               50 in a CUDA graph, printed beside each small kernel's time
+               per launch after 3d. With `--baseline DIR` (the parent's
+               csrc/rot3.cu and csrc/eig4.cu in DIR), 3b and 3c time the
+               parent's kernels beside these in turns;
   3c. the largest-eigenvector kernel (csrc/eig4.cu: Horn's 4x4
                eigenproblem; torch.linalg.eigh checks its status on the host,
                which a capture refuses) against its twin (eigh's last column)
@@ -38,7 +43,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
                formed on the card, and on general symmetric ones: rotations of
                the two quaternions within EIG4_TOL where the largest
                eigenvalue is simple, and both against float64 there, the
-               kernel's largest error no larger than the twin's; its time per
+               kernel's largest error no larger than the twin's nor than
+               EIG4_F64; ptxas's report as in 3b; its time per
                launch at 256 matrices, the whole call's, the twin's, one
                torch.linalg.eigh call's and the bound from its sweeps;
   3d. the small-SVD kernel (csrc/svd_small.cu: the mono PnP's DLT) against
@@ -354,6 +360,7 @@ KERNEL_SRC = "pli_slam_tpu_torch/csrc/gated_match.cu"
 ROT3_SRC = "pli_slam_tpu_torch/csrc/rot3.cu"
 ROT3_REPLACES = "pli_slam_tpu/ops/lie.py:157"  # normalize_rotation: jnp.linalg.svd, lowered by XLA inside the jit
 ROT3_TOL = {"near_rotation": 1e-5, "general": 1e-4}  # float32; general: the twin's SVD conditioning
+EIG4_F64 = 5e-8  # Horn's unit eigenvector where the largest eigenvalue is simple: the float64 answer rounded once
 ROT3_LAUNCHES: dict[str, int] = {}  # closest_rotation launches of each phase's run, by phase function
 EIG4_SRC = "pli_slam_tpu_torch/csrc/eig4.cu"
 EIG4_REPLACES = "pli_slam_tpu/solve/sim3.py:49"  # horn_alignment: jnp.linalg.eigh, lowered by XLA inside the jit
@@ -362,6 +369,7 @@ SVD_REPLACES = "pli_slam_tpu/solve/pnp.py:113"  # ransac_pnp_dlt: jnp.linalg.svd
 EIG4_LAUNCHES: dict[str, int] = {}  # largest_eigvec launches of each phase's run, by phase function
 SVD_LAUNCHES: dict[str, int] = {}  # svd_small launches of each phase's run, by phase function
 HBM_RATE = 3.35e12  # bytes/s, H100 SXM (NVIDIA's data sheet)
+FP32_RATE = 67e12  # float32 operations/s outside the tensor cores, H100 SXM (NVIDIA's data sheet): rot3's near rotations
 FP64_RATE = 34e12  # float64 operations/s outside the tensor cores, H100 SXM (NVIDIA's data sheet): the Jacobi kernels'
 # the kernels against their twins where the answer is unique: rotations from the quaternions where the largest
 # eigenvalue lies more than 1e-2 of |N| above the next (float32 rounding over the gap); the DLT's null vector where
@@ -415,20 +423,101 @@ def count_small_kernels() -> int:
     return n
 
 
+def ptxas_logged(name: str, rep: dict) -> dict:
+    """Print what ptxas reported for a kernel (-Xptxas -v); the report without its text."""
+    log(f"kernels: {name} as ptxas built it (-Xptxas -v): {rep['registers']} registers, {rep['stack_frame']} bytes "
+        f"stack frame, {rep['spill_stores']} / {rep['spill_loads']} bytes spill stores / loads, {rep['smem']} bytes "
+        f"shared memory: {rep['text']!r}")
+    return {key: val for key, val in rep.items() if key != "text"}
+
+
+def ptxas_checked(name: str, rep: dict) -> dict:
+    """`ptxas_logged`, failing on a stack frame or a spill."""
+    out = ptxas_logged(name, rep)
+    if rep["stack_frame"] or rep["spill_stores"] or rep["spill_loads"]:
+        raise AssertionError(f"{name} uses local memory: {rep['text']}")
+    return out
+
+
+@contextlib.contextmanager
+def kernel_library(module, lib):
+    """The kernel wrapper of `module` launches `lib` (another build of its source) inside the block."""
+    kept, module._lib = module._lib, lib
+    try:
+        yield
+    finally:
+        module._lib = kept
+
+
+def parent_sources() -> dict:
+    """`--baseline DIR` on the command line: the parent's csrc/rot3.cu and
+    csrc/eig4.cu there (e.g. `git show REV:pli_slam_tpu_torch/csrc/rot3.cu`),
+    timed beside the kernels in 3b / 3c; {} without it."""
+    if "--baseline" not in sys.argv:
+        return {}
+    from pathlib import Path
+
+    root = Path(sys.argv[sys.argv.index("--baseline") + 1])
+    return {name: root / f"{name}.cu" for name in ("rot3", "eig4")}
+
+
+def in_turns(fns: dict) -> dict:
+    """Device time per launch in a CUDA graph (50 launches) of each fn, in
+    turns: each once, then each again in reverse order; the mean of the two."""
+    from pli_slam_tpu_torch.utils.kernel_bench import graph_ms
+
+    out = {}
+    for name in list(fns) + list(fns)[::-1]:
+        ms = graph_ms(fns[name])
+        out[name] = ms if name not in out else 0.5 * (out[name] + ms)
+    return out
+
+
+def rot3_ops_s(sweeps) -> float:
+    """The least time, in s, for the operations rot3's method (csrc/rot3.cu)
+    does on matrices whose `sweeps` outputs are `sweeps`: the float32 branch
+    runs on every matrix, 3 pairs of ~66 float32 operations a sweep, ~95 to
+    finish and ~14 for det(A) (its sweeps are reported only where its result
+    is kept, >= 0, and counted as none elsewhere); a matrix that is not a
+    near rotation (-1 - sweeps) then takes the float64 branch, 3 pairs of
+    ~81 float64 operations a sweep and ~176 to finish."""
+    ops32 = ops64 = 0
+    for c in sweeps.tolist():
+        ops32 += 198 * max(c, 0) + 109
+        if c < 0:
+            ops64 += 243 * (-1 - c) + 176
+    return ops32 / FP32_RATE + ops64 / FP64_RATE
+
+
+def rot3_sweeps(sweeps) -> str:
+    """How many matrices took each branch of rot3, with how many sweeps."""
+    import collections
+
+    f32 = collections.Counter(c for c in sweeps.tolist() if c >= 0)
+    f64 = collections.Counter(-1 - c for c in sweeps.tolist() if c < 0)
+    return (f"float32 branch {sum(f32.values())} (sweeps: {dict(sorted(f32.items()))}), float64 branch "
+            f"{sum(f64.values())} (sweeps: {dict(sorted(f64.items()))})")
+
+
 def phase_rot3(dev):
     """3b: the closest-rotation kernel against its twin (torch.linalg.svd +
     det): near rotations (what the solvers hand it) and general matrices of
     both determinant signs at batch 1 (pose GN, preintegration), 10 (a BA
-    window) and 4096; the sign of det exactly equal. Times at batch 1: the
-    kernel per launch (50 launches in a CUDA graph), the twin and one
-    torch.linalg.svd call (the library yardstick), and the bound from the
-    sweeps this input took."""
-    import numpy as np
+    window) and 4096; the sign of det exactly equal. ptxas's report for it
+    (any stack frame or spill fails). Times per launch in a CUDA graph (50
+    launches) on the main path's matrices (`rot3_main_path_matrices`) at
+    batch 1 (a pose update) and 8 (a BA window's) and on a rotation
+    perturbed by 1e-4, with `--baseline` the parent's kernel beside it in
+    turns; the whole call, the twin and one torch.linalg.svd call (the
+    library yardstick) at batch 1; the bound from the work this input took;
+    the launch floor in a graph. Then the branches and sweeps the main
+    path's matrices take and both against float64 (`rot3_accuracy`)."""
     import torch
 
     from pli_slam_tpu_torch.ops.kernels import rot3
     from pli_slam_tpu_torch.utils.kernel_bench import eager_ms, graph_ms
 
+    ptxas = ptxas_checked("closest_rotation (rot3_kernel)", rot3.ptxas_report())
     g = torch.Generator().manual_seed(7)
     max_err = 0.0
     for n in (1, 10, 4096):
@@ -446,33 +535,64 @@ def phase_rot3(dev):
                 max_err = max(max_err, err)
             log(f"kernels: closest_rotation {label} batch {n}: max |kernel - twin| {err:.3e} "
                 f"(tolerance {ROT3_TOL[label]}), det signs equal")
-    x = (rot3.closest_rotation_reference(torch.randn(1, 3, 3, generator=g)) + 1e-4 * torch.randn(1, 3, 3, generator=g)
-         ).to(dev)
-    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
-    rot3.closest_rotation_cuda(x, sweeps)
-    n_sweeps = int(sweeps[0])
+    perturbed = (rot3.closest_rotation_reference(torch.randn(1, 3, 3, generator=g))
+                 + 1e-4 * torch.randn(1, 3, 3, generator=g)).to(dev)
+    main = rot3_main_path_matrices(dev, g)
+    half = main.shape[0] // 2  # preintegration's products, then the pose updates
+    inputs = {"main_path_1": main[half:half + 1].contiguous(), "main_path_8": main[half:half + 8].contiguous(),
+              "perturbed_1": perturbed}
+    x = inputs["main_path_1"]
+    n_sweeps = {}
+    for label, xi in inputs.items():
+        sweeps = torch.zeros(xi.shape[0], dtype=torch.int32, device=dev)
+        rot3.closest_rotation_cuda(xi, sweeps)
+        n_sweeps[label] = sweeps.cpu()
     one = torch.zeros(1, device=dev)
     t_call = eager_ms(lambda: rot3.closest_rotation_cuda(x))
     t_plain_a = eager_ms(lambda: rot3.closest_rotation_reference(x))
     t_lib_a = eager_ms(lambda: torch.linalg.svd(x))
     t_floor_a = graph_ms(lambda: one.add_(1.0))
-    t_kern_a = graph_ms(lambda: rot3.closest_rotation_cuda(x))
-    t_kern_b = graph_ms(lambda: rot3.closest_rotation_cuda(x))
+    parent = parent_sources()
+    lib_parent = rot3.load(parent["rot3"]) if parent else None
+    times = {}
+    for label, xi in inputs.items():
+        fns = {"kernel": lambda xi=xi: rot3.closest_rotation_cuda(xi)}
+        if lib_parent is not None:
+            def run_parent(xi=xi):
+                with kernel_library(rot3, lib_parent):
+                    rot3.closest_rotation_cuda(xi)
+            fns["parent"] = run_parent
+        times[label] = in_turns(fns)
     t_floor_b = graph_ms(lambda: one.add_(1.0))
     t_lib_b = eager_ms(lambda: torch.linalg.svd(x))
     t_plain_b = eager_ms(lambda: rot3.closest_rotation_reference(x))
-    # the bound: 72 bytes per matrix; per Jacobi sweep 3 pairs of ~66 float32 operations, ~95 to finish
-    bytes_moved, ops = 72, 198 * n_sweeps + 95
-    bound = max(bytes_moved / 3.35e12, ops / 67e12) * 1e3
-    out = {"max_abs_err": max_err, "ms": 0.5 * (t_kern_a + t_kern_b), "plain_ms": 0.5 * (t_plain_a + t_plain_b),
-           "library_ms": 0.5 * (t_lib_a + t_lib_b), "bound_ms": bound, "call_ms": t_call,
-           "bound_by": "bytes" if bytes_moved / 3.35e12 >= ops / 67e12 else "operations", "sweeps": n_sweeps,
-           "launch_floor_ms": 0.5 * (t_floor_a + t_floor_b)}
-    log(f"kernels: closest_rotation batch 1: kernel {out['ms']:.4f} ms per launch (50 launches in a CUDA graph), "
-        f"whole call eager {t_call:.4f} ms, twin {out['plain_ms']:.4f} ms, torch.linalg.svd alone "
-        f"{out['library_ms']:.4f} ms; {n_sweeps} Jacobi sweeps, bound {bound:.3e} ms ({out['bound_by']}); the launch "
-        f"floor in a graph (a one-element add_, 50 in a CUDA graph) {out['launch_floor_ms']:.4f} ms")
-    out["float64"] = rot3_accuracy(dev, g)
+    bound = {}
+    for label, xi in inputs.items():
+        bytes_s, ops_s = 72 * xi.shape[0] / HBM_RATE, rot3_ops_s(n_sweeps[label])
+        bound[label] = (max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations")
+    floor = 0.5 * (t_floor_a + t_floor_b)
+    out = {"max_abs_err": max_err, "ms": times["main_path_1"]["kernel"], "plain_ms": 0.5 * (t_plain_a + t_plain_b),
+           "library_ms": 0.5 * (t_lib_a + t_lib_b), "bound_ms": bound["main_path_1"][0], "call_ms": t_call,
+           "bound_by": bound["main_path_1"][1], "sweeps": n_sweeps["main_path_1"].tolist(), "launch_floor_ms": floor,
+           "ms_batch8": times["main_path_8"]["kernel"], "bound_ms_batch8": bound["main_path_8"][0],
+           "ms_perturbed": times["perturbed_1"]["kernel"], "bound_ms_perturbed": bound["perturbed_1"][0],
+           "ptxas": ptxas}
+    for label, what in (("main_path_1", "batch 1, a pose update of the main path"),
+                        ("main_path_8", "batch 8, a BA window's pose updates"),
+                        ("perturbed_1", "batch 1, a rotation perturbed by 1e-4")):
+        t = times[label]
+        beside = f"; the parent's kernel {t['parent']:.4f} ms (in turns)" if "parent" in t else ""
+        log(f"kernels: closest_rotation {what}: kernel {t['kernel']:.4f} ms per launch (50 launches in a CUDA graph, "
+            f"{t['kernel'] - floor:+.4f} above the launch floor){beside}; "
+            f"{rot3_sweeps(n_sweeps[label])}; bound {bound[label][0]:.3e} ms ({bound[label][1]})")
+    if lib_parent is not None:
+        out["parent"] = {"ms": times["main_path_1"]["parent"], "ms_batch8": times["main_path_8"]["parent"],
+                         "ms_perturbed": times["perturbed_1"]["parent"],
+                         "ptxas": ptxas_logged("the parent's rot3_kernel", rot3.ptxas_report(lib_parent))}
+    log(f"kernels: closest_rotation batch 1: whole call eager {t_call:.4f} ms, twin {out['plain_ms']:.4f} ms, "
+        f"torch.linalg.svd alone {out['library_ms']:.4f} ms; the launch floor in a graph (a one-element add_, 50 in a "
+        f"CUDA graph) {floor:.4f} ms")
+    out["float64"] = rot3_accuracy(dev, g, main)
     return out
 
 
@@ -497,24 +617,25 @@ def rot3_main_path_matrices(dev, g, n=512):
     return torch.cat([dR, lie._mm(delta, R)])
 
 
-def rot3_accuracy(dev, g) -> dict:
+def rot3_accuracy(dev, g, main) -> dict:
     """ROADMAP queue 3 A4: the kernel and its twin (torch.linalg.svd + det,
     cuSOLVER on the card) against the closest rotation of the same float32
-    input in float64, on the main path's matrices and on general ones. The
-    kernel's largest error must be no larger than the twin's on both."""
+    input in float64, on the main path's matrices `main` and on general
+    ones, and the branches and sweeps each took. The kernel's largest error
+    must be no larger than the twin's on both."""
     import torch
 
     from pli_slam_tpu_torch.ops.kernels import rot3
 
     out = {}
-    for label, x in (("main_path", rot3_main_path_matrices(dev, g)),
-                     ("general", torch.randn(1024, 3, 3, generator=g).to(dev))):
+    for label, x in (("main_path", main), ("general", torch.randn(1024, 3, 3, generator=g).to(dev))):
         exact = rot3.closest_rotation_reference(x.double())
-        e_kern = float((rot3.closest_rotation_cuda(x).double() - exact).abs().max())
+        sweeps = torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
+        e_kern = float((rot3.closest_rotation_cuda(x, sweeps).double() - exact).abs().max())
         e_twin = float((rot3.closest_rotation_reference(x).double() - exact).abs().max())
-        out[label] = {"kernel": e_kern, "twin": e_twin}
+        out[label] = {"kernel": e_kern, "twin": e_twin, "sweeps": rot3_sweeps(sweeps.cpu())}
         log(f"kernels: closest_rotation against float64 ({label}, {x.shape[0]} matrices): max error kernel "
-            f"{e_kern:.3e}, twin {e_twin:.3e}")
+            f"{e_kern:.3e}, twin {e_twin:.3e}; {out[label]['sweeps']}")
         if not e_kern <= e_twin:
             raise AssertionError(f"closest_rotation ({label}) lies farther from float64 than its twin: "
                                  f"{e_kern:.3e} > {e_twin:.3e}")
@@ -549,7 +670,7 @@ def eig4_hold(label, N) -> dict:
     on Horn's matrices N [n,4,4] (on the card): the rotations of their
     quaternions within EIG4_TOL where the largest eigenvalue is simple; then
     both against the float64 eigenvector of the same float32 input there, the
-    kernel's largest error no larger than the twin's."""
+    kernel's largest error no larger than the twin's nor than EIG4_F64."""
     import torch
 
     from pli_slam_tpu_torch.ops import lie
@@ -567,8 +688,9 @@ def eig4_hold(label, N) -> dict:
         f"kernel {e_k:.3e}, twin {e_t:.3e}")
     if not err <= EIG4_TOL:
         raise AssertionError(f"largest_eigvec ({label}) differs from its twin by {err} in rotation")
-    if not e_k <= e_t:
-        raise AssertionError(f"largest_eigvec ({label}) lies farther from float64 than its twin: {e_k:.3e} > {e_t:.3e}")
+    if not e_k <= min(e_t, EIG4_F64):
+        raise AssertionError(f"largest_eigvec ({label}) lies {e_k:.3e} from float64: farther than its twin ({e_t:.3e}) "
+                             f"or than {EIG4_F64}")
     return {"max_abs_err": err, "kernel": e_k, "twin": e_t, "n": int(N.shape[0]), "simple": n_simple}
 
 
@@ -678,12 +800,15 @@ def _small_times(fn_kernel, fn_call, fn_plain, fn_library) -> dict:
 
 def phase_eig4(dev):
     """3c: the largest-eigenvector kernel (csrc/eig4.cu) against its twin and
-    float64 on Horn's matrices and general ones (`eig4_hold`); its time at
-    the PnP's 256 hypotheses and the bound from the sweeps they took."""
+    float64 on Horn's matrices and general ones (`eig4_hold`); ptxas's report
+    for it (any stack frame or spill fails); its time at the PnP's 256
+    hypotheses, with `--baseline` the parent's kernel beside it in turns, and
+    the bound from the sweeps they took."""
     import torch
 
     from pli_slam_tpu_torch.ops.kernels import eig4
 
+    ptxas = ptxas_checked("largest_eigvec (eig4_kernel)", eig4.ptxas_report())
     g = torch.Generator().manual_seed(12)
     out = {label: eig4_hold(label, N) for label, N in horn_cases(dev, g)}
     N = horn_cases(dev, g)[0][1]
@@ -692,16 +817,31 @@ def phase_eig4(dev):
     n_sweeps = int(sweeps.sum())
     times = _small_times(lambda: eig4.largest_eigvec_cuda(N), lambda: eig4.largest_eigvec(N),
                          lambda: eig4.largest_eigvec_reference(N), lambda: torch.linalg.eigh(N))
-    # 80 bytes a matrix; 402 float64 operations a sweep (six rotations), ~60 more a matrix
-    bytes_moved, ops = 80 * N.shape[0], 402 * n_sweeps + 60 * N.shape[0]
+    parent = parent_sources()
+    extra = {"ptxas": ptxas}
+    if parent:
+        lib_parent = eig4.load(parent["eig4"])
+
+        def run_parent():
+            with kernel_library(eig4, lib_parent):
+                eig4.largest_eigvec_cuda(N)
+
+        turns = in_turns({"kernel": lambda: eig4.largest_eigvec_cuda(N), "parent": run_parent})
+        extra["parent"] = {"ms": turns["parent"], "ms_in_turns": turns["kernel"],
+                           "ptxas": ptxas_logged("the parent's eig4_kernel", eig4.ptxas_report(lib_parent))}
+        log(f"kernels 3c: largest_eigvec 256 x 4x4 in turns with the parent's kernel: kernel {turns['kernel']:.4f} ms, "
+            f"the parent's {turns['parent']:.4f} ms per launch (50 launches in a CUDA graph)")
+    # 80 bytes a matrix; a sweep 3 steps of 2 rotations (~35 float64 operations each), the 2x2 block between the
+    # pairs (24) and V's rows (48): 426; ~40 more a matrix (the norm, the load, the normalised column)
+    bytes_moved, ops = 80 * N.shape[0], 426 * n_sweeps + 40 * N.shape[0]
     bound = max(bytes_moved / HBM_RATE, ops / FP64_RATE) * 1e3
     by = "bytes" if bytes_moved / HBM_RATE >= ops / FP64_RATE else "operations"
     log(f"kernels 3c: largest_eigvec 256 x 4x4: kernel {times['ms']:.4f} ms per launch (50 launches in a CUDA graph), "
         f"whole call eager {times['call_ms']:.4f} ms, twin (torch.linalg.eigh + the last column) "
         f"{times['plain_ms']:.4f} ms, torch.linalg.eigh alone {times['library_ms']:.4f} ms; {n_sweeps} Jacobi sweeps "
-        f"in all, bound {bound:.3e} ms ({by})")
+        f"in all (at most {int(sweeps.max())} a matrix), bound {bound:.3e} ms ({by})")
     return {**times, "bound_ms": bound, "bound_by": by, "sweeps": n_sweeps, "hold": out,
-            "max_abs_err": max(v["max_abs_err"] for v in out.values())}
+            "max_abs_err": max(v["max_abs_err"] for v in out.values()), "extra": extra}
 
 
 def phase_svd_small(dev):
@@ -715,12 +855,7 @@ def phase_svd_small(dev):
 
     from pli_slam_tpu_torch.ops.kernels import svd_small
 
-    ptxas = svd_small.ptxas_report()
-    log(f"kernels 3d: svd_small as ptxas built it (-Xptxas -v): {ptxas['registers']} registers, {ptxas['stack_frame']} "
-        f"bytes stack frame, {ptxas['spill_stores']} / {ptxas['spill_loads']} bytes spill stores / loads, "
-        f"{ptxas['smem']} bytes shared memory: {ptxas['text']!r}")
-    if ptxas["stack_frame"] or ptxas["spill_stores"] or ptxas["spill_loads"]:
-        raise AssertionError(f"svd_small_kernel uses local memory: {ptxas['text']}")
+    ptxas = ptxas_checked("svd_small (the most of its 12 instances; the 12x12 one's lines)", svd_small.ptxas_report())
     g = torch.Generator().manual_seed(13)
     cases = dlt_cases(dev, g)
     out = {label: svd_hold(label, A) for label, A in cases}
@@ -748,7 +883,7 @@ def phase_svd_small(dev):
             "extra": {"ms_3x3": small["ms"], "call_ms_3x3": small["call_ms"], "plain_ms_3x3": small["plain_ms"],
                       "library_ms_3x3": small["library_ms"], "bound_ms_3x3": small["bound_ms"],
                       "bound_by_3x3": small["bound_by"], "sweeps_3x3": small["sweeps"], "shape_3x3": "256 x 3 x 3",
-                      "ptxas": {key: val for key, val in ptxas.items() if key != "text"}}}
+                      "ptxas": ptxas}}
 
 
 @contextlib.contextmanager
@@ -3073,7 +3208,8 @@ def main() -> int:
     floor = rot3_line["launch_floor_ms"]
     log(f"kernels: per launch in a CUDA graph against the launch floor there ({floor:.4f} ms, a one-element add_): "
         + ", ".join(f"{name} {line['ms']:.4f} ms ({line['ms'] - floor:+.4f})" for name, line in (
-            ("closest_rotation 1 x 3x3", rot3_line), ("largest_eigvec 256 x 4x4", eig4_line),
+            ("closest_rotation 1 x 3x3", rot3_line), ("closest_rotation 8 x 3x3", {"ms": rot3_line["ms_batch8"]}),
+            ("largest_eigvec 256 x 4x4", eig4_line),
             ("svd_small 256 x 12x12", svd_line), ("svd_small 256 x 3x3", {"ms": svd_line["extra"]["ms_3x3"]}))))
     timed("4 stages", phase_small_reference, dev)
     launches, n_frames, room = timed("4", phase_main_path, dev, smi)
@@ -3138,9 +3274,11 @@ def main() -> int:
         "name": "closest_rotation", "route": "cuda", "source": ROT3_SRC, "replaces": ROT3_REPLACES,
         "launches": sum(ROT3_LAUNCHES.values()), "max_abs_err": rot3_line["max_abs_err"], "ms": rot3_line["ms"],
         "plain_ms": rot3_line["plain_ms"], "bound_ms": rot3_line["bound_ms"], "bound_by": rot3_line["bound_by"],
-        "library_ms": rot3_line["library_ms"], "shape": "1 x 3 x 3", "sweeps": rot3_line["sweeps"],
-        "call_ms": rot3_line["call_ms"], "max_abs_err_float64": rot3_line["float64"],
+        "library_ms": rot3_line["library_ms"], "shape": "1 x 3 x 3 (a pose update of the main path)",
+        "sweeps": rot3_line["sweeps"], "call_ms": rot3_line["call_ms"], "max_abs_err_float64": rot3_line["float64"],
         "graph_launch_floor_ms": rot3_line["launch_floor_ms"],
+        **{key: rot3_line[key] for key in ("ms_batch8", "bound_ms_batch8", "ms_perturbed", "bound_ms_perturbed",
+                                           "ptxas", "parent") if key in rot3_line},
         **{f"launches_{name.removeprefix('phase_')}": n for name, n in ROT3_LAUNCHES.items()},
     }, *[{
         "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": sum(counts.values()),

@@ -78,9 +78,9 @@
 //
 // Float64 sqrt and division are IEEE's on the card only through a slow-path
 // subroutine, whose calling convention gave the kernel a stack frame and
-// spills; `root` and `inv_root` instead refine the hardware's approximation
-// by Newton steps, and the rotation is written with reciprocal square roots
-// alone (`rotation`).
+// spills; `root` and `inv_root` (csrc/jacobi.cuh, shared with rot3.cu and
+// eig4.cu) instead refine the hardware's approximation by Newton steps, and
+// the rotation is written with reciprocal square roots alone (`rotation`).
 //
 // The tail runs over lanes: the column norms (a lane a column), the
 // descending sort (a lane a column counts its rank), U = B diag(1/S) (a
@@ -97,15 +97,20 @@
 // bit for bit). The card's build differs from it in the last bits (fused
 // multiply-adds, the refined roots).
 
+#include "jacobi.cuh"
+
 #ifdef __CUDACC__
-#include <cuda_runtime.h>
 #define SVD_FN __host__ __device__ __forceinline__
 #else
-#include <cmath>
 #define SVD_FN inline
 #endif
 
 namespace svd_small {
+
+using jacobi::inv_root;
+using jacobi::kEps;
+using jacobi::root;
+using jacobi::rotation;
 
 constexpr int kMaxN = 12;
 constexpr int kStride = kMaxN + 1;  // a column's stride in shared memory, padded
@@ -113,8 +118,6 @@ constexpr int kRows = 3;            // the most rows a lane takes (n = 9..12: 4 
 constexpr int kWarp = 32;
 constexpr int kWarps = 4;  // matrices a block
 constexpr int kSweeps = 30;
-constexpr double kEps = 2.220446049250313e-16;    // float64 machine epsilon
-constexpr double kTiny = 2.2250738585072014e-308;  // the least normal float64
 
 // One warp's matrix in shared memory: column j of B = A V at b[kStride * j],
 // of V at v[kStride * j]; the tail's candidates, squared norms and column
@@ -130,35 +133,6 @@ struct Work {
 struct Layout {
   int n, pairs, lanes, shift, steps;  // lanes a pair = 1 << shift; steps a sweep = n' - 1
 };
-
-// sqrt and 1 / sqrt of a positive normal float64 (`root` gives 0
-// below the least normal: a square root under 1.5e-154, zero to float32).
-// On the card from the hardware's approximations (MUFU), refined by Newton
-// steps in fma: within an ulp or two of IEEE's, and without the slow-path
-// subroutine that IEEE sqrt (and division) branch to, whose calling
-// convention would give the kernel a stack frame and spills. On a host,
-// IEEE's.
-SVD_FN double inv_root(double x) {
-#ifdef __CUDA_ARCH__
-  double y;
-  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
-  const double hx = 0.5 * x;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) y = fma(y, fma(-hx * y, y, 0.5), y);  // ~2^-22 -> ~2^-44 -> float64's rounding
-  return y;
-#else
-  return 1.0 / sqrt(x);
-#endif
-}
-
-SVD_FN double root(double x) {
-#ifdef __CUDA_ARCH__
-  const double y = inv_root(x), r = x * y;
-  return x >= kTiny ? fma(fma(-r, r, x), 0.5 * y, r) : 0.0;  // the approximations flush subnormals to zero
-#else
-  return sqrt(x);
-#endif
-}
 
 SVD_FN Layout layout(int n) {
   Layout l;
@@ -214,31 +188,6 @@ SVD_FN void partials(const Layout& l, int sub, const Rows& x, double* sums) {
       sums[1] += x.bq[i] * x.bq[i];
       sums[2] += x.bp[i] * x.bq[i];
     }
-}
-
-// The pair's rotation from its summed (alpha, beta, gamma): whether it
-// rotates, and (cs, sn), the identity where it does not. Computed whole and
-// then selected, so that the test's latency hides under the roots'.
-SVD_FN bool rotation(const double* sums, double tol2, double* cs, double* sn) {
-  const double alpha = sums[0], beta = sums[1], gamma = sums[2];
-  const double d = beta - alpha, g = 2.0 * gamma, x = d * d + g * g;
-  // t = sign(zeta) / (|zeta| + sqrt(1 + zeta^2)), zeta = d / g, is sign(d) g / D
-  // with h = sqrt(d^2 + g^2), D = |d| + h; and 1 + t^2 = 2 h / D, so
-  // cs = D / sqrt(2 h D), sn = sign(d) g / sqrt(2 h D): two reciprocal square
-  // roots of positive normal numbers, and no zeta^2 to overflow
-  const double h = x * inv_root(x), D = fabs(d) + h, r = inv_root(2.0 * h * D);
-  const double c = D * r, t = (d >= 0.0 ? g : -g) * r;
-  // LAPACK's test, squared: gamma^2 > n eps^2 alpha beta. A column whose
-  // squared norm is below the least normal float64 is zero to it, and
-  // LAPACK's gesvj skips a column of zero norm: rotating it goes on,
-  // shrinking it by ~eps a sweep, until it underflows. Below that, too,
-  // d^2 + g^2 would leave the normal range; and a subnormal angle is below
-  // float64's resolution.
-  const bool ok = gamma * gamma > tol2 * alpha * beta &&
-                  fmin(fmin(alpha, beta), fmin(fabs(gamma), x)) >= kTiny && fabs(t) >= kTiny;
-  *cs = ok ? c : 1.0;
-  *sn = ok ? t : 0.0;
-  return ok;
 }
 
 // The rotation applied to the lane's rows, stored back.

@@ -6,8 +6,8 @@ The port's own kernel (the reference's Horn alignment, `solve/sim3.py`
 relocalization and loop-verification programs). `torch.linalg.eigh` on a
 CUDA tensor reads cuSOLVER's error flag on the host, which a stream being
 captured into a CUDA graph may not do; the kernel
-(`pli_slam_tpu_torch/csrc/eig4.cu`, cyclic Jacobi in float64, one thread per
-matrix; its header says what bounds it) never leaves the device.
+(`pli_slam_tpu_torch/csrc/eig4.cu`, round-robin Jacobi in float64, four
+lanes a matrix; its header says what bounds it) never leaves the device.
 
 `largest_eigvec` dispatches on the device of its input and nothing else: a
 CUDA tensor launches the kernel (built on first use with nvcc for sm_90a into
@@ -37,18 +37,40 @@ def reset_launches() -> None:
     launches = 0
 
 
+def load(src: Path = _SRC) -> ctypes.CDLL:
+    """`src` (this source, or another version of it with the same C entry)
+    compiled with `-Xptxas -v` and bound."""
+    lib = hamming.compile_library(src, hamming.PTXAS_FLAGS)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.eig4_launch.argtypes = [vp, vp, vp, ci, vp, vp]
+    lib.eig4_launch.restype = ci
+    return lib
+
+
 def build() -> float:
     """Compile (if needed) and load the kernel library. Returns the seconds spent."""
     global _lib
     if _lib is not None:
         return 0.0
     t0 = time.perf_counter()
-    lib = hamming.compile_library(_SRC)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.eig4_launch.argtypes = [vp, vp, vp, ci, vp, vp]
-    lib.eig4_launch.restype = ci
-    _lib = lib
+    _lib = load()
     return time.perf_counter() - t0
+
+
+def ptxas_report(lib: ctypes.CDLL | None = None) -> dict:
+    """What ptxas reported for `eig4_kernel` when the library (after
+    `build`) or `lib` (from `load`) was built: registers, stack frame, spill
+    stores and loads and static shared memory (bytes), and its lines as
+    printed."""
+    (found,) = hamming.ptxas_usage((lib or _lib).nvcc_output, "eig4_kernel").values()
+    return found
+
+
+def schedule() -> list[list[tuple[int, int]]]:
+    """The kernel's round-robin sweep, as `diagonalize` in csrc/eig4.cu runs
+    it (`pairs`): steps[s] = the two disjoint pairs (p, q), p < q, that step
+    s rotates at once; step k = s + 1 rotates (0, k) and its complement."""
+    return [[(0, k), (1 if k > 1 else 2, 2 if k == 3 else 3)] for k in (1, 2, 3)]
 
 
 def largest_eigvec_reference(N: torch.Tensor) -> torch.Tensor:

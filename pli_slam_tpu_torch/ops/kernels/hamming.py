@@ -29,6 +29,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -108,17 +109,20 @@ def _nvcc() -> str:
 
 def compile_library(src: Path = _SRC, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Compile `src` with nvcc for sm_90a (once per content and flags) and load it.
-    The library's `nvcc_output` holds what nvcc printed when it built it (kept
-    beside the library, so a cached build reports it too)."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    The headers of `csrc/` are on the include path (a copy of a source
+    elsewhere finds them too) and part of the content. The library's
+    `nvcc_output` holds what nvcc printed when it built it (kept beside the
+    library, so a cached build reports it too)."""
+    headers = b"".join(h.read_bytes() for h in sorted(_SRC.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     log = so.with_suffix(".log")
     if not so.exists():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", *flags,
-               "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(src)]
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-I", str(_SRC.parent),
+               *flags, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
@@ -128,6 +132,31 @@ def compile_library(src: Path = _SRC, flags: tuple[str, ...] = ()) -> ctypes.CDL
     lib = ctypes.CDLL(str(so))
     lib.nvcc_output = log.read_text() if log.exists() else ""
     return lib
+
+
+PTXAS_FLAGS = ("-Xptxas", "-v")  # a build then prints each kernel's registers, stack frame and spills
+
+
+def ptxas_usage(nvcc_output: str, kernel: str) -> dict:
+    """What `-Xptxas -v` printed for each instance of the kernel `kernel`
+    (mangled entry name -> registers, stack frame, spill stores and loads,
+    static shared memory in bytes, and its lines as printed)."""
+    lines = nvcc_output.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        entry = re.search(rf"Compiling entry function '(\S*{kernel}\S*)'", line)
+        if entry:
+            end = next(j for j in range(i, len(lines)) if "registers" in lines[j])
+            text = "\n".join(x.strip() for x in lines[i:end + 1])
+            stack, stores, loads = (int(x) for x in re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", text).groups())
+            smem = re.search(r"(\d+) bytes smem", text)
+            found[entry.group(1)] = {"registers": int(re.search(r"Used (\d+) registers", text).group(1)),
+                                     "stack_frame": stack, "spill_stores": stores, "spill_loads": loads,
+                                     "smem": int(smem.group(1)) if smem else 0, "text": text}
+    if not found:
+        raise RuntimeError(f"ptxas reported no entry function {kernel}")
+    return found
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

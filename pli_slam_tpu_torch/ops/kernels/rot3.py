@@ -5,7 +5,9 @@ The port's own kernel (the reference's `normalize_rotation` is
 `torch.linalg.svd` on a CUDA tensor reads cuSOLVER's error flag on the
 host, which a stream being captured into a CUDA graph may not do; the
 kernel (`pli_slam_tpu_torch/csrc/rot3.cu`, one-sided Jacobi, one thread per
-matrix; its header says what bounds it) never leaves the device.
+matrix, in float32 for the near rotations the main path hands it and in
+float64 for every other matrix; its header says what bounds it) never
+leaves the device.
 
 `closest_rotation` dispatches on the device of its input and nothing else:
 a CUDA tensor launches the kernel (built on first use with nvcc for sm_90a
@@ -35,18 +37,33 @@ def reset_launches() -> None:
     launches = 0
 
 
+def load(src: Path = _SRC) -> ctypes.CDLL:
+    """`src` (this source, or another version of it with the same C entry)
+    compiled with `-Xptxas -v` and bound."""
+    lib = hamming.compile_library(src, hamming.PTXAS_FLAGS)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rot3_launch.argtypes = [vp, vp, ci, vp, vp]
+    lib.rot3_launch.restype = ci
+    return lib
+
+
 def build() -> float:
     """Compile (if needed) and load the kernel library. Returns the seconds spent."""
     global _lib
     if _lib is not None:
         return 0.0
     t0 = time.perf_counter()
-    lib = hamming.compile_library(_SRC)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rot3_launch.argtypes = [vp, vp, ci, vp, vp]
-    lib.rot3_launch.restype = ci
-    _lib = lib
+    _lib = load()
     return time.perf_counter() - t0
+
+
+def ptxas_report(lib: ctypes.CDLL | None = None) -> dict:
+    """What ptxas reported for `rot3_kernel` when the library (after
+    `build`) or `lib` (from `load`) was built: registers, stack frame, spill
+    stores and loads and static shared memory (bytes), and its lines as
+    printed."""
+    (found,) = hamming.ptxas_usage((lib or _lib).nvcc_output, "rot3_kernel").values()
+    return found
 
 
 def closest_rotation_reference(R: torch.Tensor) -> torch.Tensor:
@@ -60,7 +77,10 @@ def closest_rotation_reference(R: torch.Tensor) -> torch.Tensor:
 
 def closest_rotation_cuda(R: torch.Tensor, sweeps: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel on `R` [..., 3, 3] float32 (CUDA). `sweeps`, an [n]
-    int32 CUDA tensor, receives each matrix's Jacobi sweep count."""
+    int32 CUDA tensor, receives each matrix's branch and Jacobi sweeps: the
+    float32 branch's sweeps (>= 0) for a near rotation (det > 0 and every
+    squared singular value within 0.25 of 1), else -1 - the float64
+    branch's (<= -1)."""
     global launches
     if R.dtype != torch.float32 or R.shape[-2:] != (3, 3):
         raise ValueError(f"closest_rotation takes [..., 3, 3] float32, got {tuple(R.shape)} {R.dtype}")

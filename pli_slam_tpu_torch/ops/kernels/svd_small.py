@@ -33,7 +33,6 @@ MAX_N = 12
 
 launches = 0  # kernel launches made through `svd` in this process
 _lib = None
-PTXAS_FLAGS = ("-Xptxas", "-v")  # the build prints each kernel's registers, stack frame and spills
 
 
 def reset_launches() -> None:
@@ -47,7 +46,7 @@ def build() -> float:
     if _lib is not None:
         return 0.0
     t0 = time.perf_counter()
-    lib = hamming.compile_library(_SRC, PTXAS_FLAGS)
+    lib = hamming.compile_library(_SRC, hamming.PTXAS_FLAGS)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.svd_small_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
     lib.svd_small_launch.restype = ci
@@ -61,19 +60,8 @@ def ptxas_report() -> dict:
     stack frame, spill stores and loads (bytes) and static shared memory
     (bytes) of any instance, the registers of each n, and the lines of the
     12x12 instance as printed."""
-    lines = _lib.nvcc_output.splitlines()
-    found = {}
-    for i, line in enumerate(lines):
-        entry = re.search(r"Compiling entry function '(\S*svd_small_kernel\S*)'", line)
-        if entry:
-            end = next(j for j in range(i, len(lines)) if "registers" in lines[j])
-            text = "\n".join(x.strip() for x in lines[i:end + 1])
-            stack, stores, loads = (int(x) for x in re.search(
-                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", text).groups())
-            smem = re.search(r"(\d+) bytes smem", text)
-            found[int(re.search(r"ILi(\d+)E", entry.group(1)).group(1))] = {
-                "registers": int(re.search(r"Used (\d+) registers", text).group(1)), "stack_frame": stack,
-                "spill_stores": stores, "spill_loads": loads, "smem": int(smem.group(1)) if smem else 0, "text": text}
+    found = {int(re.search(r"ILi(\d+)E", name).group(1)): f
+             for name, f in hamming.ptxas_usage(_lib.nvcc_output, "svd_small_kernel").items()}
     if sorted(found) != list(range(1, MAX_N + 1)):
         raise RuntimeError(f"ptxas reported svd_small_kernel for n = {sorted(found)}, not 1..{MAX_N}")
     worst = {key: max(f[key] for f in found.values())

@@ -28,7 +28,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import sys
 from pathlib import Path
 
@@ -76,14 +75,12 @@ def build(text: str, name: str) -> tuple[ctypes.CDLL, dict]:
     OUT.mkdir(parents=True, exist_ok=True)
     path = OUT / f"{name}.cu"
     path.write_text(text)
-    lib = hamming.compile_library(path, svd_small.PTXAS_FLAGS)
+    lib = hamming.compile_library(path, hamming.PTXAS_FLAGS)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.svd_small_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
     lib.svd_small_launch.restype = ci
-    rep = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", lib.nvcc_output)
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", lib.nvcc_output)]
-    worst = [max(int(m[i]) for m in rep) for i in range(3)]
-    return lib, {"registers": max(regs), "stack_frame": worst[0], "spill_stores": worst[1], "spill_loads": worst[2]}
+    found = hamming.ptxas_usage(lib.nvcc_output, "svd_small_kernel").values()
+    return lib, {key: max(f[key] for f in found) for key in ("registers", "stack_frame", "spill_stores", "spill_loads")}
 
 
 def launch(lib, A, sweeps=None):

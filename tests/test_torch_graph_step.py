@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
+from test_torch_small_kernels import rot3_method
 from test_torch_step import _ba_objective, _cfg, _torch_state, assert_state_close, np_tree, port_cfg
 
 from pli_slam_tpu.frontend import tracker as jtr
@@ -441,40 +442,6 @@ def test_graphs_need_a_card():
 # ---------------------------------------------------------------------------
 
 
-def _jacobi_closest_rotation(A: np.ndarray) -> np.ndarray:
-    """csrc/rot3.cu's arithmetic, transcribed (float32): one-sided Jacobi,
-    columns sorted with a negated swap, U = [u0, u1, u0 x u1], R = U V^T."""
-    f = np.float32
-    c = [A[:, j].astype(f).copy() for j in range(3)]
-    v = [np.eye(3, dtype=f)[:, j].copy() for j in range(3)]
-    for _ in range(12):
-        rotated = False
-        for p, q in ((0, 1), (0, 2), (1, 2)):
-            alpha, beta, gamma = f(c[p] @ c[p]), f(c[q] @ c[q]), f(c[p] @ c[q])
-            if not abs(gamma) > f(1e-7) * np.sqrt(alpha * beta):
-                continue
-            rotated = True
-            zeta = (beta - alpha) / (f(2) * gamma)
-            t = np.copysign(f(1), zeta) / (abs(zeta) + np.sqrt(f(1) + zeta * zeta))
-            cs = f(1) / np.sqrt(f(1) + t * t)
-            sn = cs * t
-            c[p], c[q] = cs * c[p] - sn * c[q], sn * c[p] + cs * c[q]
-            v[p], v[q] = cs * v[p] - sn * v[q], sn * v[p] + cs * v[q]
-        if not rotated:
-            break
-    norms = [f(x @ x) for x in c]
-    for i, j in ((0, 1), (0, 2), (1, 2)):
-        if norms[i] < norms[j]:
-            c[i], c[j] = c[j], -c[i]
-            v[i], v[j] = v[j], -v[i]
-            norms[i], norms[j] = norms[j], norms[i]
-    u0 = c[0] / np.sqrt(norms[0])
-    w = c[1] - (u0 @ c[1]) * u0
-    u1 = w / np.sqrt(w @ w)
-    U = np.stack([u0, u1, np.cross(u0, u1)], axis=1)
-    return U @ np.stack(v, axis=1).T
-
-
 def test_rot3_method_matches_the_svd_twin():
     """Near rotations (what the solvers hand it) and general matrices of
     either determinant sign: the transcribed method equals the twin to
@@ -487,7 +454,7 @@ def test_rot3_method_matches_the_svd_twin():
     general = rng.normal(size=(40, 3, 3)).astype(np.float32)
     for mats, tol in ((near, 1e-5), (general, 1e-4)):
         want = rot3.closest_rotation(torch.as_tensor(mats)).numpy()  # the CPU runs the twin
-        got = np.stack([_jacobi_closest_rotation(m) for m in mats])
+        got = rot3_method(mats)[0]
         np.testing.assert_allclose(got, want, atol=tol)
         np.testing.assert_allclose(np.linalg.det(got), 1.0, atol=1e-5)
 

@@ -27,8 +27,8 @@ loop closing at a low inlier floor):
   host) bit for bit, with the reference's own RANSAC draw
   (`reference_draw`, `jax.random.choice`) in both; and the stages again on
   stand-in graphs (test_torch_stages.stand_in_capture) equal eager;
-- (d) each kernel's method (csrc/eig4.cu: cyclic Jacobi in float64;
-  csrc/svd_small.cu: one-sided Jacobi in float64, a warp a matrix in
+- (d) each kernel's method (csrc/eig4.cu: round-robin Jacobi in float64,
+  `test_torch_small_kernels.eig4_method`; csrc/svd_small.cu: one-sided Jacobi in float64, a warp a matrix in
   round-robin order, `svd_small.schedule`), mirrored in numpy,
   against its twin (`torch.linalg.eigh` / `torch.linalg.svd`, what the CPU
   runs) and against float64 on the matrices the run hands them (Horn's
@@ -59,6 +59,7 @@ import pytest
 import torch
 from test_torch_graph_step import _fake_trace
 from test_torch_reloc_atlas import reference_draw
+from test_torch_small_kernels import eig4_method
 from test_torch_stages import CAM, _frames, _vi_cfg, stand_in_capture
 
 from pli_slam_tpu_torch.frontend import frame as tframe
@@ -450,49 +451,6 @@ def test_empty_frame_has_every_builders_signature(run):
 # ---------------------------------------------------------------------------
 
 
-def _eig4_method(N: np.ndarray):
-    """csrc/eig4.cu's arithmetic, transcribed (float64, all matrices at once;
-    a matrix whose sweep rotates nothing is left as it is): cyclic Jacobi,
-    V's column at the largest diagonal entry (the last of equal ones),
-    normalised, rounded to float32. Returns (vectors [n,4], eigenvalues [n])."""
-    a = N.astype(np.float64).copy()
-    n = a.shape[0]
-    v = np.tile(np.eye(4), (n, 1, 1))
-    tol = 1e-15 * np.sqrt((a * a).sum((1, 2)))
-    for _ in range(16):
-        rotated = False
-        for p in range(3):
-            for q in range(p + 1, 4):
-                apq = a[:, p, q].copy()
-                m = np.abs(apq) > tol
-                if not m.any():
-                    continue
-                rotated = True
-                with np.errstate(divide="ignore", invalid="ignore"):
-                    theta = (a[:, q, q] - a[:, p, p]) / (2.0 * apq)
-                    t = np.copysign(1.0, theta) / (np.abs(theta) + np.sqrt(1.0 + theta * theta))
-                c = 1.0 / np.sqrt(1.0 + t * t)
-                sn = t * c
-                t, c, sn = (np.where(m, x, d) for x, d in ((t, 0.0), (c, 1.0), (sn, 0.0)))
-                a[:, p, p] -= np.where(m, t * apq, 0.0)
-                a[:, q, q] += np.where(m, t * apq, 0.0)
-                a[m, p, q] = a[m, q, p] = 0.0
-                for r in range(4):
-                    if r not in (p, q):
-                        g, h = a[:, r, p].copy(), a[:, r, q].copy()
-                        a[:, r, p] = a[:, p, r] = c * g - sn * h
-                        a[:, r, q] = a[:, q, r] = sn * g + c * h
-                    g, h = v[:, r, p].copy(), v[:, r, q].copy()
-                    v[:, r, p] = c * g - sn * h
-                    v[:, r, q] = sn * g + c * h
-        if not rotated:
-            break
-    d = np.diagonal(a, axis1=1, axis2=2)
-    k = 3 - np.argmax(d[:, ::-1], axis=1)
-    col = v[np.arange(n), :, k]
-    return (col / np.linalg.norm(col, axis=1, keepdims=True)).astype(np.float32), d[np.arange(n), k]
-
-
 def _svd_method(A: np.ndarray, rotated: set | None = None):
     """csrc/svd_small.cu's arithmetic, transcribed (float64, all matrices at
     once, each float operation in the kernel's order): one-sided Jacobi on
@@ -639,7 +597,7 @@ def test_eig4_method_no_farther_from_float64_than_the_twin(run, capsys):
         w, V = np.linalg.eigh(N.astype(np.float64))
         simple = (w[:, 3] - w[:, 2]) > 1e-3 * np.maximum(np.abs(w).max(1), 1e-30)
         exact = V[:, :, 3]
-        got, _ = _eig4_method(N)
+        got = eig4_method(N)[0]
         twin = eig4.largest_eigvec_reference(torch.as_tensor(N)).numpy()
         e_m, e_t = _sign_free(got, exact)[simple].max(), _sign_free(twin, exact)[simple].max()
         with capsys.disabled():
@@ -648,7 +606,7 @@ def test_eig4_method_no_farther_from_float64_than_the_twin(run, capsys):
         assert simple.sum() >= 0.9 * len(N)
         assert e_m <= e_t, (label, e_m, e_t)
     deg = _degenerate_horn(rng)
-    got, lam = _eig4_method(deg)
+    got, lam, _ = eig4_method(deg)
     w = np.linalg.eigh(deg.astype(np.float64))[0][:, 3]
     scale = np.maximum(np.abs(deg).max((1, 2)), 1e-30)
     resid = np.abs(np.einsum("nij,nj->ni", deg.astype(np.float64), got) - w[:, None] * got).max(1) / scale

@@ -50,7 +50,8 @@ from functools import partial
 import numpy as np
 import pytest
 import torch
-from test_torch_graph_step import _assert_replay_exact, _fake_trace, _jacobi_closest_rotation
+from test_torch_graph_step import _assert_replay_exact, _fake_trace
+from test_torch_small_kernels import rot3_method
 from test_torch_step import _cfg, port_cfg
 
 from pli_slam_tpu_torch.frontend import frame as tframe
@@ -378,7 +379,7 @@ def test_closest_rotation_kernel_no_farther_from_float64_than_the_twin(run, caps
     for label, mats in (("main path", main_path), ("general", general)):
         exact = _closest_rotation_f64(mats)
         twin = rot3.closest_rotation_reference(torch.as_tensor(mats)).numpy().astype(np.float64)
-        kern = np.stack([_jacobi_closest_rotation(m) for m in mats]).astype(np.float64)
+        kern = rot3_method(mats)[0].astype(np.float64)
         e_twin, e_kern = np.abs(twin - exact).max(), np.abs(kern - exact).max()
         with capsys.disabled():
             print(f"\nA4 {label} ({len(mats)} matrices): max |R - R_float64| kernel's method {e_kern:.3e}, "
