@@ -56,7 +56,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
                against float64, the kernel no farther; first ptxas's
                registers, stack frame and spills for it from the build
                (-Xptxas -v; any stack frame or spill fails); times as in 3c
-               at 256 x 12x12 and 256 x 3x3;
+               at 256 x 12x12 and 256 x 3x3; then the two-view
+               initialization's matrices as `reconstruct_two_views` forms
+               them: A^T A of 256 eight-point and 256 four-point hypotheses
+               (512 x 9x9; the smallest eigenvector against
+               torch.linalg.eigh, its plain version and library call, within
+               SVD_NULL_TOL where it is simple, and against float64) and the
+               256 F hypotheses (3x3, as the rotation blocks), each timed;
   3c / 3d on the main path (after phase 8) -- the RANSACs that phases 6a, 6b
                and 8 ran (the loop verifications', the relocalizations' PnP,
                the mono one's DLT; their inputs recorded at the stages' entry)
@@ -324,6 +330,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
                ran): captures and graph pools.
                bench.py's graphs against eager is `python3 -m
                pli_slam_tpu_torch.scripts.bench [--no-graphs]`.
+The map initializations and the merge (PR 15): in phases 5, 6c, 8, 11
+and 12 every call of their stages (INIT_STAGES) under graphs is run again
+eagerly on copies of its inputs and must equal the replay bit for bit;
+the IMU initialization (5, 11, 12), the mono initialization and the first
+mono keyframe after it (8) and the merge (6c) are made again from the
+state before them by a `cuda_graphs=False` tracker, bit for bit, both
+wall times printed with the graph frame's host launches; the IMU-init
+frames, the mono-init frame and every mono keyframe issue at most
+HOST_LAUNCH_LIMIT host kernel launches (the merge frame's are printed:
+`Atlas.merge_active_into` stays eager, as the reference's `merge_maps`);
+each new stage's captures, capture ms and graph pool and the trackers'
+warm-ups are printed.
 Every phase's wall time is printed at the end. Phase 6a keeps its 180
 frames: at 148 (past the revisit at 140) its planted closure's chunks left
 ATE at 0.3875 m, over its 0.35 m guard (queue 3 B2's divergent GBA depends
@@ -787,6 +805,69 @@ def dlt_cases(dev, g) -> list:
                                                                                 .to(dev))]
 
 
+def twoview_cases(dev, g) -> list:
+    """The two-view initialization's matrices as `reconstruct_two_views`
+    forms them on the card: A^T A of its 256 eight-point and 256 four-point
+    hypotheses over a noisy view pair of 300 points (one [512,9,9] batch
+    here; the path launches the two halves apart), and the 256 F
+    hypotheses before their rank-2 projection [256,3,3]."""
+    import torch
+
+    from pli_slam_tpu_torch.ops import lie
+    from pli_slam_tpu_torch.ops.kernels import svd_small
+    from pli_slam_tpu_torch.solve import sim3, twoview
+    from pli_slam_tpu_torch.utils.profile import slice_camera
+
+    cam = slice_camera()
+    X = (torch.rand(300, 3, generator=g) * 2 - 1) * torch.tensor([3.0, 2.0, 1.5]) + torch.tensor([0.0, 0.0, 5.0])
+    R = lie.so3_exp(torch.tensor([0.02, -0.05, 0.01]))
+    x2 = X @ R.T + torch.tensor([0.3, 0.02, 0.05])
+
+    def pix(x):
+        uv = torch.stack([cam.fx * x[:, 0] / x[:, 2] + cam.cx, cam.fy * x[:, 1] / x[:, 2] + cam.cy], -1)
+        return (uv + 0.5 * torch.randn(uv.shape, generator=g)).to(dev)
+
+    mask = torch.ones(300, dtype=torch.bool, device=dev)
+    probs = sim3.mask_probs(mask)
+    idx_f, idx_h = (sim3.sample_indices(13 + k, probs, (twoview.N_HYPOTHESES, k)) for k in (8, 4))
+    kept = {"eig": [], "svd": []}
+    orig_eig, orig_svd = svd_small.smallest_eigvec, svd_small.svd
+    svd_small.smallest_eigvec = lambda A: kept["eig"].append(A.clone()) or orig_eig(A)
+    svd_small.svd = lambda A: kept["svd"].append(A.clone()) or orig_svd(A)
+    try:
+        twoview.reconstruct_two_views(cam, pix(X), pix(x2), mask, idx_f, idx_h)
+    finally:
+        svd_small.smallest_eigvec, svd_small.svd = orig_eig, orig_svd
+    return [("twoview_AtA", torch.cat(kept["eig"])), ("twoview_F", kept["svd"][0])]
+
+
+def eigvec_hold(label, M) -> dict:
+    """svd_small's smallest eigenvector (Vh's last row) against its plain
+    version (torch.linalg.eigh's first eigenvector, cuSOLVER on the card) on
+    symmetric positive semi-definite M [n,k,k] (on the card): within
+    SVD_NULL_TOL, up to the sign, where the smallest eigenvalue is simple;
+    then both against float64 there, the kernel no farther."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import svd_small
+
+    v_k, v_t = svd_small.smallest_eigvec(M), svd_small.smallest_eigvec_reference(M)
+    w, V = torch.linalg.eigh(M.double().cpu())
+    ok = (w[:, 1] - w[:, 0]) > SIMPLE_GAP * torch.clamp(w.abs().amax(-1), min=1e-30)
+    n_ok = int(ok.sum())
+    err, e_k, e_t = (float(x[ok].max()) if n_ok else 0.0 for x in (
+        _sign_free(v_k.double().cpu(), v_t.double().cpu()), _sign_free(v_k.double().cpu(), V[:, :, 0]),
+        _sign_free(v_t.double().cpu(), V[:, :, 0])))
+    log(f"kernels 3d: svd_small {label} ({M.shape[0]} of {M.shape[-1]}x{M.shape[-1]}, {n_ok} with a simple smallest "
+        f"eigenvalue): the smallest eigenvector, max |kernel - torch.linalg.eigh| {err:.3e} (tolerance "
+        f"{SVD_NULL_TOL}); against float64 kernel {e_k:.3e}, eigh {e_t:.3e}")
+    if not err <= SVD_NULL_TOL:
+        raise AssertionError(f"svd_small ({label}) differs from eigh by {err}")
+    if not e_k <= e_t:
+        raise AssertionError(f"svd_small ({label}) lies farther from float64 than eigh: {e_k:.3e} > {e_t:.3e}")
+    return {"max_abs_err": err, "kernel": e_k, "twin": e_t, "n": int(M.shape[0]), "compared": n_ok}
+
+
 def _small_times(fn_kernel, fn_call, fn_plain, fn_library) -> dict:
     """Per launch in a CUDA graph (50 launches), the whole call, the twin and
     the library call, in turns (kernel, twin, library, library, twin, kernel)."""
@@ -847,10 +928,13 @@ def phase_eig4(dev):
 def phase_svd_small(dev):
     """3d: the small-SVD kernel (csrc/svd_small.cu) against its twin and
     float64 on the mono PnP's DLT systems and rotation blocks and on general
-    12x12 matrices (`svd_hold`); ptxas's registers, stack frame and spills
-    for it from the build (none may fall to local memory); its times on the
-    DLT systems [256,12,12] and the rotation blocks [256,3,3], each with the
-    bound from the sweeps they took."""
+    12x12 matrices (`svd_hold`), and on the two-view initialization's A^T A
+    [512,9,9] (its smallest eigenvector against torch.linalg.eigh,
+    `eigvec_hold`) and F hypotheses [256,3,3]; ptxas's registers, stack
+    frame and spills for it from the build (none may fall to local memory);
+    its times on the DLT systems [256,12,12], the rotation blocks
+    [256,3,3] and the two-view's matrices, each with the bound from the
+    sweeps they took."""
     import torch
 
     from pli_slam_tpu_torch.ops.kernels import svd_small
@@ -878,36 +962,58 @@ def phase_svd_small(dev):
             f"{times['plain_ms']:.4f} ms, torch.linalg.svd alone {times['library_ms']:.4f} ms; {n_sweeps} Jacobi "
             f"sweeps in all, bound {bound:.3e} ms ({by})")
         timed[k] = {**times, "bound_ms": bound, "bound_by": by, "sweeps": n_sweeps}
+    # the two-view initialization's matrices: A^T A's smallest eigenvector (the plain version and the library call
+    # torch.linalg.eigh) and the F hypotheses' SVD
+    for label, A in twoview_cases(dev, g):
+        k = A.shape[-1]
+        out[label] = (eigvec_hold if k == 9 else svd_hold)(label, A)
+        sweeps = torch.zeros(A.shape[0], dtype=torch.int32, device=dev)
+        svd_small.svd_cuda(A, sweeps=sweeps)
+        n_sweeps = int(sweeps.sum())
+        if k == 9:  # the function: 4 k^2 bytes in, 4 k out a matrix
+            times = _small_times(lambda: svd_small.svd_cuda(A), lambda: svd_small.smallest_eigvec(A),
+                                 lambda: svd_small.smallest_eigvec_reference(A), lambda: torch.linalg.eigh(A))
+            bytes_moved, plain = A.shape[0] * 4 * (k * k + k), "torch.linalg.eigh's first eigenvector"
+        else:
+            times = _small_times(lambda: svd_small.svd_cuda(A), lambda: svd_small.svd(A),
+                                 lambda: svd_small.svd_reference(A), lambda: torch.linalg.svd(A))
+            bytes_moved, plain = A.shape[0] * 4 * (3 * k * k + k), "torch.linalg.svd"
+        ops = n_sweeps * (k * (k - 1) // 2) * (18 * k + 20) + A.shape[0] * 4 * k * k
+        bound = max(bytes_moved / HBM_RATE, ops / FP64_RATE) * 1e3
+        by = "bytes" if bytes_moved / HBM_RATE >= ops / FP64_RATE else "operations"
+        log(f"kernels 3d: svd_small {A.shape[0]} x {k}x{k} ({label}): kernel {times['ms']:.4f} ms per launch (50 "
+            f"launches in a CUDA graph), whole call eager {times['call_ms']:.4f} ms, plain version ({plain}) "
+            f"{times['plain_ms']:.4f} ms, the library call alone {times['library_ms']:.4f} ms; {n_sweeps} Jacobi "
+            f"sweeps in all, bound {bound:.3e} ms ({by})")
+        timed[label] = {**times, "bound_ms": bound, "bound_by": by, "sweeps": n_sweeps}
     small = timed[3]
+    twoview_keys = {f"{key}_{label}": v for label in ("twoview_AtA", "twoview_F") for key, v in timed[label].items()}
     return {**timed[12], "hold": out, "max_abs_err": max(v["max_abs_err"] for v in out.values()),
             "extra": {"ms_3x3": small["ms"], "call_ms_3x3": small["call_ms"], "plain_ms_3x3": small["plain_ms"],
                       "library_ms_3x3": small["library_ms"], "bound_ms_3x3": small["bound_ms"],
                       "bound_by_3x3": small["bound_by"], "sweeps_3x3": small["sweeps"], "shape_3x3": "256 x 3 x 3",
+                      **twoview_keys, "shape_twoview_AtA": "512 x 9 x 9", "shape_twoview_F": "256 x 3 x 3",
                       "ptxas": ptxas}}
 
 
 @contextlib.contextmanager
 def check_replays(names, found: list):
     """Every call of the stages `names` under graphs also runs the stage's
-    body eagerly on copies of the same inputs, its kernel launches not
-    counted; each call appends (stage, the first output leaf that differs in
-    any bit or None, the check's seconds) to `found`."""
+    body eagerly on copies of the same inputs when the block ends (so that
+    nothing of the check falls inside a frame's trace), its kernel launches
+    not counted; each call appends (stage, the first output leaf that
+    differs in any bit or None, the check's seconds) to `found`."""
     from pli_slam_tpu_torch.frontend import graphs
 
     orig = graphs.StageProgram.__call__
+    pending = []
 
     def call(self, *args):
         if self.name not in names or not self.graphs:
             return orig(self, *args)
         before = graphs.tree_clone(args)
         out = orig(self, *args)
-        t0, counts = time.perf_counter(), [m.launches for m in graphs.KERNEL_MODULES]
-        want = self.fn(*before)
-        for m, n in zip(graphs.KERNEL_MODULES, counts):
-            m.launches = n
-        pairs = zip(graphs.tree_leaves(out), graphs.tree_leaves(want), strict=True)
-        found.append((self.name, next((i for i, (a, b) in enumerate(pairs) if not _bits_equal(a, b)), None),
-                      time.perf_counter() - t0))
+        pending.append((self, before, graphs.tree_clone(out)))
         return out
 
     graphs.StageProgram.__call__ = call
@@ -915,6 +1021,14 @@ def check_replays(names, found: list):
         yield
     finally:
         graphs.StageProgram.__call__ = orig
+        for prog, before, out in pending:
+            t0, counts = time.perf_counter(), [m.launches for m in graphs.KERNEL_MODULES]
+            want = prog.fn(*before)
+            for m, n in zip(graphs.KERNEL_MODULES, counts):
+                m.launches = n
+            pairs = zip(graphs.tree_leaves(out), graphs.tree_leaves(want), strict=True)
+            found.append((prog.name, next((i for i, (a, b) in enumerate(pairs) if not _bits_equal(a, b)), None),
+                          time.perf_counter() - t0))
 
 
 @contextlib.contextmanager
@@ -1357,6 +1471,8 @@ def phase_vi_path(dev, smi):
 
     tracker = Tracker(cam, cfg, dev)
     tracker.streaming = True
+    held, replays, traced = {}, [], []
+    hold_calls(tracker, {"_try_imu_init": (lambda tr: True, lambda tr, ret: tr.imu_ready)}, held)
     reset_counts()
     ms_host, ms_fused, launches_host = [], [], None
     init_frame = init_ms = None
@@ -1365,9 +1481,16 @@ def phase_vi_path(dev, smi):
         if fused and launches_host is None:
             launches_host = hamming.launches
             count_small_kernels()
-        f0 = time.perf_counter()
-        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
-        dt_ms = (time.perf_counter() - f0) * 1e3
+        with check_replays(INIT_STAGES, replays):
+            if imu_init_due(tracker, fr["t"]):  # the frame that may initialize the IMU: its host launches
+                wall, _, n, ng = _traced(dev, lambda: tracker.process(fr["img_l"], fr["img_r"], fr["t"],
+                                                                      imu=fr["imu"]))
+                traced.append((i, n, ng, wall * 1e3))
+                dt_ms = wall * 1e3
+            else:
+                f0 = time.perf_counter()
+                tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+                dt_ms = (time.perf_counter() - f0) * 1e3
         if tracker.imu_ready and init_frame is None:
             init_frame, init_ms = i, dt_ms  # this frame ran the initialization: kept out of the percentiles
             v_err = float(np.linalg.norm(tracker.v_w.cpu().numpy() - fr["v_w"]))
@@ -1442,6 +1565,7 @@ def phase_vi_path(dev, smi):
     if n_rot3 < N_FRAMES_VI - 1 or vi_step.replays < 0.9 * n_fused:
         raise AssertionError(f"closest_rotation launched {n_rot3} times and the graphs replayed {vi_step.replays} "
                              f"times for {n_fused} fused frames")
+    init_paths("vi path", dev, tracker, held, replays, traced, init_frame, smi)
     return launches, N_FRAMES_VI, (cfg, frames)
 
 
@@ -1554,6 +1678,208 @@ def _rare_line(held: dict, eager: dict) -> str:
             f"graph launches from the host; eager from the same state {1e3 * eager['wall']:.1f} ms, "
             f"{eager['launches']} kernel and {eager['graph_launches']} graph launches; bit-identical (the state after, "
             f"the result {g['ret']}, the kernels' launches {g['kernels']})")
+
+
+# The map initializations' and the merge's stages (PR 15): every call under graphs checked against the stage run
+# eagerly on its inputs, and the paths they serve made again from the same state by a `cuda_graphs=False` tracker.
+INIT_STAGES = ("mono_init_match", "mono_init", "track_init", "mono_depths", "imu_init", "merge_query", "merge_match",
+               "merge_verify", "rebuild_bow")
+# what a tracker carries besides its state: programs, configuration, its closer and Atlas (held apart), records
+HELD_SKIP = {"_stages", "_step", "_step_vi", "_build_stage", "_stage_pool", "build_frame", "cfg", "cam", "cam_raw",
+             "rectifier", "voc_pt", "voc_ln", "draw", "span", "loop_closer", "atlas", "device", "cuda_graphs",
+             "stats", "imu_init_log", "_counts", "loop_warmup_ms", "reloc_warmup_ms", "merge_warmup_ms",
+             "init_warmup_ms", "_warmed", "is_mono", "is_rgbd", "use_imu", "streaming", "_imu_pad"}
+
+
+def _deep_clone(x):
+    """`x` with every tensor and array copied (dicts, lists, tuples, dataclasses walked)."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, dict):
+        return {k: _deep_clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_deep_clone(v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _deep_clone(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
+def _held_state(tracker) -> dict:
+    """Everything a host path of `tracker` reads and writes, copied: its own
+    attributes but HELD_SKIP's and functions (`hold_calls`' wrappers), the
+    Atlas's maps, the loop closer's counters."""
+    out = {k: _deep_clone(v) for k, v in vars(tracker).items() if k not in HELD_SKIP and not callable(v)}
+    out["atlas"] = (_deep_clone(tracker.atlas.maps), tracker.atlas.active_idx)
+    if tracker.loop_closer is not None:
+        out["closer"] = {name: getattr(tracker.loop_closer, name) for name in RARE_CLOSER}
+    return out
+
+
+def _held_install(tracker, state: dict) -> None:
+    """Put a `_held_state` (copied again) into a tracker of the same configuration."""
+    state = _deep_clone(state)
+    for k, v in state.items():
+        if k == "atlas":
+            tracker.atlas.maps, tracker.atlas.active_idx = v
+        elif k == "closer":
+            for name, val in v.items():
+                setattr(tracker.loop_closer, name, val)
+        else:
+            setattr(tracker, k, v)
+    tracker._counts = None
+
+
+def _held_difference(a, b, where: str = "") -> str | None:
+    """The first leaf (a tensor or an array in any bit, or another value) where two trees differ, or None."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return None if isinstance(b, torch.Tensor) and _bits_equal(a, b) else where
+    if isinstance(a, np.ndarray):
+        return None if np.array_equal(a.view(np.uint8), np.asarray(b).view(np.uint8)) else where
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return where
+        return next((d for k in a for d in [_held_difference(a[k], b[k], f"{where}.{k}")] if d), None)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return where
+        return next((d for i, (x, y) in enumerate(zip(a, b)) for d in [_held_difference(x, y, f"{where}[{i}]")] if d),
+                    None)
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return next((d for f in dataclasses.fields(a) for d in [_held_difference(getattr(a, f.name),
+                                                                                 getattr(b, f.name),
+                                                                                 f"{where}.{f.name}")] if d), None)
+    return None if a == b else f"{where} ({a!r} / {b!r})"
+
+
+def hold_calls(tracker, holds: dict, held: dict) -> None:
+    """Wrap tracker methods: `holds` maps a method's name to (before, after),
+    two predicates on the tracker (after also gets the result). The first
+    call for which both hold is kept in `held[name]`: the state before it,
+    its arguments, result, wall time (the device synchronised), the kernels'
+    launches and the state after it."""
+    import torch
+
+    for name, (before, after) in holds.items():
+        orig = getattr(tracker, name)
+
+        def call(*args, _name=name, _orig=orig, _before=before, _after=after):
+            if _name in held or not _before(tracker):
+                return _orig(*args)
+            state, kept = _held_state(tracker), _deep_clone(args)
+            k0, t0 = kernel_counts(), time.perf_counter()
+            ret = _orig(*args)
+            if tracker.device.type == "cuda":
+                torch.cuda.synchronize(tracker.device)
+            wall = time.perf_counter() - t0
+            if _after(tracker, ret):
+                held[_name] = dict(before=state, args=kept, ret=ret, wall=wall, after=_held_state(tracker),
+                                   kernels=tuple(b - a for a, b in zip(k0, kernel_counts())))
+            return ret
+
+        setattr(tracker, name, call)
+
+
+def held_eager(dev, tracker, name: str, h: dict) -> dict:
+    """The call `h` (from `hold_calls`) made again from its state before by a
+    `cuda_graphs=False` tracker of `tracker`'s configuration, the device
+    synchronised at both ends (untraced: an eager path's trace takes
+    seconds to export). Fails on the first bit that differs (the state
+    after, the result, every kernel's launches). Returns its wall time."""
+    import torch
+
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+
+    te = Tracker(tracker.cam_raw, tracker.cfg, dev, cuda_graphs=False)
+    _held_install(te, h["before"])
+    args, k0 = _deep_clone(h["args"]), kernel_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = [getattr(te, name)(*args)]
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    kernels = tuple(b - a for a, b in zip(k0, kernel_counts()))
+    diff = _held_difference(h["after"], _held_state(te), "tracker")
+    if diff is None and out[0] != h["ret"]:
+        diff = f"the result ({h['ret']} / {out[0]})"
+    if diff is None and kernels != h["kernels"]:
+        diff = f"the kernels' launches (gated_match, closest_rotation, largest_eigvec, svd_small) {h['kernels']} / " \
+               f"{kernels}"
+    if diff is not None:
+        raise AssertionError(f"{name}: graphs and eager differ first at {diff}")
+    reset_counts()
+    return dict(wall=wall)
+
+
+def init_stage_report(label: str, tracker, replays: list) -> str:
+    """Check `replays` (from check_replays over INIT_STAGES: each call under
+    graphs bit for bit the stage run eagerly) and describe the new stages'
+    captures: count, ms and graph pool, and the tracker's warm-ups."""
+    bad = [(name, leaf) for name, leaf, _ in replays if leaf is not None]
+    if tracker.cuda_graphs and bad:
+        raise AssertionError(f"{label}: a stage's graph differs from the stage run eagerly (stage, first output leaf): "
+                             f"{bad}")
+    counts = {}
+    for name, _, _ in replays:
+        counts[name] = counts.get(name, 0) + 1
+    caps = {p.name: (p.captures, round(p.capture_ms, 1), round(p.pool_bytes / 2**20, 1))
+            for p in tracker.stage_programs() if p.name in INIT_STAGES and p.captures}
+    warm = {k: None if getattr(tracker, k) is None else round(getattr(tracker, k), 1)
+            for k in ("init_warmup_ms", "merge_warmup_ms")}
+    return (f"{label}: the new stages' calls under graphs, each bit for bit the stage run eagerly on its inputs: "
+            f"{counts}; their captures (count, ms, graph pool MiB) {caps}; warm-ups (ms) {warm}")
+
+
+def held_line(label: str, h: dict, eager: dict, frame: tuple | None) -> str:
+    """One held path: its wall time with graphs and eagerly from the same state, and the graph frame's launches."""
+    fr = "" if frame is None else (f"; the whole frame under graphs (traced) {frame[2]:.1f} ms, {frame[0]} kernel and "
+                                   f"{frame[1]} graph launches from the host")
+    return (f"{label}: with graphs {1e3 * h['wall']:.1f} ms; eager from the same state {1e3 * eager['wall']:.1f} ms; "
+            f"bit-identical (the state after, the result, the kernels' launches {h['kernels']}){fr}")
+
+
+def imu_init_due(tracker, stamp: float) -> bool:
+    """Whether the next frame (at `stamp`) may run the IMU initialization (traced then)."""
+    cfg = tracker.cfg.imu
+    return (not tracker.imu_ready and tracker._first_imu_stamp is not None and tracker.n_kf >= cfg.init_min_kfs
+            and stamp - tracker._first_imu_stamp >= cfg.init_time_sec)
+
+
+def init_paths(label, dev, tracker, held, replays, traced, init_frame, smi, limited=True) -> None:
+    """After a phase that initialized the IMU (or a mono map, or merged:
+    `held` from `hold_calls`): each held path made again eagerly from its
+    state before (`held_eager`) and printed beside its graph side; the new
+    stages' checks and captures (`init_stage_report`); the initialization
+    frame's host launches (`traced` (frame, kernel launches, graph
+    launches, ms) of the frames that may have run it) under
+    HOST_LAUNCH_LIMIT unless not `limited`."""
+    frame = next((f for f in traced if f[0] == init_frame), None)
+    t0 = time.perf_counter()
+    for name, h in held.items():
+        eager = held_eager(dev, tracker, name, h)
+        log(held_line(f"{label}: {name} (the frame {init_frame if name != '_create_keyframe' else 'of a keyframe'})", h,
+                      eager, frame[1:] if frame is not None and name != "_create_keyframe" else None) + f" [{smi}]")
+    log(init_stage_report(label, tracker, replays) + f"; the eager reruns took {time.perf_counter() - t0:.1f} s and "
+        f"the stages' checks {sum(sec for _, _, sec in replays):.1f} s of the phase [{smi}]")
+    if tracker.cuda_graphs and limited:
+        if frame is None:
+            raise AssertionError(f"{label}: the initialization frame {init_frame} was not traced ({traced})")
+        launch_limited(f"{label}: the initialization frame", [frame])
+
+
+def launch_limited(label: str, frames: list) -> None:
+    """Fail if a traced frame (index, kernel launches, graph launches, ms) issued more than HOST_LAUNCH_LIMIT."""
+    worst = max(frames, key=lambda f: f[1])
+    if worst[1] > HOST_LAUNCH_LIMIT:
+        raise AssertionError(f"{label}: frame {worst[0]} under graphs issued {worst[1]} kernel launches (limit "
+                             f"{HOST_LAUNCH_LIMIT}): a stage ran eagerly ({frames})")
 
 
 def phase_loop(dev, smi):
@@ -1824,14 +2150,17 @@ def phase_atlas(dev, smi):
         tracker.process(blank, blank, frames[19]["t"] + 0.05 * (i + 1))
     maps_after_blackout, state_after = tracker.atlas.n_maps(), tracker.state
     merge_ms = merged_at = None
-    for k, fr in enumerate(frames[2:], 2):
-        torch.cuda.synchronize()
-        f0 = time.perf_counter()
-        tracker.process(fr["img_l"], fr["img_r"], fr["t"] + 2.0)
-        torch.cuda.synchronize()
-        if tracker.atlas.n_maps() == 1:
-            merge_ms, merged_at = (time.perf_counter() - f0) * 1e3, k
-            break
+    held, replays = {}, []
+    hold_calls(tracker, {"_try_merge": (lambda tr: tr.atlas.n_maps() > 1, lambda tr, ret: ret)}, held)
+    # every revisit frame traced (the merge frame's host launches), the stages' checks after the loop
+    with check_replays(INIT_STAGES, replays), FrameTrace(dev) as trace:
+        for k, fr in enumerate(frames[2:], 2):
+            with trace.frame(k):
+                tracker.process(fr["img_l"], fr["img_r"], fr["t"] + 2.0)
+            if tracker.atlas.n_maps() == 1:
+                merge_ms, merged_at = trace._ms[k], k
+                break
+    traced = trace.frames
     errs = []
     if merged_at is not None:
         R0, p0 = traj.pose(0.0)
@@ -1849,6 +2178,11 @@ def phase_atlas(dev, smi):
         raise AssertionError(f"the blackout left {maps_after_blackout} maps, state {state_after}")
     if merged_at is None or not errs or max(errs) >= 0.5:
         raise AssertionError(f"merge at {merged_at}, position errors {errs}")
+    # the merge frame: Atlas.merge_active_into stays eager (as the reference's merge_maps), so its host launches
+    # are reported, not held to HOST_LAUNCH_LIMIT
+    log(f"atlas: the revisit frames under graphs (traced, the trace read in {trace.export_s:.1f} s; frame, kernel "
+        f"launches, graph launches, ms) {traced}")
+    init_paths("atlas", dev, tracker, held, replays, traced, merged_at, smi, limited=False)
     return launches
 
 
@@ -2011,18 +2345,28 @@ def phase_mono(dev, smi):
 
     cfg, cam, frames = sensor_run("mono", dev)
     sysm = System(cam, cfg, device=dev)
+    held, replays = {}, []
+    hold_calls(sysm.tracker, {"_initialize_mono": (lambda tr: True, lambda tr, ret: tr.state == TrackingState.OK),
+                              "_create_keyframe": (lambda tr: tr.n_kf >= 2, lambda tr, ret: True)}, held)
     reset_counts()
     ms, states = [], []
     init = None
-    for i, fr in enumerate(frames):
-        f0 = time.perf_counter()
-        info = sysm.track_monocular(fr["img_l"], fr["t"])
-        dt = (time.perf_counter() - f0) * 1e3
-        states.append(info["state"])
-        if init is None and info["state"] == TrackingState.OK:
-            init, init_ms, init_launches = i, dt, hamming.launches
-        elif init is not None:
-            ms.append(dt)
+    kf_at = set()
+    with check_replays(INIT_STAGES, replays), FrameTrace(dev) as trace:  # every frame traced, the checks after
+        for i, fr in enumerate(frames):
+            n_kf0 = sysm.tracker.n_kf
+            with trace.frame(i):
+                info = sysm.track_monocular(fr["img_l"], fr["t"])
+            dt = trace._ms[i]
+            if sysm.tracker.n_kf > n_kf0:
+                kf_at.add(i)
+            states.append(info["state"])
+            if init is None and info["state"] == TrackingState.OK:
+                init, init_ms, init_launches = i, dt, hamming.launches
+            elif init is not None:
+                ms.append(dt)
+    traced = trace.frames
+    kf_frames = [f for f in traced if f[0] in kf_at and f[0] != init]
     torch.cuda.synchronize()
     launches = hamming.launches
     count_small_kernels()
@@ -2038,10 +2382,11 @@ def phase_mono(dev, smi):
     ate = tio.ate_rmse(est, gt, with_scale=True)
     n_tracked = len(frames) - init - 1
     log(f"mono: System.track_monocular over {len(frames)} consecutive frames: initialized at frame {init} "
-        f"(the reference: {REF_INIT_MONO}), that frame {init_ms:.1f} ms; frames {init + 1}-{len(frames) - 1}: "
-        f"{_frame_times(ms)}; Sim(3) ATE {ate:.4f} m (the reference on these frames: {REF_ATE_MONO} m), {tracker.n_kf} "
-        f"keyframes, ok frames {ok_frames}/{len(frames)}, gated_match launches {launches} ({init_launches} up to the "
-        f"initialization, {(launches - init_launches) / max(n_tracked, 1):.2f} per frame after it) [{smi}]")
+        f"(the reference: {REF_INIT_MONO}), that frame {init_ms:.1f} ms; frames {init + 1}-{len(frames) - 1} (traced, "
+        f"each synchronised): {_frame_times(ms)}; Sim(3) ATE {ate:.4f} m (the reference on these frames: "
+        f"{REF_ATE_MONO} m), {tracker.n_kf} keyframes, ok frames {ok_frames}/{len(frames)}, gated_match launches "
+        f"{launches} ({init_launches} up to the initialization, {(launches - init_launches) / max(n_tracked, 1):.2f} "
+        f"per frame after it) [{smi}]")
     if init > REF_INIT_MONO + MONO_INIT_MARGIN:
         raise AssertionError(f"mono: initialized at frame {init}, the reference at {REF_INIT_MONO}")
     if ok_frames < 0.6 * len(frames):
@@ -2050,6 +2395,15 @@ def phase_mono(dev, smi):
         raise AssertionError(f"mono: Sim(3) ATE {ate} m >= {MONO_ATE_BOUND} m")
     if launches - init_launches < 2 * n_tracked:
         raise AssertionError(f"mono: gated_match launched {launches - init_launches} times for {n_tracked} frames")
+    if tracker.cuda_graphs:
+        launch_limited("mono: the initialization frame and the keyframes", [f for f in traced if f[0] == init]
+                       + kf_frames)
+    log(f"mono: the frames under graphs (traced, the trace read in {trace.export_s:.1f} s; kernel launches, graph "
+        f"launches, ms): the initialization "
+        f"{[f[1:] for f in traced if f[0] == init]}, the {len(kf_frames)} keyframes {[f[1:] for f in kf_frames]}; "
+        f"the {len(traced) - len(kf_frames) - 2} tracking-only frames at most "
+        f"{max((f[1] for f in traced if f[0] > init and f not in kf_frames), default=0)} kernel launches [{smi}]")
+    init_paths("mono", dev, tracker, held, replays, traced, init, smi)
     launches += mono_planted_reloc(dev, smi, tracker, frames, est, gt)
     return launches, len(frames)
 
@@ -2580,14 +2934,25 @@ def phase_mono_vi(dev, smi):
         f"samples each in {time.perf_counter() - t0:.2f} s")
     sysm = System(cam, cfg, device=dev)
     tracker = sysm.tracker
+    held, replays, traced = {}, [], []
+    hold_calls(tracker, {"_try_imu_init": (lambda tr: True, lambda tr, ret: tr.imu_ready)}, held)
     reset_counts()
     ms, states = [], []
     mono_init = imu_init = init_ms = ate_init = ate_pre = None
     launches_init = None
     for i, fr in enumerate(frames):
-        f0 = time.perf_counter()
-        info = sysm.track_monocular(fr["img_l"], fr["t"], imu_batch=fr["imu"])
-        dt = (time.perf_counter() - f0) * 1e3
+        res = []
+        with check_replays(INIT_STAGES, replays):
+            if imu_init_due(tracker, fr["t"]):  # the frame that may initialize the IMU: its host launches
+                wall, _, n, ng = _traced(dev, lambda: res.append(sysm.track_monocular(fr["img_l"], fr["t"],
+                                                                                      imu_batch=fr["imu"])))
+                dt = wall * 1e3
+                traced.append((i, n, ng, dt))
+            else:
+                f0 = time.perf_counter()
+                res.append(sysm.track_monocular(fr["img_l"], fr["t"], imu_batch=fr["imu"]))
+                dt = (time.perf_counter() - f0) * 1e3
+        info = res[0]
         states.append(info["state"])
         if mono_init is None and info["state"] == TrackingState.OK:
             mono_init = i
@@ -2631,6 +2996,7 @@ def phase_mono_vi(dev, smi):
         raise AssertionError(f"mono-inertial: Sim(3) ATE {ate_pre} m before the IMU initialization, scale {rec['scale']}")
     if launches_init < 2 * n_tracked:
         raise AssertionError(f"mono-inertial: gated_match launched {launches_init} times for {n_tracked} frames")
+    init_paths("mono-inertial", dev, tracker, held, replays, traced, imu_init, smi)
     return launches, len(frames) - mono_init - 1
 
 
@@ -2651,14 +3017,24 @@ def phase_rgbd_vi(dev, smi):
     log(f"rgbd-inertial: rendered {len(frames)} frames {cam.width}x{cam.height} with depth and "
         f"{len(frames[0]['imu_gyro'])} IMU samples each in {time.perf_counter() - t0:.2f} s")
     tracker = Tracker(cam, cfg, dev)
+    held, traced, init_replays = {}, [], []
+    hold_calls(tracker, {"_try_imu_init": (lambda tr: True, lambda tr, ret: tr.imu_ready)}, held)
     reset_counts()
     ms_before, ms_after, init_frame, ate_pre, replays = [], [], None, None, []
     for i, fr in enumerate(frames):
         f0 = time.perf_counter()
-        n0 = len(replays)
-        with check_replays(("vi_ba",), replays):  # each "vi_ba" replay also run eagerly, its time taken out
-            tracker.process_rgbd(fr["img_l"], fr["depth"], fr["t"], imu=fr["imu"])
-        dt = (time.perf_counter() - f0 - sum(sec for _, _, sec in replays[n0:])) * 1e3
+        s0 = sum(sec for _, _, sec in replays + init_replays)
+        # each "vi_ba" replay, and each new stage's call, also run eagerly, its time taken out
+        with check_replays(("vi_ba",), replays), check_replays(INIT_STAGES, init_replays):
+            if imu_init_due(tracker, fr["t"]):  # the frame that may initialize the IMU: its host launches
+                wall, _, n, ng = _traced(dev, lambda: tracker.process_rgbd(fr["img_l"], fr["depth"], fr["t"],
+                                                                           imu=fr["imu"]))
+                traced.append((i, n, ng, wall * 1e3))
+            else:
+                tracker.process_rgbd(fr["img_l"], fr["depth"], fr["t"], imu=fr["imu"])
+        dt = (time.perf_counter() - f0 - sum(sec for _, _, sec in replays + init_replays) + s0) * 1e3
+        if traced and traced[-1][0] == i:  # the trace's wall time, without its export
+            dt = traced[-1][3]
         if tracker.imu_ready and init_frame is None:
             init_frame, init_ms = i, dt
             v_err = float(np.linalg.norm(tracker.v_w.cpu().numpy() - fr["v_w"]))
@@ -2702,6 +3078,7 @@ def phase_rgbd_vi(dev, smi):
         raise AssertionError(f"rgbd-inertial: only {ok_frames}/{len(frames)} frames tracked")
     if launches < 2 * (len(frames) - 1):
         raise AssertionError(f"rgbd-inertial: gated_match launched {launches} times for {len(frames) - 1} frames")
+    init_paths("rgbd-inertial", dev, tracker, held, init_replays, traced, init_frame, smi)
     return launches, len(frames) - 1
 
 
@@ -2962,9 +3339,9 @@ def phase_bench(dev, smi, run, room):
 
 N_GRAPH_TRACE = 4  # each phase-15 run's last frames, traced (CUDA activity only): launches and busy share
 # phase 15's eager runs are cut to these depths (graphs run the whole sequences): the eager frames cost
-# ~1-2 s each, and the script keeps its time (700-770 s). 40 frames of phase 5 pass its IMU initialization
-# (frame 30).
-N_EAGER_VISUAL, N_EAGER_VI = 20, 40
+# ~1-2 s each, and the script keeps its time (20 / 40 until the checks and warm-ups of the map
+# initializations' stages came). 34 frames of phase 5 pass its IMU initialization (frame 30).
+N_EAGER_VISUAL, N_EAGER_VI = 12, 34
 HOST_TRACE_FROM, HOST_TRACE_MAX = 12, 8  # phase 5's host-path frames traced one by one from frame 12 until a
 # keyframe and a tracking-only frame are both among them
 HOST_LAUNCH_LIMIT = 2000  # host kernel launches a host-path frame under graphs: more means a stage ran eagerly
@@ -2992,6 +3369,57 @@ def _traced(dev, fn) -> tuple[float, float, int, int]:
     busy_us, _, launches, graph_launches = trace_busy(trace)
     os.remove(trace)
     return wall, busy_us, launches, graph_launches
+
+
+class FrameTrace:
+    """One CPU and CUDA activity trace around many frames (a trace each
+    costs seconds to export): `with trace.frame(k):` marks frame k; after
+    the block, `frames` is [(k, host kernel launches, host graph launches,
+    ms)], the launches counted from the host's CUDA runtime calls inside
+    the frame's mark, the ms up to the device synchronised after it."""
+
+    def __init__(self, dev):
+        self.dev, self.frames, self._ms = dev, [], {}
+
+    def __enter__(self):
+        import torch
+
+        acts = torch.profiler.ProfilerActivity
+        self._prof = torch.profiler.profile(activities=[acts.CPU, acts.CUDA])
+        self._prof.__enter__()
+        return self
+
+    @contextlib.contextmanager
+    def frame(self, k: int):
+        import torch
+
+        with torch.profiler.record_function(f"chip_smoke frame {k}"):
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize(self.dev)
+            self._ms[k] = (time.perf_counter() - t0) * 1e3
+
+    def __exit__(self, *exc):
+        t0 = time.perf_counter()
+        self._prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        trace = os.path.join(ROOT, "build", "frame_trace.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        self._prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(trace)
+        marks = {int(e["name"].rsplit(" ", 1)[1]): (e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                 and e.get("name", "").startswith("chip_smoke frame ")}
+        calls = [(e["ts"], e.get("name", "")) for e in events if e.get("cat") == "cuda_runtime"]
+        for k, (a, b) in sorted(marks.items()):
+            inside = [n for ts, n in calls if a <= ts <= b]
+            self.frames.append((k, sum(1 for n in inside if n.startswith("cudaLaunchKernel")),
+                                sum(1 for n in inside if n == "cudaGraphLaunch"), self._ms[k]))
+        self.export_s = time.perf_counter() - t0  # the trace's stop, export and reading
+        return False
 
 
 def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: int, host_trace: bool = False) -> dict:
@@ -3236,7 +3664,7 @@ def main() -> int:
     for name, counts, phases in (("closest_rotation", ROT3_LAUNCHES, ("phase_main_path", "phase_loop")),
                                  ("largest_eigvec", EIG4_LAUNCHES, ("phase_loop", "phase_kidnap",
                                                                     "phase_flagship_closure")),
-                                 ("svd_small", SVD_LAUNCHES, ("mono_planted_reloc",))):
+                                 ("svd_small", SVD_LAUNCHES, ("mono_planted_reloc", "phase_mono"))):
         if any(counts.get(phase, 0) < 1 for phase in phases):
             raise AssertionError(f"{name} was not launched on every path that runs it: {counts}")
 

@@ -181,6 +181,30 @@ def loop_verify(cam, cfg: SlamConfig, with_scale: bool, kstore: st.KeyFrameStore
     return R_rel, t_rel, s_rel, torch.stack([n.to(torch.int32) for n in (n_in, n_cur, n_prev)])
 
 
+def merge_match(kstore: st.KeyFrameStore, pstore: st.PointStore, kf_slot, dst_kstore: st.KeyFrameStore,
+                dst_pstore: st.PointStore, kf_dst):
+    """Stage `merge_match`: the Atlas merge's 3D-3D correspondences between
+    the active map's keyframe `kf_slot` and the parked map's `kf_dst` (0-d
+    device ints; the reference's `_match_cross_j`) and the RANSAC's sampling
+    weights. Returns (x, y, idx_b, mask, probs)."""
+    xa, xb, idx_b, m = match_cross_map(kstore, pstore, kf_slot, dst_kstore, dst_pstore, kf_dst)
+    return xa, xb, idx_b, m, sim3.mask_probs(m)
+
+
+def merge_verify(kstore: st.KeyFrameStore, kf_slot, x, y, idx_b, m, hyp):
+    """Stage `merge_verify`: the SE3 RANSAC over `merge_match`'s
+    correspondences on the drawn triplets `hyp` at the scene-scaled
+    threshold (the reference's `_ransac_merge_j`), and the fusion pairs its
+    inliers give: the active keyframe's landmark and the parked one, -1
+    elsewhere. Returns (R, t, fuse_src, fuse_dst, read): `read` is the
+    inlier count, int32 [1]."""
+    R_rel, t_rel, _, inl, n_in = sim3.ransac_sim3(x, y, m, hyp, inlier_thresh=scene_scaled_thresh(x, m),
+                                                  with_scale=False)
+    neg = torch.full_like(idx_b, -1)
+    fuse_src = torch.where(inl, row(kstore.obs_pt, kf_slot), neg)
+    return R_rel, t_rel, fuse_src, torch.where(inl, idx_b, neg), n_in.to(torch.int32).reshape(1)
+
+
 def loop_correct(cfg: SlamConfig, mode: str, kstore: st.KeyFrameStore, pstore: st.PointStore, lstore: st.LineStore,
                  kf_cur, kf_loop, R_rel, t_rel, s_rel, R, t):
     """Stage `loop_correct`: `apply_loop_correction` in `mode` ("se3",

@@ -60,11 +60,13 @@ from pli_slam_tpu_torch.frontend.frame import FrameData
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie, matching
+from pli_slam_tpu_torch.ops.consts import device_const
 from pli_slam_tpu_torch.ops.indexing import nanmedian, row, scatter_add, scatter_set, set_row, top_k, unique_fixed
 from pli_slam_tpu_torch.ops.kernels.hamming import gated_match
 from pli_slam_tpu_torch.ops.lines import _deg2rad_f32
 from pli_slam_tpu_torch.solve import ba as ba_mod
 from pli_slam_tpu_torch.solve import gn
+from pli_slam_tpu_torch.solve import imu_init as imu_init_mod
 from pli_slam_tpu_torch.solve import inertial as inr
 from pli_slam_tpu_torch.solve import pnp, sim3
 from pli_slam_tpu_torch.solve import triangulate as tri
@@ -233,18 +235,25 @@ def track_step_inertial(cam, cfg: SlamConfig, frame: FrameData, preint, prev_sta
 # ---------------------------------------------------------------------------
 
 
-def _mono_reconstruct(cam, cfg: SlamConfig, prev_frame: FrameData, frame: FrameData, draw, seed: int):
-    """Two-view initialization between the held anchor frame and the
-    current one; the F / H hypotheses are drawn with `draw(seed, probs,
-    shape)` from the mutual matches. Returns (success, R, t: T_c2c1 with the
-    map scaled to a median inlier depth of 1, depth1 [N] per anchor feature
-    in that scale (-1 where none), n_inliers)."""
+def mono_init_match(cfg: SlamConfig, prev_frame: FrameData, frame: FrameData):
+    """Stage `mono_init_match`: the two-view initialization's mutual matches
+    between the held anchor frame and the current one (ratio 0.9). Returns
+    (idx [N] current-frame features, ok [N], the hypotheses' sampling
+    weights `mask_probs(ok)`)."""
     dist = matching.hamming_matrix(prev_frame.feats.desc, frame.feats.desc)
     idx, _, ok = matching.match_nn(dist, prev_frame.feats.valid, frame.feats.valid, max_dist=cfg.match.orb_th_low,
                                    ratio=0.9)
     ok = matching.mutual_consistency(idx, ok, dist, prev_frame.feats.valid, frame.feats.valid)
+    return idx, ok, sim3.mask_probs(ok)
+
+
+def mono_init(cam, prev_frame: FrameData, frame: FrameData, idx, ok, idx_f, idx_h):
+    """Stage `mono_init`: the two-view reconstruction on the drawn F / H
+    hypotheses (`idx_f` [H, 8], `idx_h` [H, 4]) and the median-depth
+    normalization. Returns (R, t: T_c2c1 with the map scaled to a median
+    inlier depth of 1, depth1 [N] per anchor feature in that scale (-1 where
+    none), read): `read` is int32 (success, inliers), the stage's one read."""
     uv2 = frame.feats.uv[torch.clamp(idx, min=0).long()]
-    idx_f, idx_h = twoview.draw_hypotheses(draw, seed, ok)
     rec = twoview.reconstruct_two_views(cam, prev_frame.feats.uv, uv2, ok, idx_f, idx_h)
     z = rec["points"][:, 2]
     front = rec["inliers"] & (z > 0)
@@ -252,7 +261,19 @@ def _mono_reconstruct(cam, cfg: SlamConfig, prev_frame: FrameData, frame: FrameD
     med = torch.where(torch.isfinite(med) & (med > 1e-6), med, torch.ones_like(med))
     scale = 1.0 / med
     depth1 = torch.where(front, z * scale, torch.full_like(z, -1.0))
-    return rec["success"], rec["R"], rec["t"] * scale, depth1, rec["n_inliers"]
+    read = torch.stack([rec["success"].to(torch.int32), rec["n_inliers"].to(torch.int32)])
+    return rec["R"], rec["t"] * scale, depth1, read
+
+
+def _mono_reconstruct(cam, cfg: SlamConfig, prev_frame: FrameData, frame: FrameData, draw, seed: int):
+    """Two-view initialization between the held anchor frame and the
+    current one: `mono_init_match`, the F / H hypotheses drawn with
+    `draw(seed, probs, shape)` from the mutual matches, `mono_init`.
+    Returns (success, R, t, depth1, n_inliers) as `mono_init` gives them."""
+    idx, ok, _ = mono_init_match(cfg, prev_frame, frame)
+    idx_f, idx_h = twoview.draw_hypotheses(draw, seed, ok)
+    R, t, depth1, read = mono_init(cam, prev_frame, frame, idx, ok, idx_f, idx_h)
+    return read[0] > 0, R, t, depth1, read[1]
 
 
 def _mono_triangulated_depths(cam, cfg: SlamConfig, frame: FrameData, R, t, kf_uv, kf_desc, kf_valid, R_kf, t_kf):
@@ -267,6 +288,14 @@ def _mono_triangulated_depths(cam, cfg: SlamConfig, frame: FrameData, R, t, kf_u
     good = tri.triangulation_checks(cam, R_kf, t_kf, R, t, X, uv1, frame.feats.uv, frame.sigma2, frame.sigma2)
     z = lie.se3_apply(R, t, X)[:, 2]
     return torch.where(ok & good & (z > 0.05), z, frame.depth)
+
+
+def mono_depths(cam, cfg: SlamConfig, frame: FrameData, R, t, kf_uv, kf_desc, kf_valid, kf_slot, kf_R, kf_t):
+    """Stage `mono_depths`: a mono keyframe's depth channel
+    (`_mono_triangulated_depths`) against the view of keyframe `kf_slot` (a
+    0-d device int), whose pose is read from the store's `kf_R` / `kf_t`."""
+    return _mono_triangulated_depths(cam, cfg, frame, R, t, kf_uv, kf_desc, kf_valid, row(kf_R, kf_slot),
+                                     row(kf_t, kf_slot))
 
 
 # ---------------------------------------------------------------------------
@@ -943,6 +972,101 @@ def vi_ba_window(cam, cfg: SlamConfig, kstore, pstore, lstore, pints, window, fi
     stacked, imu_mask = kf_chain(pints, window)
     fixed = fixed | ~kstore.valid.index_select(0, window.long())
     return local_inertial_ba(cam, cfg, kstore, pstore, lstore, window, fixed, stacked, imu_mask, gravity_w, ext)
+
+
+def imu_init_width(n: int, capacity: int) -> int:
+    """The padded keyframe width of the scale refinement over `n`
+    keyframes: 8, 16 or 32 as the "vi_ba" stage's whole-map windows, then
+    powers of two up to the keyframe store's `capacity`."""
+    width = 8
+    while width < n:
+        width *= 2
+    return min(width, capacity)
+
+
+def imu_init(cfg: SlamConfig, mono: bool, kstore, pints, ext, n_kf, gravity_w, bg, ba, width: int, fix_scale: bool,
+             fix_bias: bool):
+    """Stage `imu_init`: the IMU initialization's inertial-only MAP problem
+    (the reference's `_inertial_opt_j` and the work around it) over the
+    first `n_kf` keyframes (a 0-d device int), padded to `width` slots.
+
+    - the chain: `kf_chain` over slots 0..width-1, factors past `n_kf` masked;
+    - the seeds: with `fix_bias` False (the initialization) the gyro bias
+      from visual against preintegrated rotations (over the masked chain,
+      in its order), the gravity direction from the summed velocity deltas, the
+      central-difference velocities, a zero accelerometer bias, priors 1e2
+      and 1e6 (mono) or 1e5; with `fix_bias` (VIBA1 / VIBA2's scale
+      refinement) the current gravity `gravity_w`, the keyframes' velocities
+      and the biases `bg` / `ba`, the default priors;
+    - `solve.imu_init.inertial_optimization` (`fix_scale`, `fix_bias`).
+
+    The padded slots' velocities meet no unmasked factor, so their Jacobian
+    columns are zero and the damped solve leaves them at their zero seed;
+    the real block's arithmetic is otherwise the unpadded problem's, in a
+    system of another size, whose rounding differs (the tracker pads the
+    scale refinement only, and runs the initialization at `width` = n_kf).
+    Returns (g_w, bg, ba, v [width, 3], read): `read` is float32 (live chain
+    factors, scale, 1 if g_w is finite, the first and the last iteration's
+    cost), the stage's one read."""
+    dev = kstore.R.device
+    window = device_const(("slots", width), dev, lambda: torch.arange(width, dtype=torch.int32))
+    stacked, imu_mask = kf_chain(pints, window)
+    imu_mask = imu_mask & (window[1:] < n_kf)
+    R_k, t_k = kstore.R[:width], kstore.t[:width]
+    R_wb = torch.einsum("kji,jm->kim", R_k, ext.R_cb)
+    p_wb = torch.einsum("kji,kj->ki", R_k, ext.t_cb[None] - t_k)
+    g0 = device_const(("gravity_vector", cfg.imu.gravity), dev, lambda: [0.0, 0.0, -cfg.imu.gravity])
+    if fix_bias:
+        gw = gravity_w / torch.linalg.norm(gravity_w)
+        gz = g0 / torch.linalg.norm(g0)
+        v_axis = torch.linalg.cross(gz, gw)
+        s_ang = torch.linalg.norm(v_axis)
+        Rwg0 = torch.where(s_ang > 1e-6, lie.so3_exp(v_axis / torch.clamp(s_ang, min=1e-9)
+                                                     * torch.arcsin(torch.clamp(s_ang, -1, 1))), lie._eye3(R_wb))
+        live_kf = (window < n_kf)[:, None]
+        v0 = torch.where(live_kf, kstore.v_w[:width], torch.zeros_like(kstore.v_w[:width]))
+        bg0, ba0, priors = bg, ba, {}
+    else:
+        bg0 = inr.estimate_gyro_bias_chain(stacked, imu_mask, R_wb, prior_info=1.0)
+        Rwg0 = imu_init_mod.gravity_dir_seed(stacked, imu_mask, R_wb, cfg.imu.gravity)
+        v0 = imu_init_mod.velocity_seed(p_wb, kstore.stamp[:width], n_kf)
+        ba0, priors = torch.zeros_like(bg0), dict(prior_g=1e2, prior_a=1e6 if mono else 1e5)
+    Rwg, s, bg, ba, v, costs = imu_init_mod.inertial_optimization(
+        stacked, imu_mask, R_wb, p_wb, v0, Rwg0, bg0, ba0, cfg.imu, fix_scale=fix_scale, fix_bias=fix_bias, **priors)
+    g_w = lie._einsum("ij,j->i", Rwg, g0)
+    f32 = torch.float32
+    finite = torch.all(torch.isfinite(g_w)).to(f32)
+    return g_w, bg, ba, v, torch.stack([imu_mask.sum().to(f32), s.to(f32), finite, costs[0], costs[-1]])
+
+
+def merge_query(voc_pt, voc_ln, kstore, pstore, lstore, kf_slot, dbs):
+    """Stage `merge_query`: the BoW of keyframe `kf_slot`'s observed
+    landmarks (their own descriptors) against every parked map's database in
+    `dbs` (a tuple; the reference's `_bow_of_kf_j` and one `_query_db_j` a
+    map). Returns [len(dbs), 2] float32 (the best slot, its score), read
+    once for all maps."""
+    ids, lids = row(kstore.obs_pt, kf_slot), row(kstore.obs_ln, kf_slot)
+    safe, lsafe = torch.clamp(ids, min=0).long(), torch.clamp(lids, min=0).long()
+    bow_p = voc_pt.bow(pstore.desc[safe], (ids >= 0) & pstore.valid[safe])
+    bow_l = voc_ln.bow(lstore.desc[lsafe], (lids >= 0) & lstore.valid[lsafe])
+    rows = []
+    for db in dbs:
+        excl = torch.zeros(db.valid.shape[0], dtype=torch.bool, device=db.valid.device)
+        slots, scores = vocab_mod.query(db, bow_p, bow_l, excl, n_best=1)
+        rows.append(torch.stack([slots[0].float(), scores[0]]))
+    return torch.stack(rows)
+
+
+def rebuild_bow(voc_pt, voc_ln, kstore, pstore, lstore):
+    """Stage `rebuild_bow`: the BoW database recomputed from the landmark
+    stores (after a merge)."""
+    ids, lids = kstore.obs_pt, kstore.obs_ln
+    safe, lsafe = torch.clamp(ids, min=0).long(), torch.clamp(lids, min=0).long()
+    bow_p = voc_pt.bow_rows(pstore.desc[safe], (ids >= 0) & pstore.valid[safe])
+    bow_l = voc_ln.bow_rows(lstore.desc[lsafe], (lids >= 0) & lstore.valid[lsafe])
+    zero = torch.zeros((), device=kstore.valid.device)
+    return vocab_mod.BowDatabase(hist_pt=torch.where(kstore.valid[:, None], bow_p, zero),
+                                 hist_ln=torch.where(kstore.valid[:, None], bow_l, zero), valid=kstore.valid)
 
 
 # ---------------------------------------------------------------------------

@@ -66,10 +66,29 @@ run as stage programs too: relocalization (`reloc_match`, `reloc_pnp`,
 one `reloc_track` per seed, `reloc_pick`), the loop closer's verification
 and correction (`loop_match`, `loop_verify`, `loop_correct`), the full and
 windowed visual-inertial BA and the "fiba" chunks (`vi_ba`, the chain
-gathered on the device) and the "gba" chunks (`gba`). What stays eager:
-the map's initializations, the IMU initialization's inertial-only
-problem, merging and its welding BA, the mono keyframes' triangulated
-depths.
+gathered on the device) and the "gba" chunks (`gba`). So do the map's
+initializations: the mono two-view reconstruction (`mono_init_match`, the
+draw, `mono_init`) and its first tracking (`track_init`), the mono
+keyframes' triangulated depths (`mono_depths`), and the IMU
+initialization's inertial-only problem with VIBA1 / VIBA2's scale
+refinement (`imu_init`; the refinement padded to 8 / 16 / 32 / ...
+keyframes); and the
+Atlas merge (`merge_query`, `merge_match`, the draw, `merge_verify`,
+`rebuild_bow`, the welding BA through `local_ba` or `vi_ba`). What stays
+eager: `Atlas.merge_active_into` (the reference does not jit `merge_maps`
+either) and the host's bookkeeping around the stages.
+
+Warm-ups. Under graphs a stage is captured before the frame it serves: a
+mono tracker captures its initialization's stages and `mono_depths` at
+construction; an inertial tracker captures `imu_init` at `init_min_kfs`
+keyframes and `vi_ba` at that count's width at construction, and both
+again at the end of a frame after which the initialization may come at
+another keyframe count (it runs at its exact count: the full inertial BA
+after it carries any change of its rounding far, ROADMAP queue 3 A7); a
+mono-inertial one its scale refinement at the end of a frame after which
+the next keyframe takes the map into a wider padded width; the merge's stages are captured whenever the Atlas
+gains a map, relocalization's at the first lost frame, and the loop
+closer's at construction.
 
 The rare paths. With `cfg.loop.enabled` a `LoopCloser` sees every new
 keyframe's BoW candidates (verification, essential-graph correction, then
@@ -103,14 +122,15 @@ from pli_slam_tpu_torch.frontend import step as step_mod
 from pli_slam_tpu_torch.frontend.frame import (FrameData, build_frame, build_frame_fisheye_stereo, build_frame_mono,
                                                build_frame_rgbd, empty_frame)
 from pli_slam_tpu_torch.frontend.loop_closing import (LoopCloser, loop_correct, loop_match, loop_verify,
-                                                      match_cross_map, scene_scaled_thresh)
+                                                      merge_match, merge_verify)
 from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie
 from pli_slam_tpu_torch.ops.camera import KANNALA_BRANDT8, PINHOLE, Camera
-from pli_slam_tpu_torch.solve import imu_init as ii
+from pli_slam_tpu_torch.ops.consts import device_const
 from pli_slam_tpu_torch.solve import inertial as inr
 from pli_slam_tpu_torch.solve import pnp as pnp_mod
 from pli_slam_tpu_torch.solve import sim3 as sim3_mod
+from pli_slam_tpu_torch.solve import twoview
 from pli_slam_tpu_torch.worldmap import stores as st
 from pli_slam_tpu_torch.worldmap import vocab as vocab_mod
 from pli_slam_tpu_torch.worldmap.atlas import Atlas, MapBundle
@@ -138,7 +158,9 @@ class Tracker:
     LSH vocabularies by default. The BoW database is sized by each one's
     `n_words` (the reference sizes both halves by the point vocabulary's).
     On a GPU with loop closing on, construction runs
-    `LoopCloser.warm_up` (its time in `loop_warmup_ms`).
+    `LoopCloser.warm_up` (its time in `loop_warmup_ms`); under CUDA graphs a
+    mono or inertial tracker captures its initialization's stages there too
+    (`warm_up_init`, `init_warmup_ms`).
 
     On a GPU the fused steps (visual, RGB-D, fisheye stereo and
     stereo-inertial after IMU initialization) run as CUDA graphs, captured
@@ -222,7 +244,20 @@ class Tracker:
             ("loop_verify", partial(loop_verify, cam, cfg, cfg.sensor == "mono")),
             ("loop_correct", partial(loop_correct, cfg)),
             ("vi_ba", partial(step_mod.vi_ba_window, cam, cfg)),
-            ("gba", partial(step_mod.global_ba, cam, cfg)))}
+            ("gba", partial(step_mod.global_ba, cam, cfg)),
+            # the map's initializations, the mono keyframes' depths, the Atlas merge
+            ("mono_init_match", partial(step_mod.mono_init_match, cfg)),
+            ("mono_init", partial(step_mod.mono_init, cam)),
+            ("track_init", partial(step_mod.track_step, cam, cfg)),
+            ("mono_depths", partial(step_mod.mono_depths, cam, cfg)),
+            ("imu_init", partial(step_mod.imu_init, cfg, self.is_mono)),
+            ("merge_query", partial(step_mod.merge_query, self.voc_pt, self.voc_ln)),
+            ("merge_match", merge_match),
+            ("merge_verify", merge_verify),
+            ("rebuild_bow", partial(step_mod.rebuild_bow, self.voc_pt, self.voc_ln)))}
+        # "imu_init": one capture per keyframe count the initialization sees and per padded width of the refinement
+        self._stages["imu_init"].max_signatures = cfg.map.max_keyframes + 2 * len(
+            {step_mod.imu_init_width(n, cfg.map.max_keyframes) for n in range(1, cfg.map.max_keyframes + 1)})
         self._build_stage = None  # the frame build's stage, made for the current `build_frame`
         self._counts = None  # (pstore, lstore, valid points, valid lines) of the last read
         # deferred BA chunks, one executed per later non-keyframe frame
@@ -293,6 +328,9 @@ class Tracker:
         if self.loop_closer is not None and dev.type == "cuda":
             self.loop_warmup_ms = self.loop_closer.warm_up(self)
         self.reloc_warmup_ms = None  # set by the first lost frame's `warm_up_reloc` under graphs
+        self.merge_warmup_ms = None  # the merge stages' warm-ups (`warm_up_merge`) summed, under graphs
+        self._warmed: set[tuple] = set()  # (inertial stage, keyframe count or width) captured by `_warm_inertial`
+        self.init_warmup_ms = self.warm_up_init() if self.cuda_graphs and (self.is_mono or self.use_imu) else None
 
     def _program(self, fn, name: str) -> graphs.StageProgram:
         return graphs.StageProgram(fn, self.device, self.cuda_graphs, name, self._stage_pool)
@@ -419,25 +457,6 @@ class Tracker:
         else:
             self._preint_since_kf = self._stages["compose"](self._preint_since_kf, self.last_preint)
 
-    def _kf_chain(self, window: np.ndarray):
-        """Stacked preintegration chain and mask (numpy) for consecutive
-        window slots: factor i spans window[i] -> window[i+1], valid only
-        between adjacent slots with a recorded accumulator. The IMU
-        initialization's host form; the BA chunks gather it on the device
-        (`step.kf_chain`, inside the "vi_ba" stage)."""
-        window = np.asarray(window)
-        nxt = window[1:]
-        stacked = self._pints.gather(torch.as_tensor(nxt, dtype=torch.int32, device=self.device))
-        adjacent = nxt == window[:-1] + 1
-        imu_mask = self._pints.valid.cpu().numpy()[nxt] & adjacent
-        return stacked, imu_mask
-
-    def _kf_body_poses(self, n: int):
-        """The first `n` keyframes' body poses (R_wb [n,3,3], p_wb [n,3]) through T_cb."""
-        R_k, t_k = self.kstore.R[:n], self.kstore.t[:n]
-        return (torch.einsum("kji,jm->kim", R_k, self.ext.R_cb),
-                torch.einsum("kji,kj->ki", R_k, self.ext.t_cb[None] - t_k))
-
     # padded full-inertial-BA window capacities
     _FIBA_CAPS = (8, 16, 32)
 
@@ -549,7 +568,9 @@ class Tracker:
            (solve.imu_init.inertial_optimization): the scale is fixed for
            stereo and RGB-D and free for mono, whose map is then rescaled;
         3. full inertial BA over the whole map.
-        VIBA1 / VIBA2 follow at +5 s / +15 s. Appends one record to `imu_init_log`."""
+        Stages 1-2 are the "imu_init" stage (one read); stage 3 runs the
+        "vi_ba" stage. VIBA1 / VIBA2 follow at +5 s / +15 s. Appends one
+        record to `imu_init_log`."""
         t0 = time.perf_counter()
 
         def log(accepted, reason, **kw):
@@ -560,34 +581,17 @@ class Tracker:
         # a thin keyframe set under-constrains the inertial-only MAP problem
         if n < self.cfg.imu.init_min_kfs:
             return log(False, "too_few_keyframes")
-        stacked, imu_mask = self._kf_chain(np.arange(n))
-        if imu_mask.sum() < 3:
-            return log(False, "too_few_preintegrations")
-        dev = self.device
-        ks = self.kstore
-        R_wb, p_wb = self._kf_body_poses(n)
-
-        # stage 1: gyro bias from rotation residuals
-        live = np.nonzero(imu_mask)[0]
-        preints = [imu_ops._map(lambda a: a[i], stacked) for i in live]
-        dRs = [lie._mm(R_wb[i].T, R_wb[i + 1]) for i in live]
-        bg0 = inr.estimate_gyro_bias(preints, dRs, prior_info=1.0)
-
-        # stage 2: joint MAP over (gravity direction, bg, ba, velocities)
-        mask_dev = torch.as_tensor(imu_mask, device=dev)
-        Rwg0 = ii.gravity_dir_seed(stacked, mask_dev, R_wb, self.cfg.imu.gravity)
-        v0 = ii.velocity_seed(p_wb, ks.stamp[:n])
         fix_scale = not self.is_mono
-        Rwg, s, bg, ba, v, costs = ii.inertial_optimization(
-            stacked, mask_dev, R_wb, p_wb, v0, Rwg0, bg0, torch.zeros(3, device=dev), self.cfg.imu,
-            prior_g=1e2, prior_a=1e6 if self.is_mono else 1e5, fix_scale=fix_scale)
-        g_w = lie._einsum("ij,j->i", Rwg, torch.tensor([0.0, 0.0, -self.cfg.imu.gravity], device=dev))
-        if not bool(torch.all(torch.isfinite(g_w))):
+        g_w, bg, ba, v, read = self._imu_init_stage(n, None, fix_scale, fix_bias=False)
+        n_live, scale, finite, cost0, cost1 = read.tolist()  # the stage's one read
+        if n_live < 3:
+            return log(False, "too_few_preintegrations")
+        if not finite:
             return log(False, "nonfinite_gravity")
         self.gravity_w = g_w
         self.bg = bg
         self.ba = ba
-        scale = float(s)
+        v = v[:n]
         if not fix_scale and abs(scale - 1.0) > 1e-3 and scale > 1e-3:
             self._apply_scale(scale)
             v = v * scale
@@ -607,40 +611,33 @@ class Tracker:
         g_np = g_w.cpu().numpy()
         grav_angle = float(np.degrees(np.arccos(np.clip(-g_np[2] / max(np.linalg.norm(g_np), 1e-9), -1.0, 1.0))))
         log(True, "ok", scale=scale, gravity_angle_deg=grav_angle, bg=bg.cpu().numpy().tolist(),
-            ba=ba.cpu().numpy().tolist(), cost0=float(costs[0]), cost1=float(costs[-1]))
+            ba=ba.cpu().numpy().tolist(), cost0=cost0, cost1=cost1)
+
+    def _imu_init_stage(self, n: int, gravity_w, fix_scale: bool, fix_bias: bool):
+        """The "imu_init" stage over the first `n` keyframes: (g_w, bg, ba, v
+        [width, 3], read), see frontend.step.imu_init. The scale refinement
+        (`fix_bias`) runs padded to its width; the initialization at exactly
+        `n` keyframes, since the full inertial BA after it carries any change
+        of its rounding far (ROADMAP queue 3 A7)."""
+        width = step_mod.imu_init_width(n, self.cfg.map.max_keyframes) if fix_bias else n
+        return self._stages["imu_init"](self.kstore, self._pints, self.ext, self._dev(n), gravity_w, self.bg, self.ba,
+                                        width, fix_scale, fix_bias)
 
     def _scale_refinement(self, fix_scale: bool = False):
         """Scale and gravity-direction refinement over the keyframe chain,
         the biases pinned (`fix_bias`): the map is rescaled when the
         correction exceeds 0.2%. With `fix_scale` only the gravity direction
-        and the velocities are refined."""
+        and the velocities are refined. The "imu_init" stage in its
+        refinement mode, seeded with the current gravity and velocities."""
         n = self.n_kf
         if n < 4 or self.gravity_w is None:
             return
-        stacked, imu_mask = self._kf_chain(np.arange(n))
-        if imu_mask.sum() < 3:
-            return
-        dev = self.device
-        R_wb, p_wb = self._kf_body_poses(n)
-        # the current gravity direction seeds the rotation
-        g0 = torch.tensor([0.0, 0.0, -self.cfg.imu.gravity], device=dev)
-        gw = self.gravity_w / torch.linalg.norm(self.gravity_w)
-        gz = g0 / torch.linalg.norm(g0)
-        v_axis = torch.linalg.cross(gz, gw)
-        s_ang = torch.linalg.norm(v_axis)
-        Rwg0 = torch.where(s_ang > 1e-6,
-                           lie.so3_exp(v_axis / torch.clamp(s_ang, min=1e-9) * torch.arcsin(torch.clamp(s_ang, -1, 1))),
-                           torch.eye(3, device=dev))
-        Rwg, s, _bg, _ba, v, _costs = ii.inertial_optimization(
-            stacked, torch.as_tensor(imu_mask, device=dev), R_wb, p_wb, self.kstore.v_w[:n], Rwg0, self.bg, self.ba,
-            self.cfg.imu, fix_scale=fix_scale, fix_bias=True)
-        scale = float(s)
-        if not np.isfinite(scale) or scale <= 1e-3:
-            return
-        g_w = lie._einsum("ij,j->i", Rwg, g0)
-        if not bool(torch.all(torch.isfinite(g_w))):
+        g_w, _bg, _ba, v, read = self._imu_init_stage(n, self.gravity_w, fix_scale, fix_bias=True)
+        n_live, scale, finite, _, _ = read.tolist()  # the stage's one read
+        if n_live < 3 or not np.isfinite(scale) or scale <= 1e-3 or not finite:
             return
         self.gravity_w = g_w
+        v = v[:n]
         if not fix_scale and abs(scale - 1.0) > 0.002:
             self._apply_scale(scale)
             v = v * scale
@@ -691,6 +688,8 @@ class Tracker:
         fresh = self.atlas.create_new_map()
         self.pstore, self.lstore, self.kstore = fresh.pstore, fresh.lstore, fresh.kstore
         self._clear_map_state()
+        if self.cuda_graphs:  # the Atlas gained a map: the next keyframes may merge
+            self.merge_warmup_ms = (self.merge_warmup_ms or 0.0) + self.warm_up_merge()
 
     def reset_active_map(self):
         """Discard the active map and start afresh; parked maps stay."""
@@ -706,32 +705,57 @@ class Tracker:
         self._first_imu_stamp = None
         self._last_imu_raw = None
 
-    def _bow_of_kf(self, kf_slot: int):
-        """BoW vectors of a keyframe's observed landmarks (their own descriptors)."""
-        ids, lids = self.kstore.obs_pt[kf_slot], self.kstore.obs_ln[kf_slot]
-        safe, lsafe = torch.clamp(ids, min=0).long(), torch.clamp(lids, min=0).long()
-        return (self.voc_pt.bow(self.pstore.desc[safe], (ids >= 0) & self.pstore.valid[safe]),
-                self.voc_ln.bow(self.lstore.desc[lsafe], (lids >= 0) & self.lstore.valid[lsafe]))
+    def _parked_dbs(self) -> tuple[list[int], tuple]:
+        """The parked maps that place recognition can find (their indices) and their BoW databases."""
+        found = [(mi, b.bow_db) for mi, b in enumerate(self.atlas.maps)
+                 if mi != self.atlas.active_idx and b.bow_db is not None]
+        return [mi for mi, _ in found], tuple(db for _, db in found)
+
+    def warm_up_merge(self) -> float:
+        """Run the merge's stages once on the tracker's stores and the parked
+        maps', results dropped: under CUDA graphs that captures them (the
+        query for the current number of parked maps), so that a merge frame
+        only replays. Returns its wall time in ms, the device synchronised
+        at the end."""
+        t0 = time.perf_counter()
+        st_, dev, cfg = self._stages, self.device, self.cfg
+        cand_maps, dbs = self._parked_dbs()
+        if dbs:
+            zero = self._dev(0)
+            st_["merge_query"](self.kstore, self.pstore, self.lstore, zero, dbs)
+            dst = self.atlas.maps[cand_maps[0]]
+            x, y, idx_b, m, _ = st_["merge_match"](self.kstore, self.pstore, zero, dst.kstore, dst.pstore, zero)
+            hyp = torch.zeros((cfg.loop.sim3_hypotheses, 3), dtype=torch.int64, device=dev)
+            st_["merge_verify"](self.kstore, zero, x, y, idx_b, m, hyp)
+            st_["rebuild_bow"](self.kstore, self.pstore, self.lstore)
+            W = cfg.opt.local_ba_window
+            window = torch.zeros(W, dtype=torch.int32, device=dev)
+            fixed = torch.ones(W, dtype=torch.bool, device=dev)
+            if self.use_imu:
+                st_["vi_ba"](self.kstore, self.pstore, self.lstore, self._pints, window, fixed, self._gravity0(),
+                             self.ext)
+            st_["local_ba"](self.kstore, self.pstore, self.lstore, window, fixed)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
 
     def _try_merge(self, kf_slot: int) -> bool:
         """Query the parked maps' BoW databases with the new keyframe; on a
         hit that persists over two keyframes, verify with SE3 RANSAC over
         cross-map landmark matches and weld the active map into the parked
-        one, the verified matches fused, then a welding BA across the seam."""
+        one, the verified matches fused, then a welding BA across the seam.
+        Stages: `merge_query` (all parked maps, one read), `merge_match`,
+        the draw on the host, `merge_verify` (one read), `rebuild_bow`, the
+        welding BA."""
         if self.atlas.n_maps() <= 1 or self.n_kf < 2:
             return False
-        bow_p, bow_l = self._bow_of_kf(kf_slot)
-        cand_maps, lazy = [], []
-        for mi, bundle in enumerate(self.atlas.maps):
-            if mi == self.atlas.active_idx or bundle.bow_db is None:
-                continue
-            excl = torch.zeros(bundle.bow_db.valid.shape[0], dtype=torch.bool, device=self.device)
-            slots, scores = vocab_mod.query(bundle.bow_db, bow_p, bow_l, excl, n_best=1)
-            cand_maps.append(mi)
-            lazy.append(torch.stack([slots[0].float(), scores[0]]))
+        st_ = self._stages
+        cand_maps, dbs = self._parked_dbs()
+        kf = self._dev(kf_slot)
         best = (-1, -1, -1.0)
-        if lazy:
-            for mi, (slot_f, score) in zip(cand_maps, torch.stack(lazy).cpu().numpy()):  # one read for all maps
+        if dbs:
+            found = st_["merge_query"](self.kstore, self.pstore, self.lstore, kf, dbs)
+            for mi, (slot_f, score) in zip(cand_maps, found.cpu().numpy()):  # one read for all maps
                 if float(score) > best[2]:
                     best = (mi, int(slot_f), float(score))
         mi, k_dst, score = best
@@ -747,17 +771,14 @@ class Tracker:
             return False
 
         dst = self.atlas.maps[mi]
-        xa, xb, idx_b, m = match_cross_map(self.kstore, self.pstore, kf_slot, dst.kstore, dst.pstore, k_dst)
-        hyp = self.draw(1000 + kf_slot, sim3_mod.mask_probs(m), (self.cfg.loop.sim3_hypotheses, 3))
-        R_rel, t_rel, _, inl, n_in = sim3_mod.ransac_sim3(xa, xb, m, hyp, inlier_thresh=scene_scaled_thresh(xa, m),
-                                                          with_scale=False)
-        if int(n_in) < self.cfg.loop.sim3_min_inliers:
+        xa, xb, idx_b, m, probs = st_["merge_match"](self.kstore, self.pstore, kf, dst.kstore, dst.pstore,
+                                                     self._dev(k_dst))
+        hyp = self.draw(1000 + kf_slot, probs, (self.cfg.loop.sim3_hypotheses, 3))
+        R_rel, t_rel, fuse_src, fuse_dst, read = st_["merge_verify"](self.kstore, kf, xa, xb, idx_b, m, hyp)
+        if int(read[0]) < self.cfg.loop.sim3_min_inliers:  # the stage's one read
             return False
 
         self._flush_trajectory()  # keyframe slots are about to be remapped
-        neg = torch.full_like(idx_b, -1)
-        fuse_src = torch.where(inl, self.kstore.obs_pt[kf_slot], neg)
-        fuse_dst = torch.where(inl, idx_b, neg)
         self._park_active()
         merged = self.atlas.merge_active_into(mi, R_rel, t_rel, fuse_src, fuse_dst)
         kf_slots = self.atlas.last_kf_slots  # active slot -> merged slot
@@ -806,21 +827,15 @@ class Tracker:
             self._run_vi_ba(window, fixed)
         else:
             dev = self.device
-            self.kstore, self.pstore, self.lstore = step_mod.local_ba(
-                self.cam, self.cfg, self.kstore, self.pstore, self.lstore,
-                torch.as_tensor(window, device=dev), torch.as_tensor(fixed, device=dev))
+            self.kstore, self.pstore, self.lstore = self._stages["local_ba"](
+                self.kstore, self.pstore, self.lstore, torch.as_tensor(window, device=dev),
+                torch.as_tensor(fixed, device=dev))
         self.R, self.t = self.kstore.R[self.n_kf - 1], self.kstore.t[self.n_kf - 1]
 
     def rebuild_bow(self):
-        """Recompute the BoW database from the landmark stores (after a merge)."""
-        ks, ps, ls = self.kstore, self.pstore, self.lstore
-        ids, lids = ks.obs_pt, ks.obs_ln
-        safe, lsafe = torch.clamp(ids, min=0).long(), torch.clamp(lids, min=0).long()
-        bow_p = self.voc_pt.bow_rows(ps.desc[safe], (ids >= 0) & ps.valid[safe])
-        bow_l = self.voc_ln.bow_rows(ls.desc[lsafe], (lids >= 0) & ls.valid[lsafe])
-        zero = torch.zeros((), device=self.device)
-        self.bow_db = vocab_mod.BowDatabase(hist_pt=torch.where(ks.valid[:, None], bow_p, zero),
-                                            hist_ln=torch.where(ks.valid[:, None], bow_l, zero), valid=ks.valid)
+        """Recompute the BoW database from the landmark stores (after a merge;
+        the "rebuild_bow" stage)."""
+        self.bow_db = self._stages["rebuild_bow"](self.kstore, self.pstore, self.lstore)
         if self.n_kf > 0:
             self._refresh_local_map(self.n_kf - 1)
 
@@ -853,6 +868,102 @@ class Tracker:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return (time.perf_counter() - t0) * 1e3
+
+    def warm_up_init(self) -> float:
+        """Run the map initializations' stages once on an empty frame and the
+        tracker's stores, results dropped: under CUDA graphs that captures
+        them, so that the frame that initializes a mono map, its keyframes
+        and the IMU initialization only replay. Mono: `mono_init_match`,
+        `mono_init`, `track_init`, `mono_depths` and the host-path stages its
+        first frames and keyframes run (`_warm_host_stages`); inertial:
+        `imu_init` at `init_min_kfs` keyframes and `vi_ba` at that count's
+        width (`_warm_inertial`). Returns its wall time in ms, the device
+        synchronised at the end."""
+        t0 = time.perf_counter()
+        st_, dev, cfg = self._stages, self.device, self.cfg
+        if self.is_mono:
+            frame = empty_frame(cfg, dev)
+            idx, ok, _ = st_["mono_init_match"](frame, frame)
+            hyp_f = torch.zeros((twoview.N_HYPOTHESES, 8), dtype=torch.int64, device=dev)
+            R, t, _, _ = st_["mono_init"](frame, frame, idx, ok, hyp_f, hyp_f[:, :4].contiguous())
+            st_["track_init"](frame, R, t, self.pstore, self.lstore, self._dev(False, torch.bool))
+            st_["mono_depths"](frame, R, t, frame.feats.uv, frame.feats.desc, frame.feats.valid, self._dev(0),
+                               self.kstore.R, self.kstore.t)
+            self._warm_host_stages(frame)
+        if self.use_imu:
+            self._warm_inertial(cfg.imu.init_min_kfs, ("init", "vi_ba"))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    def _warm_host_stages(self, frame: FrameData) -> None:
+        """The host-path stages of a map's first frames and keyframes, run once
+        on `frame` and the tracker's stores, results dropped: tracking,
+        insertion (matched to nothing, as a map's first keyframe, and to the
+        tracking's matches), windowed BA, the BoW add and query, culling, the
+        local map."""
+        st_, dev = self._stages, self.device
+        kf = self._dev(0)
+        o = st_["track"](frame, self.R, self.t, self.vel_xi, self.has_vel, self.pstore, self.lstore)
+        for m in (self._no_matches(frame), o["matches"]):
+            ps, ls, ks, n_new = st_["insert"](frame, self.R, self.t, self._dev(0.0, torch.float32), m, kf, self.pstore,
+                                              self.lstore, self.kstore, self.v_w, self.bg, self.ba,
+                                              self._dev(self.use_imu, torch.bool))
+        W = self.cfg.opt.local_ba_window
+        st_["local_ba"](ks, ps, ls, torch.zeros(W, dtype=torch.int32, device=dev),
+                        torch.ones(W, dtype=torch.bool, device=dev))
+        st_["bow"](self.bow_db, ks, frame.feats.desc, frame.feats.valid, frame.lines.desc, frame.lines.valid, kf, kf,
+                   n_new, ps.valid, ls.valid)
+        st_["cull"](ks, ps, kf)
+        st_["local_map"](ks, ps, kf)
+
+    def _warm_inertial(self, n: int, kinds: tuple) -> None:
+        """Under CUDA graphs, capture the inertial stages `kinds` for a map of
+        `n` keyframes, results dropped, unless captured already: "init" the
+        IMU initialization at exactly `n` keyframes (`imu_init`), "vi_ba" the
+        whole-map visual-inertial BA at `_fiba_schedule`'s width, "refine"
+        mono's scale refinement at its padded width."""
+        st_, dev = self._stages, self.device
+        if not st_["imu_init"].graphs:
+            return
+        width = {"init": n, "refine": step_mod.imu_init_width(n, self.cfg.map.max_keyframes),
+                 "vi_ba": next((c for c in self._FIBA_CAPS if c >= n), self._FIBA_CAPS[-1])}
+        g0, args = self._gravity0(), (self.kstore, self._pints, self.ext, self._dev(n))
+        for kind in kinds:
+            k = width[kind]
+            if (kind, k) in self._warmed:
+                continue
+            self._warmed.add((kind, k))
+            if kind == "vi_ba":
+                window = torch.arange(k, dtype=torch.int32, device=dev)
+                st_["vi_ba"](self.kstore, self.pstore, self.lstore, self._pints, window,
+                             torch.ones(k, dtype=torch.bool, device=dev), g0, self.ext)
+            else:
+                st_["imu_init"](*args, g0 if kind == "refine" else None, self.bg, self.ba, k,
+                                not self.is_mono and kind == "init", kind == "refine")
+
+    def _warm_ahead(self, stamp: float) -> None:
+        """At the end of a host-path frame of an inertial tracker, capture what
+        the next frames may run at the map's keyframe count
+        (`_warm_inertial`): before the IMU initialization, when the next
+        frame may run it (its time comes within one and a half frame periods,
+        the map holds enough keyframes), the initialization at the count it
+        will see and its full inertial BA; for mono, while the scale
+        refinement runs (after VIBA2, for 50 s), the refinement at the
+        map's padded width and at the next keyframe's."""
+        cfg = self.cfg.imu
+        if not self.imu_ready:
+            if (self._first_imu_stamp is not None and self.n_kf >= cfg.init_min_kfs
+                    and stamp + 1.5 / self.cfg.fps >= self._first_imu_stamp + cfg.init_time_sec):
+                self._warm_inertial(self.n_kf, ("init", "vi_ba"))
+        elif self.is_mono and self._viba_stage == 2 and stamp - self._imu_init_stamp < 50.0:
+            for n in (self.n_kf, self.n_kf + 1):  # the next frame's refinement, and the one after a keyframe
+                self._warm_inertial(n, ("refine",))
+
+    def _gravity0(self) -> torch.Tensor:
+        """The world gravity vector of a gravity-aligned world: the warm-ups' stand-in for `gravity_w`."""
+        g = self.cfg.imu.gravity
+        return device_const(("gravity_vector", g), self.device, lambda: [0.0, 0.0, -g])
 
     def _relocalize(self, frame: FrameData) -> bool:
         """Seeds: the PnP pose (if its RANSAC clears its floor) and the BoW
@@ -922,8 +1033,8 @@ class Tracker:
             # back (consecutive keyframes carry too little parallax), its pose
             # read live from the store (windowed BA refines it)
             uvk, desck, validk, slotk = self._kf_views[0]
-            depth = step_mod._mono_triangulated_depths(self.cam, self.cfg, frame, self.R, self.t, uvk, desck, validk,
-                                                       self.kstore.R[slotk], self.kstore.t[slotk])
+            depth = self._stages["mono_depths"](frame, self.R, self.t, uvk, desck, validk, self._dev(slotk),
+                                                self.kstore.R, self.kstore.t)
             frame = dataclasses.replace(frame, depth=depth)
         kf = self._dev(self.n_kf)
         self.pstore, self.lstore, self.kstore, n_new = self._stages["insert"](
@@ -1064,9 +1175,13 @@ class Tracker:
             self._record(stamp)
             return self._info(0, 0)
         prev, prev_stamp = self._mono_init_frame
-        okf, R, t, depth1, n_inl = step_mod._mono_reconstruct(self.cam, self.cfg, prev, frame, self.draw,
-                                                              len(self.trajectory) + 1)
-        if not bool(okf):
+        st_ = self._stages
+        idx, ok, probs = st_["mono_init_match"](prev, frame)
+        seed = len(self.trajectory) + 1
+        hyp_f, hyp_h = (self.draw(seed, probs, (twoview.N_HYPOTHESES, k)) for k in (8, 4))
+        R, t, depth1, read = st_["mono_init"](prev, frame, idx, ok, hyp_f, hyp_h)
+        okf, n_inl = read.tolist()  # the stage's one read
+        if not okf:
             if n_feat >= self.cfg.tracking.min_init_features:
                 self._mono_init_frame = (frame, stamp)
             self._record(stamp)
@@ -1083,9 +1198,8 @@ class Tracker:
         self.state = TrackingState.OK
         self._preint_since_kf = None  # the accumulator starts at KF0, as in `_initialize`
 
-        R2, t2, pt_idx, pt_in, ln_idx, ln_in, n_in, self.pstore, self.lstore = step_mod.track_step(
-            self.cam, self.cfg, frame, R, t, self.pstore, self.lstore, wide=torch.zeros((), dtype=torch.bool,
-                                                                                       device=dev))
+        R2, t2, pt_idx, pt_in, ln_idx, ln_in, n_in, self.pstore, self.lstore = st_["track_init"](
+            frame, R, t, self.pstore, self.lstore, self._dev(False, torch.bool))
         self.R_prev, self.t_prev = torch.eye(3, device=dev), torch.zeros(3, device=dev)
         self.R, self.t = R2, t2
         self._update_motion_model()
@@ -1196,6 +1310,8 @@ class Tracker:
             self.frames_since_kf = 0
         elif self._deferred_ba:
             self.run_deferred_ba()  # one bounded chunk on a non-keyframe frame
+        if self.use_imu:
+            self._warm_ahead(stamp)
         self._record(stamp)
         return self._info(n_inliers, n_new)
 

@@ -15,6 +15,13 @@ launches the kernel (built on first use with nvcc for sm_90a into
 `build/kernels/`, bound through a plain C entry with ctypes), a CPU tensor
 runs `svd_reference` (torch.linalg.svd), and anything else raises. Both
 return (U, S, Vh) with S descending; the signs of a singular pair are free.
+
+`smallest_eigvec` serves the two-view initialization's minimal solvers
+(`solve/twoview.py`, `jnp.linalg.eigh` of the 9x9 A^T A in the reference):
+the eigenvector of the smallest eigenvalue of symmetric positive
+semi-definite matrices. On a CUDA tensor it is the kernel's last right
+singular vector; its plain version on the CPU is `torch.linalg.eigh`'s
+first eigenvector, the reference's formulation.
 """
 
 from __future__ import annotations
@@ -132,3 +139,18 @@ def svd(A: torch.Tensor):
     if A.device.type != "cpu":
         raise RuntimeError(f"svd_small has no path for device {A.device}")
     return svd_reference(A)
+
+
+def smallest_eigvec_reference(A: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `smallest_eigvec`: torch.linalg.eigh's first eigenvector."""
+    return torch.linalg.eigh(A).eigenvectors[..., :, 0]
+
+
+def smallest_eigvec(A: torch.Tensor) -> torch.Tensor:
+    """The eigenvector of the smallest eigenvalue of each symmetric positive
+    semi-definite matrix of `A` [..., n, n], n <= 12: [..., n], sign free."""
+    if A.device.type == "cuda":
+        return svd_cuda(A)[2][..., -1, :]
+    if A.device.type != "cpu":
+        raise RuntimeError(f"svd_small has no path for device {A.device}")
+    return smallest_eigvec_reference(A)

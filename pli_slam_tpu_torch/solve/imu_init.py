@@ -11,7 +11,9 @@ fixed), whitened by the Cholesky factor of the floored information, plus
 bias priors. The system is tiny (K <= 32 -> dim <= 105): the whole residual
 vector is differentiated in forward mode (ops.autodiff.jacfwd; the chain's
 factors are one batch inside it) and solved densely per iteration. The
-reference's `lax.scan` over iterations is a Python loop.
+reference's `lax.scan` over iterations is a Python loop. Nothing reads the
+device and every constant comes from ops.consts, so the tracker's
+"imu_init" stage (frontend.step.imu_init) captures it into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from pli_slam_tpu_torch.ops import autodiff
 from pli_slam_tpu_torch.ops import imu as imu_ops
 from pli_slam_tpu_torch.ops import lie
+from pli_slam_tpu_torch.ops.consts import device_const
 from pli_slam_tpu_torch.solve import residuals as res
 from pli_slam_tpu_torch.solve.inertial import gravity_rotation
 from pli_slam_tpu_torch.utils.config import ImuConfig
@@ -37,7 +40,8 @@ def inertial_optimization(preint, chain_mask, R_wb, p_wb, v0, Rwg0, bg0, ba0, im
     K = R_wb.shape[0]
     D = 9 + 3 * K
     dev, dtype = R_wb.device, R_wb.dtype
-    g0 = torch.tensor([0.0, 0.0, -imu_cfg.gravity], dtype=dtype, device=dev)
+    g0 = device_const(("gravity_vector", imu_cfg.gravity, dtype), dev,
+                      lambda: torch.tensor([0.0, 0.0, -imu_cfg.gravity], dtype=dtype))
     # per-factor information from the floored preintegration covariance,
     # applied as its Cholesky factor so GN sees whitened residuals
     info = torch.linalg.inv_ex(preint.cov + torch.eye(9, dtype=dtype, device=dev) * 1e-6).inverse  # [K-1,9,9]
@@ -64,18 +68,20 @@ def inertial_optimization(preint, chain_mask, R_wb, p_wb, v0, Rwg0, bg0, ba0, im
     x = torch.cat([torch.zeros(9, dtype=dtype, device=dev), v0.reshape(-1)])
     eyeD = torch.eye(D, dtype=dtype, device=dev)
     held = ([2] if fix_scale else []) + (list(range(3, 9)) if fix_bias else [])
+    # held variables (the scale for stereo; the biases in scale-refinement
+    # mode) keep their linearization point: unit row and column, zero gradient
+    free = device_const(("map_free", D, tuple(held)), dev,
+                        lambda: torch.tensor([i not in held for i in range(D)]))
+    free2, held_diag = free[:, None] & free[None, :], torch.diag(~free)
+    zero = torch.zeros((), dtype=dtype, device=dev)
     costs = []
     for _ in range(iters):
         r, J = autodiff.jacfwd(residuals, x)  # [R], [R, D]
         H = lie._mm(J.T, J) + 1e-6 * eyeD
         g = lie._einsum("ij,j->i", J.T, r)
-        # held variables (the scale for stereo; the biases in scale-refinement
-        # mode) keep their linearization point: unit row and column, zero gradient
-        for i in held:
-            H[i, :] = 0.0
-            H[:, i] = 0.0
-            H[i, i] = 1.0
-            g[i] = 0.0
+        if held:
+            H = torch.where(held_diag, torch.ones_like(H), torch.where(free2, H, zero))
+            g = torch.where(free, g, zero)
         dx = -torch.linalg.solve_ex(H, g).result
         dx = torch.where(torch.all(torch.isfinite(dx)), dx, torch.zeros_like(dx))
         x = x + dx
@@ -92,11 +98,19 @@ def gravity_dir_seed(preint, chain_mask, R_wb, gravity: float):
     return gravity_rotation(dirG)
 
 
-def velocity_seed(p_wb: torch.Tensor, stamps: torch.Tensor) -> torch.Tensor:
-    """Central-difference keyframe velocities from positions."""
+def velocity_seed(p_wb: torch.Tensor, stamps: torch.Tensor, n_valid=None) -> torch.Tensor:
+    """Central-difference keyframe velocities from positions. With `n_valid`
+    (a 0-d device int) only the first `n_valid` rows are keyframes: the
+    differences stop at the last of them, and the rows after it are zero."""
     K = p_wb.shape[0]
     ar = torch.arange(K, device=p_wb.device)
-    a = torch.clamp(ar - 1, 0, K - 1)
-    b = torch.clamp(ar + 1, 0, K - 1)
+    if n_valid is None:
+        a = torch.clamp(ar - 1, 0, K - 1)
+        b = torch.clamp(ar + 1, 0, K - 1)
+    else:
+        last = n_valid.to(ar.dtype) - 1
+        a = torch.minimum(torch.clamp(ar - 1, min=0), last)
+        b = torch.minimum(ar + 1, last)
     dt = torch.clamp(stamps[b] - stamps[a], min=1e-6)
-    return (p_wb[b] - p_wb[a]) / dt[:, None]
+    v = (p_wb[b] - p_wb[a]) / dt[:, None]
+    return v if n_valid is None else torch.where((ar < n_valid)[:, None], v, torch.zeros_like(v))

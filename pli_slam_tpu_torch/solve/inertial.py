@@ -228,6 +228,23 @@ def estimate_gyro_bias(preints: list, dRs_visual: list, prior_info: float = 0.0)
     return torch.linalg.solve_ex(H + (prior_info + 1e-9) * lie._eye3(H), g).result
 
 
+def estimate_gyro_bias_chain(preint, mask: torch.Tensor, R_wb: torch.Tensor, prior_info: float = 0.0) -> torch.Tensor:
+    """`estimate_gyro_bias` over a stacked chain `preint` [K] (factor i spans
+    body poses i -> i + 1 of `R_wb` [K+1,3,3]) with `mask` [K], on the
+    device: each factor's normal equations added in the chain's order, a
+    masked factor adding exact zeros, so that the result is the list form's
+    over the live factors bit for bit (no host read: the count is static)."""
+    zero = torch.zeros((), dtype=R_wb.dtype, device=R_wb.device)
+    H = torch.zeros((3, 3), dtype=R_wb.dtype, device=R_wb.device)
+    g = torch.zeros(3, dtype=R_wb.dtype, device=R_wb.device)
+    for i in range(mask.shape[0]):
+        r = lie.so3_log(lie._mm(preint.dR[i].T, lie._mm(R_wb[i].T, R_wb[i + 1])))
+        J = preint.JRg[i]
+        H = H + torch.where(mask[i], lie._mm(J.T, J), zero)
+        g = g + torch.where(mask[i], lie._einsum("ij,j->i", J.T, r), zero)
+    return torch.linalg.solve_ex(H + (prior_info + 1e-9) * lie._eye3(H), g).result
+
+
 def gravity_rotation(dirG: torch.Tensor) -> torch.Tensor:
     """R_wg that turns world -z onto the direction `dirG` (normalized here)."""
     dirG = dirG / torch.clamp(torch.linalg.norm(dirG), min=1e-9)

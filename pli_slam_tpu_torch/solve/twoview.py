@@ -17,6 +17,18 @@ SVD signs. The essential matrix's singular vectors may come out with
 other signs on another device; the proper-rotation fix makes the four
 candidates the same set, and a scene with a clear winner picks the same
 (R, t) whatever their order.
+
+CUDA graphs. The function runs inside the tracker's "mono_init" stage,
+captured on a GPU: `torch.linalg.eigh` and `svd` check their status on the
+host there, so every decomposition goes through the port's small-SVD
+kernel (ops.kernels.svd_small, float64 Jacobi inside; on the CPU its plain
+versions, `torch.linalg.svd` and, for the minimal solvers' A^T A,
+`torch.linalg.eigh`). The smallest eigenvector of the symmetric positive
+semi-definite A^T A is its last right singular vector, so the reference's
+A^T A formulation (and its float32 conditioning) stays. The best
+hypothesis and candidate are picked with `ops.indexing.row`, never by
+indexing with a 0-d tensor (a host read on CUDA), and the constants come
+from ops.consts.
 """
 
 from __future__ import annotations
@@ -25,6 +37,9 @@ import torch
 
 from pli_slam_tpu_torch.ops import camera as cam_ops
 from pli_slam_tpu_torch.ops import lie
+from pli_slam_tpu_torch.ops.consts import device_const
+from pli_slam_tpu_torch.ops.indexing import row
+from pli_slam_tpu_torch.ops.kernels import svd_small
 from pli_slam_tpu_torch.solve import sim3, triangulate
 
 N_HYPOTHESES = 256  # the reference's default hypothesis batch
@@ -52,8 +67,9 @@ def _normalize(pts: torch.Tensor, mask: torch.Tensor):
 
 
 def _smallest_eigvec(AtA: torch.Tensor) -> torch.Tensor:
-    """[..., 9, 9] symmetric -> the eigenvector of its smallest eigenvalue, [..., 9]."""
-    return torch.linalg.eigh(AtA).eigenvectors[..., :, 0]
+    """[..., 9, 9] symmetric positive semi-definite -> the eigenvector of its
+    smallest eigenvalue, [..., 9] (sign free)."""
+    return svd_small.smallest_eigvec(AtA)
 
 
 def _eight_point_F(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -62,7 +78,7 @@ def _eight_point_F(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     u2, v2 = x2[..., 0], x2[..., 1]
     A = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, torch.ones_like(u1)], dim=-1)
     f = _smallest_eigvec(torch.einsum("hni,hnj->hij", A, A)).reshape(-1, 3, 3)
-    U, S, Vh = torch.linalg.svd(f)
+    U, S, Vh = svd_small.svd(f)
     S = torch.cat([S[:, :2], torch.zeros_like(S[:, 2:])], dim=1)
     return (U * S[:, None, :]) @ Vh
 
@@ -97,7 +113,7 @@ def _sym_transfer_err_H(H: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor) -
     """Symmetric squared transfer error, [H,3,3] x [N,2] -> [H,N]."""
     h1, h2 = _homogeneous(uv1), _homogeneous(uv2)
     p12 = torch.einsum("nj,hij->hni", h1, H)
-    p21 = torch.einsum("nj,hij->hni", h2, torch.linalg.inv(H))
+    p21 = torch.einsum("nj,hij->hni", h2, torch.linalg.inv_ex(H).inverse)
 
     def dehom(p):
         return p[..., :2] / torch.clamp(torch.abs(p[..., 2:]), min=1e-9) * torch.sign(p[..., 2:])
@@ -117,7 +133,7 @@ def reconstruct_two_views(cam, uv1: torch.Tensor, uv2: torch.Tensor, mask: torch
     idx_f, idx_h = idx_f.long(), idx_h.long()
 
     Fs = T2.T @ _eight_point_F(n1[idx_f], n2[idx_f]) @ T1
-    Hs = torch.linalg.inv(T2) @ _four_point_H(n1[idx_h], n2[idx_h]) @ T1
+    Hs = torch.linalg.inv_ex(T2).inverse @ _four_point_H(n1[idx_h], n2[idx_h]) @ T1
 
     thF, thH = 3.84 * sigma * sigma, 5.99 * sigma * sigma
     errF = _sym_transfer_err_F(Fs, uv1, uv2)
@@ -127,20 +143,21 @@ def reconstruct_two_views(cam, uv1: torch.Tensor, uv2: torch.Tensor, mask: torch
     scoreF = torch.sum(torch.where((errF < thF) & mask[None], thF - errF, zero), dim=1)
     scoreH = torch.sum(torch.where((errH < thH) & mask[None], thH - errH, zero), dim=1)
     bF, bH = torch.argmax(scoreF), torch.argmax(scoreH)
-    SF, SH = scoreF[bF], scoreH[bH]
+    SF, SH = row(scoreF, bF), row(scoreH, bH)
     ratio_h = SH / torch.clamp(SH + SF, min=1e-9)
 
     # motion from F (the reference takes F's motion also where H wins)
-    K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], device=dev)
-    E = lie._mm(K.T, lie._mm(Fs[bF], K))
-    U, _, Vt = torch.linalg.svd(E)
+    K = device_const(("intrinsics", cam.fx, cam.fy, cam.cx, cam.cy), dev,
+                     lambda: [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]])
+    E = lie._mm(K.T, lie._mm(row(Fs, bF), K))
+    U, _, Vt = svd_small.svd(E)
     U = U * torch.sign(torch.linalg.det(U))  # proper rotations
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], device=dev)
+    W = device_const("essential_W", dev, lambda: [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
     R_a = lie._mm(U, lie._mm(W, Vt))
     R_b = lie._mm(U, lie._mm(W.T, Vt))
     t_u = U[:, 2]
-    inl_F = (errF[bF] < thF) & mask
+    inl_F = (row(errF, bF) < thF) & mask
 
     ray1 = cam_ops.unproject(cam, uv1)
     ray2 = cam_ops.unproject(cam, uv2)
@@ -154,11 +171,11 @@ def reconstruct_two_views(cam, uv1: torch.Tensor, uv2: torch.Tensor, mask: torch
         Xs.append(X)
     counts = torch.stack(counts)
     best = torch.argmax(counts)
-    R_best = torch.stack([c[0] for c in cands])[best]
-    t_best = torch.stack([c[1] for c in cands])[best]
-    X_best = torch.stack(Xs)[best]
+    R_best = row(torch.stack([c[0] for c in cands]), best)
+    t_best = row(torch.stack([c[1] for c in cands]), best)
+    X_best = row(torch.stack(Xs), best)
 
     n_inl = torch.sum(inl_F.to(torch.int32))
-    good = counts[best] > 0.8 * torch.clamp(n_inl, min=1)
+    good = row(counts, best) > 0.8 * torch.clamp(n_inl, min=1)
     return {"success": good & (n_inl >= 30), "R": R_best, "t": t_best, "points": X_best, "inliers": inl_F,
             "n_inliers": n_inl, "h_ratio": ratio_h}

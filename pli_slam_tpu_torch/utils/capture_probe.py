@@ -60,6 +60,12 @@ def _probes(dev):
         "linalg.svd[256,12,12]": lambda: torch.linalg.svd(rnd_fixed["a256"]),
         "hamming_matrix[1200x16384]": lambda: _hamming(rnd_fixed["d1200"], rnd_fixed["d16384"]),
         "indexing.nanmedian[4096]": lambda: _nanmedian(rnd_fixed["m4096"], rnd_fixed["k4096"]),
+        # the two-view initialization (256 F and 256 H hypotheses: the 8-point and 4-point A^T A, E's SVD, the
+        # proper-rotation signs, H^-1) and the inertial-only MAP problem's dense solve (9 + 3 x 32 unknowns)
+        "linalg.det[256,3,3]": lambda: torch.linalg.det(rnd_fixed["r256"]),
+        "linalg.inv_ex[256,3,3]": lambda: torch.linalg.inv_ex(rnd_fixed["r256"]),
+        "linalg.eigh[512,9,9]": lambda: torch.linalg.eigh(rnd_fixed["e512"]),
+        "linalg.solve_ex[105x105]": lambda: torch.linalg.solve_ex(rnd_fixed["s105"], rnd_fixed["b105"]),
     }, rnd, spd
 
 
@@ -90,7 +96,8 @@ def run_probe(name: str) -> str:
     probes, rnd, spd = _probes(dev)
     rnd_fixed.update(r16=rnd(16, 3, 3), s6=spd(1, 6), b6=rnd(1, 6), s60=spd(1, 60), b60=rnd(1, 60),
                      s150=spd(1, 150), b150=rnd(1, 150), s9=spd(9, 9), s3=spd(1, 3)[0],
-                     e256=spd(256, 4), a256=rnd(256, 12, 12), m4096=rnd(4096).abs(), k4096=rnd(4096) > 0)
+                     e256=spd(256, 4), a256=rnd(256, 12, 12), m4096=rnd(4096).abs(), k4096=rnd(4096) > 0,
+                     r256=rnd(256, 3, 3), e512=spd(512, 9), s105=spd(1, 105), b105=rnd(1, 105))
     g = torch.Generator().manual_seed(2)
     rnd_fixed.update(d1200=_pm1(dev, 1200, g), d16384=_pm1(dev, 16384, g))
     fn = probes[name]

@@ -2,7 +2,8 @@
 
 Run from the repository root:
   python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono|loop|flagship
-                                              | --first-closure | --nondet rgbd|mono|flagship | --stages]
+                                              | --first-closure | --nondet rgbd|mono|flagship | --stages
+                                              | --init-split]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -48,7 +49,13 @@ under `torch.use_deterministic_algorithms(True, warn_only=True)` (a
 diagnostic switched off again after the run) and `NondetSites`, and lists
 the ops that can make two runs differ. `--stages` runs only pass 3 (the
 synchronised stage times), which `python3 -m
-pli_slam_tpu_torch.scripts.profile_stages` also runs.
+pli_slam_tpu_torch.scripts.profile_stages` also runs. `--init-split`
+drives the stereo-inertial path (chip_smoke.py's phase 5, 52 frames) with
+graphs and then eagerly, each up to its IMU-initialization frame, and
+splits that frame's time by synchronised timers around the
+initialization's parts: `_try_imu_init`, the full inertial BA, the
+"imu_init" and "vi_ba" stages (their captures apart), and, on a tree that
+still has them, the eager MAP problem and its seeds.
 
 Needs a CUDA device. The chrome trace of pass 1 is written under `build/`
 and deleted once read (it runs to ~100 MB).
@@ -947,6 +954,80 @@ def _nondet_run(dev, sensor: str) -> int:
     return 0
 
 
+def main_init_split(dev) -> int:
+    """`--init-split` (see the module docstring)."""
+    import importlib
+
+    from pli_slam_tpu_torch.frontend import graphs
+    from pli_slam_tpu_torch.frontend import tracker as tr_mod
+
+    split: dict = {}
+
+    def timed(name, fn):
+        def wrap(*args, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize(dev)
+            split[name] = split.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrap
+
+    # the parts that exist on this tree: its methods, the stages, and where the tracker still runs the MAP
+    # problem eagerly (no "imu_init" stage: a synchronise cannot sit inside a stage's capture) its functions
+    parts = [("pli_slam_tpu_torch.frontend.tracker", "Tracker._full_inertial_ba", "full_inertial_ba"),
+             ("pli_slam_tpu_torch.frontend.tracker", "Tracker._try_imu_init", "try_imu_init")]
+    if not hasattr(tr_mod.Tracker, "_imu_init_stage"):
+        parts += [("pli_slam_tpu_torch.solve.inertial", "estimate_gyro_bias", "gyro_bias"),
+                  ("pli_slam_tpu_torch.solve.imu_init", "gravity_dir_seed", "gravity_seed"),
+                  ("pli_slam_tpu_torch.solve.imu_init", "velocity_seed", "velocity_seed"),
+                  ("pli_slam_tpu_torch.solve.imu_init", "inertial_optimization", "map"),
+                  ("pli_slam_tpu_torch.frontend.tracker", "Tracker._kf_chain", "kf_chain")]
+    for mod_name, attr, label in parts:
+        owner = importlib.import_module(mod_name)
+        *path, name = attr.split(".")
+        for p in path:
+            owner = getattr(owner, p)
+        if hasattr(owner, name):
+            setattr(owner, name, timed(label, getattr(owner, name)))
+    stage_call = graphs.StageProgram.__call__
+
+    def stage(self, *args):
+        if self.name not in ("imu_init", "vi_ba"):
+            return stage_call(self, *args)
+        return timed(f"stage {self.name}", stage_call)(self, *args)
+
+    graphs.StageProgram.__call__ = stage
+    cfg, cam = slice_config_vi(), slice_camera()
+    frames = vi_frames(cam, cfg, N_FRAMES_VI, dev)
+    for cuda_graphs in (True, False):
+        t0 = time.perf_counter()
+        tracker = tr_mod.Tracker(cam, cfg, dev, cuda_graphs=cuda_graphs)
+        torch.cuda.synchronize(dev)
+        built_ms = (time.perf_counter() - t0) * 1e3
+        tracker.streaming = True
+        for i, fr in enumerate(frames):
+            split.clear()
+            caps = {p.name: p.capture_ms for p in tracker.stage_programs()}
+            was = tracker.imu_ready
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            if tracker.imu_ready and not was:
+                cap = {p.name: round(p.capture_ms - caps.get(p.name, 0.0), 1) for p in tracker.stage_programs()
+                       if p.capture_ms > caps.get(p.name, 0.0)}
+                print(f"init-split[graphs={cuda_graphs}]: the tracker built in {built_ms:.1f} ms (its warm-ups "
+                      f"{getattr(tracker, 'init_warmup_ms', None)} ms); IMU init at frame {i} "
+                      f"({tracker.imu_init_log[-1]['n_kf']} keyframes): the frame {ms:.1f} ms; split (ms, "
+                      f"synchronised) {({k: round(v, 1) for k, v in split.items()})}; captures during the frame "
+                      f"(ms) {cap}", flush=True)
+                break
+    graphs.StageProgram.__call__ = stage_call
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile", help="directory for the op tables")
@@ -963,6 +1044,8 @@ def main(argv=None) -> int:
     ap.add_argument("--stages", action="store_true", help="instead: only the synchronised stage pass (pass 3)")
     ap.add_argument("--nondet", choices=("rgbd", "mono", "flagship"),
                     help="instead: one run of phase 7, 8 or 14a listing the ops that can make the card's runs differ")
+    ap.add_argument("--init-split", action="store_true",
+                    help="instead: the stereo-inertial path's IMU-init frame split into its parts, graphs and eager")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -980,6 +1063,8 @@ def main(argv=None) -> int:
         return main_spread(dev, "loop", n_runs=2)
     if args.nondet:
         return main_nondet(dev, args.nondet)
+    if args.init_split:
+        return main_init_split(dev)
     if args.vi:
         return main_vi(dev)
     cfg, cam = slice_config(), slice_camera()

@@ -28,6 +28,7 @@ from pli_slam_tpu.ops.pallas import hamming as jham  # noqa: E402
 from pli_slam_tpu.system import System as JSystem  # noqa: E402
 from pli_slam_tpu.utils import trajectory as jtio  # noqa: E402
 from pli_slam_tpu.utils.config import LoopConfig, SlamConfig  # noqa: E402
+from pli_slam_tpu_torch.frontend import step as tstep  # noqa: E402
 from pli_slam_tpu_torch.ops.camera import KANNALA_BRANDT8  # noqa: E402
 from pli_slam_tpu_torch.utils import profile  # noqa: E402
 from pli_slam_tpu_torch.utils.profile import path_ratio, peek_ate, tracked_positions  # noqa: E402
@@ -203,7 +204,7 @@ def fiba_from_identical_input(which: str) -> dict:
     fixed = np.zeros(W, bool)
     fixed[0] = True
     fixed[1:] |= window[1:] <= window[:-1]
-    chain, mask = tt._kf_chain(window)
+    chain, mask = tstep.kf_chain(tt._pints, torch.as_tensor(window, dtype=torch.int32))
     pin = dataclasses.replace(tcam, model=0)
 
     def objective(ks, ps, ls):

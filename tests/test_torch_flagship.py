@@ -226,7 +226,7 @@ def _exact_chunk(cfg, tt, window, fixed):
     state, solved in float64 by both packages (the reference under
     `jax.enable_x64`): (port (kstore, pstore), reference (kstore, pstore))."""
     fixed = fixed | ~tt.kstore.valid.numpy()[window]
-    chain, mask = tt._kf_chain(window)
+    chain, mask = tstep.kf_chain(tt._pints, torch.as_tensor(window, dtype=torch.int32))
     tw, tf, tm = torch.as_tensor(window, dtype=torch.int32), torch.as_tensor(fixed), torch.as_tensor(mask)
     ks, ps, ls, chain64, ext64 = (_to_float64(x) for x in (tt.kstore, tt.pstore, tt.lstore, chain, tt.ext))
     out_t = tstep.local_inertial_ba(TC, port_cfg(cfg), ks, ps, ls, tw, tf, chain64, tm, tt.gravity_w.double(), ext64)

@@ -16,8 +16,8 @@ loop closing at a low inlier floor):
   included): a host read, an index by a 0-d tensor, a data-dependent size
   or a constant uploaded inside the stage fails it;
 - (b) the chain of a keyframe window gathered on the device (`step.kf_chain`)
-  equals the host's numpy gather (`Tracker._kf_chain`) on windows with
-  gaps, culled slots and padding;
+  equals the host's numpy gather (`_host_kf_chain`, the tracker's before
+  the stages) on windows with gaps, culled slots and padding;
 - (c) a kidnapped frame's relocalization, a planted loop's verification and
   correction with the "gba" chunk it queues, and the visual-inertial BA
   over a window with a culled slot, each run through the stages from one
@@ -192,10 +192,21 @@ def _unstaged_verify_and_close(lc, tr, kf_slot, candidates) -> bool:
     return True
 
 
+def _host_kf_chain(tr, window: np.ndarray):
+    """The stacked preintegration chain and its mask (numpy) of consecutive
+    window slots, gathered on the host as the tracker did before the stages:
+    factor i spans window[i] -> window[i+1], valid only between adjacent
+    slots with a recorded accumulator."""
+    window = np.asarray(window)
+    nxt = window[1:]
+    stacked = tr._pints.gather(torch.as_tensor(nxt, dtype=torch.int32, device=tr.device))
+    return stacked, tr._pints.valid.cpu().numpy()[nxt] & (nxt == window[:-1] + 1)
+
+
 def _unstaged_vi_ba(tr, window, fixed) -> None:
     """A "fiba" chunk as it ran before the stages: the chain and the culled slots read on the host."""
     fixed = fixed | ~tr.kstore.valid.numpy()[window]
-    stacked, imu_mask = tr._kf_chain(window)
+    stacked, imu_mask = _host_kf_chain(tr, window)
     tr.kstore, tr.pstore, tr.lstore = tstep.local_inertial_ba(
         tr.cam, tr.cfg, tr.kstore, tr.pstore, tr.lstore, torch.as_tensor(window, dtype=torch.int32),
         torch.as_tensor(fixed), stacked, torch.as_tensor(imu_mask), tr.gravity_w, tr.ext)
@@ -362,7 +373,7 @@ def test_kf_chain_on_the_device_equals_the_host_gather(run):
         n_masked = 0
         for window in (np.arange(8), np.array([0, 1, 3, 4, 5, 6, 7, 8]), np.clip(np.arange(2, 10), 0, 5),
                        np.array([4, 5, 6, K - 2, K - 1, K - 1])):
-            stacked_h, mask_h = tr._kf_chain(window)
+            stacked_h, mask_h = _host_kf_chain(tr, window)
             stacked_d, mask_d = tstep.kf_chain(tr_pints, torch.as_tensor(window, dtype=torch.int32))
             assert np.array_equal(mask_d.numpy(), mask_h), window
             for a, b in zip(graphs.tree_leaves(stacked_d), graphs.tree_leaves(stacked_h), strict=True):
