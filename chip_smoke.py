@@ -63,6 +63,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
                torch.linalg.eigh, its plain version and library call, within
                SVD_NULL_TOL where it is simple, and against float64) and the
                256 F hypotheses (3x3, as the rotation blocks), each timed;
+  3e. the conditional IF node's handle kernel (csrc/cond_node.cu: the
+               fused steps' keyframe branch; the card's PyTorch has no Python
+               route to conditional nodes): a graph whose IF body writes
+               1200 floats on a predicate set by a kernel of the graph,
+               against its plain version (the host reads the predicate and
+               branches) for both values, exactly; the time of one IF node
+               with a false predicate (64 in a graph), the host decision's,
+               the bound (one byte read);
   3c / 3d on the main path (after phase 8) -- the RANSACs that phases 6a, 6b
                and 8 ran (the loop verifications', the relocalizations' PnP,
                the mono one's DLT; their inputs recorded at the stages' entry)
@@ -301,9 +309,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
                in this process: the printed line parses, its keys are bench.py's
                (read from bench.py's source with `ast`), imu_ready is true,
                both ATEs and every time are finite.
-  15. CUDA graphs -- on a GPU every fused frame above ran its step as CUDA
-               graphs (frontend.graphs.FusedStep: the tracking graph, the one
-               read, the keyframe graph), and every host-orchestrated frame
+  15. CUDA graphs -- on a GPU every fused frame above ran its step as one
+               CUDA graph (frontend.graphs.FusedStep: T, the keyframe decision
+               on the device, K with and without windowed BA as conditional
+               IF nodes; captured at the Tracker's construction), and every
+               host-orchestrated frame
                its stages (frontend.graphs.StageProgram: preintegration,
                build, tracking, insertion, windowed BA, BoW, culling, local
                map), the default of `Tracker`. Phase 15 runs phase
@@ -319,7 +329,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
                host-path frames apart (the captures included), host-issued
                kernel and graph launches per frame and the device's busy
                share over its last N_GRAPH_TRACE frames (traced, CUDA
-               activity only, kept out of the timing), the launches of
+               activity only, kept out of the timing): exactly one graph
+               launch a fused frame with graphs; N_ONE_READ streaming fused
+               frames before them traced with their CUDA runtime calls
+               (the mark around `process()` alone): one graph launch, no
+               device-to-host copy but the stats vector's non-blocking one
+               into pinned memory, no stream or device synchronisation and
+               at most the wait on the previous frame's stats event
+               (`one_read_faults`); no program captured inside any frame of
+               the graph runs but `_warm_ahead`'s inertial stages (from the
+               capture counts around each frame); the Tracker's construction
+               time and warm-ups; the launches of
                phase 5's host-path frames traced one by one (a keyframe and
                a tracking-only frame among them: under graphs at most
                HOST_LAUNCH_LIMIT kernel launches each, or a stage ran
@@ -341,7 +361,12 @@ frames, the mono-init frame and every mono keyframe issue at most
 HOST_LAUNCH_LIMIT host kernel launches (the merge frame's are printed:
 `Atlas.merge_active_into` stays eager, as the reference's `merge_maps`);
 each new stage's captures, capture ms and graph pool and the trackers'
-warm-ups are printed.
+warm-ups are printed. Phase 6c traces each revisit frame with a profiler
+of its own and reads only the merge frame's trace (one trace of every
+frame took 29.7 s to read); phase 8 keeps one trace of every frame (a
+profiler a frame cost ~1 s each). Every phase that builds a stereo tracker
+prints its warm-ups at construction (the fused step's and its first
+frames' captures, `fused_warmup_ms`).
 Every phase's wall time is printed at the end. Phase 6a keeps its 180
 frames: at 148 (past the revisit at 140) its planted closure's chunks left
 ATE at 0.3875 m, over its 0.35 m guard (queue 3 B2's divergent GBA depends
@@ -386,6 +411,9 @@ SVD_SRC = "pli_slam_tpu_torch/csrc/svd_small.cu"
 SVD_REPLACES = "pli_slam_tpu/solve/pnp.py:113"  # ransac_pnp_dlt: jnp.linalg.svd of A (:113) and M (:128), in the jit
 EIG4_LAUNCHES: dict[str, int] = {}  # largest_eigvec launches of each phase's run, by phase function
 SVD_LAUNCHES: dict[str, int] = {}  # svd_small launches of each phase's run, by phase function
+COND_SRC = "pli_slam_tpu_torch/csrc/cond_node.cu"
+COND_REPLACES = "pli_slam_tpu/frontend/tracker.py:1187"  # the fused step's lax.cond(need_kf, ...), in the jit
+COND_LAUNCHES: dict[str, int] = {}  # the IF nodes' handle-kernel launches of each phase's run, by phase function
 HBM_RATE = 3.35e12  # bytes/s, H100 SXM (NVIDIA's data sheet)
 FP32_RATE = 67e12  # float32 operations/s outside the tensor cores, H100 SXM (NVIDIA's data sheet): rot3's near rotations
 FP64_RATE = 34e12  # float64 operations/s outside the tensor cores, H100 SXM (NVIDIA's data sheet): the Jacobi kernels'
@@ -415,9 +443,9 @@ def nvidia_smi() -> str:
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a phase drives its path."""
-    from pli_slam_tpu_torch.ops.kernels import eig4, hamming, rot3, svd_small
+    from pli_slam_tpu_torch.ops.kernels import conditional, eig4, hamming, rot3, svd_small
 
-    for m in (hamming, rot3, eig4, svd_small):
+    for m in (hamming, rot3, eig4, svd_small, conditional):
         m.reset_launches()
 
 
@@ -428,14 +456,25 @@ def kernel_counts() -> tuple[int, int, int, int]:
     return hamming.launches, rot3.launches, eig4.launches, svd_small.launches
 
 
+def warmups(tracker) -> str:
+    """A tracker's warm-ups at construction (ms): the fused step's and its
+    first frames' captures, its initialization's stages, its loop closer."""
+    vals = (("fused step", tracker.fused_warmup_ms), ("init", tracker.init_warmup_ms),
+            ("loop closer", tracker.loop_warmup_ms))
+    return "warm-ups at construction (ms): " + ", ".join(
+        f"{k} {v:.1f}" if v is not None else f"{k} none" for k, v in vals)
+
+
 def count_small_kernels() -> int:
-    """Add the launches since the last reset of closest_rotation, largest_eigvec
-    and svd_small to the calling phase's counts (ROT3_LAUNCHES, EIG4_LAUNCHES,
-    SVD_LAUNCHES) and return closest_rotation's; the counters are 0 again."""
-    from pli_slam_tpu_torch.ops.kernels import eig4, rot3, svd_small
+    """Add the launches since the last reset of closest_rotation, largest_eigvec,
+    svd_small and the IF nodes' handle kernel to the calling phase's counts
+    (ROT3_LAUNCHES, EIG4_LAUNCHES, SVD_LAUNCHES, COND_LAUNCHES) and return
+    closest_rotation's; the counters are 0 again."""
+    from pli_slam_tpu_torch.ops.kernels import conditional, eig4, rot3, svd_small
 
     name, n = sys._getframe(1).f_code.co_name, rot3.launches
-    for counts, m in ((ROT3_LAUNCHES, rot3), (EIG4_LAUNCHES, eig4), (SVD_LAUNCHES, svd_small)):
+    for counts, m in ((ROT3_LAUNCHES, rot3), (EIG4_LAUNCHES, eig4), (SVD_LAUNCHES, svd_small),
+                      (COND_LAUNCHES, conditional)):
         counts[name] = counts.get(name, 0) + m.launches
         m.reset_launches()
     return n
@@ -515,6 +554,67 @@ def rot3_sweeps(sweeps) -> str:
     f64 = collections.Counter(-1 - c for c in sweeps.tolist() if c < 0)
     return (f"float32 branch {sum(f32.values())} (sweeps: {dict(sorted(f32.items()))}), float64 branch "
             f"{sum(f64.values())} (sweeps: {dict(sorted(f64.items()))})")
+
+
+def phase_if_node(dev):
+    """3e: the conditional IF node's handle kernel (`csrc/cond_node.cu`):
+    a graph whose IF body (one write of 1200 floats, as a stats-sized
+    buffer is written) runs on a predicate set by a kernel of the graph,
+    against its plain version (the host reads the predicate and runs the
+    body: the decision the fused frame made on the host before), for both
+    values; the time of one IF node with a false predicate in a graph of 64
+    (the handle kernel and the node), the plain decision's time, the bound
+    (one byte read)."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import conditional
+
+    conditional.ready(dev)
+    x = torch.arange(1200, dtype=torch.float32, device=dev)
+    out, want = torch.zeros(1200, device=dev), torch.zeros(1200, device=dev)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graphs_ = []
+    for n_nodes in (1, 64):
+        graph = torch.cuda.CUDAGraph()
+        bodies = conditional.BodyPool(dev, graph)
+        with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            out.zero_()
+            for _ in range(n_nodes):
+                with conditional.if_node(flag > 0, bodies):
+                    torch.add(x, 1.0, out=out)
+        graphs_.append(graph)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    err = 0.0
+    for value in (1, 0):
+        flag.fill_(value)
+        graphs_[0].replay()
+        want.zero_()
+        conditional.select_reference(flag > 0, lambda: torch.add(x, 1.0, out=want), want)
+        torch.cuda.synchronize(dev)
+        err = max(err, float((out - want).abs().max()))
+    flag.fill_(0)
+    s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(5):
+        graphs_[1].replay()
+    s_.record()
+    for _ in range(50):
+        graphs_[1].replay()
+    e_.record()
+    torch.cuda.synchronize(dev)
+    ms = s_.elapsed_time(e_) / (50 * 64)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        conditional.select_reference(flag > 0, lambda: torch.add(x, 1.0, out=want), want)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 200
+    if err != 0.0:
+        raise AssertionError(f"if_node: the graph's IF body against the host's branch: largest difference {err}")
+    log(f"if_node ({COND_SRC}): an IF body on a predicate set by the graph equals the host's branch for both values; "
+        f"{ms:.4f} ms per IF node skipped (handle kernel and node, 64 a graph); the host's decision {plain_ms:.4f} "
+        f"ms (a read of the predicate)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": 1.0 / HBM_RATE * 1e3,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def phase_rot3(dev):
@@ -1444,7 +1544,7 @@ def phase_main_path(dev, smi):
     n_rot3 = ROT3_LAUNCHES["phase_main_path"]
     log(f"main path: closest_rotation launches {n_rot3} ({n_rot3 / n_fused:.1f} per fused frame); fused step "
         f"captured in {tracker._step.capture_ms:.1f} ms, graph pool {tracker._step.pool_bytes / 2**20:.1f} MiB, "
-        f"{tracker._step.replays} graph replays [{smi}]")
+        f"{tracker._step.replays} graph replays; {warmups(tracker)} [{smi}]")
     if n_rot3 < n_fused or tracker._step.replays < n_fused:
         raise AssertionError(f"closest_rotation launched {n_rot3} times and the graphs replayed "
                              f"{tracker._step.replays} times for {n_fused} fused frames")
@@ -1561,7 +1661,7 @@ def phase_vi_path(dev, smi):
         f"{vi_step.capture_ms:.1f} ms, graph pool {vi_step.pool_bytes / 2**20:.1f} MiB, {vi_step.replays} graph "
         f"replays; host-path stages captured in (ms) {stage_captures(tracker)}, graph pool "
         f"{sum(p.pool_bytes for p in tracker.stage_programs()) / 2**20:.1f} MiB, "
-        f"{sum(p.replays for p in tracker.stage_programs())} stage replays [{smi}]")
+        f"{sum(p.replays for p in tracker.stage_programs())} stage replays; {warmups(tracker)} [{smi}]")
     if n_rot3 < N_FRAMES_VI - 1 or vi_step.replays < 0.9 * n_fused:
         raise AssertionError(f"closest_rotation launched {n_rot3} times and the graphs replayed {vi_step.replays} "
                              f"times for {n_fused} fused frames")
@@ -1594,7 +1694,7 @@ def _consumed_ok(tracker, n_host: int = 1):
     consumed = tracker.stats[:n_host] + tracker.stats[n_host + 1:]
     pending = tracker._pending_stats
     return (sum(1 for s in consumed if s["state"] == TrackingState.OK)
-            + int(pending is not None and float(pending[1][ST_OK].item()) > 0))
+            + int(pending is not None and float(pending[1].read()[ST_OK]) > 0))
 
 
 RARE_TENSORS = ("kstore", "pstore", "lstore", "bow_db", "_local_pt", "R", "t", "has_vel", "gravity_w")
@@ -1685,7 +1785,8 @@ def _rare_line(held: dict, eager: dict) -> str:
 INIT_STAGES = ("mono_init_match", "mono_init", "track_init", "mono_depths", "imu_init", "merge_query", "merge_match",
                "merge_verify", "rebuild_bow")
 # what a tracker carries besides its state: programs, configuration, its closer and Atlas (held apart), records
-HELD_SKIP = {"_stages", "_step", "_step_vi", "_build_stage", "_stage_pool", "build_frame", "cfg", "cam", "cam_raw",
+HELD_SKIP = {"_stages", "_step", "_step_vi", "_fused_last", "_images", "_imu_upload", "_counters_ahead",
+             "fused_warmup_ms", "_build_stage", "_stage_pool", "build_frame", "cfg", "cam", "cam_raw",
              "rectifier", "voc_pt", "voc_ln", "draw", "span", "loop_closer", "atlas", "device", "cuda_graphs",
              "stats", "imu_init_log", "_counts", "loop_warmup_ms", "reloc_warmup_ms", "merge_warmup_ms",
              "init_warmup_ms", "_warmed", "is_mono", "is_rgbd", "use_imu", "streaming", "_imu_pad"}
@@ -1713,6 +1814,7 @@ def _held_state(tracker) -> dict:
     """Everything a host path of `tracker` reads and writes, copied: its own
     attributes but HELD_SKIP's and functions (`hold_calls`' wrappers), the
     Atlas's maps, the loop closer's counters."""
+    tracker._sync_counters()  # the counter mirrors current (after a streaming fused frame the device's lead)
     out = {k: _deep_clone(v) for k, v in vars(tracker).items() if k not in HELD_SKIP and not callable(v)}
     out["atlas"] = (_deep_clone(tracker.atlas.maps), tracker.atlas.active_idx)
     if tracker.loop_closer is not None:
@@ -1732,6 +1834,7 @@ def _held_install(tracker, state: dict) -> None:
         else:
             setattr(tracker, k, v)
     tracker._counts = None
+    tracker._counters_moved = True  # the mirrors just set are the tracker's counters
 
 
 def _held_difference(a, b, where: str = "") -> str | None:
@@ -1940,7 +2043,8 @@ def phase_loop(dev, smi):
     pct = lambda q: float(np.percentile(ms, q))  # noqa: E731
     gba_ms = [round(t, 2) for t in t_gba]
     kf_err_ms = [round(e, 4) for e in r["kf_errs"]]
-    log(f"loop: Tracker construction ran the closure's warm-up in {tracker.loop_warmup_ms:.2f} ms [{smi}]")
+    log(f"loop: Tracker construction ran the closure's warm-up in {tracker.loop_warmup_ms:.2f} ms; {warmups(tracker)} "
+        f"[{smi}]")
     log(f"loop: {N_FRAMES_LOOP} frames, ordinary frames: fps {N_FRAMES_LOOP / r['wall']:.3f} over the run, mean "
         f"{ms.mean():.2f} ms, p50 {pct(50):.2f} ms, p99 {pct(99):.2f} ms; {r['n_kf_run']} keyframes, ATE "
         f"{r['ate_run']:.4f} m, loops closed by the run {r['natural']} (frames with a verification: frame, ms, closed, "
@@ -2116,7 +2220,7 @@ def phase_kidnap(dev, smi, run):
     log(f"kidnap, floors 60 / 60 after 20 frames: states {states}, reported inliers {inliers}, relocalization attempts "
         f"(ms, accepted) {attempts}, recovered at kidnap frame {rec} with {err:.3f} m from the oracle-seeded re-track "
         f"({n_ref} inliers there); gated_match launches {launches_map} over the 20 frames and {launches_kid} over the "
-        f"kidnap frames, {launches} in 6b [{smi}]")
+        f"kidnap frames, {launches} in 6b; the second tracker's {warmups(tr)} [{smi}]")
     if n_ref < cfg.tracking.min_inliers_local_map:
         raise AssertionError(f"the oracle-seeded re-track of the kidnap view found only {n_ref} inliers")
     if rec is None:
@@ -2152,13 +2256,14 @@ def phase_atlas(dev, smi):
     merge_ms = merged_at = None
     held, replays = {}, []
     hold_calls(tracker, {"_try_merge": (lambda tr: tr.atlas.n_maps() > 1, lambda tr, ret: ret)}, held)
-    # every revisit frame traced (the merge frame's host launches), the stages' checks after the loop
-    with check_replays(INIT_STAGES, replays), FrameTrace(dev) as trace:
+    # every revisit frame traced, the merge frame's trace read (its host launches); the stages' checks after the loop
+    with check_replays(INIT_STAGES, replays), FrameTrace(dev, per_frame=True) as trace:
         for k, fr in enumerate(frames[2:], 2):
             with trace.frame(k):
                 tracker.process(fr["img_l"], fr["img_r"], fr["t"] + 2.0)
             if tracker.atlas.n_maps() == 1:
                 merge_ms, merged_at = trace._ms[k], k
+                trace.keep(k)
                 break
     traced = trace.frames
     errs = []
@@ -2173,14 +2278,15 @@ def phase_atlas(dev, smi):
     count_small_kernels()
     log(f"atlas: map 1 {n_kf1} keyframes; after the blackout {maps_after_blackout} maps ({state_after}); merged at "
         f"revisit frame {merged_at}, that frame {merge_ms if merge_ms is None else round(merge_ms, 2)} ms; position "
-        f"errors after the merge {[round(e, 4) for e in errs]} m; gated_match launches {launches} [{smi}]")
+        f"errors after the merge {[round(e, 4) for e in errs]} m; gated_match launches {launches}; {warmups(tracker)} "
+        f"[{smi}]")
     if n_kf1 < 3 or maps_after_blackout != 2 or state_after != TrackingState.NOT_INITIALIZED:
         raise AssertionError(f"the blackout left {maps_after_blackout} maps, state {state_after}")
     if merged_at is None or not errs or max(errs) >= 0.5:
         raise AssertionError(f"merge at {merged_at}, position errors {errs}")
     # the merge frame: Atlas.merge_active_into stays eager (as the reference's merge_maps), so its host launches
     # are reported, not held to HOST_LAUNCH_LIMIT
-    log(f"atlas: the revisit frames under graphs (traced, the trace read in {trace.export_s:.1f} s; frame, kernel "
+    log(f"atlas: the merge frame under graphs (traced, the trace read in {trace.export_s:.1f} s; frame, kernel "
         f"launches, graph launches, ms) {traced}")
     init_paths("atlas", dev, tracker, held, replays, traced, merged_at, smi, limited=False)
     return launches
@@ -2281,7 +2387,7 @@ def phase_rgbd(dev, smi):
         f"(bound {RGBD_ATE_BOUND:.4f} m; the reference: {REF_ATE_RGBD[0]} m on its own images, {REF_ATE_RGBD[1]} m on "
         f"these), largest aligned error {worst:.4f} m (windowed BA's RGB-D excursions, queue 3 B3), {tracker.n_kf} "
         f"keyframes, ok frames {ok_frames}/{N_FRAMES_RGBD}, "
-        f"gated_match launches {launches} ({launches / n_fused:.2f} per fused frame) [{smi}]")
+        f"gated_match launches {launches} ({launches / n_fused:.2f} per fused frame); {warmups(tracker)} [{smi}]")
 
     out = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out, exist_ok=True)
@@ -2423,7 +2529,7 @@ def mono_planted_reloc(dev, smi, tracker, frames, est, gt) -> int:
     from pli_slam_tpu_torch.utils import trajectory as tio
 
     k = len(frames) - 1
-    frame = tracker._build_host(tracker._image(frames[k]["img_l"]))
+    frame = tracker._build_host(*tracker._images(frames[k]["img_l"]))
     tracker.R, tracker.t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
     tracker._reset_motion()
     tracker.state = TrackingState.LOST
@@ -2851,7 +2957,7 @@ def phase_fisheye(dev, smi):
         f"{len(est)} recorded frames (the reference: {REF_FISHEYE['ate']} m), {tracker.n_kf} keyframes (the reference: "
         f"{REF_FISHEYE['n_kf']}), ok frames {ok_frames}/{len(est)}, gated_match launches {launches_a} "
         f"({launches_a / max(n_fused, 1):.2f} per fused frame); the L<->R association {assoc_ms:.3f} ms a frame "
-        f"({n_l} x {n_r} features, {n_pairs} pairs; CUDA events, mean of 20) [{smi}]")
+        f"({n_l} x {n_r} features, {n_pairs} pairs; CUDA events, mean of 20); {warmups(tracker)} [{smi}]")
     if abs(init - REF_FISHEYE["init"]) > INIT_MARGIN:
         raise AssertionError(f"fisheye: the map initialized at frame {init}, the reference at {REF_FISHEYE['init']}")
     if ok_frames < 0.9 * len(est) or not np.all(np.isfinite(est)):
@@ -2899,7 +3005,7 @@ def phase_fisheye(dev, smi):
         f"{imu_init} (the reference: {REF_FISHEYE_VI['map_init']}, {REF_FISHEYE_VI['imu_init']}), that frame "
         f"{init_ms:.1f} ms, {rec['n_kf']} keyframes, gravity {_gravity_error_deg(tracker):.2f} deg from the truth; ATE "
         f"on the frame before it {ate_pre:.4f} m (the reference: {REF_FISHEYE_VI['ate_pre']} m), after its full "
-        f"inertial BA {ate_init:.4f} m (the reference: {REF_FISHEYE_VI['ate_init']} m) [{smi}]")
+        f"inertial BA {ate_init:.4f} m (the reference: {REF_FISHEYE_VI['ate_init']} m); {warmups(tracker)} [{smi}]")
     log(f"fisheye 10b: host-path frames: {_frame_times(ms_host)}, gated_match launches {launches_host} "
         f"({launches_host / max(n_host, 1):.2f} per tracked frame); fused stereo-inertial frames "
         f"{imu_init + 1}-{len(frames) - 1}: {_frame_times(ms_fused)}, launches {launches_fused} "
@@ -3248,7 +3354,7 @@ def phase_flagship_closure(dev, smi, run):
     log(f"flagship 14a: IMU init at frame {init['frame']} ({rec['n_kf']} keyframes, accepted {rec['accepted']}), "
         f"that frame {init['ms']:.1f} ms; ATE of frames 0-{init['frame']} {init['ate']:.4f} m; host-path frames: "
         f"mean {np.mean(r['ms_host']):.2f} ms, p50 {pct(r['ms_host'], 50):.2f} ms; fused stereo-inertial frames: "
-        f"mean {np.mean(r['ms_fused']):.2f} ms, p99 {pct(r['ms_fused'], 99):.2f} ms [{smi}]")
+        f"mean {np.mean(r['ms_fused']):.2f} ms, p99 {pct(r['ms_fused'], 99):.2f} ms; {warmups(r['tracker'])} [{smi}]")
     log(f"flagship 14a: loops closed by the run {r['natural']} (frames with a verification: frame, ms, closed, "
         f"imu_ready {r['loop_frames']}); Tracker construction ran the closure's warm-up in "
         f"{tracker.loop_warmup_ms} ms [{smi}]")
@@ -3316,7 +3422,8 @@ def phase_bench(dev, smi, run, room):
     log(f"bench 14b: scripts/bench.py at BENCH_FRAMES={N_BENCH_FLAGSHIP}, BENCH_FRAMES_VISUAL={N_BENCH_VISUAL} "
         f"({wall:.1f} s, frames rendered once for phase 6a): {text} [{smi}]")
     n_frames = N_BENCH_FLAGSHIP + N_BENCH_VISUAL
-    log(f"bench 14b: gated_match launches {launches} ({launches / (n_frames - 2):.2f} per tracked frame) [{smi}]")
+    log(f"bench 14b: gated_match launches {launches} ({launches / (n_frames - 2):.2f} per tracked frame); the "
+        f"flagship's {warmups(flag['tracker'])}; the visual run's {warmups(vis['tracker'])} [{smi}]")
     if sorted(line) != sorted(keys) or sorted(line["extra"]) != sorted(extra):
         raise AssertionError(f"bench 14b: the line's keys {sorted(line)} / {sorted(line['extra'])} are not bench.py's "
                              f"{sorted(keys)} / {sorted(extra)}")
@@ -3372,63 +3479,143 @@ def _traced(dev, fn) -> tuple[float, float, int, int]:
 
 
 class FrameTrace:
-    """One CPU and CUDA activity trace around many frames (a trace each
-    costs seconds to export): `with trace.frame(k):` marks frame k; after
-    the block, `frames` is [(k, host kernel launches, host graph launches,
-    ms)], the launches counted from the host's CUDA runtime calls inside
-    the frame's mark, the ms up to the device synchronised after it."""
+    """CPU and CUDA activity traces of frames: `with trace.frame(k):` traces
+    frame k. After the block, `frames` is [(k, host kernel launches, host
+    graph launches, ms)], the launches counted from the host's CUDA runtime
+    calls inside the frame's mark, the ms up to the device synchronised
+    after it (the synchronisation outside the mark), and `calls` maps k to
+    the frame's CUDA runtime calls, each (name, the kind of the copy it
+    issued, e.g. "Memcpy DtoH (Device -> Pinned)", or None). Reading a trace
+    is its cost (seconds): by default one trace spans every frame; with
+    `per_frame` each frame has its own, and only the frames passed to
+    `keep(k)` right after their block are read, then."""
 
-    def __init__(self, dev):
-        self.dev, self.frames, self._ms = dev, [], {}
+    def __init__(self, dev, per_frame: bool = False):
+        self.dev, self.per_frame, self.frames, self.calls, self._ms = dev, per_frame, [], {}, {}
+        self.read_s = 0.0  # the traces' export and reading
+        self._last = None
 
-    def __enter__(self):
+    @staticmethod
+    def _profiler():
         import torch
 
         acts = torch.profiler.ProfilerActivity
-        self._prof = torch.profiler.profile(activities=[acts.CPU, acts.CUDA])
-        self._prof.__enter__()
+        return torch.profiler.profile(activities=[acts.CPU, acts.CUDA])
+
+    def __enter__(self):
+        if not self.per_frame:
+            self._prof = self._profiler()
+            self._prof.__enter__()
         return self
 
     @contextlib.contextmanager
     def frame(self, k: int):
         import torch
 
-        with torch.profiler.record_function(f"chip_smoke frame {k}"):
-            t0 = time.perf_counter()
-            yield
-            torch.cuda.synchronize(self.dev)
-            self._ms[k] = (time.perf_counter() - t0) * 1e3
-
-    def __exit__(self, *exc):
+        self._last = None
+        prof = self._profiler() if self.per_frame else contextlib.nullcontext()
         t0 = time.perf_counter()
-        self._prof.__exit__(*exc)
-        if exc[0] is not None:
-            return False
+        with prof:
+            with torch.profiler.record_function(f"chip_smoke frame {k}"):
+                yield
+        torch.cuda.synchronize(self.dev)
+        self._ms[k] = (time.perf_counter() - t0) * 1e3
+        if self.per_frame:
+            self._last = (k, prof)
+
+    def keep(self, k: int) -> None:
+        """Read frame k's trace now: a later frame's profiler clears what an
+        earlier one recorded of the CUDA runtime."""
+        if self._last is not None and self._last[0] == k:
+            self._count(self._read(self._last[1]))
+            self._last = None
+
+    def _read(self, prof) -> list:
+        t0 = time.perf_counter()
         trace = os.path.join(ROOT, "build", "frame_trace.json")
         os.makedirs(os.path.dirname(trace), exist_ok=True)
-        self._prof.export_chrome_trace(trace)
+        prof.export_chrome_trace(trace)
         with open(trace) as f:
             events = json.load(f)["traceEvents"]
         os.remove(trace)
+        self.read_s += time.perf_counter() - t0
+        return events
+
+    def __exit__(self, *exc):
+        t0 = time.perf_counter()
+        if not self.per_frame:
+            self._prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        if not self.per_frame:
+            self._count(self._read(self._prof))
+        self.export_s = time.perf_counter() - t0 + (self.read_s if self.per_frame else 0.0)  # stop, export, reading
+        return False
+
+    def _count(self, events) -> None:
         marks = {int(e["name"].rsplit(" ", 1)[1]): (e["ts"], e["ts"] + e["dur"]) for e in events
                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"
                  and e.get("name", "").startswith("chip_smoke frame ")}
-        calls = [(e["ts"], e.get("name", "")) for e in events if e.get("cat") == "cuda_runtime"]
+        copies = {e.get("args", {}).get("correlation"): e.get("name", "") for e in events
+                  if e.get("cat") == "gpu_memcpy"}
+        calls = [(e["ts"], e.get("name", ""), copies.get(e.get("args", {}).get("correlation")))
+                 for e in events if e.get("cat") == "cuda_runtime"]
         for k, (a, b) in sorted(marks.items()):
-            inside = [n for ts, n in calls if a <= ts <= b]
-            self.frames.append((k, sum(1 for n in inside if n.startswith("cudaLaunchKernel")),
-                                sum(1 for n in inside if n == "cudaGraphLaunch"), self._ms[k]))
-        self.export_s = time.perf_counter() - t0  # the trace's stop, export and reading
-        return False
+            inside = [(n, kind) for ts, n, kind in calls if a <= ts <= b]
+            self.calls[k] = inside
+            self.frames.append((k, sum(1 for n, _ in inside if n.startswith("cudaLaunchKernel")),
+                                sum(1 for n, _ in inside if n == "cudaGraphLaunch"), self._ms[k]))
+
+
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def one_read_faults(calls: list) -> list[str]:
+    """What breaks a streaming fused frame's one read in its CUDA runtime calls
+    (`FrameTrace.calls[k]`): it makes exactly one graph launch; it copies
+    from the device to the host only the stats vector (one non-blocking copy
+    into pinned memory) and copies nothing synchronously; its only wait is
+    the one on the previous frame's stats event (at most one
+    cudaEventSynchronize, none if that frame had finished); it synchronises
+    no stream and not the device."""
+    names = [n for n, _ in calls]
+    faults = []
+    if names.count("cudaGraphLaunch") != 1:
+        faults.append(f"{names.count('cudaGraphLaunch')} graph launches")
+    waits = {w: names.count(w) for w in HOST_WAITS if names.count(w)}
+    if waits.get("cudaStreamSynchronize") or waits.get("cudaDeviceSynchronize") or waits.get(
+            "cudaEventSynchronize", 0) > 1:
+        faults.append(f"waits {waits}")
+    d2h = [(n, kind) for n, kind in calls if kind and "DtoH" in kind]
+    if len(d2h) > 1 or any(not n.startswith("cudaMemcpyAsync") or "Pinned" not in kind for n, kind in d2h):
+        faults.append(f"device-to-host copies {d2h}")
+    sync_copies = [n for n in names if n.startswith("cudaMemcpy") and "Async" not in n]
+    if sync_copies:
+        faults.append(f"synchronous copies {sync_copies}")
+    return faults
+
+
+def _captures(tracker) -> dict:
+    """Each captured program's captures: the fused step's, and every stage's by name."""
+    fused = tracker._fused_step()
+    return {"fused step": fused.captures if fused is not None else 0,
+            **{p.name: p.captures for p in tracker.stage_programs()}}
+
+
+N_ONE_READ = 4  # each phase-15 graph run's fused frames before the last N_GRAPH_TRACE: their runtime calls checked
 
 
 def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: int, host_trace: bool = False) -> dict:
     """One run of phase 15 over `frames`: every frame's (R, t) and every fused
     frame's stats vector recorded, the frames' records and the stores copied
-    after `snapshot_after` frames; host-path and fused frames timed apart,
-    except the host-path frames traced one by one (with `host_trace`: from
+    after `snapshot_after` frames (the kernels' launches after the pending
+    stats are read); host-path and fused frames timed apart, except the
+    host-path frames traced one by one (with `host_trace`: from
     HOST_TRACE_FROM until a keyframe and a tracking-only frame are among
-    them) and the last N_GRAPH_TRACE (fused frames, traced together)."""
+    them), N_ONE_READ fused frames traced with their runtime calls checked
+    (graphs: `one_read_faults`) and the last N_GRAPH_TRACE (fused frames,
+    traced together, CUDA activity only). Under graphs no frame may capture
+    a program, but for `_warm_ahead`'s inertial stages."""
     import numpy as np
     import torch
 
@@ -3440,36 +3627,48 @@ def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: i
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
     tracker = Tracker(cam, cfg, dev, cuda_graphs=cuda_graphs)
+    construct_ms = (time.perf_counter() - t0) * 1e3
     tracker.streaming = True
-    stats, poses = [], []
+    stats, poses, captured_in_frame = [], [], []
     finish = tracker._finish_fused
 
-    def record(stamp, stats_dev, img_args):
-        stats.append(stats_dev.clone())
-        return finish(stamp, stats_dev, img_args)
+    def record(stamp, frame_stats, img_args):
+        stats.append(frame_stats)
+        return finish(stamp, frame_stats, img_args)
 
     tracker._finish_fused = record
 
     snapshot = {}
 
-    def one(fr):
-        """(fused?, made a keyframe?, ms) of one frame."""
-        n0, k0 = len(stats), tracker.n_kf
-        f0 = time.perf_counter()
-        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr.get("imu"))
-        dt = (time.perf_counter() - f0) * 1e3
+    def one(fr, mark=contextlib.nullcontext()):
+        """(fused?, a host-path frame that made a keyframe?, ms) of one frame."""
+        n0, c0, w0 = len(stats), _captures(tracker), set(tracker._warmed)
+        with mark:
+            f0 = time.perf_counter()
+            tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr.get("imu"))
+            dt = (time.perf_counter() - f0) * 1e3
         poses.append((tracker.R.clone(), tracker.t.clone()))
+        fused = len(stats) > n0
+        new = {k: n - c0.get(k, 0) for k, n in _captures(tracker).items() if n != c0.get(k, 0)}
+        warmed = {kind for kind, _ in set(tracker._warmed) - w0}
+        if new and not (warmed and set(new) <= {"imu_init", "vi_ba"}):
+            captured_in_frame.append((len(poses) - 1, new))
         if len(poses) == snapshot_after:
+            fs = tracker._fused_step()
+            if fs is not None:
+                fs.settle()  # the keyframe branch's launches of frames whose stats are pending
             snapshot.update({name: graphs.tree_clone(getattr(tracker, name)) for name in STORES})
             snapshot["launches"] = (hamming.launches, rot3.launches)
             snapshot["infos"] = [dict(info) for info in tracker.stats]
-        return len(stats) > n0, tracker.n_kf > k0, dt
+        return fused, not fused and tracker.frames_since_kf == 0, dt
 
     reset_counts()
     n_timed = len(frames) - N_GRAPH_TRACE
+    one_read_at = n_timed - N_ONE_READ if cuda_graphs else n_timed  # eager frames read mid-frame: not checked
     timed, host_traced = [], []
-    for i, fr in enumerate(frames[:n_timed]):
+    for i, fr in enumerate(frames[:one_read_at]):
         kinds = {kf for kf, _, _ in host_traced}
         if host_trace and i >= HOST_TRACE_FROM and len(kinds) < 2 and i < HOST_TRACE_FROM + HOST_TRACE_MAX:
             res = []
@@ -3479,15 +3678,28 @@ def phase_graphs_run(dev, cam, cfg, frames, cuda_graphs: bool, snapshot_after: i
                 host_traced.append((kf, launches, graph_launches))
         else:
             timed.append(one(fr))
+    one_read = {}
+    if one_read_at < n_timed:
+        with FrameTrace(dev) as trace:
+            fused_flags = {i: one(frames[i], trace.frame(i))[0] for i in range(one_read_at, n_timed)}
+        one_read = {i: one_read_faults(trace.calls[i]) for i in trace.calls if fused_flags[i]}
+        one_read["calls"] = {i: trace.calls[i] for i in trace.calls if fused_flags[i]}
     wall, busy_us, launches, graph_launches = _traced(dev, lambda: [one(fr) for fr in frames[n_timed:]])
     cap_ms, pool = capture_stats(tracker)
     rare = [p for p in tracker.stage_programs() if p.name in RARE_STAGES]
-    return dict(rare={p.name: p.captures for p in rare}, rare_pool=sum(p.pool_bytes for p in rare), snapshot=snapshot, poses=poses, stats=stats, busy=busy_us / 1e6 / wall,
+    fused_step = tracker._fused_step()
+    fused_step.settle()
+    return dict(rare={p.name: p.captures for p in rare}, rare_pool=sum(p.pool_bytes for p in rare), snapshot=snapshot,
+                poses=poses, stats=[torch.from_numpy(s.read()) for s in stats], busy=busy_us / 1e6 / wall,
                 fused_ms=np.asarray([dt for fused, _, dt in timed if fused]),
                 host_ms=np.asarray([dt for fused, _, dt in timed if not fused]),
-                host_kf=sum(1 for fused, kf, _ in timed if kf and not fused), host_traced=host_traced,
+                host_kf=sum(1 for fused, kf, _ in timed if kf), host_traced=host_traced,
                 launches=launches / N_GRAPH_TRACE, graph_launches=graph_launches / N_GRAPH_TRACE,
                 capture_ms=cap_ms, pool=pool, stage_ms=stage_captures(tracker),
+                fused_capture=(fused_step.captures, fused_step.capture_ms, fused_step.pool_bytes),
+                replays=fused_step.replays, construct_ms=construct_ms,
+                warmups={k: getattr(tracker, k) for k in ("fused_warmup_ms", "init_warmup_ms", "loop_warmup_ms")},
+                captured_in_frame=captured_in_frame, one_read=one_read,
                 peak=torch.cuda.max_memory_allocated(dev) - mem0,
                 gated_match=hamming.launches, closest_rotation=count_small_kernels())
 
@@ -3540,9 +3752,12 @@ def _pcts(ms) -> str:
 
 
 def _side_line(label: str, r: dict) -> str:
+    n_cap, cap_ms, cap_pool = r["fused_capture"]
     return (f"{label}: fused frames {_pcts(r['fused_ms'])}; from the host per traced fused frame "
             f"{r['launches']:.0f} kernel launches and {r['graph_launches']:.1f} graph launches; device busy "
-            f"{100 * r['busy']:.1f}% of the traced window; captures {r['capture_ms']:.1f} ms, graph pools "
+            f"{100 * r['busy']:.1f}% of the traced window; Tracker construction {r['construct_ms']:.1f} ms, warm-ups "
+            f"(ms) {r['warmups']}; the fused step: {n_cap} captures ({cap_ms:.1f} ms, graph pool "
+            f"{cap_pool / 2**20:.1f} MiB), {r['replays']} replays; all captures {r['capture_ms']:.1f} ms, graph pools "
             f"{r['pool'] / 2**20:.1f} MiB; peak memory {r['peak'] / 2**20:.1f} MiB; launches: gated_match "
             f"{r['gated_match']}, closest_rotation {r['closest_rotation']}")
 
@@ -3575,9 +3790,22 @@ def phase_graphs(dev, smi, room, vi):
         diff = _first_difference(g, e)
         if diff is not None:
             raise AssertionError(f"graphs 15 {name}: graphs and eager differ first at {diff}")
-        if not g["graph_launches"] > 0 or e["graph_launches"] != 0:
-            raise AssertionError(f"graphs 15 {name}: graph launches per frame {g['graph_launches']} with graphs, "
-                                 f"{e['graph_launches']} eager")
+        if g["graph_launches"] != 1 or e["graph_launches"] != 0:
+            raise AssertionError(f"graphs 15 {name}: graph launches per fused frame {g['graph_launches']} with "
+                                 f"graphs (one program: 1), {e['graph_launches']} eager")
+        checked = {k: v for k, v in g["one_read"].items() if k != "calls"}
+        if not checked or any(checked.values()):
+            raise AssertionError(f"graphs 15 {name}: the streaming fused frames' one read: {checked or 'none checked'} "
+                                 f"(their runtime calls: {g['one_read'].get('calls')})")
+        if g["captured_in_frame"]:
+            raise AssertionError(f"graphs 15 {name}: captures inside frames (frame, captures by program): "
+                                 f"{g['captured_in_frame']}")
+        calls = next(iter(g["one_read"]["calls"].values()))
+        log(f"graphs 15 {name}: {len(checked)} streaming fused frames traced with their runtime calls: each one graph "
+            f"launch, no device-to-host copy but the stats vector's (non-blocking, into pinned memory), no stream or "
+            f"device synchronisation, at most the wait on the previous frame's stats event; the first's calls "
+            f"{sorted({n: sum(1 for m, _ in calls if m == n) for n, _ in calls}.items())}; no capture inside any "
+            f"frame but _warm_ahead's [{smi}]")
         if host_trace:
             if not g["host_traced"] or not any(kf for kf, _, _ in g["host_traced"]):
                 raise AssertionError(f"graphs 15 {name}: no host-path keyframe among the traced frames "
@@ -3612,14 +3840,14 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from pli_slam_tpu_torch.ops.kernels import eig4, hamming, rot3, svd_small
+    from pli_slam_tpu_torch.ops.kernels import conditional, eig4, hamming, rot3, svd_small
 
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
-        t_build, t_build_rot3, t_build_eig4, t_build_svd = pool.map(
-            lambda build: build(), (hamming.build, rot3.build, eig4.build, svd_small.build))
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, started together
+        t_build, t_build_rot3, t_build_eig4, t_build_svd, t_build_cond = pool.map(
+            lambda build: build(), (hamming.build, rot3.build, eig4.build, svd_small.build, conditional.build))
     log(f"build: gated_match ({KERNEL_SRC}) built and loaded in {t_build:.2f} s, closest_rotation ({ROT3_SRC}) in "
         f"{t_build_rot3:.2f} s, largest_eigvec ({EIG4_SRC}) in {t_build_eig4:.2f} s, svd_small ({SVD_SRC}) in "
-        f"{t_build_svd:.2f} s, in parallel")
+        f"{t_build_svd:.2f} s, the IF nodes' handle kernel ({COND_SRC}) in {t_build_cond:.2f} s, in parallel")
 
     secs = {}
 
@@ -3633,6 +3861,7 @@ def main() -> int:
     rot3_line = timed("3b", phase_rot3, dev)
     eig4_line = timed("3c", phase_eig4, dev)
     svd_line = timed("3d", phase_svd_small, dev)
+    if_line = timed("3e", phase_if_node, dev)
     floor = rot3_line["launch_floor_ms"]
     log(f"kernels: per launch in a CUDA graph against the launch floor there ({floor:.4f} ms, a one-element add_): "
         + ", ".join(f"{name} {line['ms']:.4f} ms ({line['ms'] - floor:+.4f})" for name, line in (
@@ -3664,7 +3893,9 @@ def main() -> int:
     for name, counts, phases in (("closest_rotation", ROT3_LAUNCHES, ("phase_main_path", "phase_loop")),
                                  ("largest_eigvec", EIG4_LAUNCHES, ("phase_loop", "phase_kidnap",
                                                                     "phase_flagship_closure")),
-                                 ("svd_small", SVD_LAUNCHES, ("mono_planted_reloc", "phase_mono"))):
+                                 ("svd_small", SVD_LAUNCHES, ("mono_planted_reloc", "phase_mono")),
+                                 ("if_node", COND_LAUNCHES, ("phase_main_path", "phase_vi_path",
+                                                             "phase_graphs_run"))):
         if any(counts.get(phase, 0) < 1 for phase in phases):
             raise AssertionError(f"{name} was not launched on every path that runs it: {counts}")
 
@@ -3720,7 +3951,12 @@ def main() -> int:
         "ransac_counts_main_path": small_main["ransac_counts"], **line.get("extra", {}),
     } for name, src, replaces, line, counts, shape, keys in (
         ("largest_eigvec", EIG4_SRC, EIG4_REPLACES, eig4_line, EIG4_LAUNCHES, "256 x 4 x 4", ("horn",)),
-        ("svd_small", SVD_SRC, SVD_REPLACES, svd_line, SVD_LAUNCHES, "256 x 12 x 12", ("svd12", "svd3")))]]}))
+        ("svd_small", SVD_SRC, SVD_REPLACES, svd_line, SVD_LAUNCHES, "256 x 12 x 12", ("svd12", "svd3")))], {
+        "name": "if_node", "route": "cuda", "source": COND_SRC, "replaces": COND_REPLACES,
+        "launches": sum(COND_LAUNCHES.values()), **if_line,
+        "shape": "one 0-d bool predicate (two IF nodes a fused frame: K with and without windowed BA)",
+        **{f"launches_{name.removeprefix('phase_')}": n for name, n in COND_LAUNCHES.items()},
+    }]}))
     log(smi)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

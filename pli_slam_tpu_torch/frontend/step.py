@@ -17,27 +17,26 @@ afterwards. (The reference's CPU branch puts the depth band inside the
 argmin gate instead, so on the CPU the two packages fuse differently;
 the parity tests run the reference's accelerator branch.)
 
-Control flow and CUDA graphs. Each fused step is cut at its one
-device->host read into two segments (`Segments`, `visual_segments`,
-`vi_segments`): T builds the frame, predicts (motion model, or
-preintegration + `compose` + IMU prediction) and tracks; K is the keyframe
-branch. Between them the host reads three int32s (ok, inlier count, the
-reference keyframe's inliers: `out["read"]`) and takes the reference's
-`lax.cond` on `need_kf` (tracker.py:1186) as a host `if`
-(`keyframe_decision`). The keyframe counters are 0-d device int32s, as in
-the reference (`n_kf`, `fs` frames since the keyframe, `last` its
-inliers); the host keeps exact mirrors of `n_kf` and `fs` for its own
-paths and its decision. Every per-frame value enters a segment as a tensor
-(the stamp, the counters, the widened-window flag) and every constant comes
-from ops.consts, so a segment captured at one frame is right at the next.
-On a GPU frontend.graphs captures T at the first fused frame and K at the
-first keyframe with windowed BA, and replays both every frame after; the
-reference's second cond, `n_kf2 >= 3` (:1102, windowed BA), is K's host
-argument `with_ba`, and the keyframes without it (the map's second and
-third) run K eagerly on the graphs' buffers. `run_segments` composes T,
-the read and K eagerly (the CPU, `cuda_graphs=False`, and
-`make_step_visual` / `make_step_vi`). GN and BA `fori_loop`s are Python
-loops (solve.gn, solve.ba), unrolled in the graphs.
+Control flow and CUDA graphs. Each fused step is one program in three
+parts (`Segments`, `visual_segments`, `vi_segments`): T builds the frame,
+predicts (motion model, or preintegration + `compose` + IMU prediction) and
+tracks; `Segments.decide` is the reference's keyframe decision `need_kf`
+(tracker.py:1176-1183, :1380), computed on the device as the reference
+computes it (`need_keyframe`); K is the keyframe branch, in two variants:
+with windowed BA and without (the reference's second cond, `n_kf2 >= 3`,
+:1102, :1292). The keyframe counters are 0-d device int32s, as in the
+reference (`n_kf`, `fs` frames since the keyframe, `last` its inliers); T
+moves `fs` and K writes all three, as the reference returns them (:1190-1191,
+:1395-1396). Every per-frame value enters as a tensor (the stamp, the
+counters, the mapping and widened-window flags) and every constant comes
+from ops.consts, so the program captured at one frame is right at the next.
+On a GPU frontend.graphs captures the whole step once as one CUDA graph: T,
+the decision, and K's two variants as the bodies of conditional IF nodes on
+`need_kf & (n_kf + 1 >= 3)` and `need_kf & (n_kf + 1 < 3)`, both writing
+T's buffers. `run_segments` composes the same program eagerly (the CPU,
+`cuda_graphs=False`, and `make_step_visual` / `make_step_vi`): there the
+host reads the decision to take the branch. GN and BA `fori_loop`s are
+Python loops (solve.gn, solve.ba), unrolled in the graphs.
 
 Index semantics. JAX clamps gathers and wraps negative scatter indices;
 every gather here clamps explicitly (`clamp(idx, min=0)`), sentinel
@@ -78,6 +77,7 @@ from pli_slam_tpu_torch.worldmap import vocab as vocab_mod
 N_TRI_VIEWS = 3
 ST_OK, ST_NIN, ST_NKF, ST_KF_CREATED, ST_NNEW, ST_NPTS, ST_NLNS = 0, 1, 2, 3, 4, 5, 6
 ST_FSKF, ST_LASTKFIN, ST_LOOP_SLOT, ST_LOOP_SCORE, ST_KF_SLOT = 7, 8, 9, 12, 15
+N_STATS = 16
 N_LOOP_CANDS = 3
 
 
@@ -1074,17 +1074,17 @@ def rebuild_bow(voc_pt, voc_ln, kstore, pstore, lstore):
 # ---------------------------------------------------------------------------
 
 
-def keyframe_decision(cfg: SlamConfig, ok: int, n_in: int, last_kf_inliers: int, n_kf: int, frames_since_kf: int,
-                      allow_mapping) -> bool:
-    """The keyframe decision, made on the host from the frame's one read
-    (ok, inlier count, the reference keyframe's inliers) and the host's
-    exact mirrors of the keyframe counters."""
-    fs = frames_since_kf + 1
+def need_keyframe(cfg: SlamConfig, ok, n_in, last_kf_inliers, n_kf, frames_since_kf, allow_mapping) -> torch.Tensor:
+    """The keyframe decision on the device, as the reference's fused steps
+    compute it (tracker.py:1176-1183): `frames_since_kf` already counts this
+    frame; every argument is a 0-d tensor (`ok` and `allow_mapping` bool, the
+    counts int32). `kf_ref_ratio * max(last, 1)` is float32, as a Python float
+    times an int32 array is in JAX."""
     tc = cfg.tracking
-    return (bool(ok) and bool(allow_mapping) and n_in >= tc.kf_min_inliers
-            and fs > max(tc.kf_min_interval, 1)
-            and (fs >= tc.kf_max_interval or n_in < tc.kf_ref_ratio * max(last_kf_inliers, 1))
-            and n_kf < cfg.map.max_keyframes)
+    fs = frames_since_kf
+    ratio = n_in.to(torch.float32) < _f32(tc.kf_ref_ratio) * torch.clamp(last_kf_inliers, min=1).to(torch.float32)
+    return (ok & allow_mapping & (n_in >= tc.kf_min_inliers) & (fs > max(tc.kf_min_interval, 1))
+            & ((fs >= tc.kf_max_interval) | ratio) & (n_kf < cfg.map.max_keyframes))
 
 
 def _index_keyframe(cfg: SlamConfig, voc_pt, voc_ln, frame, n_kf, kstore, pstore, bow_db, kf_view):
@@ -1135,37 +1135,43 @@ def _step_outputs(ok, n_in, n_kf2, made_kf: bool, fs2, last_in2, n_new, loop_slo
 
 @dataclasses.dataclass(frozen=True)
 class Segments:
-    """A fused step cut at its one device->host read.
+    """A fused step as one program: T, the decision, K.
 
     `track(inputs, state) -> (new_state, out, carry)` is T: the frame build,
     the motion-model or IMU prediction and tracking, with the stats vector
-    and trajectory record of a frame that makes no keyframe, and
-    `out["read"]` = (ok, inliers, reference-keyframe inliers) as int32.
-    `keyframe(inputs, state, carry, with_ba) -> (new_state, out)` is K: the
-    keyframe branch on T's state and `carry`, windowed BA when `with_ba`
-    (the reference's `n_kf2 >= 3` cond, a host bool here), and the stats
-    and record of a keyframe frame. `state` maps names to tensors, stores
-    and tuples; `new_state` holds the entries a segment changes. Every
-    value that varies between frames enters as a tensor -- the keyframe
-    counters `n_kf`, `fs` (frames since the keyframe) and `last` (its
-    inliers) are 0-d device int32s, the stamp a 0-d float32 -- so a
-    segment traced or captured at one frame is right at the next."""
+    and trajectory record of a frame that makes no keyframe, and `fs` moved
+    on. `decide(inputs, state, carry)` is the keyframe decision on T's state,
+    a 0-d bool. `keyframe(inputs, state, carry, with_ba) -> (new_state, out)`
+    is K: the keyframe branch on T's state and `carry`, windowed BA when
+    `with_ba` (the reference's `n_kf2 >= 3` cond: a constant of the variant),
+    and the stats and record of a keyframe frame; it writes every `out` entry
+    and every state entry T writes, so either branch leaves one set of
+    buffers. `state` maps names to tensors, stores and tuples; `new_state`
+    holds the entries a part changes. Every value that varies between frames
+    enters as a tensor -- the keyframe counters `n_kf`, `fs` (frames since the
+    keyframe) and `last` (its inliers) are 0-d device int32s, the stamp a 0-d
+    float32, `allow` (mapping allowed) a 0-d bool -- so the program traced or
+    captured at one frame is right at the next."""
 
     cfg: SlamConfig
     track: Callable
     keyframe: Callable
 
+    def decide(self, inputs, state, carry) -> torch.Tensor:
+        return need_keyframe(self.cfg, carry["ok"], carry["n_in"], state["last"], state["n_kf"], state["fs"],
+                             inputs["allow"])
 
-def run_segments(segs: Segments, inputs: dict, state: dict, n_kf: int, frames_since_kf: int, allow_mapping):
-    """T, the read, the host's keyframe decision and K, eagerly: the
-    composition that the CUDA graphs of frontend.graphs replay. `n_kf` and
-    `frames_since_kf` are the host's mirrors of the device counters.
-    Returns (state, out of the last segment run, T's carry, need_kf)."""
+
+def run_segments(segs: Segments, inputs: dict, state: dict):
+    """T, the decision and K, eagerly: the program that frontend.graphs
+    captures, composed on the host, which reads the decision (and the
+    keyframe count, for K's variant) to take the branch. Returns (state,
+    out of the last part run, T's carry, need_kf as a 0-d device bool)."""
     new, out, carry = segs.track(inputs, state)
     state = {**state, **new}
-    ok, n_in, last = out["read"].tolist()
-    need_kf = keyframe_decision(segs.cfg, ok, n_in, last, n_kf, frames_since_kf, allow_mapping)
-    if need_kf:
+    need_kf = segs.decide(inputs, state, carry)
+    need, n_kf = torch.stack([need_kf.to(torch.int32), state["n_kf"]]).tolist()
+    if need:
         new, out = segs.keyframe(inputs, state, carry, n_kf + 1 >= 3)
         state = {**state, **new}
     return state, out, carry, need_kf
@@ -1196,7 +1202,7 @@ def _tri_depth(cam, cfg, frame, R, t, kf_view, kstore, n_kf):
 
 def visual_segments(cam, cfg: SlamConfig, voc_pt, voc_ln, build) -> Segments:
     """T and K of the stereo / RGB-D visual step. inputs: `img` (the
-    arguments of `build`), `stamp`. state: R, t, R_prev, t_prev, vel_xi,
+    arguments of `build`), `stamp`, `allow`. state: R, t, R_prev, t_prev, vel_xi,
     has_vel, n_kf, fs, last, pstore, lstore, kstore, bow_db, kf_view,
     local_pt."""
 
@@ -1215,8 +1221,7 @@ def visual_segments(cam, cfg: SlamConfig, voc_pt, voc_ln, build) -> Segments:
                                                  pstore, lstore, state["kstore"], R_new, t_new)
         new = dict(R=R_new, t=t_new, R_prev=R, t_prev=t, vel_xi=vel_xi, has_vel=ok | state["has_vel"],
                    pstore=pstore, lstore=lstore, fs=fs)
-        out = dict(stats=stats, ref=ref, rel_R=R_cr, rel_t=t_cr,
-                   read=torch.stack([ok.to(torch.int32), n_in.to(torch.int32), last.to(torch.int32)]))
+        out = dict(stats=stats, ref=ref, rel_R=R_cr, rel_t=t_cr)
         carry = dict(frame=frame, pt_idx=pt_idx, pt_in=pt_in, ln_idx=ln_idx, ln_in=ln_in, n_in=n_in, ok=ok)
         return new, out, carry
 
@@ -1256,7 +1261,9 @@ def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
           counters, stats, rel)
 
     with the reference's argument and result order: `visual_segments` run
-    by `run_segments`. The counters may be host ints or 0-d device ints;
+    by `run_segments`. The counters may be host ints or 0-d device ints
+    (chained from the last call's `counters` without a host read),
+    `allow_mapping` a bool or a 0-d device bool;
     `counters` = (n_kf, frames_since_kf, last_kf_inliers) and `rel` =
     (ref slot, R_cr, t_cr) come back on the device, as in the reference."""
     segs = visual_segments(cam, cfg, voc_pt, voc_ln, build)
@@ -1267,8 +1274,8 @@ def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
         state = dict(R=R, t=t, R_prev=R_prev, t_prev=t_prev, vel_xi=vel_xi, has_vel=has_vel,
                      n_kf=_dev_int(n_kf, dev), fs=_dev_int(frames_since_kf, dev), last=_dev_int(last_kf_inliers, dev),
                      pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db, kf_view=kf_view, local_pt=local_pt)
-        inputs = scalar_inputs(dict(img=tuple(img_args), stamp=stamp), dev)
-        s, out, c, _ = run_segments(segs, inputs, state, int(n_kf), int(frames_since_kf), allow_mapping)
+        inputs = scalar_inputs(dict(img=tuple(img_args), stamp=stamp, allow=allow_mapping), dev)
+        s, out, c, _ = run_segments(segs, inputs, state)
         return (s["R"], s["t"], s["R_prev"], s["t_prev"], s["vel_xi"], s["has_vel"], s["pstore"], s["lstore"],
                 s["kstore"], s["bow_db"], s["kf_view"], s["local_pt"], c["pt_idx"], c["pt_in"], c["ln_idx"], c["ln_in"],
                 (s["n_kf"], s["fs"], s["last"]), out["stats"], (out["ref"], out["rel_R"], out["rel_t"]))
@@ -1279,7 +1286,7 @@ def make_step_visual(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
 def vi_segments(cam, cfg: SlamConfig, voc_pt, voc_ln, build) -> Segments:
     """T and K of the stereo-inertial step after IMU initialization.
     inputs: `img`, `imu` (the packed [T, 8] batch g | a | dt | mask),
-    `stamp`, `wide` (0-d bool: the tripled round-1 window after a
+    `stamp`, `allow`, `wide` (0-d bool: the tripled round-1 window after a
     map-changing event). state: R, t, R_prev, t_prev, v_w, bg, ba,
     gravity_w, preint_acc, ext, n_kf, fs, last, pstore, lstore, kstore,
     bow_db, kf_view, local_pt, pints."""
@@ -1306,8 +1313,7 @@ def vi_segments(cam, cfg: SlamConfig, voc_pt, voc_ln, build) -> Segments:
         new = dict(R=R_new, t=t_new, R_prev=R, t_prev=t, v_w=torch.where(ok, st2.v_w, vp_safe),
                    bg=torch.where(ok, st2.bg, bg), ba=torch.where(ok, st2.ba, ba), preint_acc=acc,
                    pstore=pstore, lstore=lstore, fs=fs)
-        out = dict(stats=stats, ref=ref, rel_R=R_cr, rel_t=t_cr,
-                   read=torch.stack([ok.to(torch.int32), n_in.to(torch.int32), last.to(torch.int32)]))
+        out = dict(stats=stats, ref=ref, rel_R=R_cr, rel_t=t_cr)
         carry = dict(frame=frame, pt_idx=pt_idx, pt_in=pt_in, ln_idx=ln_idx, ln_in=ln_in, n_in=n_in, ok=ok)
         return new, out, carry
 
@@ -1372,8 +1378,8 @@ def make_step_vi(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
           ln_in, counters, stats, rel)
 
     with the reference's argument and result order: `vi_segments` run by
-    `run_segments`. `wide` is a bool or a 0-d device bool; the counters are
-    as in make_step_visual."""
+    `run_segments`. `wide` is a bool or a 0-d device bool; the counters and
+    `allow_mapping` are as in make_step_visual."""
     segs = vi_segments(cam, cfg, voc_pt, voc_ln, build)
 
     def step(img_args, imu_args, stamp, R, t, v_w, bg, ba, gravity_w, preint_acc, ext, n_kf, frames_since_kf,
@@ -1383,8 +1389,9 @@ def make_step_vi(cam, cfg: SlamConfig, voc_pt, voc_ln, build):
                      ext=ext, n_kf=_dev_int(n_kf, dev), fs=_dev_int(frames_since_kf, dev),
                      last=_dev_int(last_kf_inliers, dev), pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db,
                      kf_view=kf_view, local_pt=local_pt, pints=pints)
-        inputs = scalar_inputs(dict(img=tuple(img_args), imu=imu_args, stamp=stamp, wide=wide), dev)
-        s, out, c, _ = run_segments(segs, inputs, state, int(n_kf), int(frames_since_kf), allow_mapping)
+        inputs = scalar_inputs(dict(img=tuple(img_args), imu=imu_args, stamp=stamp, allow=allow_mapping, wide=wide),
+                               dev)
+        s, out, c, _ = run_segments(segs, inputs, state)
         return (s["R"], s["t"], s["R_prev"], s["t_prev"], s["v_w"], s["bg"], s["ba"], s["preint_acc"], s["pstore"],
                 s["lstore"], s["kstore"], s["bow_db"], s["kf_view"], s["local_pt"], s["pints"], c["pt_idx"],
                 c["pt_in"], c["ln_idx"], c["ln_in"], (s["n_kf"], s["fs"], s["last"]), out["stats"],

@@ -45,20 +45,29 @@ inertial-only MAP problem) and `_apply_scale` rescales the map, and while
 the map is young `_scale_refinement` re-estimates scale and gravity at each
 keyframe after VIBA2.
 
-`_finish_fused` consumes a fused step's stats vector -- one frame late in
-`streaming` mode, as in the reference, so the stats read overlaps the next
-frame's work.
+`_finish_fused` consumes a fused step's stats vector, the frame's one read
+-- one frame late in `streaming` mode, as in the reference, so the stats
+read overlaps the next frame's work. The keyframe counters then lead on
+the device, chained from frame to frame; `n_kf`, `frames_since_kf` and
+`last_kf_inliers` are the host's mirrors, and a rare path that reads one
+while the device is ahead reads the device once (the reference's
+`int(self.n_kf)`). A frame's images (and the fused stereo-inertial frame's
+IMU batch) go to the device through pinned memory, so the upload never
+waits for the previous frame's program.
 
 CUDA graphs. On a GPU every fused frame (stereo, RGB-D and KB8 fisheye
 stereo after the map's first frame; stereo-inertial after the IMU
-initialization) replays captured graphs (frontend.graphs.FusedStep, the
-counterpart of the reference's jitted step): T, then the frame's one read
-of three ints, then K on a keyframe. The tracker's fused-step tensors are
-then the graphs' static buffers; a rare path replaces them with new
-tensors, which are copied in before the next replay, and the Atlas parks
-copies. The host-orchestrated frames run their stages as captured graphs
-(frontend.graphs.StageProgram, the counterpart of the reference's jitted
-stage programs): preintegration and its composition, the frame build,
+initialization) replays one captured graph (frontend.graphs.FusedStep, the
+counterpart of the reference's jitted step): T, the keyframe decision on
+the device, and K with or without windowed BA as conditional IF nodes;
+the step is captured when the tracker is constructed, with the host-path
+stages the sensor's first frames run (`warm_up_fused`). The tracker's
+fused-step tensors are then the graph's static buffers; a rare path
+replaces them with new tensors, which are copied in before the next
+replay, and the Atlas parks copies. The host-orchestrated frames run
+their stages as captured graphs (frontend.graphs.StageProgram, the
+counterpart of the reference's jitted stage programs): preintegration and
+its composition, the frame build,
 tracking (one read: inliers and the stores' counts), and on a keyframe the
 insertion, windowed BA, BoW add and candidate query (one read: new
 landmarks, counts, candidates), culling and the local map. The rare paths
@@ -160,13 +169,15 @@ class Tracker:
     On a GPU with loop closing on, construction runs
     `LoopCloser.warm_up` (its time in `loop_warmup_ms`); under CUDA graphs a
     mono or inertial tracker captures its initialization's stages there too
-    (`warm_up_init`, `init_warmup_ms`).
+    (`warm_up_init`, `init_warmup_ms`), and a stereo, RGB-D, KB8 stereo or
+    stereo-inertial one its fused step and its first frames' stages
+    (`warm_up_fused`, `fused_warmup_ms`).
 
     On a GPU the fused steps (visual, RGB-D, fisheye stereo and
-    stereo-inertial after IMU initialization) run as CUDA graphs, captured
-    at the first fused frame and at the first keyframe with windowed BA
-    and replayed every frame after (frontend.graphs.FusedStep; the frame's
-    one read sits between the tracking graph and the keyframe graph).
+    stereo-inertial after IMU initialization) run as one CUDA graph each,
+    captured at construction and replayed once a frame
+    (frontend.graphs.FusedStep; the keyframe branch is a pair of
+    conditional nodes, and the frame's one read is its stats vector).
     `cuda_graphs=False` runs them eagerly, for comparison (None: the class
     attribute `default_cuda_graphs`, True); on the CPU they always run
     eagerly. The stages of the host-orchestrated frames (the
@@ -221,8 +232,11 @@ class Tracker:
         self.voc_ln = vocab_ln if vocab_ln is not None else vocab_mod.Vocabulary(seed=23)
         self.bow_db = self._empty_bow_db()
         self.cuda_graphs = bool(self.default_cuda_graphs if cuda_graphs is None else cuda_graphs) and dev.type == "cuda"
-        self._step = graphs.FusedStep(step_mod.visual_segments(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame),
-                                      dev, self.cuda_graphs)
+        # the keyframe counters' host mirrors (see the `n_kf` property); set before anything assigns them
+        self._n_kf = self._frames_since_kf = self._last_kf_inliers = 0
+        self._counters_moved, self._counters_ahead, self._fused_last = True, False, None
+        self._step = self._fused_program(step_mod.visual_segments(cam, cfg, self.voc_pt, self.voc_ln,
+                                                                  self.build_frame))
         # the host-orchestrated frames' stages, sharing one graph memory pool
         self._stage_pool = torch.cuda.graph_pool_handle() if self.cuda_graphs else None
         self._stages = {name: self._program(fn, name) for name, fn in (
@@ -322,8 +336,12 @@ class Tracker:
         # full inertial BA, a deferred chunk)
         self._map_event_cooldown = 0
         if self.use_imu and not self.is_mono:  # the RGB-D-inertial sensor never runs it, as in the reference
-            self._step_vi = graphs.FusedStep(step_mod.vi_segments(cam, cfg, self.voc_pt, self.voc_ln, self.build_frame),
-                                             dev, self.cuda_graphs)
+            self._step_vi = self._fused_program(step_mod.vi_segments(cam, cfg, self.voc_pt, self.voc_ln,
+                                                                     self.build_frame))
+        # a frame's images as float32 device tensors: arrays and CPU tensors go through pinned memory (a copy from
+        # pageable memory would make the host wait for the device's queue, the previous frame's program included)
+        self._images = graphs.PinnedUpload(dev)
+        self._imu_upload = graphs.PinnedUpload(dev)  # the fused stereo-inertial frame's IMU batch
         self.loop_warmup_ms = None
         if self.loop_closer is not None and dev.type == "cuda":
             self.loop_warmup_ms = self.loop_closer.warm_up(self)
@@ -331,6 +349,44 @@ class Tracker:
         self.merge_warmup_ms = None  # the merge stages' warm-ups (`warm_up_merge`) summed, under graphs
         self._warmed: set[tuple] = set()  # (inertial stage, keyframe count or width) captured by `_warm_inertial`
         self.init_warmup_ms = self.warm_up_init() if self.cuda_graphs and (self.is_mono or self.use_imu) else None
+        self.fused_warmup_ms = self.warm_up_fused() if self._fused_step() is not None else None
+
+    def _fused_program(self, segs) -> graphs.FusedStep:
+        return graphs.FusedStep(segs, self.device, self.cuda_graphs)
+
+    def _fused_step(self) -> graphs.FusedStep | None:
+        """The fused step this sensor runs (stereo, RGB-D and KB8 stereo: the
+        visual one; stereo-inertial: the inertial one; none for the others)."""
+        if self.is_mono or self.cfg.sensor == "rgbd_imu":
+            return None
+        return self._step_vi if self.use_imu else self._step
+
+    # -- the keyframe counters ------------------------------------------------
+    # Host mirrors of the fused step's device counters. After a fused frame the
+    # device's lead (in streaming mode the host has read only the previous
+    # frame's stats): reading a mirror then reads the device once, as the
+    # reference's `int(self.n_kf)` does. Setting one (a host path that moves
+    # the counters) marks all three to be written at the next fused frame.
+    def _sync_counters(self) -> None:
+        if self._counters_ahead:
+            self._counters_ahead = False
+            c = self._fused_last.counters
+            self._n_kf, self._frames_since_kf, self._last_kf_inliers = torch.stack(
+                [c["n_kf"], c["fs"], c["last"]]).tolist()
+
+    def _set_counter(self, name: str, value) -> None:
+        self._sync_counters()
+        setattr(self, name, int(value))
+        self._counters_moved = True
+
+    n_kf = property(lambda self: (self._sync_counters(), self._n_kf)[1],
+                    lambda self, v: self._set_counter("_n_kf", v), doc="keyframes in the active map")
+    frames_since_kf = property(lambda self: (self._sync_counters(), self._frames_since_kf)[1],
+                               lambda self, v: self._set_counter("_frames_since_kf", v),
+                               doc="frames since the newest keyframe")
+    last_kf_inliers = property(lambda self: (self._sync_counters(), self._last_kf_inliers)[1],
+                               lambda self, v: self._set_counter("_last_kf_inliers", v),
+                               doc="what the newest keyframe observes: its inliers plus the landmarks it created")
 
     def _program(self, fn, name: str) -> graphs.StageProgram:
         return graphs.StageProgram(fn, self.device, self.cuda_graphs, name, self._stage_pool)
@@ -365,9 +421,13 @@ class Tracker:
     # -- trajectory ----------------------------------------------------------
     def finalize(self):
         """End of run: drain the deferred BA chunks, so that saved poses
-        reflect the fully refined map."""
+        reflect the fully refined map, and read the stats of a fused frame
+        still pending (streaming), so that its kernel launches are counted."""
         if self._deferred_ba:
             self.run_deferred_ba(max_chunks=len(self._deferred_ba))
+        fused = self._fused_step()
+        if fused is not None:
+            fused.settle()
 
     @property
     def trajectory(self) -> list[tuple[float, np.ndarray, np.ndarray]]:
@@ -375,7 +435,8 @@ class Tracker:
         with the CURRENT keyframe poses, so BA refinements reach every frame."""
         if self._traj_pending:
             pend, self._traj_pending = self._traj_pending, []
-            refs = torch.tensor([e[1] for e in pend], device=self.device)
+            # a fused frame's reference keyframe is the step's own (a device scalar), a host-path frame's a host int
+            refs = torch.stack([r if isinstance(r, torch.Tensor) else self._dev(r) for _, r, *_ in pend]).long()
             R_cw, t_cw = _compose_trajectory(
                 refs, torch.stack([e[2] for e in pend]), torch.stack([e[3] for e in pend]),
                 torch.stack([e[4] for e in pend]), torch.stack([e[5] for e in pend]),
@@ -418,7 +479,8 @@ class Tracker:
         boundaries, and without the carried sample the interval between the
         last sample of frame k-1 and the first of frame k would be dropped
         (10% of every frame's motion at 200 Hz / 20 fps). `packed` gives the
-        one [T, 8] tensor g | a | dt | mask of the fused step instead of four."""
+        one [T, 8] tensor g | a | dt | mask of the fused step instead of four,
+        uploaded through pinned memory (`_imu_upload`)."""
         T = self._imu_pad
         g = np.zeros((T, 3), np.float32)
         a = np.zeros((T, 3), np.float32)
@@ -444,8 +506,7 @@ class Tracker:
                 dts[: n - 1] = np.diff(stamps[:n]).astype(np.float32)
                 mask[: n - 1] = dts[: n - 1] > 0
         if packed:
-            buf = np.concatenate([g, a, dts[:, None], mask[:, None].astype(np.float32)], axis=1)
-            return torch.from_numpy(buf).to(self.device)
+            return self._imu_upload(np.concatenate([g, a, dts[:, None], mask[:, None].astype(np.float32)], axis=1))[0]
         return tuple(torch.from_numpy(x).to(self.device) for x in (g, a, dts, mask))
 
     def _ingest_imu(self, imu: dict, stamp: float):
@@ -896,6 +957,38 @@ class Tracker:
             torch.cuda.synchronize(dev)
         return (time.perf_counter() - t0) * 1e3
 
+    def _blank_images(self) -> tuple:
+        cam = self.cam_raw
+        return tuple(torch.zeros((cam.height, cam.width), device=self.device) for _ in range(2))
+
+    def warm_up_fused(self) -> float:
+        """Under CUDA graphs, capture the sensor's fused step on the empty
+        stores and blank images (`FusedStep.prepare`), and the host-path
+        stages its first frames run (the frame build, `_warm_host_stages`,
+        and for the stereo-inertial sensor the preintegration and its
+        composition), results dropped: no capture then lands inside a
+        frame. Returns its wall time in ms, the device synchronised at the
+        end."""
+        t0 = time.perf_counter()
+        fused, dev = self._fused_step(), self.device
+        imgs = self._blank_images()
+        if fused.graphs:
+            names = self._VI_STATE if self.use_imu else self._VISUAL_STATE
+            state = {k: getattr(self, a) for k, a in names.items()}
+            inputs = dict(img=imgs, stamp=0.0, allow=True)
+            if self.use_imu:
+                state.update(gravity_w=self._gravity0(), preint_acc=imu_ops.identity_with_bias(self.bg, self.ba))
+                inputs.update(imu=torch.zeros((self._imu_pad, 8), device=dev), wide=False)
+            fused.prepare(state, inputs)
+        if self._stages["track"].graphs:
+            self._warm_host_stages(self._build_host(*imgs))
+            if self.use_imu:
+                p = self._stages["preintegrate"](torch.zeros((self._imu_pad, 8), device=dev), self.bg, self.ba)
+                self._stages["compose"](p, p)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
     def _warm_host_stages(self, frame: FrameData) -> None:
         """The host-path stages of a map's first frames and keyframes, run once
         on `frame` and the tracker's stores, results dropped: tracking,
@@ -1090,7 +1183,7 @@ class Tracker:
         frame's raw batch {"gyro" [n,3], "acc" [n,3], "stamps" [n]} covering
         (previous frame, this frame]; the visual sensor ignores it."""
         self._check_timestamp(stamp)
-        img_args = (self._image(img_l), self._image(img_r))
+        img_args = self._images(img_l, img_r)
         if self.use_imu:
             # after IMU init the frames run the fused stereo-inertial step;
             # before it, and after a loss, they are host-orchestrated
@@ -1109,7 +1202,7 @@ class Tracker:
         `process`. The map initializes on the host path; later frames run
         the fused step, but with an IMU every frame is host-orchestrated."""
         self._check_timestamp(stamp)
-        img_args = (self._image(img), self._image(depth))
+        img_args = self._images(img, depth)
         if self.use_imu or self.state == TrackingState.NOT_INITIALIZED:
             return self._process_frame(self._build_host(*img_args), stamp, allow_mapping, imu)
         return self._process_fused(img_args, stamp, allow_mapping)
@@ -1118,10 +1211,7 @@ class Tracker:
         """Monocular / mono-inertial frame (`imu` as in `process`): every
         frame is host-orchestrated."""
         self._check_timestamp(stamp)
-        return self._process_frame(self._build_host(self._image(img)), stamp, allow_mapping, imu)
-
-    def _image(self, img) -> torch.Tensor:
-        return torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        return self._process_frame(self._build_host(*self._images(img)), stamp, allow_mapping, imu)
 
     def _info(self, n_inliers: int, n_new: int) -> dict:
         """The frame's record. The stores' counts come from the frame's last
@@ -1316,33 +1406,33 @@ class Tracker:
         return self._info(n_inliers, n_new)
 
     # the tracker's attribute for each entry of a fused step's state
-    _FUSED_STATE = dict(R="R", t="t", R_prev="R_prev", t_prev="t_prev", last="last_kf_inliers", pstore="pstore",
-                        lstore="lstore", kstore="kstore", bow_db="bow_db", kf_view="_kf_view_dev",
-                        local_pt="_local_pt")
+    _FUSED_STATE = dict(R="R", t="t", R_prev="R_prev", t_prev="t_prev", pstore="pstore", lstore="lstore",
+                        kstore="kstore", bow_db="bow_db", kf_view="_kf_view_dev", local_pt="_local_pt")
     _VISUAL_STATE = dict(_FUSED_STATE, vel_xi="vel_xi", has_vel="has_vel")
     _VI_STATE = dict(_FUSED_STATE, v_w="v_w", bg="bg", ba="ba", gravity_w="gravity_w", preint_acc="_preint_acc",
                      ext="ext", pints="_pints")
 
-    def _run_fused(self, fused: graphs.FusedStep, names: dict, inputs: dict, stamp: float, allow_mapping: bool):
+    def _run_fused(self, fused: graphs.FusedStep, names: dict, inputs: dict, stamp: float) -> graphs.FrameStats:
         """One fused frame: the step on the tracker's state, which the tracker
-        then adopts (under CUDA graphs, the graphs' buffers), the host's
-        counter mirrors moved as the device's were, and the frame's record."""
+        then adopts (under CUDA graphs, the graphs' buffers), with the
+        keyframe counters a host path moved since the last fused frame; the
+        frame's record relative to the step's reference keyframe. Returns the
+        frame's stats on their way to the host."""
+        if self._counters_moved or fused is not self._fused_last:
+            fused.set_counters(self._n_kf, self._frames_since_kf, self._last_kf_inliers)
+            self._counters_moved = False
         state = {k: getattr(self, a) for k, a in names.items()}
-        s, out, need_kf = fused(state, inputs, self.n_kf, self.frames_since_kf, allow_mapping)
+        s, rec, stats = fused(state, inputs)
         for k, a in names.items():
             setattr(self, a, s[k])
-        if need_kf:
-            self.n_kf, self.frames_since_kf = self.n_kf + 1, 0
-        else:
-            self.frames_since_kf += 1
-        self._traj_pending.append((stamp, max(self.n_kf - 1, 0), out["rel_R"], out["rel_t"], self.R.clone(),
-                                   self.t.clone()))
-        return out["stats"]
+        self._fused_last, self._counters_ahead = fused, True
+        self._traj_pending.append((stamp, rec["ref"], rec["rel_R"], rec["rel_t"], self.R.clone(), self.t.clone()))
+        return stats
 
     def _process_fused(self, img_args, stamp: float, allow_mapping: bool) -> dict:
-        stats_dev = self._run_fused(self._step, self._VISUAL_STATE, dict(img=tuple(img_args), stamp=stamp), stamp,
-                                    allow_mapping)
-        return self._finish_fused(stamp, stats_dev, img_args)
+        stats = self._run_fused(self._step, self._VISUAL_STATE,
+                                dict(img=tuple(img_args), stamp=stamp, allow=bool(allow_mapping)), stamp)
+        return self._finish_fused(stamp, stats, img_args)
 
     def _process_fused_vi(self, img_args, stamp: float, allow_mapping: bool, imu: dict | None) -> dict:
         """One fused stereo-inertial frame (after IMU init): the whole
@@ -1359,10 +1449,10 @@ class Tracker:
         wide = self._map_event_cooldown > 0
         if wide:
             self._map_event_cooldown -= 1
-        stats_dev = self._run_fused(self._step_vi, self._VI_STATE,
-                                    dict(img=tuple(img_args), imu=imu_packed, stamp=stamp, wide=wide), stamp,
-                                    allow_mapping)
-        info = self._finish_fused(stamp, stats_dev, img_args)
+        stats = self._run_fused(self._step_vi, self._VI_STATE,
+                                dict(img=tuple(img_args), imu=imu_packed, stamp=stamp, allow=bool(allow_mapping),
+                                     wide=wide), stamp)
+        info = self._finish_fused(stamp, stats, img_args)
         # staged refinement (VIBA1 at +5 s, VIBA2 at +15 s), queued as
         # per-frame chunks so the full-map sweep never lands on one frame
         if (self.state == TrackingState.OK and self._viba_stage is not None and self._viba_stage < 2
@@ -1380,17 +1470,25 @@ class Tracker:
             self._preint_since_kf = self._preint_acc
             self._preint_acc = None
 
-    def _finish_fused(self, stamp, stats_dev, img_args) -> dict:
-        """Consume a fused step's stats vector (the previous frame's in
-        streaming mode): shared by the visual and the stereo-inertial step."""
+    def _finish_fused(self, stamp, stats: graphs.FrameStats, img_args) -> dict:
+        """Consume a fused step's stats vector, the frame's one read -- the
+        previous frame's in streaming mode, as in the reference (its
+        `_finish_fused`): the device's counters then stay ahead, chained into
+        the next frame, and code that needs the current count reads it (see
+        `n_kf`). Without streaming the host's counter mirrors are set from
+        the stats. Shared by the visual and the stereo-inertial step."""
         if self.streaming:
-            pending, self._pending_stats = self._pending_stats, (stamp, stats_dev, img_args)
+            pending, self._pending_stats = self._pending_stats, (stamp, stats, img_args)
             if pending is None:
                 info = {"state": self.state, **_EMPTY_INFO}
                 self.stats.append(info)
                 return info
-            _, stats_dev, img_args = pending
-        stats = stats_dev.cpu().numpy()
+            _, stats, img_args = pending
+        stats = stats.read()
+        # the mirrors as the read frame left the counters (the frame just launched may have moved them since)
+        self._n_kf, self._frames_since_kf, self._last_kf_inliers = (
+            int(stats[step_mod.ST_NKF]), int(stats[step_mod.ST_FSKF]), int(stats[step_mod.ST_LASTKFIN]))
+        self._counters_ahead = self.streaming
 
         n_inliers = int(stats[step_mod.ST_NIN])
         if stats[step_mod.ST_OK] > 0:

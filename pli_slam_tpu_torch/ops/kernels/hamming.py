@@ -91,10 +91,15 @@ class ReplayCounter:
             for m, b in zip(self.modules, before):
                 m.launches = b
 
-    def replay(self, graph) -> None:
-        graph.replay()
+    def add(self) -> None:
+        """Count one run of what was captured (a replay, or one of a
+        conditional body's runs, known once the frame's stats are read)."""
         for m, n in zip(self.modules, self.per_replay):
             m.launches += n
+
+    def replay(self, graph) -> None:
+        graph.replay()
+        self.add()
 
 
 def _nvcc() -> str:
@@ -292,12 +297,12 @@ def gated_match_cuda(fdesc, fuv, fvalid, sdesc, suv, svalid, radius, max_dist: f
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_tiles = -(-n // _block_rows)
     tickets = _tickets.get((dev.index, stream))
-    if (tickets is None or tickets.numel() < n_tiles) and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("gated_match: the kernel's tickets for this stream must exist before a CUDA graph "
-                           "capture; launch it once on the capture stream first")
     if tickets is None or tickets.numel() < n_tiles:
-        # one counter per tile of frame rows; the kernel leaves them at zero
-        tickets = _tickets[(dev.index, stream)] = torch.zeros(max(n_tiles, 64), dtype=torch.int32, device=dev)
+        # one counter per tile of frame rows; the kernel leaves them at zero. Inside a capture (the body of a
+        # conditional node is captured on a stream of its own) they are the graph's, zeroed at every replay
+        tickets = torch.zeros(max(n_tiles, 64), dtype=torch.int32, device=dev)
+        if not torch.cuda.is_current_stream_capturing():
+            _tickets[(dev.index, stream)] = tickets
     n_chunks = _chunks.get((dev.index, n, p))  # the kernel's split of the store for this shape and card
     if n_chunks is None and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(f"gated_match: shape N={n} x P={p} first seen inside a CUDA graph capture; "

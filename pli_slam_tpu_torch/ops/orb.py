@@ -137,7 +137,10 @@ def _extract_level(img: torch.Tensor, k_level: int, cfg: OrbConfig):
     valid = top_s > 0.0
 
     m10, m01 = _ic_angle_maps(img)
-    angle = torch.atan2(m01[ky, kx], m10[ky, kx])
+    # a candidate of a cell past the image's edge (a level that is not a whole number of cells, with fewer corners
+    # than slots) lies outside it: JAX clamps the gather, so does the port
+    ky_in, kx_in = torch.clamp(ky, 0, h - 1), torch.clamp(kx, 0, w - 1)
+    angle = torch.atan2(m01[ky_in, kx_in], m10[ky_in, kx_in])
 
     blurred = image_ops.gaussian_blur(img, sigma=2.0, radius=3)
     pool = device_const("orb_pool", dev, lambda: _POOL)

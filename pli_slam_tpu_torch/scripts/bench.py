@@ -52,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from pli_slam_tpu_torch.frontend.step import ST_KF_CREATED
 from pli_slam_tpu_torch.scripts import common
 from pli_slam_tpu_torch.utils import profile
 from pli_slam_tpu_torch.utils.config import SlamConfig
@@ -80,21 +81,35 @@ class _SpanNames:
         return contextlib.nullcontext()
 
 
-def frame_kind(tracker, run) -> str:
+def frame_kind(tracker, run):
     """What one `tracker.process` call was, from the tracker's state before
-    it (`run` = (fused, n_kf, the rare paths' names so far)): "fused" or
-    "host" (host-orchestrated), "+kf" when it made a keyframe, "+reloc" when
-    it tried a relocalization, "+rare" for a loop closure or a BA chunk."""
+    it (`run` = (fused, n_kf before it -- None before a streaming fused
+    frame --, the rare paths' names so far)): "fused" or "host" (host-orchestrated), "+kf" when it made a
+    keyframe, "+reloc" when it tried a relocalization, "+rare" for a loop
+    closure or a BA chunk. A streaming fused frame's keyframe is known from
+    its own stats, still on their way to the host: the kind then comes
+    back as (kind, the frame's stats), for `resolve_kind` after the run
+    (reading the keyframe count now would make the host wait for the frame
+    just launched)."""
     fused, n_kf, n_names = run
     kind = "fused" if fused else "host"
+    names = tracker.span.names[n_names:]
+    rest = ("+reloc" if "reloc" in names else "") + ("+rare" if any(n != "reloc" for n in names) else "")
+    if n_kf is None:
+        pending = tracker._pending_stats
+        return (kind, rest, pending[1] if pending is not None else None)
     if tracker.n_kf > n_kf:
         kind += "+kf"
-    names = tracker.span.names[n_names:]
-    if "reloc" in names:
-        kind += "+reloc"
-    if any(n != "reloc" for n in names):
-        kind += "+rare"
-    return kind
+    return kind + rest
+
+
+def resolve_kind(kind) -> str:
+    """A `frame_kind` once the frames' stats are read."""
+    if isinstance(kind, str):
+        return kind
+    base, rest, stats = kind
+    made = stats is not None and stats.read()[ST_KF_CREATED] > 0
+    return base + ("+kf" if made else "") + rest
 
 
 def frame_split(kinds: list[str], times_ms) -> dict:
@@ -136,8 +151,8 @@ def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None, cu
     times, kinds = [], []
     t0 = time.time()
     for i, (img_l, img_r, t, _, imu) in enumerate(frames[N_WARM_FLAGSHIP:]):
-        run = (tracker.imu_ready and tracker.gravity_w is not None and tracker.state == "OK", tracker.n_kf,
-               len(tracker.span.names))
+        fused = tracker.imu_ready and tracker.gravity_w is not None and tracker.state == "OK"
+        run = (fused, None if fused and tracker.streaming else tracker.n_kf, len(tracker.span.names))
         f0 = time.perf_counter()
         tracker.process(img_l, img_r, t, imu=imu)
         times.append(time.perf_counter() - f0)
@@ -152,7 +167,7 @@ def run_flagship(n_frames: int, cam=None, cfg=None, device=None, frames=None, cu
     gt = np.stack([p for _, _, _, p, _ in frames])
     ate = synthetic.ate_rmse(tracker.positions(), gt)
     times_ms = np.asarray(times) * 1e3
-    split = frame_split(kinds, times_ms)
+    split = frame_split([resolve_kind(k) for k in kinds], times_ms)
     log(f"bench[flagship]: timed frames by kind (frames, s, p50 ms, p99 ms): {split}")
     return {
         "fps": round(fps, 2),

@@ -10,6 +10,16 @@ captured with `torch.cuda.graph` and replayed. It prints one line per
 probe, `ok` or the first line of the error, then the kernel check (largest
 difference from `torch.linalg.svd`'s closest rotation, agreement of the
 sign of det, time per call of both). Needs a GPU.
+
+The conditional-node cases (`CONDITIONAL`) hold what the fused steps'
+graphs need: first whether this torch has PyTorch's own route
+(`CUDAGraph.begin_capture_to_if_node`) and which allocator hooks it
+offers, then, through the port's route (ops.kernels.conditional.if_node,
+`csrc/cond_node.cu`), an IF node whose body allocates and writes a buffer,
+replayed with its predicate set by a kernel of the graph to true and then
+to false, and the fused step's operations inside IF bodies (the gated
+match, the closest-rotation kernel, the dense solves of GN and windowed BA,
+a matrix product, a copy), each result checked against an eager run.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import concurrent.futures as cf
 import json
 import subprocess
 import sys
+import traceback
 
 import torch
 
@@ -91,8 +102,137 @@ def _rot3(x):
     return rot3.closest_rotation_cuda(x)
 
 
+def conditional_route() -> str:
+    """Whether this torch has PyTorch's own IF-node route, and the allocator's pool hooks it offers."""
+    g = torch.cuda.CUDAGraph
+    missing = [n for n in ("get_currently_capturing_graph", "begin_capture_to_if_node",
+                           "end_capture_to_conditional_node") if not hasattr(g, n)]
+    hooks = sorted(n for n in dir(torch._C) if "AllocateCurrent" in n or n in ("_cuda_endAllocateToPool",
+                                                                               "_cuda_releasePool"))
+    own = "torch's route: " + ("present" if not missing else "missing " + ", ".join(missing))
+    return f"{own}; allocator hooks: {', '.join(hooks)}"
+
+
+def _capture_if(dev, before, body, flag):
+    """A graph that runs `before()` and then `body()` inside an IF node on `flag > 0` (flag: an int32 CUDA
+    scalar read by a kernel of the graph at each replay)."""
+    from pli_slam_tpu_torch.ops.kernels.conditional import BodyPool, if_node, ready
+    ready(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    bodies = BodyPool(dev, graph)
+    with torch.cuda.stream(side):
+        before()
+        body()  # warm-up: builds, handles, the kernel's per-shape plans
+        torch.cuda.synchronize(dev)
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            before()
+            with if_node(flag > 0, bodies):
+                body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graph
+
+
+def _replay_both(graph, flag, dev, check_true, check_false) -> str:
+    for value, check in ((1, check_true), (0, check_false), (1, check_true)):
+        flag.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        bad = check()
+        if bad:
+            return f"predicate {bool(value)}: {bad}"
+    return "ok"
+
+
+def conditional_alloc(dev) -> str:
+    """An IF body that allocates a buffer, writes it and copies it out."""
+    x = torch.arange(1, 1025, dtype=torch.float32, device=dev)
+    out = torch.empty(1024, device=dev)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def body():
+        buf = torch.empty(1024, device=dev)  # allocated inside the body: from the capture's pool
+        torch.mul(x, 2.0, out=buf)
+        buf.add_(1.0)
+        out.copy_(buf)
+
+    graph = _capture_if(dev, lambda: out.fill_(-1.0), body, flag)
+    # memory the caching allocator hands out after the capture: a body whose buffer was not the pool's writes here
+    others = [torch.full((1024,), 7.0, device=dev) for _ in range(8)]
+    want = 2 * x + 1
+
+    def held():
+        if not torch.equal(out, want):
+            return "body's result wrong"
+        return None if all(bool((o == 7.0).all()) for o in others) else "the body wrote outside its pool"
+
+    return _replay_both(graph, flag, dev, held, lambda: None if bool((out == -1.0).all()) else "body ran")
+
+
+def conditional_kernels(dev) -> str:
+    """The fused step's operations inside two IF bodies on complementary predicates, their results merged
+    into one set of output buffers (as the keyframe branch with and without windowed BA)."""
+    from pli_slam_tpu_torch.ops.kernels import hamming, rot3
+    from pli_slam_tpu_torch.ops.kernels.conditional import BodyPool, if_node, last_body_census, ready
+    ready(dev)
+    g = torch.Generator().manual_seed(3)
+    fdesc, sdesc = _pm1(dev, 1200, g), _pm1(dev, 4096, g)
+    fuv, suv = (torch.rand(1200, 2, generator=g) * 600).to(dev), (torch.rand(4096, 2, generator=g) * 600).to(dev)
+    fval, sval = torch.ones(1200, dtype=torch.bool, device=dev), torch.rand(4096, generator=g).to(dev) > 0.1
+    R = (torch.eye(3) + 1e-3 * torch.randn(16, 3, 3, generator=g)).to(dev)
+    A = (lambda a: a @ a.T + 150 * torch.eye(150))(torch.randn(150, 150, generator=g)).to(dev)
+    b = torch.randn(150, generator=g).to(dev)
+    H6 = (lambda a: a @ a.transpose(-1, -2) + 6 * torch.eye(6))(torch.randn(4, 6, 6, generator=g)).to(dev)
+    g6 = torch.randn(4, 6, generator=g).to(dev)
+    radius = torch.full((), 40.0, device=dev)
+
+    def run(heavy: bool):
+        idx, best, ok = hamming.gated_match(fdesc, fuv, fval, sdesc, suv, sval, radius)
+        Rn = rot3.closest_rotation(R)
+        d6 = torch.linalg.solve_ex(H6, g6).result
+        x = torch.linalg.solve_ex(A, b).result if heavy else torch.zeros(150, device=dev)
+        return idx, best, ok, Rn, d6, x, Rn @ Rn.transpose(-1, -2)
+
+    want = {heavy: [t.clone() for t in run(heavy)] for heavy in (True, False)}
+    outs = [torch.empty_like(t) for t in want[True]]
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    bodies = BodyPool(dev, graph)
+    with torch.cuda.stream(side):
+        run(True), run(False)
+        torch.cuda.synchronize(dev)
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            pred = flag > 0
+            for p, heavy in ((pred, True), (~pred, False)):
+                with if_node(p, bodies):
+                    for o, t in zip(outs, run(heavy)):
+                        o.copy_(t)
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+    def same(heavy):
+        return lambda: next((f"output {i} differs" for i, (o, w) in enumerate(zip(outs, want[heavy]))
+                             if not torch.equal(o, w)), None)
+
+    result = _replay_both(graph, flag, dev, same(True), same(False))
+    return result if result != "ok" else f"ok (the second body's nodes: {last_body_census()})"
+
+
+CONDITIONAL = {"route": lambda dev: conditional_route(),
+               "IF body allocates": conditional_alloc,
+               "kernels and solves in IF bodies": conditional_kernels}
+
+
 def run_probe(name: str) -> str:
     dev = torch.device("cuda", 0)
+    if name in CONDITIONAL:
+        try:
+            return CONDITIONAL[name](dev)
+        except Exception as exc:  # the refusal is the result; where it came from on stderr
+            traceback.print_exc()
+            return (str(exc).strip().splitlines() or [type(exc).__name__])[0][:200]
     probes, rnd, spd = _probes(dev)
     rnd_fixed.update(r16=rnd(16, 3, 3), s6=spd(1, 6), b6=rnd(1, 6), s60=spd(1, 60), b60=rnd(1, 60),
                      s150=spd(1, 150), b150=rnd(1, 150), s9=spd(9, 9), s3=spd(1, 3)[0],
@@ -162,7 +302,7 @@ def main(argv=None) -> int:
     if args.only:
         print(run_probe(args.only))
         return 0
-    names = list(_probes(torch.device("cuda", 0))[0])
+    names = list(CONDITIONAL) + list(_probes(torch.device("cuda", 0))[0])
 
     def one(name):
         proc = subprocess.run([sys.executable, "-m", "pli_slam_tpu_torch.utils.capture_probe", "--only", name],
@@ -174,7 +314,9 @@ def main(argv=None) -> int:
         results = dict(pool.map(one, names))
     for name in names:
         print(f"capture {name}: {results[name]}")
-    print(json.dumps({"capture": results, "rot3": kernel_check()}))
+    print(json.dumps({"conditional": {n: results[n] for n in CONDITIONAL},
+                      "capture": {n: r for n, r in results.items() if n not in CONDITIONAL},
+                      "torch": torch.__version__, "cuda": torch.version.cuda, "rot3": kernel_check()}))
     return 0
 
 

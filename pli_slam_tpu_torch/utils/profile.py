@@ -3,7 +3,7 @@
 Run from the repository root:
   python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono|loop|flagship
                                               | --first-closure | --nondet rgbd|mono|flagship | --stages
-                                              | --init-split]
+                                              | --init-split | --busy]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -55,7 +55,13 @@ graphs and then eagerly, each up to its IMU-initialization frame, and
 splits that frame's time by synchronised timers around the
 initialization's parts: `_try_imu_init`, the full inertial BA, the
 "imu_init" and "vi_ba" stages (their captures apart), and, on a tree that
-still has them, the eager MAP problem and its seeds.
+still has them, the eager MAP problem and its seeds. `--busy` gives the
+device's busy share over a window of 10 consecutive fused visual frames
+and, apart, 10 fused stereo-inertial frames (graphs, streaming; one
+CUDA-only trace a window, nothing per frame) and each tracker's
+construction time; it runs on an earlier tree given this profile.py
+(`git archive` the parent into `build/parent`, copy this file over its
+own, run both in one call).
 
 Needs a CUDA device. The chrome trace of pass 1 is written under `build/`
 and deleted once read (it runs to ~100 MB).
@@ -671,15 +677,16 @@ def _stages(cam, cfg, frames, dev, vi: bool = False):
     return frame_ms, stage_ms
 
 
-def _traced(tracker, frames, label: str):
-    """Drive `frames` through `tracker` inside a CUDA-only trace; prints the
-    window's wall time, device busy time and launches per frame."""
+def _traced(tracker, frames, label: str, tag: str = "vi"):
+    """Drive `frames` through `tracker` inside one CUDA-only trace (no mark
+    and no synchronisation per frame); prints the window's wall time, device
+    busy time and launches per frame."""
     acts = torch.profiler.ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[acts.CUDA]) as prof:
         t0 = time.perf_counter()
         for fr in frames:
-            tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+            tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr.get("imu"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     trace = os.path.join("build", "profile_trace.json")
@@ -688,10 +695,25 @@ def _traced(tracker, frames, label: str):
     busy_us, n_dev, launches, graph_launches = trace_busy(trace)
     os.remove(trace)
     n = len(frames)
-    print(f"profile[vi]: {label}: {n} frames traced (CUDA activity only), wall {wall * 1e3:.1f} ms "
+    print(f"profile[{tag}]: {label}: {n} frames traced (CUDA activity only), wall {wall * 1e3:.1f} ms "
           f"({wall * 1e3 / n:.1f} ms/frame); device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / 1e6 / wall:.1f}% "
           f"of the traced window; {launches} kernel launches ({launches / n:.0f} per frame) and {graph_launches} "
           f"graph launches ({graph_launches / n:.1f} per frame) from the host", flush=True)
+
+
+def _to_fused_vi(tracker, frames, k: int) -> int:
+    """Drive `frames` from `k` until the IMU initializes, then three fused
+    frames (the first allocate); returns the next frame's index."""
+    while not tracker.imu_ready and k < N_FRAMES_VI:
+        fr = frames[k]
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+        k += 1
+    if not tracker.imu_ready:
+        raise SystemExit("profile: IMU initialization did not fire")
+    print(f"profile[vi]: IMU initialization fired at frame {k - 1}: {tracker.imu_init_log[-1]}", flush=True)
+    for fr in frames[k:k + 3]:  # the first fused frames allocate
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+    return k + 3
 
 
 def main_vi(dev) -> int:
@@ -706,17 +728,7 @@ def main_vi(dev) -> int:
         tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
     k = N_WARM
     _traced(tracker, frames[k:k + N_WINDOW], f"host path before IMU init, frames {k}-{k + N_WINDOW - 1}")
-    k += N_WINDOW
-    while not tracker.imu_ready and k < N_FRAMES_VI:
-        fr = frames[k]
-        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
-        k += 1
-    if not tracker.imu_ready:
-        raise SystemExit("profile: IMU initialization did not fire")
-    print(f"profile[vi]: IMU initialization fired at frame {k - 1}: {tracker.imu_init_log[-1]}", flush=True)
-    for fr in frames[k:k + 3]:  # the first fused frames allocate
-        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
-    k += 3
+    k = _to_fused_vi(tracker, frames, k + N_WINDOW)
     _traced(tracker, frames[k:k + N_WINDOW], f"fused stereo-inertial step, frames {k}-{k + N_WINDOW - 1}")
 
     frame_ms, stage_ms, tr = _stages(cam, cfg, frames, dev, vi=True)
@@ -726,6 +738,37 @@ def main_vi(dev) -> int:
     for name, v in sorted(stage_ms.items(), key=lambda kv: -sum(kv[1])):
         print(f"  {name:20s} calls {len(v):3d} (frames 0-{N_FRAMES_VI - 1})  mean {np.mean(v):8.2f} ms  "
               f"{100 * sum(v) / sum(frame_ms):5.1f}% of all frames' time", flush=True)
+    return 0
+
+
+def main_busy(dev) -> int:
+    """The device's busy share over N_WINDOW consecutive fused frames, the
+    visual step's and the stereo-inertial step's apart, each window in one
+    CUDA-only trace (no mark and no synchronisation per frame) of a fresh
+    graph tracker in streaming mode; the trackers' construction times. Runs
+    on an earlier tree of the port too (it needs only `Tracker`)."""
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.utils import synthetic
+
+    for vi in (False, True):
+        cfg, cam = (slice_config_vi() if vi else slice_config()), slice_camera()
+        frames = vi_frames(cam, cfg, N_FRAMES_VI, dev) if vi else list(
+            synthetic.make_sequence(cam, N_FRAMES, dev, fps=cfg.fps))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracker = Tracker(cam, cfg, dev)
+        torch.cuda.synchronize()
+        print(f"profile[busy]: {'stereo-inertial' if vi else 'visual'} Tracker constructed in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({getattr(tracker, 'fused_warmup_ms', None)} ms of it "
+              f"the fused step's and the first frames' captures)", flush=True)
+        tracker.streaming = True
+        for fr in frames[:N_WARM]:
+            tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr.get("imu"))
+        k = _to_fused_vi(tracker, frames, N_WARM) if vi else N_WARM
+        _traced(tracker, frames[k:k + N_WINDOW], f"fused {'stereo-inertial' if vi else 'visual'} step, frames "
+                f"{k}-{k + N_WINDOW - 1}", tag="busy")
+        cap_ms, pool = capture_stats(tracker)
+        print(f"profile[busy]: captures {cap_ms:.1f} ms, graph pools {pool / 2**20:.1f} MiB", flush=True)
     return 0
 
 
@@ -1046,6 +1089,8 @@ def main(argv=None) -> int:
                     help="instead: one run of phase 7, 8 or 14a listing the ops that can make the card's runs differ")
     ap.add_argument("--init-split", action="store_true",
                     help="instead: the stereo-inertial path's IMU-init frame split into its parts, graphs and eager")
+    ap.add_argument("--busy", action="store_true",
+                    help="instead: the busy share of a window of fused visual and of fused stereo-inertial frames")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -1065,6 +1110,8 @@ def main(argv=None) -> int:
         return main_nondet(dev, args.nondet)
     if args.init_split:
         return main_init_split(dev)
+    if args.busy:
+        return main_busy(dev)
     if args.vi:
         return main_vi(dev)
     cfg, cam = slice_config(), slice_camera()

@@ -5,8 +5,9 @@ frontend.step cuts each fused step at its one device->host read into T
 frontend.graphs captures T and K as CUDA graphs and replays them every
 frame. What the CPU can show of that:
 
-- (a) T and K, called one by one with the host's keyframe decision
-  between them (as frontend.graphs.FusedStep calls them), against the
+- (a) T, the keyframe decision on the device and K, composed eagerly
+  (the program frontend.graphs.FusedStep captures), with the keyframe
+  counters chained as device tensors from frame to frame, against the
   reference's jitted `make_step_visual` and `make_step_vi` on the same
   FrameData, each frame from the reference's state: keyframes made at n_kf
   0 (KF0 through `insert_keyframe` with device counters), 1 and 2 (no
@@ -67,17 +68,12 @@ N_VIS = 10  # KF0 + 9 visual steps
 TRAJ = dict(amp=(0.5, 0.35, 0.2), freq=(0.15, 0.19, 0.11), yaw_amp=0.25)
 
 
-def _segments_step(segs, inputs, state, n_kf: int, fs: int):
-    """T, the read, the host's decision and K, called one by one as
-    graphs.FusedStep calls them. Returns (state, out, carry, need_kf)."""
-    new, out, carry = segs.track(inputs, state)
-    state = {**state, **new}
-    ok, n_in, last = out["read"].tolist()
-    need_kf = tstep.keyframe_decision(segs.cfg, ok, n_in, last, n_kf, fs, True)
-    if need_kf:
-        new, out = segs.keyframe(inputs, state, carry, n_kf + 1 >= 3)
-        state = {**state, **new}
-    return state, out, carry, need_kf
+def _segments_step(segs, inputs, state):
+    """T, the device decision and K, as graphs.FusedStep's one program runs
+    them, composed eagerly (`step.run_segments`: the host reads the decision
+    to take the branch). Returns (state, out, carry, need_kf)."""
+    s, out, carry, need_kf = tstep.run_segments(segs, inputs, state)
+    return s, out, carry, bool(need_kf)
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +130,8 @@ def _visual_io(r, k, js):
                  has_vel=ts["has_vel"], n_kf=tstep._dev_int(ts["n_kf"], "cpu"), fs=tstep._dev_int(ts["fs"], "cpu"),
                  last=tstep._dev_int(ts["last"], "cpu"), pstore=ts["ps"], lstore=ts["ls"], kstore=ts["ks"],
                  bow_db=ts["db"], kf_view=ts["view"], local_pt=ts["local"])
-    inputs = tstep.scalar_inputs(dict(img=(convert.frame_data(r["fds"][k]),), stamp=k / r["cfg"].fps), "cpu")
+    inputs = tstep.scalar_inputs(dict(img=(convert.frame_data(r["fds"][k]),), stamp=k / r["cfg"].fps, allow=True),
+                                 "cpu")
     return inputs, state, ts["n_kf"], ts["fs"]
 
 
@@ -200,14 +197,22 @@ def _assert_ba_frame(to, jo, label, kf_slot):
 
 
 def test_visual_segments_parity(ref):
-    """Every visual step: stats, matches, counters, velocity, view ring, BoW
+    """Every visual step, the program composed eagerly (T, the decision on
+    the device, K) from the reference's state but with the keyframe
+    counters chained as device tensors from the port's previous frame,
+    never passed from the host (as the reference's streaming mode chains
+    its `counters`): stats, matches, counters, velocity, view ring, BoW
     database exactly or as test_torch_step holds them; poses and stores
     tightly off windowed BA and by what BA decides on it."""
     segs = _visual_segments(ref)
-    made = []
+    made, chained = [], None
     for k, js, jo in ref["visual"]:
         inputs, state, n_kf, fs = _visual_io(ref, k, js)
-        s, out, c, need_kf = _segments_step(segs, inputs, state, n_kf, fs)
+        if chained is not None:
+            state.update(chained)
+        s, out, c, need_kf = _segments_step(segs, inputs, state)
+        chained = {name: s[name] for name in ("n_kf", "fs", "last")}
+        assert all(isinstance(v, torch.Tensor) for v in chained.values())
         label = f"frame {k}"
         stats = jo[17]
         assert need_kf == bool(stats[jtr.ST_KF_CREATED] > 0), label

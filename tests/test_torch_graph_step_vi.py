@@ -1,5 +1,6 @@
 """The stereo-inertial fused step cut for CUDA graphs, on the CPU: as
-test_torch_graph_step.py holds the visual step, (a) T + K against the
+test_torch_graph_step.py holds the visual step, (a) T, the device
+decision and K (the counters chained on the device) against the
 reference's jitted `make_step_vi` on every fused frame of
 test_torch_tracker_vi's reference run (IMU initialization at frame 20,
 keyframes with visual-inertial BA, the widened window), (b) T and K traced
@@ -42,7 +43,7 @@ def _vi_io(fz):
     state.update(R_prev=st["R"], t_prev=st["t"], n_kf=tstep._dev_int(st["n_kf"], "cpu"),
                  fs=tstep._dev_int(st["frames_since_kf"], "cpu"), last=tstep._dev_int(st["last_kf_inliers"], "cpu"))
     inputs = tstep.scalar_inputs(dict(img=(convert.frame_data(fz["frame"]),), imu=fz["imu"], stamp=fz["stamp"],
-                                       wide=fz["wide"]), "cpu")
+                                       allow=True, wide=fz["wide"]), "cpu")
     return inputs, state, st["n_kf"], st["frames_since_kf"]
 
 
@@ -64,20 +65,28 @@ def _ba_keyframe_frames(vi_run):
 def test_vi_segments_parity(vi_run, monkeypatch):
     """Every fused stereo-inertial frame of the reference run (keyframes with
     visual-inertial BA among them, and the widened window after the IMU
-    initialization), replayed by T and K from the reference's state and held
-    as test_torch_tracker_vi holds make_step_vi."""
+    initialization), replayed by the program (T, the decision on the device,
+    K) from the reference's state, the keyframe counters chained as device
+    tensors from the port's previous fused frame, and held as
+    test_torch_tracker_vi holds make_step_vi."""
     cfg, jt, rec = vi_run
     segs = _vi_segments(vi_run)
+    chained = {}  # the keyframe counters the port's previous fused frame left, as device tensors
 
     def step(img_args, imu_args, stamp, R, t, v_w, bg, ba, gravity_w, preint_acc, ext, n_kf, fs, last, allow_mapping,
              wide, pstore, lstore, kstore, bow_db, kf_view, local_pt, pints):
         assert allow_mapping
+        counters = dict(chained) or {k: tstep._dev_int(v, "cpu") for k, v in (("n_kf", n_kf), ("fs", fs),
+                                                                            ("last", last))}
+        # the program reads none of them on the host; the test holds the chain to the reference's counters
+        assert [int(v) for v in counters.values()] == [int(n_kf), int(fs), int(last)], stamp
         state = dict(R=R, t=t, R_prev=R, t_prev=t, v_w=v_w, bg=bg, ba=ba, gravity_w=gravity_w, preint_acc=preint_acc,
-                     ext=ext, n_kf=tstep._dev_int(n_kf, "cpu"), fs=tstep._dev_int(fs, "cpu"),
-                     last=tstep._dev_int(last, "cpu"), pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db,
+                     ext=ext, **counters, pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db,
                      kf_view=kf_view, local_pt=local_pt, pints=pints)
-        inputs = tstep.scalar_inputs(dict(img=tuple(img_args), imu=imu_args, stamp=stamp, wide=wide), "cpu")
-        s, out, c, _ = _segments_step(segs, inputs, state, n_kf, fs)
+        inputs = tstep.scalar_inputs(dict(img=tuple(img_args), imu=imu_args, stamp=stamp, allow=allow_mapping,
+                                          wide=wide), "cpu")
+        s, out, c, _ = _segments_step(segs, inputs, state)
+        chained.update(n_kf=s["n_kf"], fs=s["fs"], last=s["last"])
         return (s["R"], s["t"], s["R_prev"], s["t_prev"], s["v_w"], s["bg"], s["ba"], s["preint_acc"], s["pstore"],
                 s["lstore"], s["kstore"], s["bow_db"], s["kf_view"], s["local_pt"], s["pints"], c["pt_idx"],
                 c["pt_in"], c["ln_idx"], c["ln_in"], (s["n_kf"], s["fs"], s["last"]), out["stats"],

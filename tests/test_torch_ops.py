@@ -162,6 +162,22 @@ def test_orb_parity(stereo_pair):
     print(f"ORB: {jf.valid.sum()} keypoints, {n_tied} slots with an equal score elsewhere")
 
 
+def test_orb_blank_image_parity():
+    """A blank image (a Tracker captures its fused step on blank frames),
+    with the shipped ORB budget (1200 features, 8 levels): every slot is a
+    zero-score candidate, and some lie in the cells past the edge of the
+    levels that are not a whole number of cells, whose gather JAX clamps
+    (the port indexed out of range there: RGB-D's 640x480 frames on the
+    card). Everything exactly equal to the jitted reference."""
+    blank = np.zeros((96, 128), np.float32)
+    jcfg = SlamConfig()
+    jf = jax.tree_util.tree_map(np.asarray, jax.jit(partial(jorb.extract, cfg=jcfg.orb))(blank))
+    tf = convert.to_numpy(torb.extract(T(blank), convert.config_from_reference(dataclasses.asdict(jcfg)).orb))
+    assert not jf.valid.any()
+    for k in ("uv", "octave", "scale", "desc", "valid", "response", "angle"):
+        np.testing.assert_array_equal(tf[k], getattr(jf, k), err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # matching / stereo
 # ---------------------------------------------------------------------------
