@@ -1014,16 +1014,18 @@ class Tracker:
         """Under CUDA graphs, capture the inertial stages `kinds` for a map of
         `n` keyframes, results dropped, unless captured already: "init" the
         IMU initialization at exactly `n` keyframes (`imu_init`), "vi_ba" the
-        whole-map visual-inertial BA at `_fiba_schedule`'s width, "refine"
-        mono's scale refinement at its padded width."""
+        visual-inertial BA at `_fiba_schedule`'s width and at the keyframes'
+        window (a host-path keyframe's BA, which the initialization's own
+        frame may run), "refine" mono's scale refinement at its padded
+        width."""
         st_, dev = self._stages, self.device
         if not st_["imu_init"].graphs:
             return
-        width = {"init": n, "refine": step_mod.imu_init_width(n, self.cfg.map.max_keyframes),
-                 "vi_ba": next((c for c in self._FIBA_CAPS if c >= n), self._FIBA_CAPS[-1])}
+        widths = {"init": (n,), "refine": (step_mod.imu_init_width(n, self.cfg.map.max_keyframes),),
+                  "vi_ba": (next((c for c in self._FIBA_CAPS if c >= n), self._FIBA_CAPS[-1]),
+                            self.cfg.opt.local_ba_window)}
         g0, args = self._gravity0(), (self.kstore, self._pints, self.ext, self._dev(n))
-        for kind in kinds:
-            k = width[kind]
+        for kind, k in ((kind, k) for kind in kinds for k in widths[kind]):
             if (kind, k) in self._warmed:
                 continue
             self._warmed.add((kind, k))

@@ -92,11 +92,13 @@ def _prime(dev) -> None:
     nodes, which CUDA refuses in a body ("invalid argument" at
     instantiation); when it lies inside an IF body, none do, in plain
     captures or bodies. So the first one is this graph's, thrown away. The
-    system (48 unknowns, a vector right-hand side: cuSOLVER's LU and
-    cuBLAS's triangular solves) is windowed BA's."""
-    a = torch.eye(48, device=dev) * 2.0
-    b = torch.ones(48, device=dev)
-    torch.linalg.solve_ex(a, b)  # the handles, on the caller's stream
+    systems (48 unknowns, a vector right-hand side: cuSOLVER's LU and
+    cuBLAS's triangular solves, in float32 and in float64) are windowed
+    BA's."""
+    systems = [(torch.eye(48, device=dev, dtype=dt) * 2.0, torch.ones(48, device=dev, dtype=dt))
+               for dt in (torch.float32, torch.float64)]
+    for a, b in systems:
+        torch.linalg.solve_ex(a, b)  # the handles, on the caller's stream
     here, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
     side.wait_stream(here)
     graph = torch.cuda.CUDAGraph()
@@ -104,7 +106,8 @@ def _prime(dev) -> None:
     flag = torch.ones((), dtype=torch.bool, device=dev)
     with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
         with if_node(flag, pool):
-            torch.linalg.solve_ex(a, b)
+            for a, b in systems:
+                torch.linalg.solve_ex(a, b)
     here.wait_stream(side)
 
 

@@ -4,10 +4,10 @@ The port's own kernel (the reference's `normalize_rotation` is
 `jnp.linalg.svd` + det, lowered by XLA inside the jitted frame program).
 `torch.linalg.svd` on a CUDA tensor reads cuSOLVER's error flag on the
 host, which a stream being captured into a CUDA graph may not do; the
-kernel (`pli_slam_tpu_torch/csrc/rot3.cu`, one-sided Jacobi, one thread per
-matrix, in float32 for the near rotations the main path hands it and in
-float64 for every other matrix; its header says what bounds it) never
-leaves the device.
+kernel (`pli_slam_tpu_torch/csrc/rot3.cu`, one thread per matrix, in
+float64: the Newton-Schulz polar iteration for the near rotations the main
+path hands it, one-sided Jacobi for every other matrix; its header says
+what bounds it) never leaves the device.
 
 `closest_rotation` dispatches on the device of its input and nothing else:
 a CUDA tensor launches the kernel (built on first use with nvcc for sm_90a
@@ -77,10 +77,10 @@ def closest_rotation_reference(R: torch.Tensor) -> torch.Tensor:
 
 def closest_rotation_cuda(R: torch.Tensor, sweeps: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel on `R` [..., 3, 3] float32 (CUDA). `sweeps`, an [n]
-    int32 CUDA tensor, receives each matrix's branch and Jacobi sweeps: the
-    float32 branch's sweeps (>= 0) for a near rotation (det > 0 and every
-    squared singular value within 0.25 of 1), else -1 - the float64
-    branch's (<= -1)."""
+    int32 CUDA tensor, receives each matrix's branch and work: the polar
+    iteration's steps (>= 0) for a near rotation (det > 0 and every squared
+    singular value within 0.25 of 1), else -1 - the Jacobi branch's sweeps
+    (<= -1)."""
     global launches
     if R.dtype != torch.float32 or R.shape[-2:] != (3, 3):
         raise ValueError(f"closest_rotation takes [..., 3, 3] float32, got {tuple(R.shape)} {R.dtype}")

@@ -188,15 +188,22 @@ def _diag_sum(H):
 
 
 def assemble_visual(cam, prob: BAProblem, idx_p: ObsIndex, idx_l: ObsIndex, R, t, pts, lns,
-                    cfg: OptimizerConfig, damping):
+                    cfg: OptimizerConfig, damping, dtype=None):
     """Linearize + reduce: (S6 [W,W,6,6], rhs6 [W,6], point blocks,
-    line blocks, cost, chi2_p, chi2_l)."""
+    line blocks, cost, chi2_p, chi2_l). The linearization, the chi2 and the
+    cost are the state's precision; with `dtype` (torch.float64) the
+    normal-equation blocks, the landmark inverses and the Schur reduction
+    are formed in it from the linearized residuals, Jacobians and weights."""
     W = prob.R.shape[0]
     dev = R.device
     r_p, Jp_p, Jl_p, ok_p = _point_obs_linearize(cam, prob, R, t, pts)
     w_p, chi2_p = _robust_weight(r_p, prob.po_sigma2, ok_p, cfg.huber_stereo)
     r_l, Jp_l, Jl_l, ok_l = _line_obs_linearize(cam, prob, R, t, lns)
     w_l, chi2_l = _robust_weight(r_l, prob.lo_sigma2, ok_l, cfg.huber_mono)
+    cost = torch.sum(w_p * chi2_p * prob.po_sigma2) + torch.sum(w_l * chi2_l * prob.lo_sigma2)
+    if dtype is not None:
+        r_p, Jp_p, Jl_p, w_p, r_l, Jp_l, Jl_l, w_l, lns = (
+            x.to(dtype) for x in (r_p, Jp_p, Jl_p, w_p, r_l, Jp_l, Jl_l, w_l, lns))
 
     Sx = prob.po_pt.shape[0] // W
     Sl = prob.lo_ln.shape[0] // W
@@ -233,8 +240,8 @@ def assemble_visual(cam, prob: BAProblem, idx_p: ObsIndex, idx_l: ObsIndex, R, t
     gl_l = red_l[:, 36:]
     Wb_l = Wb_l.reshape(-1, W, 6, 6)
 
-    eye3 = torch.eye(3, dtype=R.dtype, device=dev)
-    eye6 = torch.eye(6, dtype=R.dtype, device=dev)
+    eye3 = torch.eye(3, dtype=Hll_p.dtype, device=dev)
+    eye6 = torch.eye(6, dtype=Hll_p.dtype, device=dev)
     active_p = prob.pt_mask & (_diag_sum(Hll_p) > 1e-10)
     active_l = prob.ln_mask & (_diag_sum(Hll_l) > 1e-10)
     Hll_p_d = Hll_p + damping * eye3
@@ -246,7 +253,7 @@ def assemble_visual(cam, prob: BAProblem, idx_p: ObsIndex, idx_l: ObsIndex, R, t
     zero3 = torch.zeros_like(D)
     Dblk = torch.cat([torch.cat([D, zero3], -1), torch.cat([zero3, D], -1)], dim=-2)
     Hll_l_d = Hll_l + damping * eye6 + reg[:, None, None] * Dblk
-    zero = torch.zeros((), dtype=R.dtype, device=dev)
+    zero = torch.zeros((), dtype=Hll_p.dtype, device=dev)
     Hll_p_inv = torch.where(
         active_p[:, None, None],
         _inv_spd_equilibrated(Hll_p_d + (~active_p)[:, None, None] * eye3, _inv3x3), zero)
@@ -264,11 +271,10 @@ def assemble_visual(cam, prob: BAProblem, idx_p: ObsIndex, idx_l: ObsIndex, R, t
     Ssub_p, radd_p = schur_terms(Wb_p, Hll_p_inv, gl_p, 3)
     Ssub_l, radd_l = schur_terms(Wb_l, Hll_l_inv, gl_l, 6)
     ar = torch.arange(W, device=dev)
-    S6 = torch.zeros((W, W, 6, 6), dtype=R.dtype, device=dev)
+    S6 = torch.zeros((W, W, 6, 6), dtype=Hpp.dtype, device=dev)
     S6[ar, ar] = Hpp
     S6 = S6 - (Ssub_p + Ssub_l).reshape(W, 6, W, 6).permute(0, 2, 1, 3)
     rhs6 = -gp + (radd_p + radd_l).reshape(W, 6)
-    cost = torch.sum(w_p * chi2_p * prob.po_sigma2) + torch.sum(w_l * chi2_l * prob.lo_sigma2)
     return (S6, rhs6, (Hll_p_inv, gl_p, Wb_p, active_p), (Hll_l_inv, gl_l, Wb_l, active_l),
             cost, chi2_p, chi2_l)
 
@@ -321,29 +327,47 @@ def back_substitute(Wb, Hll_inv, gl, delta_p):
 
 
 def reduced_camera_system(cam, prob: BAProblem, idx_p, idx_l, R, t, pts, lns, cfg: OptimizerConfig, damping,
-                          group=None):
+                          group=None, dtype=None):
     """`assemble_visual` with `damping` added to the pose blocks, then S, rhs
     and the cost summed over `group`. As in the reference (ba.py:442-452) each
     rank adds the damping before the sum, so with n ranks the pose blocks carry
     n * damping and the landmark blocks damping (ROADMAP queue 3 B12)."""
     W = prob.R.shape[0]
     dev = R.device
-    eye6 = torch.eye(6, dtype=R.dtype, device=dev)
-    ar = torch.arange(W, device=dev)
     S, rhs, blk_p, blk_l, cost, chi2_p, chi2_l = assemble_visual(cam, prob, idx_p, idx_l, R, t, pts, lns, cfg,
-                                                                damping)
+                                                                damping, dtype)
+    eye6 = torch.eye(6, dtype=S.dtype, device=dev)
+    ar = torch.arange(W, device=dev)
     S = S.clone()
     S[ar, ar] = S[ar, ar] + damping * eye6
     return psum(S, group), psum(rhs, group), blk_p, blk_l, psum(cost, group), chi2_p, chi2_l
 
 
+def reduced_dtype(device) -> torch.dtype:
+    """The precision `ba_iteration` forms and solves the reduced camera
+    system in on `device`: float64 on CUDA, float32 (the reference's, ba.py:
+    465) elsewhere. Where the window's landmarks are shared with its fixed
+    keyframes the reduced system is a small difference of large terms, and
+    float32 forms it a few percent off (ROADMAP queue 3 B6): that turned a
+    one-ulp difference in a keyframe's pose into millimetres at every
+    windowed BA, and those into centimetres of ATE (queue 3 A6). The CPU
+    keeps the reference's arithmetic: the CPU tests that run the whole
+    tracker against the reference hold it to float32's outcomes (queue 3 C
+    names them), and tests/test_torch_rounding.py holds the float64 path."""
+    return torch.float64 if torch.device(device).type == "cuda" else torch.float32
+
+
 def ba_iteration(cam, prob: BAProblem, idx_p, idx_l, R, t, pts, lns, cfg: OptimizerConfig, damping, group=None):
+    """One LM iteration. The reduced camera system is assembled from the
+    float32 linearization and solved, and the landmarks back-substituted, in
+    `reduced_dtype` of the device; the steps and the state stay float32."""
     W = prob.R.shape[0]
     dev = R.device
-    eye6 = torch.eye(6, dtype=R.dtype, device=dev)
-    ar = torch.arange(W, device=dev)
+    dtype = reduced_dtype(dev)
     (S, rhs, (Hll_p_inv, gl_p, Wb_p, active_p), (Hll_l_inv, gl_l, Wb_l, active_l),
-     cost, chi2_p, chi2_l) = reduced_camera_system(cam, prob, idx_p, idx_l, R, t, pts, lns, cfg, damping, group)
+     cost, chi2_p, chi2_l) = reduced_camera_system(cam, prob, idx_p, idx_l, R, t, pts, lns, cfg, damping, group, dtype)
+    eye6 = torch.eye(6, dtype=S.dtype, device=dev)
+    ar = torch.arange(W, device=dev)
 
     free = (prob.pose_mask & ~prob.fixed_mask).to(S.dtype)
     S = S * free[:, None, None, None] * free[None, :, None, None]
@@ -356,7 +380,7 @@ def ba_iteration(cam, prob: BAProblem, idx_p, idx_l, R, t, pts, lns, cfg: Optimi
     sol, info = torch.linalg.solve_ex(Sd_eq, rhs.reshape(-1) * dscale)
     delta_p = (sol * dscale).reshape(W, 6)
     bad = (info != 0) | ~torch.all(torch.isfinite(delta_p))
-    zero = torch.zeros((), dtype=R.dtype, device=dev)
+    zero = torch.zeros((), dtype=S.dtype, device=dev)
     delta_p = torch.where(bad, zero, delta_p)
     pn = torch.linalg.norm(delta_p, dim=-1, keepdim=True)
     delta_p = delta_p * torch.clamp(cfg.ba_max_pose_step / torch.clamp(pn, min=1e-12), max=1.0)
@@ -370,9 +394,11 @@ def ba_iteration(cam, prob: BAProblem, idx_p, idx_l, R, t, pts, lns, cfg: Optimi
     ll_n = torch.linalg.norm(delta_ln, dim=-1, keepdim=True)
     delta_ln = delta_ln * torch.clamp(cfg.ba_max_landmark_step / torch.clamp(ll_n, min=1e-12), max=1.0)
 
+    delta_p, delta_pt, delta_ln = (x.to(R.dtype) for x in (delta_p, delta_pt, delta_ln))
     dR, dt = lie.se3_exp(delta_p)
     R_new = lie.normalize_rotation(torch.einsum("wij,wjk->wik", dR, R))
     t_new = torch.einsum("wij,wj->wi", dR, t) + dt
+    zero = torch.zeros((), dtype=R.dtype, device=dev)
     pts_new = pts + torch.where(active_p[:, None], delta_pt, zero)
     lns_new = lns + torch.where(active_l[:, None], delta_ln, zero)
     return R_new, t_new, pts_new, lns_new, cost, chi2_p, chi2_l

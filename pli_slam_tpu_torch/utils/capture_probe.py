@@ -19,7 +19,10 @@ offers, then, through the port's route (ops.kernels.conditional.if_node,
 replayed with its predicate set by a kernel of the graph to true and then
 to false, and the fused step's operations inside IF bodies (the gated
 match, the closest-rotation kernel, the dense solves of GN and windowed BA,
-a matrix product, a copy), each result checked against an eager run.
+a matrix product, a copy), each result checked against an eager run;
+last, five loop-closing trackers built under graphs one after another,
+each dropped before the next, and which of them capture (ROADMAP queue 3
+A8).
 """
 
 from __future__ import annotations
@@ -220,9 +223,36 @@ def conditional_kernels(dev) -> str:
     return result if result != "ok" else f"ok (the second body's nodes: {last_body_census()})"
 
 
+def trackers_in_a_row(dev, n: int = 5) -> str:
+    """Loop-closing trackers (phase 6a's configuration) built under graphs one
+    after another, each tracking 12 frames and then dropped and collected
+    before the next: which of them capture (ROADMAP queue 3 A8)."""
+    import gc
+
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.utils import profile, synthetic
+
+    cfg, cam = profile.loop_config(), profile.slice_camera()
+    frames = list(synthetic.make_sequence(cam, 12, dev, fps=cfg.fps, traj=synthetic.Trajectory(**profile.FLAGSHIP_TRAJ)))
+    out = []
+    for i in range(n):
+        try:
+            tracker = Tracker(cam, cfg, dev)
+            for fr in frames:
+                tracker.process(fr["img_l"], fr["img_r"], fr["t"])
+            out.append(f"{i}: ok")
+        except Exception as exc:  # the refusal is the result
+            out.append(f"{i}: " + (str(exc).strip().splitlines() or [type(exc).__name__])[0][:120])
+        tracker = None
+        gc.collect()
+        torch.cuda.synchronize(dev)
+    return "; ".join(out)
+
+
 CONDITIONAL = {"route": lambda dev: conditional_route(),
                "IF body allocates": conditional_alloc,
-               "kernels and solves in IF bodies": conditional_kernels}
+               "kernels and solves in IF bodies": conditional_kernels,
+               "trackers in a row": trackers_in_a_row}
 
 
 def run_probe(name: str) -> str:

@@ -3,7 +3,8 @@
 Run from the repository root:
   python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono|loop|flagship
                                               | --first-closure | --nondet rgbd|mono|flagship | --stages
-                                              | --init-split | --busy]
+                                              | --init-split | --busy
+                                              | --ba-cost | --rounding loop|mono-vi [--variants DIR]]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -61,7 +62,13 @@ and, apart, 10 fused stereo-inertial frames (graphs, streaming; one
 CUDA-only trace a window, nothing per frame) and each tracker's
 construction time; it runs on an earlier tree given this profile.py
 (`git archive` the parent into `build/parent`, copy this file over its
-own, run both in one call).
+own, run both in one call). `--ba-cost` gives the device time of the
+visual path's windowed BA on the last window of phase 4's frames, the
+whole `local_ba` call and `ba.solve_ba` alone (graph replays); it runs on
+an earlier tree the same way. `--rounding loop|mono-vi` is the rounding
+tracer (`utils/rounding.py`): where two builds of rot3, or the two-view's
+two eigenvector routes, make phase 6a's or phase 11's runs part, and how
+far they grow apart.
 
 Needs a CUDA device. The chrome trace of pass 1 is written under `build/`
 and deleted once read (it runs to ~100 MB).
@@ -333,10 +340,10 @@ class _ClosureRun:
     (frame, ms, closed, imu_ready) and the largest keyframe position error
     after each chunk."""
 
-    def __init__(self, cam, cfg, dev, traj, chunk: str):
+    def __init__(self, cam, cfg, dev, traj, chunk: str, cuda_graphs: bool | None = None):
         from pli_slam_tpu_torch.frontend.tracker import Tracker
 
-        self.tracker = Tracker(cam, cfg, dev)
+        self.tracker = Tracker(cam, cfg, dev, cuda_graphs=cuda_graphs)
         self.tracker.streaming = True
         self.tracker.span = self.spans = SyncSpans(dev)
         self.t_loop, self.t_chunk = self.spans.ms["loop"], self.spans.ms[chunk]
@@ -397,7 +404,8 @@ def loop_run(cfg, cam, traj, frames, dev) -> dict:
     wall = time.perf_counter() - wall0
     gt = np.stack([fr["p_w"] for fr in frames])
     pend, done = list(tracker._traj_pending), list(tracker._traj_done)  # read without consuming
-    ate_run = synthetic.ate_rmse(tracker.positions(), gt[:N_FRAMES_LOOP])
+    est_run = tracker.positions()
+    ate_run = synthetic.ate_rmse(est_run, gt[:N_FRAMES_LOOP])
     tracker._traj_pending, tracker._traj_done = pend, done
     natural, n_kf_run, planted = lc.n_loops_closed, tracker.n_kf, None
     if natural == 0:
@@ -416,8 +424,32 @@ def loop_run(cfg, cam, traj, frames, dev) -> dict:
         run(fr, i)
     est, ate = cr.drain(gt)
     return dict(tracker=tracker, t_gba=cr.t_chunk, t_loop=cr.t_loop, kf_errs=cr.kf_errs, ms_plain=ms_plain,
-                loop_frames=cr.loop_frames, wall=wall, ate_run=ate_run, natural=natural, n_kf_run=n_kf_run,
-                planted=planted, n_queued=n_queued, est=est, ate=ate)
+                loop_frames=cr.loop_frames, wall=wall, est_run=est_run, ate_run=ate_run, natural=natural,
+                n_kf_run=n_kf_run, planted=planted, n_queued=n_queued, est=est, ate=ate)
+
+
+def nudge_pose(tracker) -> None:
+    """One float32 ulp toward zero in every entry of the tracker's pose
+    (R, t): a rounding difference that the next frame starts from."""
+    tracker.R = torch.nextafter(tracker.R, torch.zeros_like(tracker.R))
+    tracker.t = torch.nextafter(tracker.t, torch.zeros_like(tracker.t))
+
+
+def pre_closure_run(cfg, cam, traj, frames, dev, nudge_after: int | None = None) -> dict:
+    """Phase 6a's first N_FRAMES_LOOP frames (`loop_run` up to its planted
+    closure) on a fresh tracker, with `nudge_pose` after frame
+    `nudge_after`. Returns the positions and the ATE before the closure."""
+    from pli_slam_tpu_torch.utils import synthetic
+
+    cr = _ClosureRun(cam, cfg, dev, traj, "gba")
+    for i, fr in enumerate(frames[:N_FRAMES_LOOP]):
+        cr.frame(fr, i)
+        if i == nudge_after:
+            nudge_pose(cr.tracker)
+    est = cr.tracker.positions()
+    _sync(dev)
+    gt = np.stack([fr["p_w"] for fr in frames[:N_FRAMES_LOOP]])
+    return dict(est=est, ate=synthetic.ate_rmse(est, gt), n_kf=cr.tracker.n_kf)
 
 
 def flagship_config() -> SlamConfig:
@@ -772,6 +804,52 @@ def main_busy(dev) -> int:
     return 0
 
 
+def main_ba_cost(dev) -> int:
+    """Windowed BA's device time on the visual path: phase 4's frames
+    (`slice_config()`, N_FRAMES) in an eager tracker, the inputs of each
+    `step.local_ba` call kept, then, for the last and fullest window, that
+    call (the window's problem, `ba.solve_ba`, the prune and the write-back:
+    the fused step's windowed-BA body) and `ba.solve_ba` alone, each
+    captured in a CUDA graph and replayed between CUDA events
+    (`kernel_bench.graph_ms`). Runs on an earlier tree of the port too."""
+    from pli_slam_tpu_torch.frontend import step as step_mod
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.solve import ba as ba_mod
+    from pli_slam_tpu_torch.utils import synthetic
+    from pli_slam_tpu_torch.utils.kernel_bench import graph_ms
+
+    cfg, cam = slice_config(), slice_camera()
+    frames = list(synthetic.make_sequence(cam, N_FRAMES, dev, fps=cfg.fps))
+    calls, orig = [], step_mod.local_ba
+
+    def local_ba(cam_, cfg_, kstore, pstore, lstore, window, fixed, iters=None):
+        calls.append((cam_, cfg_, kstore, pstore, lstore, window.clone(), fixed.clone(), iters))
+        return orig(cam_, cfg_, kstore, pstore, lstore, window, fixed, iters)
+
+    step_mod.local_ba = local_ba
+    try:
+        tracker = Tracker(cam, cfg, dev, cuda_graphs=False)
+        for fr in frames:
+            tracker.process(fr["img_l"], fr["img_r"], fr["t"])
+    finally:
+        step_mod.local_ba = orig
+    _sync(dev)
+    cam_, cfg_, kstore, pstore, lstore, window, fixed, iters = calls[-1]
+    prob = step_mod.window_problem(kstore, pstore, lstore, window, fixed, pt_cap=cfg_.opt.ba_pt_cap,
+                                   ln_cap=cfg_.opt.ba_ln_cap)[0]
+    n_iter = cfg_.opt.local_ba_iters if iters is None else iters
+    body_ms = graph_ms(lambda: orig(cam_, cfg_, kstore, pstore, lstore, window, fixed, iters), launches=5,
+                       replays=10)
+    solve_ms = graph_ms(lambda: ba_mod.solve_ba(cam_, prob, cfg_.opt, iters=n_iter), launches=5, replays=10)
+    print(f"profile[ba-cost]: {len(calls)} windowed BAs over {N_FRAMES} frames; the last: window "
+          f"{int(prob.R.shape[0])} keyframes ({int((~prob.fixed_mask & prob.pose_mask).sum())} free), "
+          f"{int(prob.pt_mask.sum())} of {prob.pts.shape[0]} points, {int(prob.ln_mask.sum())} of "
+          f"{prob.lns.shape[0]} lines, {int(prob.po_mask.sum())} point and {int(prob.lo_mask.sum())} line "
+          f"observations, {n_iter} iterations a stage; device ms a call (CUDA graph, events): local_ba "
+          f"{body_ms:.4f}, solve_ba {solve_ms:.4f}", flush=True)
+    return 0
+
+
 def main_vi_drift(dev, n_frames: int) -> int:
     """How the stereo-inertial run drifts after the IMU initialization: per
     frame the state, inliers, keyframes, the velocity's and the accelerometer
@@ -1091,6 +1169,13 @@ def main(argv=None) -> int:
                     help="instead: the stereo-inertial path's IMU-init frame split into its parts, graphs and eager")
     ap.add_argument("--busy", action="store_true",
                     help="instead: the busy share of a window of fused visual and of fused stereo-inertial frames")
+    ap.add_argument("--ba-cost", action="store_true",
+                    help="instead: the device time of the visual path's windowed BA (local_ba, solve_ba)")
+    ap.add_argument("--rounding", choices=("loop", "mono-vi"),
+                    help="instead: the rounding tracer (utils/rounding.py): phase 6a's frames under this tree's "
+                         "rot3 and each of --variants, or phase 11's under both two-view routes, and where the runs "
+                         "part")
+    ap.add_argument("--variants", metavar="DIR", help="with --rounding loop: a directory of rot3 sources (*.cu)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -1112,6 +1197,12 @@ def main(argv=None) -> int:
         return main_init_split(dev)
     if args.busy:
         return main_busy(dev)
+    if args.ba_cost:
+        return main_ba_cost(dev)
+    if args.rounding:
+        from pli_slam_tpu_torch.utils import rounding
+
+        return rounding.main(dev, args.rounding, args.variants)
     if args.vi:
         return main_vi(dev)
     cfg, cam = slice_config(), slice_camera()

@@ -1,0 +1,438 @@
+"""Where two builds of the port part on the same frames: the rounding tracer.
+
+Run from the repository root, on a GPU (through `utils/profile.py`):
+  python3 -m pli_slam_tpu_torch.utils.profile --rounding loop|mono-vi [--variants DIR]
+
+`loop` runs chip_smoke.py phase 6a's frames (`profile.loop_frames`) up to
+the planted closure (N_FRAMES_LOOP frames) in a
+`cuda_graphs=False` tracker (graphs and eager are bit-identical, phase 15)
+once with the kernels as built from this tree and once for every rot3
+source in DIR (`*.cu`, each with rot3.cu's C entry; `write_variants` writes
+the polar branch with its store rounded toward zero, up and down), and
+once more with this tree's kernels and the pose one ulp off after frame 1
+(`profile.nudge_pose`, chip_smoke.py's one-ulp run). Per
+frame it records, in the order the frame computes them: tracking's gated
+matches and inliers (`track_step`), the keyframe decision and its inputs
+(`need_keyframe`), every windowed BA (the window; per LM stage the cost of
+each iterate, whether the next step was taken, the observations the
+chi2 gate drops and how near the gate the nearest one lay; what the prune
+erased from the store), the local map's ids, the pose, and the keyframes'
+positions. Against the first run it prints the first frame where each
+record parts, the first record that parts, and frame by frame how the
+camera's and the keyframes' positions grow apart, and each run's ATE
+before the closure. `mono-vi` runs chip_smoke.py phase 11's frames
+(`profile.slice6_frames("mono_vi")`) through a `cuda_graphs=False` tracker
+twice: the two-view's smallest eigenvectors through svd_small's kernel
+(the card's route), then through `torch.linalg.eigh` (the CPU's route, run
+eagerly on the card); with the same records (mono frames run on the host
+path: tracking, keyframes, windowed BA, the two-view's hypotheses and
+winner) and the IMU initialization's record.
+
+The records of every run are written to `chiprun_out/rounding/<mode>_<run>.pkl.gz`.
+It runs on an earlier tree too: copy this file and profile.py over that
+tree's (`git archive` the parent into `build/parent`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import gzip
+import pickle
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+OUT = Path("chiprun_out") / "rounding"
+ROUNDINGS = {"toward_zero": "rz", "up": "ru", "down": "rd"}
+MARGIN_NEAR = 1e-4  # an observation's chi2 within this share of its gate is "at the gate"
+
+
+def write_variants(dst: Path, src: Path | None = None) -> list[Path]:
+    """rot3's source (`src`, default this tree's) with its polar branch's
+    store rounded toward zero, up and down (`ROT3_STORE`), as files
+    `polar_<rounding>.cu` in `dst`."""
+    from pli_slam_tpu_torch.ops.kernels import rot3
+
+    text = Path(src or rot3._SRC).read_text()
+    dst.mkdir(parents=True, exist_ok=True)
+    out = []
+    for name, mode in ROUNDINGS.items():
+        p = dst / f"polar_{name}.cu"
+        p.write_text(f"// rot3.cu with the polar branch's store rounded {name.replace('_', ' ')}\n"
+                     f"__host__ __device__ inline float rot3_store_{mode}(double x) {{\n"
+                     f"#ifdef __CUDA_ARCH__\n  return __double2float_{mode}(x);\n#else\n"
+                     f"  return static_cast<float>(x);\n#endif\n}}\n"
+                     f"#define ROT3_STORE(x) rot3_store_{mode}(x)\n" + text)
+        out.append(p)
+    return out
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as `nvidia-smi` reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _gate_margin(chi2, mask, gate: float) -> tuple[float, int]:
+    """(the least |chi2 / gate - 1| over the masked observations, how many lie within MARGIN_NEAR of the gate)."""
+    c = _np(chi2).astype(np.float64)[_np(mask).astype(bool)]
+    if c.size == 0:
+        return float("inf"), 0
+    rel = np.abs(c / gate - 1.0)
+    return float(rel.min()), int((rel < MARGIN_NEAR).sum())
+
+
+class Recorder:
+    """Records a tracker's decisions frame by frame by wrapping the step
+    functions it calls (eager runs only: inside a captured graph a wrapper
+    runs once, at the capture). `events[i]` is frame i's list of (name,
+    value) in the order the frame made them."""
+
+    def __init__(self):
+        self.events: list[list[tuple[str, object]]] = []
+        self._ba = None
+
+    def begin(self, i: int) -> None:
+        self.events.append([])
+
+    def add(self, name: str, value) -> None:
+        if self.events:
+            self.events[-1].append((name, value))
+
+    def end(self, tracker) -> None:
+        self.add("local_pt", _np(tracker._local_pt))
+        self.add("pose", np.concatenate([_np(tracker.R).reshape(-1), _np(tracker.t)]).astype(np.float64))
+        n = tracker.n_kf
+        R, t = _np(tracker.kstore.R[:n]).astype(np.float64), _np(tracker.kstore.t[:n]).astype(np.float64)
+        self.add("kf_pos", np.concatenate([-np.einsum("kji,kj->ki", R, t),
+                                           _np(tracker.kstore.stamp[:n]).astype(np.float64)[:, None],
+                                           _np(tracker.kstore.valid[:n]).astype(np.float64)[:, None]], 1))
+
+    @contextlib.contextmanager
+    def patched(self):
+        from pli_slam_tpu_torch.frontend import step as step_mod
+        from pli_slam_tpu_torch.solve import ba as ba_mod
+
+        saved = [(step_mod, "track_step"), (step_mod, "need_keyframe"), (step_mod, "local_ba"),
+                 (ba_mod, "_solve_ba_stage"), (ba_mod, "ba_iteration")]
+        orig = {name: getattr(mod, name) for mod, name in saved}
+
+        def track_step(*a, **k):
+            out = orig["track_step"](*a, **k)
+            R, t, pt_idx, pt_in, ln_idx, ln_in, n_in = out[:7]
+            self.add("matches", np.concatenate([_np(pt_idx).astype(np.int64), _np(pt_in).astype(np.int64),
+                                                _np(ln_idx).astype(np.int64), _np(ln_in).astype(np.int64)]))
+            self.add("n_in", int(n_in))
+            return out
+
+        def need_keyframe(cfg, ok, n_in, last, n_kf, fs, allow):
+            need = orig["need_keyframe"](cfg, ok, n_in, last, n_kf, fs, allow)
+            self.add("decision", (int(n_in), int(last), int(fs), bool(need),
+                                  float(np.float32(cfg.tracking.kf_ref_ratio) * np.float32(max(int(last), 1)))))
+            return need
+
+        def local_ba(cam, cfg, kstore, pstore, lstore, window, fixed, iters=None):
+            self._ba = {"window": _np(window).tolist(), "fixed": _np(fixed).tolist(), "stages": []}
+            win = window.long()
+            before = (_np(kstore.obs_pt[win]) >= 0).sum() + (_np(kstore.obs_ln[win]) >= 0).sum()
+            out = orig["local_ba"](cam, cfg, kstore, pstore, lstore, window, fixed, iters)
+            after = (_np(out[0].obs_pt[win]) >= 0).sum() + (_np(out[0].obs_ln[win]) >= 0).sum()
+            self._ba["erased"] = int(before - after)
+            self.add("ba", self._ba)
+            self._ba = None
+            return out
+
+        def _solve_ba_stage(cam, prob, cfg, iters, group=None):
+            rec = None
+            if self._ba is not None:
+                rec = {"costs": [], "lams": [], "n_obs": int(_np(prob.po_mask).sum() + _np(prob.lo_mask).sum())}
+                self._ba["stages"].append(rec)
+            res = orig["_solve_ba_stage"](cam, prob, cfg, iters, group)
+            if rec is not None:
+                rec["final_cost"] = float(res.cost)
+                mp = _gate_margin(res.po_chi2, prob.po_mask, cfg.prune_chi2_pt)
+                ml = _gate_margin(res.lo_chi2, prob.lo_mask, cfg.prune_chi2_ln)
+                rec["gate_margin"] = min(mp[0], ml[0])
+                rec["at_gate"] = mp[1] + ml[1]
+                rec["dropped"] = int((_np(prob.po_mask) & (_np(res.po_chi2) >= cfg.prune_chi2_pt)).sum()
+                                     + (_np(prob.lo_mask) & (_np(res.lo_chi2) >= cfg.prune_chi2_ln)).sum())
+                c, prev, taken = rec["costs"], float("inf"), []
+                for x in c:  # _solve_ba_stage's test: an iterate worse than the last kept one is dropped
+                    taken.append(not x > prev)
+                    prev = prev if x > prev else x
+                rec["taken"] = taken
+            return res
+
+        def ba_iteration(cam, prob, idx_p, idx_l, R, t, pts, lns, cfg, damping, group=None):
+            out = orig["ba_iteration"](cam, prob, idx_p, idx_l, R, t, pts, lns, cfg, damping, group)
+            if self._ba is not None and self._ba["stages"]:
+                self._ba["stages"][-1]["costs"].append(float(out[4]))
+                self._ba["stages"][-1]["lams"].append(float(damping))
+            return out
+
+        wrappers = dict(track_step=track_step, need_keyframe=need_keyframe, local_ba=local_ba,
+                        _solve_ba_stage=_solve_ba_stage, ba_iteration=ba_iteration)
+        for mod, name in saved:
+            setattr(mod, name, wrappers[name])
+        try:
+            yield self
+        finally:
+            for mod, name in saved:
+                setattr(mod, name, orig[name])
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b or (a != a and b != b)
+
+
+def _ba_decisions(ba: dict):
+    """A windowed BA's discrete record: window, fixed, steps taken, drops, erased."""
+    return (ba["window"], ba["fixed"], [s["taken"] for s in ba["stages"]], [s["dropped"] for s in ba["stages"]],
+            ba["erased"])
+
+
+def _named(events, name):
+    return [v for k, v in events if k == name]
+
+
+DISCRETE = ("matches", "n_in", "decision", "ba_decisions", "local_pt")
+
+
+def compare(a: list, b: list) -> dict:
+    """Two runs' events: the first frame and event where they part, the
+    first frame each discrete record parts, and per frame the camera's and
+    the common keyframes' position differences (m) and the discrete records
+    that differ there."""
+    first, first_by, rows = None, {}, []
+    for i, (ea, eb) in enumerate(zip(a, b)):
+        if first is None:
+            for j, (x, y) in enumerate(zip(ea, eb)):
+                if x[0] != y[0] or not _same(x[1], y[1]):
+                    first = (i, j, x[0] if x[0] == y[0] else f"{x[0]} / {y[0]}")
+                    break
+            else:
+                if len(ea) != len(eb):
+                    first = (i, min(len(ea), len(eb)), "event count")
+        differs = []
+        for name in DISCRETE:
+            if name == "ba_decisions":
+                va, vb = [_ba_decisions(x) for x in _named(ea, "ba")], [_ba_decisions(x) for x in _named(eb, "ba")]
+            else:
+                va, vb = _named(ea, name), _named(eb, name)
+            if not _same(va, vb):
+                differs.append(name)
+                first_by.setdefault(name, i)
+        pa, pb = _named(ea, "pose"), _named(eb, "pose")
+        cam = float("nan")
+        if pa and pb:
+            ca = -pa[-1][:9].reshape(3, 3).T @ pa[-1][9:]
+            cb = -pb[-1][:9].reshape(3, 3).T @ pb[-1][9:]
+            cam = float(np.linalg.norm(ca - cb))
+        ka, kb = _named(ea, "kf_pos"), _named(eb, "kf_pos")
+        kf, n_kf = float("nan"), (0, 0)
+        if ka and kb:
+            ka, kb = ka[-1], kb[-1]
+            n_kf = (len(ka), len(kb))
+            n = min(len(ka), len(kb))
+            same = (ka[:n, 3] == kb[:n, 3]) & (ka[:n, 4] > 0) & (kb[:n, 4] > 0)
+            if same.any():
+                kf = float(np.linalg.norm(ka[:n, :3][same] - kb[:n, :3][same], axis=1).max())
+            first_by.setdefault("keyframe stamps", None)
+            if not np.array_equal(ka[:n, 3], kb[:n, 3]) or len(ka) != len(kb):
+                if first_by["keyframe stamps"] is None:
+                    first_by["keyframe stamps"] = i
+        rows.append(dict(frame=i, cam=cam, kf=kf, n_kf=n_kf, differs=differs))
+    first_by = {k: v for k, v in first_by.items() if v is not None}
+    return dict(first=first, first_by=first_by, rows=rows)
+
+
+def print_comparison(label: str, cmp: dict, a: list, b: list) -> None:
+    first = cmp["first"]
+    if first is None:
+        print(f"rounding {label}: the runs are bit-identical", flush=True)
+        return
+    i, j, name = first
+    print(f"rounding {label}: first parting at frame {i}, event {j} ({name}); first frame each record parts: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(cmp["first_by"].items(), key=lambda kv: kv[1])), flush=True)
+    shown, last_cm = 0, -1
+    for r in cmp["rows"]:
+        cm = int(np.floor(np.log10(max(r["kf"], 1e-9)))) if r["kf"] == r["kf"] else -9
+        notable = ("decision" in r["differs"] or "ba_decisions" in r["differs"] or cm > last_cm
+                   or r["n_kf"][0] != r["n_kf"][1] or r["frame"] % 20 == 0)
+        if not notable or shown >= 60:
+            continue
+        last_cm = max(last_cm, cm)
+        shown += 1
+        extra = ""
+        if "decision" in r["differs"]:
+            da, db = _named(a[r["frame"]], "decision"), _named(b[r["frame"]], "decision")
+            extra += f" decision {da} / {db}"
+        if "ba_decisions" in r["differs"]:
+            ba_a, ba_b = _named(a[r["frame"]], "ba"), _named(b[r["frame"]], "ba")
+            extra += " BA " + " / ".join(
+                "; ".join(f"taken {s['taken']} dropped {s['dropped']} margin {s['gate_margin']:.1e}"
+                          for s in x[0]["stages"]) + f" erased {x[0]['erased']}" for x in (ba_a, ba_b) if x)
+        print(f"  frame {r['frame']:3d}: camera {r['cam'] * 1e3:9.4f} mm, keyframes {r['kf'] * 1e3:9.4f} mm, "
+              f"n_kf {r['n_kf'][0]}/{r['n_kf'][1]}, differ: {','.join(r['differs']) or '-'}{extra}", flush=True)
+
+
+def save(name: str, run: dict) -> None:
+    OUT.mkdir(parents=True, exist_ok=True)
+    with gzip.open(OUT / f"{name}.pkl.gz", "wb") as f:
+        pickle.dump(run, f)
+
+
+@contextlib.contextmanager
+def rot3_source(src: Path | None):
+    """rot3 built from `src` (None: this tree's) for the block."""
+    from pli_slam_tpu_torch.ops.kernels import rot3
+
+    if src is None:
+        yield
+        return
+    rot3.build()
+    saved = rot3._lib
+    rot3._lib = rot3.load(src)
+    try:
+        yield
+    finally:
+        rot3._lib = saved
+
+
+def trace_loop(dev, frames_data, nudge_after: int | None = None) -> dict:
+    """Phase 6a's frames up to the closure in an eager tracker, recorded,
+    with `profile.nudge_pose` after frame `nudge_after` (chip_smoke.py's
+    one-ulp run)."""
+    from pli_slam_tpu_torch.utils import profile, synthetic
+
+    cfg, cam, traj, frames = frames_data
+    rec = Recorder()
+    t0 = time.perf_counter()
+    with rec.patched():  # the tracker's stages are made inside: they call the wrappers
+        cr = profile._ClosureRun(cam, cfg, dev, traj, "gba", cuda_graphs=False)
+        tracker = cr.tracker
+        for i, fr in enumerate(frames[:profile.N_FRAMES_LOOP]):
+            rec.begin(i)
+            cr.frame(fr, i)
+            if i == nudge_after:
+                profile.nudge_pose(tracker)
+            rec.end(tracker)
+    profile._sync(dev)
+    gt = np.stack([fr["p_w"] for fr in frames[:profile.N_FRAMES_LOOP]])
+    pend, done = list(tracker._traj_pending), list(tracker._traj_done)
+    ate = synthetic.ate_rmse(tracker.positions(), gt)
+    tracker._traj_pending, tracker._traj_done = pend, done
+    return dict(events=rec.events, ate=ate, n_kf=tracker.n_kf, kf_err=profile.kf_error(tracker, traj),
+                n_loops=len(cr.loop_frames), s=time.perf_counter() - t0)
+
+
+def trace_mono_vi(dev, route: str, frames_data) -> dict:
+    """Phase 11's frames in an eager tracker with the two-view's smallest
+    eigenvectors through `route` ("svd_small" or "eigh"), recorded."""
+    from pli_slam_tpu_torch.frontend.tracker import Tracker, TrackingState
+    from pli_slam_tpu_torch.ops.kernels import svd_small
+    from pli_slam_tpu_torch.solve import twoview
+    from pli_slam_tpu_torch.utils import profile
+    from pli_slam_tpu_torch.utils import trajectory as tio
+
+    cfg, cam, frames = frames_data
+    rec = Recorder()
+    orig_eig = svd_small.smallest_eigvec
+    init_at = imu_at = ate_pre = None
+    t0 = time.perf_counter()
+
+    def eig(A):
+        return svd_small.smallest_eigvec_reference(A) if route == "eigh" else orig_eig(A)
+
+    with rec.patched(), contextlib.ExitStack() as stack:
+        svd_small.smallest_eigvec = eig
+        stack.callback(setattr, svd_small, "smallest_eigvec", orig_eig)
+        from pli_slam_tpu_torch.frontend import step as step_mod
+        orig_init = step_mod.mono_init
+
+        def mono_init(*a, **k):
+            out = orig_init(*a, **k)
+            rec.add("two_view", _np(out[-1]).tolist())
+            return out
+
+        step_mod.mono_init = mono_init
+        stack.callback(setattr, step_mod, "mono_init", orig_init)
+        tracker = Tracker(cam, cfg, dev, cuda_graphs=False)  # its stages call the wrappers
+        for i, fr in enumerate(frames):
+            rec.begin(i)
+            info = tracker.process_mono(fr["img_l"], fr["t"], imu=fr["imu"])
+            rec.add("info", (str(info["state"]), info.get("n_inliers"), info.get("n_kf"), info.get("new_landmarks")))
+            rec.end(tracker)
+            if init_at is None and info["state"] == TrackingState.OK:
+                init_at = i
+            if tracker.imu_ready and imu_at is None:
+                imu_at = i
+            if not tracker.imu_ready and init_at is not None and i >= init_at + 2:
+                ate_pre = profile.peek_ate(tracker, frames, with_scale=True)
+    est, gt = profile.tracked_positions(tracker, frames)
+    log = tracker.imu_init_log[-1] if tracker.imu_init_log else {}
+    return dict(events=rec.events, mono_init=init_at, imu_init=imu_at, ate_pre=ate_pre,
+                ate_sim3=tio.ate_rmse(est, gt, with_scale=True), scale=log.get("scale"), n_kf=tracker.n_kf,
+                imu_log=[{k: v for k, v in r.items() if isinstance(v, (int, float, bool, str))}
+                         for r in tracker.imu_init_log], s=time.perf_counter() - t0)
+
+
+def main(dev, mode: str, variants: str | None) -> int:
+    from pli_slam_tpu_torch.utils import profile
+
+    smi = nvidia_smi()
+    if mode == "loop":
+        data = profile.loop_frames(dev)
+        srcs = [("shipped", None)] + [(p.stem, p) for p in sorted(Path(variants).glob("*.cu"))] if variants else \
+            [("shipped", None)]
+        runs = {}
+        for name, src, nudge in [(name, src, None) for name, src in srcs] + [("nudged_pose", None, 1)]:
+            with rot3_source(src):
+                runs[name] = trace_loop(dev, data, nudge_after=nudge)
+            gc.collect()  # the run's tracker, before the next run
+            torch.cuda.synchronize(dev)
+            r = runs[name]
+            save(f"loop_{name}", r)
+            print(f"rounding loop {name}: {profile.N_FRAMES_LOOP} frames in {r['s']:.1f} s, ATE before the closure {r['ate']:.4f} m, "
+                  f"{r['n_kf']} keyframes, largest keyframe error {r['kf_err']:.4f} m, {r['n_loops']} loop "
+                  f"verifications [{smi}]", flush=True)
+        base = runs["shipped"]["events"]
+        for name in runs:
+            if name != "shipped":
+                print_comparison(f"shipped vs {name}", compare(base, runs[name]["events"]), base,
+                                 runs[name]["events"])
+        print("rounding loop ATE before the closure, m: " + ", ".join(f"{k} {v['ate']:.4f}" for k, v in runs.items())
+              + f" [{smi}]", flush=True)
+        return 0
+    data = profile.slice6_frames("mono_vi", dev)
+    runs = {}
+    for route in ("svd_small", "eigh"):
+        runs[route] = r = trace_mono_vi(dev, route, data)
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        save(f"mono_vi_{route}", r)
+        print(f"rounding mono-vi {route}: map at frame {r['mono_init']}, IMU at frame {r['imu_init']}, scale "
+              f"{r['scale']}, {r['n_kf']} keyframes, Sim(3) ATE before the IMU init {r['ate_pre']}, over the run "
+              f"{r['ate_sim3']:.4f} m, {r['s']:.1f} s [{smi}]", flush=True)
+    a, b = runs["svd_small"]["events"], runs["eigh"]["events"]
+    print_comparison("mono-vi svd_small vs eigh", compare(a, b), a, b)
+    for route, r in runs.items():
+        for x in r["imu_log"]:
+            print(f"  {route} IMU init record: {x}", flush=True)
+    return 0

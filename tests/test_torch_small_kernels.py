@@ -1,7 +1,8 @@
 """The closest-rotation and Horn eigenvector kernels' methods on the CPU.
 
-`csrc/rot3.cu` (the closest rotation: one-sided Jacobi, a thread a matrix,
-in float32 for near rotations and in float64 for every other matrix) and
+`csrc/rot3.cu` (the closest rotation, a thread a matrix, in float64: the
+Newton-Schulz polar iteration for near rotations, one-sided Jacobi for
+every other matrix) and
 `csrc/eig4.cu` (the largest eigenpair of a symmetric 4x4: round-robin
 Jacobi in float64, four lanes a matrix) are built here as plain C++ (no
 __CUDACC__, contraction into fused multiply-adds off) and held bit for bit
@@ -12,7 +13,7 @@ transcriptions are held against the twins (`torch.linalg.svd` + det,
 `torch.linalg.eigh`) and float64 on the main path's matrices (formed on
 the CPU as chip_smoke.py forms them on the card), exact rotations, the
 identity, det < 0, rank one and zero, both sides of rot3's gate between its
-branches, and Horn matrices with repeated top eigenvalues. The card's builds differ from
+branches (and 1e-5 from its edge), and Horn matrices with repeated top eigenvalues. The card's builds differ from
 the host's in the last bits (fused multiply-adds, eig4's refined roots);
 chip_smoke.py phases 3b and 3c hold them against their twins and float64
 on the H100, and the `cuda` test below does where a card is.
@@ -80,7 +81,7 @@ def _one_sided_rotation(alpha, beta, gamma, tol2):
 # ---------------------------------------------------------------------------
 
 F = np.float32
-ROT3_SWEEPS32, ROT3_SWEEPS64, ROT3_RANK = 12, 16, 1e-24
+ROT3_POLAR_ITERS, ROT3_POLAR_TOL, ROT3_POLAR_LAST, ROT3_DISC, ROT3_SWEEPS64, ROT3_RANK = 8, 1e-13, 1e-6, 0.24, 16, 1e-24
 
 
 def _dot3(a, b):
@@ -92,54 +93,54 @@ def _swap_neg(c, v, i, j):
     v[i], v[j] = v[j], [-t for t in v[i]]
 
 
-def _rot3_f32(m):
-    """rot3::closest_f32 on one float32 matrix [3, 3], in float32 as the
-    kernel computes (one-sided Jacobi, the columns sorted with a negated
-    swap, U = [u0, u1, u0 x u1], R = U V^T): (R rows, the sweeps, the
-    largest and smallest squared column norms after the sort)."""
-    c = [[F(m[r, j]) for r in range(3)] for j in range(3)]
-    v = [[F(1) if r == j else F(0) for r in range(3)] for j in range(3)]
-    for s in range(ROT3_SWEEPS32):
-        rotated = False
-        for p, q in ((0, 1), (0, 2), (1, 2)):
-            alpha, beta, gamma = _dot3(c[p], c[p]), _dot3(c[q], c[q]), _dot3(c[p], c[q])
-            if not abs(gamma) > F(1e-7) * np.sqrt(alpha * beta):
-                continue
-            rotated = True
-            zeta = (beta - alpha) / (F(2) * gamma)
-            t = np.copysign(F(1), zeta) / (abs(zeta) + np.sqrt(F(1) + zeta * zeta))
-            cs = F(1) / np.sqrt(F(1) + t * t)
-            sn = cs * t
-            c[p], c[q] = [cs * x - sn * y for x, y in zip(c[p], c[q])], [sn * x + cs * y for x, y in zip(c[p], c[q])]
-            v[p], v[q] = [cs * x - sn * y for x, y in zip(v[p], v[q])], [sn * x + cs * y for x, y in zip(v[p], v[q])]
-        if not rotated:
+def _positive_definite(a, b, c, d, e, f):
+    """rot3::positive_definite: Sylvester's test of [[a, b, c], [b, d, e], [c, e, f]]."""
+    return a > 0.0 and a * d - b * b > 0.0 and a * (d * f - e * e) - b * (b * f - e * c) + c * (b * e - d * c) > 0.0
+
+
+def _gram_defect(x):
+    """rot3::gram_defect: X^T X - I of the row-major x [9] as (e00, e01, e02, e11, e12, e22)."""
+    return [x[0] * x[0] + x[3] * x[3] + x[6] * x[6] - 1.0, x[0] * x[1] + x[3] * x[4] + x[6] * x[7],
+            x[0] * x[2] + x[3] * x[5] + x[6] * x[8], x[1] * x[1] + x[4] * x[4] + x[7] * x[7] - 1.0,
+            x[1] * x[2] + x[4] * x[5] + x[7] * x[8], x[2] * x[2] + x[5] * x[5] + x[8] * x[8] - 1.0]
+
+
+def _rot3_near(x, e):
+    """rot3::closest's gate on the float64 x [9] and its Gram defect e: det
+    > 0 and every eigenvalue of I + e in (0.75, 1.25) (Gershgorin's discs,
+    else the minors)."""
+    det = (x[0] * (x[4] * x[8] - x[5] * x[7]) - x[1] * (x[3] * x[8] - x[5] * x[6])
+           + x[2] * (x[3] * x[7] - x[4] * x[6]))
+    if not det > 0.0:
+        return False
+    r = (abs(e[0]) + abs(e[1]) + abs(e[2]), abs(e[1]) + abs(e[3]) + abs(e[4]), abs(e[2]) + abs(e[4]) + abs(e[5]))
+    if all(ri < ROT3_DISC for ri in r):
+        return True
+    m = [e[0] + 1.0, e[1], e[2], e[3] + 1.0, e[4], e[5] + 1.0]
+    hi, lo = 1.25, 0.75
+    return (_positive_definite(hi - m[0], -m[1], -m[2], hi - m[3], -m[4], hi - m[5])
+            and _positive_definite(m[0] - lo, m[1], m[2], m[3] - lo, m[4], m[5] - lo))
+
+
+def _rot3_polar(x, e):
+    """rot3::polar: the Newton-Schulz iteration X <- X - X E / 2, E = X^T X
+    - I, in float64 from the row-major x [9] and its Gram defect e: (R rows
+    before the store's rounding, the steps)."""
+    x, k = list(x), 0
+    while True:
+        err = max(abs(t) for t in e)
+        if not err > ROT3_POLAR_TOL or k == ROT3_POLAR_ITERS:
             break
-    else:
-        s = ROT3_SWEEPS32
-    n = [_dot3(col, col) for col in c]
-    for i, j in ((0, 1), (0, 2), (1, 2)):
-        if n[i] < n[j]:
-            _swap_neg(c, v, i, j)
-            n[i], n[j] = n[j], n[i]
-    if n[0] > F(0):
-        inv = F(1) / np.sqrt(n[0])
-        u0 = [x * inv for x in c[0]]
-    else:
-        u0 = [F(1), F(0), F(0)]
-    d01 = _dot3(u0, c[1])
-    w = [c[1][r] - d01 * u0[r] for r in range(3)]
-    wn = _dot3(w, w)
-    if not wn > F(1e-30) * (n[0] if n[0] > F(0) else F(1)):
-        e = [F(1), F(0), F(0)] if abs(u0[0]) < F(0.9) else [F(0), F(1), F(0)]
-        d = _dot3(u0, e)
-        w = [e[r] - d * u0[r] for r in range(3)]
-        wn = _dot3(w, w)
-    winv = F(1) / np.sqrt(wn)
-    u1 = [x * winv for x in w]
-    u2 = [u0[1] * u1[2] - u0[2] * u1[1], u0[2] * u1[0] - u0[0] * u1[2], u0[0] * u1[1] - u0[1] * u1[0]]
-    u = (u0, u1, u2)
-    return [[u[0][r] * v[0][col] + u[1][r] * v[1][col] + u[2][r] * v[2][col] for col in range(3)]
-            for r in range(3)], s, n[0], n[2]
+        for r in range(3):
+            x0, x1, x2 = x[3 * r:3 * r + 3]
+            x[3 * r] = x0 - 0.5 * (x0 * e[0] + x1 * e[1] + x2 * e[2])
+            x[3 * r + 1] = x1 - 0.5 * (x0 * e[1] + x1 * e[3] + x2 * e[4])
+            x[3 * r + 2] = x2 - 0.5 * (x0 * e[2] + x1 * e[4] + x2 * e[5])
+        k += 1
+        if err < ROT3_POLAR_LAST:
+            break
+        e = _gram_defect(x)
+    return [x[0:3], x[3:6], x[6:9]], k
 
 
 def _rot3_f64(m):
@@ -189,17 +190,18 @@ def _rot3_f64(m):
 
 def rot3_method(M: np.ndarray):
     """csrc/rot3.cu's arithmetic on float32 matrices [n, 3, 3]: (R [n, 3, 3]
-    float32, the kernel's `sweeps` output [n]: the float32 branch's sweeps
-    (>= 0) for a near rotation, else -1 - the float64 branch's)."""
+    float32, the kernel's `sweeps` output [n]: the polar iteration's steps
+    (>= 0) for a near rotation, else -1 - the float64 Jacobi branch's
+    sweeps)."""
     M = np.asarray(M, np.float32).reshape(-1, 3, 3)
     out, sweeps = np.empty_like(M), np.empty(len(M), np.int32)
     with np.errstate(all="ignore"):
         for i, m in enumerate(M):
-            R, sweeps[i], n_max, n_min = _rot3_f32(m)
-            a = m.reshape(9)
-            det = (a[0] * (a[4] * a[8] - a[5] * a[7]) - a[1] * (a[3] * a[8] - a[5] * a[6])
-                   + a[2] * (a[3] * a[7] - a[4] * a[6]))
-            if not (det > F(0) and n_min > F(0.75) and n_max < F(1.25)):  # not a near rotation
+            x = [float(t) for t in m.reshape(9)]
+            e = _gram_defect(x)
+            if _rot3_near(x, e):
+                R, sweeps[i] = _rot3_polar(x, e)
+            else:
                 R, s = _rot3_f64(m)
                 sweeps[i] = -1 - s
             out[i] = np.asarray(R, np.float64).astype(np.float32)
@@ -375,6 +377,8 @@ def rot3_cases() -> dict:
         "rank_one_and_zero": np.concatenate([a[:, :, None] * b[:, None, :], np.zeros((2, 3, 3))]).astype(np.float32),
         "gate_below": _gate_matrices(rng, 0.249).astype(np.float32),
         "gate_above": _gate_matrices(rng, 0.251).astype(np.float32),  # (0.75, 1.25): the kernel's gate
+        "gate_edge": np.concatenate([_gate_matrices(rng, 0.25 - 1e-5),
+                                     _gate_matrices(rng, 0.25 + 1e-5)]).astype(np.float32),
     }
 
 
@@ -403,8 +407,8 @@ def horn_cases() -> dict:
 # ---------------------------------------------------------------------------
 
 ROT3_CASES = ("main_path", "exact_rotations", "general", "det_negative", "rank_one_and_zero", "gate_below",
-              "gate_above")
-NEAR_ROTATIONS = ("main_path", "exact_rotations", "gate_below")  # the float32 branch's cases
+              "gate_above", "gate_edge")
+NEAR_ROTATIONS = ("main_path", "exact_rotations", "gate_below")  # the polar branch's cases
 
 
 @pytest.fixture(scope="module")
@@ -423,39 +427,49 @@ def test_rot3_source_on_the_host_equals_the_method(host, rot3_inputs, case):
 
 @pytest.mark.parametrize("case", ROT3_CASES)
 def test_rot3_method_against_float64_and_the_twin(rot3_inputs, case, capsys):
-    """Each case's branch (float32 for near rotations, float64 for the
-    rest); the result a proper rotation no farther from M than the float64
-    closest rotation (to float32), whether or not that is unique; where it
-    is unique, its distance from it and the twin's (torch.linalg.svd + det
-    in float32), printed, the method's no larger (ROADMAP queue 3 A4), and
-    on the float64 branch within 6e-8 (the float64 answer rounded once).
-    Rank one: R takes the row space's direction to the column space's."""
+    """Each case's branch (the polar iteration for near rotations, Jacobi
+    for the rest: det > 0 and every eigenvalue of M^T M in (0.75, 1.25), as
+    numpy's float64 eigenvalues say); the result a proper rotation no
+    farther from M than the float64 closest rotation (to float32), whether
+    or not that is unique; where it is unique, its distance from it and the
+    twin's (torch.linalg.svd + det in float32), printed, the method's no
+    larger (ROADMAP queue 3 A4) and within 6e-8 (the float64 answer rounded
+    once) on both branches. Rank one: R takes the row space's direction to
+    the column space's."""
     M = rot3_inputs[case]
     R, sweeps = rot3_method(M)
-    assert (sweeps >= 0).all() if case in NEAR_ROTATIONS else (sweeps < 0).all(), sweeps
+    M64 = M.astype(np.float64)
+    lam = np.linalg.eigvalsh(M64.transpose(0, 2, 1) @ M64)
+    near = (np.linalg.det(M64) > 0) & (lam.min(1) > 0.75) & (lam.max(1) < 1.25)
+    assert np.array_equal(sweeps >= 0, near), (sweeps, lam)
+    if case in NEAR_ROTATIONS:
+        assert near.all()
+    elif case != "gate_edge":
+        assert not near.any()
+    else:
+        assert 0 < near.sum() < len(M)
     R64 = R.astype(np.float64)
     assert np.abs(R64 @ R64.transpose(0, 2, 1) - np.eye(3)).max() < 1e-6
     assert np.abs(np.linalg.det(R64) - 1.0).max() < 1e-6
     exact = _closest_f64(M)
-    dist = lambda R_: np.linalg.norm(R_ - M.astype(np.float64), axis=(1, 2))  # noqa: E731
+    dist = lambda R_: np.linalg.norm(R_ - M64, axis=(1, 2))  # noqa: E731
     assert (dist(R64) <= dist(exact) + 1e-6).all()
     if case == "rank_one_and_zero":
         a = M[:24, :, 0] / np.linalg.norm(M[:24, :, 0], axis=1, keepdims=True)
         b = M[:24, 0, :] / np.linalg.norm(M[:24, 0, :], axis=1, keepdims=True)
         assert np.abs(np.einsum("nij,nj->ni", R64[:24], b) - a).max() < 1e-6
         return
-    s = np.linalg.svd(M.astype(np.float64), compute_uv=False)
-    det = np.linalg.det(M.astype(np.float64))
+    s = np.linalg.svd(M64, compute_uv=False)
+    det = np.linalg.det(M64)
     unique = np.where(det > 0, s[:, 1] + s[:, 2], s[:, 1] - s[:, 2]) > 1e-2 * s[:, 0]
     assert unique.mean() >= 0.75
     twin = rot3.closest_rotation(torch.as_tensor(M)).numpy().astype(np.float64)  # the CPU runs the twin
     e_m, e_t = (np.abs(x - exact)[unique].max() for x in (R64, twin))
     with capsys.disabled():
-        print(f"\nrot3 {case} ({unique.sum()} of {len(M)} with a unique answer, branch and sweeps "
+        print(f"\nrot3 {case} ({unique.sum()} of {len(M)} with a unique answer, branch and work "
               f"{sorted(set(sweeps.tolist()))}): max |R - R_float64| method {e_m:.3e}, twin {e_t:.3e}")
     assert e_m <= e_t, (e_m, e_t)
-    if case not in NEAR_ROTATIONS:
-        assert e_m <= 6e-8, e_m
+    assert e_m <= 6e-8, e_m
 
 
 # ---------------------------------------------------------------------------
