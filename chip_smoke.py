@@ -70,7 +70,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
                against its plain version (the host reads the predicate and
                branches) for both values, exactly; the time of one IF node
                with a false predicate (64 in a graph), the host decision's,
-               the bound (one byte read);
+               the bound (one byte read); then N_POOL_STREAMS streams taken
+               from torch.cuda.Stream (twice what its pool holds), each the
+               parent of an IF node's capture, every graph replayed against
+               the host's branch for both values, exactly (the body stream is
+               the port's own and is never handed out: ROADMAP queue 3 A8);
   3c / 3d on the main path (after phase 8) -- the RANSACs that phases 6a, 6b
                and 8 ran (the loop verifications', the relocalizations' PnP,
                the mono one's DLT; their inputs recorded at the stages' entry)
@@ -355,6 +359,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
                ran): captures and graph pools.
                bench.py's graphs against eager is `python3 -m
                pli_slam_tpu_torch.scripts.bench [--no-graphs]`.
+  16. any number of trackers -- phase 6a's configuration (loop closing on)
+               built under graphs N_ROW_TRACKERS times in a row as a
+               `Tracker` and three times more through a `System` and two
+               `reset()`s, each over phase 6a's first N_ROW_FRAMES frames and
+               dropped before the next (ROADMAP queue 3 A8: while the IF
+               bodies' stream came from PyTorch's pool, the third such
+               tracker in a process failed its capture). Each must capture
+               its fused step at construction, track every frame, capture
+               nothing inside a frame and, once dropped, leave at most
+               TRACKER_LEFT_BOUND bytes of device memory reserved after
+               `gc.collect()` and `torch.cuda.empty_cache()`; the bytes each
+               left are printed.
 The map initializations and the merge (PR 15): in phases 5, 6c, 8, 11
 and 12 every call of their stages (INIT_STAGES) under graphs is run again
 eagerly on copies of its inputs and must equal the replay bit for bit;
@@ -369,7 +385,12 @@ each new stage's captures, capture ms and graph pool and the trackers'
 warm-ups are printed. Phase 6c traces each revisit frame with a profiler
 of its own and reads only the merge frame's trace (one trace of every
 frame took 29.7 s to read); phase 8 keeps one trace of every frame (a
-profiler a frame cost ~1 s each). Every phase that builds a stereo tracker
+profiler a frame cost ~1 s each). A trace is read from the profiler's
+results, its frame marks, runtime calls and copies alone (`FrameTrace.
+_read`, `_trace_counts`; exporting and parsing phase 8's took ~85 s on an
+H100's host, and on streaming fused frames the reader gives the export's
+frames, calls and launches).
+Every phase that builds a stereo tracker
 prints its warm-ups at construction (the fused step's and its first
 frames' captures, `fused_warmup_ms`).
 Every phase's wall time is printed at the end. Phase 6a keeps its 180
@@ -613,11 +634,60 @@ def phase_if_node(dev):
     plain_ms = (time.perf_counter() - t0) * 1e3 / 200
     if err != 0.0:
         raise AssertionError(f"if_node: the graph's IF body against the host's branch: largest difference {err}")
+    n_streams, n_handles = if_node_on_pool_streams(dev, x)
     log(f"if_node ({COND_SRC}): an IF body on a predicate set by the graph equals the host's branch for both values; "
         f"{ms:.4f} ms per IF node skipped (handle kernel and node, 64 a graph); the host's decision {plain_ms:.4f} "
-        f"ms (a read of the predicate)")
+        f"ms (a read of the predicate); an IF node captured and replayed right with each of {n_streams} streams "
+        f"from torch.cuda.Stream as its parent ({n_handles} distinct handles, none the body stream's)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": 1.0 / HBM_RATE * 1e3,
             "bound_by": "bytes", "library_ms": None}
+
+
+N_POOL_STREAMS = 64  # streams taken from torch.cuda.Stream in 3e: twice the 32 its pool holds a priority
+
+
+def if_node_on_pool_streams(dev, x) -> tuple[int, int]:
+    """3e: N_POOL_STREAMS streams from `torch.cuda.Stream` (PyTorch's pool
+    hands them out round-robin, so every pooled stream comes up at least
+    twice), each the parent of an IF node's capture whose body writes its
+    own value: every graph must capture, and replay as the host's branch
+    for both predicates. A body stream taken from that pool (the port's
+    before ROADMAP queue 3 A8 was repaired) would come up as a parent and
+    fail its capture. Returns (streams, distinct handles)."""
+    import torch
+
+    from pli_slam_tpu_torch.ops.kernels import conditional
+
+    body = conditional.streams(dev).body.cuda_stream
+    out, want = torch.zeros_like(x), torch.zeros_like(x)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    handles = set()
+    for k in range(N_POOL_STREAMS):
+        parent = torch.cuda.Stream(dev)
+        handles.add(parent.cuda_stream)
+        if parent.cuda_stream == body:
+            raise AssertionError(f"if_node: torch.cuda.Stream handed out the IF bodies' stream {body:#x}")
+        parent.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        bodies = conditional.BodyPool(dev, graph)
+        try:
+            with torch.cuda.stream(parent), torch.cuda.graph(graph, stream=parent, capture_error_mode="thread_local"):
+                out.zero_()
+                with conditional.if_node(flag > 0, bodies):
+                    torch.add(x, float(k), out=out)
+        except Exception as exc:
+            raise AssertionError(f"if_node: the capture on pooled stream {k} ({parent.cuda_stream:#x}) failed: "
+                                 f"{exc}") from exc
+        torch.cuda.current_stream(dev).wait_stream(parent)
+        for value in (1, 0):
+            flag.fill_(value)
+            graph.replay()
+            want.zero_()
+            conditional.select_reference(flag > 0, lambda: torch.add(x, float(k), out=want), want)
+            if not torch.equal(out, want):
+                raise AssertionError(f"if_node: the graph captured on pooled stream {k} ({parent.cuda_stream:#x}) "
+                                     f"differs from the host's branch with the predicate {bool(value)}")
+    return N_POOL_STREAMS, len(handles)
 
 
 def phase_rot3(dev):
@@ -1992,9 +2062,8 @@ def phase_loop(dev, smi):
     """6a (see the module docstring): the loop-closing run. Returns its
     launches, frame count and what 6b continues from. Its one-ulp run
     (`pre_closure_run`) builds a second loop-closing tracker under graphs
-    while the first is alive: next to ROADMAP queue 3 A8, where the third
-    and fourth such trackers built in a row in one process fail their
-    capture; a third one here waits on A8's repair."""
+    while the first is alive; since ROADMAP queue 3 A8's repair any number
+    of them may follow in one process (phase 16 builds five)."""
     import numpy as np
     import torch
 
@@ -3482,20 +3551,35 @@ def _traced(dev, fn) -> tuple[float, float, int, int]:
     (wall s, device busy us, host kernel launches, host graph launches)."""
     import torch
 
-    from pli_slam_tpu_torch.utils.profile import trace_busy
-
     torch.cuda.synchronize(dev)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    trace = os.path.join(ROOT, "build", "graph_trace.json")
-    os.makedirs(os.path.dirname(trace), exist_ok=True)
-    prof.export_chrome_trace(trace)
-    busy_us, _, launches, graph_launches = trace_busy(trace)
-    os.remove(trace)
-    return wall, busy_us, launches, graph_launches
+    return (wall, *_trace_counts(prof))
+
+
+def _trace_counts(prof) -> tuple[float, int, int]:
+    """(device busy us, host kernel launches, host graph launches) of a
+    CUDA-activity trace, read from the profiler's results as
+    `FrameTrace._read` reads them: the union of the device's kernels,
+    copies and memsets, the host's `cudaLaunchKernel*` and
+    `cudaGraphLaunch` calls (profile.trace_busy's figures, without the
+    export)."""
+    from torch.autograd import DeviceType
+
+    from pli_slam_tpu_torch.utils.profile import union_us
+
+    busy, launches, graph_launches = [], 0, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            launches += name.startswith("cudaLaunchKernel")
+            graph_launches += name == "cudaGraphLaunch"
+        elif not e.is_user_annotation():
+            busy.append((e.start_ns() / 1e3, e.duration_ns() / 1e3))
+    return union_us(busy), launches, graph_launches
 
 
 class FrameTrace:
@@ -3550,14 +3634,36 @@ class FrameTrace:
             self._count(self._read(self._last[1]))
             self._last = None
 
+    @staticmethod
+    def _category(e) -> str | None:
+        """The chrome export's `cat` of a profiler event that `_count` reads:
+        a frame's mark (on the host), a CUDA runtime call (on the host), a
+        copy (on the device); None for the rest."""
+        from torch.autograd import DeviceType
+
+        name, host = e.name(), e.device_type() == DeviceType.CPU
+        if host and name.startswith("chip_smoke frame "):
+            return "user_annotation"
+        if host and name.startswith("cuda"):
+            return "cuda_runtime"
+        if not host and name.startswith("Memcpy"):
+            return "gpu_memcpy"
+        return None
+
     def _read(self, prof) -> list:
+        """The trace's frame marks, CUDA runtime calls and copies as its
+        chrome export holds them (`cat`, `name`, `ts` and `dur` in us, the
+        correlation id, which ties a copy's runtime call to its device
+        record), read from the profiler's results: exporting and parsing the
+        whole trace (every graph kernel a record) took ~85 s for phase 8's
+        40 frames."""
         t0 = time.perf_counter()
-        trace = os.path.join(ROOT, "build", "frame_trace.json")
-        os.makedirs(os.path.dirname(trace), exist_ok=True)
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = json.load(f)["traceEvents"]
-        os.remove(trace)
+        events = []
+        for e in prof.profiler.kineto_results.events():
+            cat = self._category(e)
+            if cat is not None:
+                events.append({"ph": "X", "cat": cat, "name": e.name(), "ts": e.start_ns() / 1e3,
+                               "dur": e.duration_ns() / 1e3, "args": {"correlation": e.correlation_id()}})
         self.read_s += time.perf_counter() - t0
         return events
 
@@ -3842,6 +3948,114 @@ def phase_graphs(dev, smi, room, vi):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: loop-closing trackers built, run and dropped one after another in one process
+# ---------------------------------------------------------------------------
+
+
+N_ROW_TRACKERS = 2  # plain Trackers of phase 16, then a System and two resets: five trackers
+N_ROW_FRAMES = 6  # frames each tracks (phase 6a's first)
+TRACKER_LEFT_BOUND = 4 * 2**20  # bytes a dropped tracker may leave reserved: two 2 MiB segments of small blocks, what
+# the first tracker of a process leaves for its constants (ops.consts) and the gated-match kernel's counters
+
+
+def _reserved(dev) -> int:
+    """Device memory reserved once garbage is collected and the caching allocator's free blocks are given back."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev)
+
+
+def _row_frames(label: str, tracker, track, frames) -> list:
+    """`track(fr)` over `frames`: every frame OK, no program captured inside a frame. Returns the states."""
+    from pli_slam_tpu_torch.frontend.tracker import TrackingState
+
+    states = []
+    for i, fr in enumerate(frames):
+        c0 = _captures(tracker)
+        states.append(track(fr)["state"])
+        new = {k: n - c0.get(k, 0) for k, n in _captures(tracker).items() if n != c0.get(k, 0)}
+        if new:
+            raise AssertionError(f"trackers 16: {label} captured {new} inside frame {i}")
+    if any(st != TrackingState.OK for st in states):
+        raise AssertionError(f"trackers 16: {label} tracked its frames as {states}")
+    return states
+
+
+def phase_trackers(dev, smi, run):
+    """16: loop-closing trackers (phase 6a's configuration, SlamConfig.
+    euroc_stereo() with loop closing on) built under graphs one after
+    another in this process, each tracking phase 6a's first N_ROW_FRAMES
+    frames and then dropped (ROADMAP queue 3 A8: the third of such trackers
+    in a row failed its capture while the IF bodies' stream came from
+    PyTorch's pool): N_ROW_TRACKERS `Tracker`s, then a `System` whose
+    `reset()` builds two more. Each must capture its fused step at
+    construction, track every frame, capture nothing inside a frame, and
+    leave at most TRACKER_LEFT_BOUND bytes of device memory reserved once
+    dropped (`gc.collect()`, `torch.cuda.empty_cache()`): a plain tracker
+    against the level before it was built; a tracker that `reset()`
+    replaced by the level after its successor tracked the same frames
+    against the level after it did (the two are the same size); the
+    System's last tracker with the System against the level before the
+    System. Returns (gated_match launches, frames)."""
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.ops.kernels import hamming
+    from pli_slam_tpu_torch.system import System
+    from pli_slam_tpu_torch.utils.profile import loop_config, slice_camera
+
+    cfg, cam, frames = loop_config(), slice_camera(), run[2][:N_ROW_FRAMES]
+    reset_counts()
+    left, rows = [], []
+
+    def captured(label, tracker):
+        fused = tracker._fused_step()
+        if fused.captures != 1 or fused.program is None:
+            raise AssertionError(f"trackers 16: {label} did not capture its fused step at construction")
+        rows.append(f"{label} construction {tracker.fused_warmup_ms:.0f} ms, fused-step pool "
+                    f"{fused.pool_bytes / 2**20:.1f} MiB")
+
+    for i in range(N_ROW_TRACKERS):
+        before = _reserved(dev)
+        tracker = Tracker(cam, cfg, dev)
+        captured(f"Tracker {i}", tracker)
+        _row_frames(f"Tracker {i}", tracker, lambda fr: tracker.process(fr["img_l"], fr["img_r"], fr["t"]), frames)
+        tracker = None
+        left.append((f"Tracker {i}", _reserved(dev) - before))
+    base = _reserved(dev)
+    sysm = System(cam, cfg, device=dev)
+    alive = []
+    for k in range(3):
+        label = "System" if k == 0 else f"System after reset {k}"
+        if k:
+            sysm.reset()
+        captured(label, sysm.tracker)
+        _row_frames(label, sysm.tracker, lambda fr: sysm.track_stereo(fr["img_l"], fr["img_r"], fr["t"]), frames)
+        alive.append(_reserved(dev))
+        if k:  # the same tracker over the same frames in place of the one reset() dropped
+            left.append((f"the tracker reset {k} replaced", alive[k] - alive[k - 1]))
+    sysm = None
+    left.append(("System's last tracker and the System", _reserved(dev) - base))
+    launches = hamming.launches
+    count_small_kernels()
+    n_frames = (N_ROW_TRACKERS + 3) * N_ROW_FRAMES
+    log(f"trackers 16: {N_ROW_TRACKERS} Trackers and a System reset twice ({N_ROW_TRACKERS + 3} loop-closing trackers "
+        f"in a row, {N_ROW_FRAMES} frames each): each captured its fused step at construction, tracked every frame "
+        f"and captured nothing inside one; {'; '.join(rows)}; device memory left reserved after each drop (B) "
+        f"{left} (bound {TRACKER_LEFT_BOUND}); gated_match launches {launches} [{smi}]")
+    worst = max(b for _, b in left)  # below zero: the level came back lower than before
+    if worst > TRACKER_LEFT_BOUND:
+        raise AssertionError(f"trackers 16: a dropped tracker left {worst} B of device memory reserved (bound "
+                             f"{TRACKER_LEFT_BOUND}): {left}")
+    if launches < n_frames:
+        raise AssertionError(f"trackers 16: gated_match launched {launches} times for {n_frames} frames")
+    return launches, n_frames
+
+
 def main() -> int:
     import torch
 
@@ -3873,7 +4087,12 @@ def main() -> int:
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
-        out = fn(*args)
+        try:
+            out = fn(*args)
+        except BaseException:
+            secs[name] = round(time.perf_counter() - t0, 1)
+            log(f"chip_smoke: phase {name} failed; seconds per phase so far {secs}")
+            raise
         secs[name] = round(time.perf_counter() - t0, 1)
         return out
 
@@ -3909,13 +4128,14 @@ def main() -> int:
     launches_14b, n_frames_14b = timed("14b", phase_bench, dev, smi, run, room)
     launches_flagship = launches_14a + launches_14b
     timed("15", phase_graphs, dev, smi, room, vi)
+    launches_row, n_frames_row = timed("16", phase_trackers, dev, smi, run)
     log(f"chip_smoke: seconds per phase {secs}")
     for name, counts, phases in (("closest_rotation", ROT3_LAUNCHES, ("phase_main_path", "phase_loop")),
                                  ("largest_eigvec", EIG4_LAUNCHES, ("phase_loop", "phase_kidnap",
                                                                     "phase_flagship_closure")),
                                  ("svd_small", SVD_LAUNCHES, ("mono_planted_reloc", "phase_mono")),
                                  ("if_node", COND_LAUNCHES, ("phase_main_path", "phase_vi_path",
-                                                             "phase_graphs_run"))):
+                                                             "phase_graphs_run", "phase_trackers"))):
         if any(counts.get(phase, 0) < 1 for phase in phases):
             raise AssertionError(f"{name} was not launched on every path that runs it: {counts}")
 
@@ -3930,7 +4150,7 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": "gated_match", "route": "cuda", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
         "launches": launches + launches_vi + launches_loop + launches_ra + launches_rgbd + launches_mono
-        + launches_ingest + sum(n for n, _ in slice6.values()) + launches_flagship,
+        + launches_ingest + sum(n for n, _ in slice6.values()) + launches_flagship + launches_row,
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "call_ms": c_ms, "shape": "N=1200 x P=4096",
         "ms_fuse": kf_ms, "plain_ms_fuse": pf_ms, "bound_ms_fuse": bf_ms, "call_ms_fuse": cf_ms,
@@ -3949,6 +4169,7 @@ def main() -> int:
         **{f"launches_per_frame_{name}": n / frames for name, (n, frames) in slice6.items()},
         "fisheye_association_ms": assoc_ms, "launches_flagship": launches_flagship,
         "launches_per_frame_flagship": launches_flagship / (n_frames_14a - 1 + n_frames_14b - 2),
+        "launches_trackers_in_a_row": launches_row, "launches_per_frame_trackers_in_a_row": launches_row / n_frames_row,
     }, {
         "name": "closest_rotation", "route": "cuda", "source": ROT3_SRC, "replaces": ROT3_REPLACES,
         "launches": sum(ROT3_LAUNCHES.values()), "max_abs_err": rot3_line["max_abs_err"], "ms": rot3_line["ms"],

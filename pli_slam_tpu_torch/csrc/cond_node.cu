@@ -23,7 +23,11 @@
 //   cond_if_end: end the body's capture.
 // The caller routes the body's allocations into the capture's memory pool
 // (the body stream is not the capturing stream PyTorch's pool filter knows).
-// Every entry returns 0 or a cudaError.
+// The body stream is the port's own (`cond_stream_create`), not one of
+// PyTorch's pooled streams: `torch.cuda.Stream()` hands those out round-robin,
+// so a later capture's stream could be the body stream, and a body capture
+// begun on the stream that captures its parent is refused
+// (cudaErrorIllegalState). Every entry returns 0 or a cudaError.
 
 #include <cuda_runtime.h>
 
@@ -40,6 +44,15 @@ __global__ void set_conditional_kernel(cudaGraphConditionalHandle handle, const 
 extern "C" int cond_init() {
   cudaFuncAttributes attr;
   return static_cast<int>(cudaFuncGetAttributes(&attr, set_conditional_kernel));
+}
+
+// A stream of the caller's own, non-blocking as PyTorch's pooled streams are;
+// it lives as long as the process.
+extern "C" int cond_stream_create(void** out) {
+  cudaStream_t s = nullptr;
+  const cudaError_t e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  *out = s;
+  return static_cast<int>(e);
 }
 
 extern "C" int cond_if_begin(void* parent_stream, const void* pred, void* body_stream) {

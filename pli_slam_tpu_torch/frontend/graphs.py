@@ -53,17 +53,24 @@ unchanged (a store field the stage does not write) is returned as the
 caller's own tensor, as the eager stage returns it. With `graphs=False`
 (and always on the CPU) the stage runs eagerly.
 
-Capture (`capture_graph`, both classes). The body is run once eagerly on a
-side stream first, its launches uncounted and its results dropped (kernel
-builds, cuBLAS / cuSOLVER handles, the gated-match kernel's plans, the
-constants of ops.consts; for a fused step T and both K variants, since a
-capture runs neither body), then captured on that stream into the caller's
-memory pool. A capture that fails raises, naming the fused step or stage
-(PyTorch's or CUDA's error names the operation); nothing falls back to
-eager or to a host decision. The hand-written kernels' launch counters
-count per replay (ops.kernels.hamming.ReplayCounter), and an IF body's when
-the frame's stats show it ran, so a graph frame counts what an eager frame
-counts.
+Capture (`capture_graph`, both classes). The body is run once eagerly on
+the port's warm-up stream first, its launches uncounted and its results
+dropped (kernel builds, cuBLAS / cuSOLVER handles, the gated-match
+kernel's plans, the constants of ops.consts; for a fused step T and both
+K variants, since a capture runs neither body), then captured on the
+port's capture stream into the caller's memory pool (ops.kernels.
+conditional.Streams: the same two streams for every capture of the
+process, never the IF bodies' stream; an eager solve on a capture's own
+stream before it made the solves of its IF bodies come as graph memory
+nodes, which a body may not hold). A capture that fails raises, naming
+the fused step or stage (PyTorch's or CUDA's error names the operation);
+nothing falls back to eager or to a host decision. A graph's memory (its
+pool, its IF bodies' `BodyPool`) is given back when the graph is
+collected: a dropped tracker keeps no device memory beyond the free
+blocks the caching allocator holds until `torch.cuda.empty_cache()`. The
+hand-written kernels' launch counters count per replay (ops.kernels.
+hamming.ReplayCounter), and an IF body's when the frame's stats show it
+ran, so a graph frame counts what an eager frame counts.
 """
 
 from __future__ import annotations
@@ -71,7 +78,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from functools import partial
 
 import numpy as np
 import torch
@@ -171,15 +177,14 @@ class Captured:
         self.counter.replay(self.graph)
 
 
-def capture_graph(device, pool, what: str, body, stream=None, warm_apart: bool = False) -> Captured:
+def capture_graph(device, pool, what: str, body) -> Captured:
     """Warm `body` up (`body(False)`: its launches uncounted, its results
-    dropped) on a side stream (`stream`), or with `warm_apart` on a stream
-    of its own, then capture `body(True)` on the side stream into `pool`.
-    A failed capture raises, naming `what`."""
+    dropped) on the port's warm-up stream, then capture `body(True)` on its
+    capture stream into `pool`. A failed capture raises, naming `what`."""
     dev = torch.device(device)
     conditional.ready(dev)  # before the process's first capture (see conditional._prime)
-    side = stream if stream is not None else torch.cuda.Stream(dev)
-    warm = torch.cuda.Stream(dev) if warm_apart else side
+    roles = conditional.streams(dev)
+    side, warm = roles.capture, roles.warm
     t0 = time.perf_counter()
     counter = hamming.ReplayCounter(*KERNEL_MODULES)
     warm.wait_stream(torch.cuda.current_stream(dev))
@@ -307,10 +312,7 @@ class FusedStep:
         self.graphs = bool(graphs)
         if self.graphs and capture is None and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
-        # the warm-up runs on a stream of its own: an eager solve on the capture's stream before it can make
-        # cuSOLVER's solves inside an IF body come as graph memory nodes, which a body may not hold (as a
-        # process's first captured solve does: ops.kernels.conditional._prime)
-        self._capture = partial(capture_graph, warm_apart=True) if capture is None else capture
+        self._capture = capture_graph if capture is None else capture
         self._branch = if_branch if branch is None else branch
         self.static = self.inputs = self.program = None
         self.counters = None  # n_kf / fs / last: 0-d int32 tensors on the device (the static buffers under graphs)
@@ -424,9 +426,12 @@ class FusedStep:
         self._storages = {t.untyped_storage().data_ptr() for t in tree_leaves(self.static)}
         cuda = dev.type == "cuda"
         pool = torch.cuda.graph_pool_handle() if cuda else None
-        self._bodies = conditional.BodyPool(dev, self) if cuda else None  # the IF bodies' memory
-        self.program = self._capture(dev, pool, "the fused step", self._program,
-                                     torch.cuda.Stream(dev) if cuda else None)
+        self._bodies = conditional.BodyPool(dev) if cuda else None  # the IF bodies' memory
+        try:
+            self.program = self._capture(dev, pool, "the fused step", self._program)
+        finally:  # the bodies' memory lives as long as the graph that replays them (none if the capture failed)
+            if self._bodies is not None:
+                self._bodies.tie(None if self.program is None else self.program.graph)
         self.captures += 1
         self.capture_ms += self.program.ms
         self.pool_bytes += self.program.pool_bytes

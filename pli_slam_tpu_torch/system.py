@@ -26,6 +26,7 @@ cannot describe; a KB8 camera serves mono and mono_imu here.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -93,7 +94,11 @@ class System:
         self.localization_only = False
 
     def reset(self):
-        """A fresh tracker: every map is dropped."""
+        """A fresh tracker: every map is dropped. The old tracker is let go
+        and collected before the new one is built (the reference builds
+        first), so the two never hold the device's memory at once."""
+        self.tracker = None
+        gc.collect()
         self.tracker = Tracker(self.cam, self.cfg, self.device, rectifier=self.rectifier)
         self._frame_times.clear()
 

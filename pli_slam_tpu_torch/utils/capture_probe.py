@@ -19,10 +19,14 @@ offers, then, through the port's route (ops.kernels.conditional.if_node,
 replayed with its predicate set by a kernel of the graph to true and then
 to false, and the fused step's operations inside IF bodies (the gated
 match, the closest-rotation kernel, the dense solves of GN and windowed BA,
-a matrix product, a copy), each result checked against an eager run;
-last, five loop-closing trackers built under graphs one after another,
-each dropped before the next, and which of them capture (ROADMAP queue 3
-A8).
+a matrix product, a copy), each result checked against an eager run,
+and the same without the priming capture (`conditional._prime`) after a
+plain capture of a solve; last, loop-closing trackers built under graphs
+one after another, each dropped before the next: which of them capture,
+the streams each capture used against the IF bodies' stream, the device
+memory each tracker leaves reserved after its drop, and (`"what dropped
+trackers leave"`) where what stays allocated was allocated (ROADMAP
+queue 3 A8).
 """
 
 from __future__ import annotations
@@ -223,36 +227,188 @@ def conditional_kernels(dev) -> str:
     return result if result != "ok" else f"ok (the second body's nodes: {last_body_census()})"
 
 
+def conditional_unprimed(dev) -> str:
+    """The IF bodies' case above without `conditional._prime`, after a plain
+    capture of a dense solve (the process's first captured solve): whether
+    the bodies' solves still come as graph memory nodes, which CUDA refuses
+    in a body, now that the bodies' stream is the port's own."""
+    from pli_slam_tpu_torch.ops.kernels import conditional
+
+    conditional._prime = lambda *args: None
+    conditional.ready(dev)
+    a, b = torch.eye(48, device=dev) * 2.0, torch.ones(48, device=dev)
+    here, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+    side.wait_stream(here)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        torch.linalg.solve_ex(a, b)
+        torch.cuda.synchronize(dev)
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            torch.linalg.solve_ex(a, b)
+    here.wait_stream(side)
+    graph.replay()
+    return conditional_kernels(dev)
+
+
+class StreamLog:
+    """The streams of every capture `frontend.graphs.capture_graph` makes
+    while it is installed (`with StreamLog(dev) as log:`), read from the
+    outside so that it runs on earlier trees too: the stream its warm-up ran
+    on and the stream it captured on (the current stream when the body is
+    called), whether it failed, and the IF bodies' stream (the device's
+    `ops.kernels.conditional._streams` entry, `_body_streams` on earlier
+    trees)."""
+
+    def __init__(self, dev):
+        self.dev, self.rows = dev, []
+
+    def __enter__(self):
+        from pli_slam_tpu_torch.frontend import graphs
+
+        self._graphs, self._orig = graphs, graphs.capture_graph
+        dev = self.dev
+
+        def capture_graph(device, pool, what, body, *args, **kwargs):
+            row = {"what": what, "warm": None, "side": None, "error": None}
+            self.rows.append(row)
+
+            def logged(commit):
+                row["side" if commit else "warm"] = torch.cuda.current_stream(dev).cuda_stream
+                return body(commit)
+            try:
+                return self._orig(device, pool, what, logged, *args, **kwargs)
+            except Exception as exc:
+                row["error"] = (str(exc).strip().splitlines() or [type(exc).__name__])[0][:160]
+                raise
+        graphs.capture_graph = capture_graph
+        return self
+
+    def __exit__(self, *exc):
+        self._graphs.capture_graph = self._orig
+
+    def body(self) -> int | None:
+        from pli_slam_tpu_torch.ops.kernels import conditional
+        if hasattr(conditional, "_body_streams"):  # a tree before the port had streams of its own
+            stream = conditional._body_streams.get(self.dev.index)
+        else:
+            roles = conditional._streams.get(self.dev.index)
+            stream = None if roles is None else roles.body
+        return None if stream is None else stream.cuda_stream
+
+    def report(self, rows: list) -> str:
+        """Captures, distinct side / warm handles, and each capture whose side
+        or warm stream is the body stream (with its error, if it failed)."""
+        body = self.body()
+        hit = [f"{r['what']} ({'side' if r['side'] == body else 'warm'}"
+               + (f", failed: {r['error']}" if r["error"] else "") + ")"
+               for r in rows if body is not None and body in (r["side"], r["warm"])]
+        failed = [f"{r['what']}: {r['error']}" for r in rows if r["error"] and body not in (r["side"], r["warm"])]
+        handles = {h for r in rows for h in (r["side"], r["warm"]) if h is not None}
+        return (f"{len(rows)} captures on {len(handles)} streams, body stream {body:#x}; on the body stream: "
+                f"{hit or 'none'}" + (f"; failed elsewhere: {failed}" if failed else "")) if body is not None else \
+            f"{len(rows)} captures, no body stream yet"
+
+
+def _reserved_after_collect(dev) -> int:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev)
+
+
+def _pinned_bytes() -> str:
+    """The caching host allocator's pinned bytes (the trackers' uploads), where this torch reports them."""
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    return ", ".join(f"{k} {v}" for k, v in sorted(stats.items()) if k.endswith("bytes.current")) or "not reported"
+
+
 def trackers_in_a_row(dev, n: int = 5) -> str:
     """Loop-closing trackers (phase 6a's configuration) built under graphs one
     after another, each tracking 12 frames and then dropped and collected
-    before the next: which of them capture (ROADMAP queue 3 A8)."""
-    import gc
-
+    before the next: which of them capture (ROADMAP queue 3 A8), the streams
+    of each tracker's captures against the IF bodies' stream (`StreamLog`),
+    and the device memory each leaves reserved after its drop,
+    `gc.collect()` and `torch.cuda.empty_cache()`."""
     from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.utils import profile, synthetic
 
+    from pli_slam_tpu_torch.ops.kernels import conditional
+
     cfg, cam = profile.loop_config(), profile.slice_camera()
     frames = list(synthetic.make_sequence(cam, 12, dev, fps=cfg.fps, traj=synthetic.Trajectory(**profile.FLAGSHIP_TRAJ)))
+    base = _reserved_after_collect(dev)
+    conditional.ready(dev)  # once a process: the port's streams, the priming graph
+    torch.mm(frames[0]["img_l"], frames[0]["img_l"].T)  # and the tracking stream's cuBLAS workspace
+    print(f"before the first tracker: {_reserved_after_collect(dev) - base:+d} B for the process (the port's "
+          f"streams, the priming graph, cuBLAS's workspace of the current stream)", flush=True)
     out = []
-    for i in range(n):
-        try:
-            tracker = Tracker(cam, cfg, dev)
-            for fr in frames:
-                tracker.process(fr["img_l"], fr["img_r"], fr["t"])
-            out.append(f"{i}: ok")
-        except Exception as exc:  # the refusal is the result
-            out.append(f"{i}: " + (str(exc).strip().splitlines() or [type(exc).__name__])[0][:120])
-        tracker = None
-        gc.collect()
-        torch.cuda.synchronize(dev)
+    with StreamLog(dev) as log:
+        for i in range(n):
+            before, k = _reserved_after_collect(dev), len(log.rows)
+            try:
+                tracker = Tracker(cam, cfg, dev)
+                for fr in frames:
+                    tracker.process(fr["img_l"], fr["img_r"], fr["t"])
+                result = "ok"
+            except Exception as exc:  # the refusal is the result
+                result = (str(exc).strip().splitlines() or [type(exc).__name__])[0][:120]
+            tracker = None
+            left = _reserved_after_collect(dev) - before
+            print(f"tracker {i}: {result}; reserved {before} B before it, {left:+d} B left after its drop, "
+                  f"pinned host memory {_pinned_bytes()}; {log.report(log.rows[k:])}", flush=True)
+            out.append(f"{i}: {result} ({left:+d} B)")
     return "; ".join(out)
+
+
+def _repo_frames(frames: list, n: int = 4) -> str:
+    """The innermost `n` frames of an allocation's Python stack that lie in
+    the port, and the torch frame that allocated."""
+    ours = [f for f in frames if "pli_slam_tpu_torch" in f.get("filename", "")]
+    torch_ = next((f for f in frames if "torch" in f.get("filename", "") and "pli_slam" not in f["filename"]), None)
+    names = [f"{f['filename'].split('pli_slam_tpu_torch/')[-1]}:{f['line']} {f['name']}" for f in ours[:n]]
+    return " < ".join(([f"torch {torch_['name']}"] if torch_ else []) + names) or "no Python frame"
+
+
+def tracker_leftovers(dev, n: int = 6) -> str:
+    """`trackers_in_a_row` with the caching allocator's history on: after the
+    last drop, every segment that still holds an allocated block, by pool,
+    with each such block's size and where it was allocated (the port's
+    innermost frames), grouped by that place."""
+    import collections
+
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="python")
+    result = trackers_in_a_row(dev, n)
+    _reserved_after_collect(dev)
+    snap = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    held = collections.defaultdict(lambda: [0, 0, set()])  # place -> [blocks, bytes, segments' pools]
+    for seg in snap["segments"]:
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                h = held[_repo_frames(b.get("frames", []))]
+                h[0] += 1
+                h[1] += b["size"]
+                h[2].add((str(seg.get("segment_pool_id")), seg["total_size"]))
+    segs = [(str(seg.get("segment_pool_id")), seg["total_size"], sum(b["size"] for b in seg["blocks"]
+                                                                      if b["state"] == "active_allocated"))
+            for seg in snap["segments"]]
+    print(f"segments left: {len(segs)}, {sum(t for _, t, _ in segs)} B reserved, {sum(a for _, _, a in segs)} B "
+          f"allocated; by pool: {sorted(collections.Counter(p for p, _, _ in segs).items())}", flush=True)
+    for place, (blocks, size, pools) in sorted(held.items(), key=lambda kv: -kv[1][1]):
+        pinned = sum(t for _, t in pools)
+        print(f"  {blocks} blocks, {size} B, in segments of {pinned} B (pools {sorted(p for p, _ in pools)}): "
+              f"{place}", flush=True)
+    return result
 
 
 CONDITIONAL = {"route": lambda dev: conditional_route(),
                "IF body allocates": conditional_alloc,
                "kernels and solves in IF bodies": conditional_kernels,
-               "trackers in a row": trackers_in_a_row}
+               "solves in IF bodies, unprimed": conditional_unprimed,
+               "trackers in a row": trackers_in_a_row,
+               "what dropped trackers leave": tracker_leftovers}
 
 
 def run_probe(name: str) -> str:

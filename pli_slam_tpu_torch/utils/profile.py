@@ -4,7 +4,7 @@ Run from the repository root:
   python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono|loop|flagship
                                               | --first-closure | --nondet rgbd|mono|flagship | --stages
                                               | --init-split | --busy
-                                              | --ba-cost | --rounding loop|mono-vi [--variants DIR]]
+                                              | --ba-cost | --rounding loop|mono-vi|one-ulp [--variants DIR]]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -65,10 +65,12 @@ construction time; it runs on an earlier tree given this profile.py
 own, run both in one call). `--ba-cost` gives the device time of the
 visual path's windowed BA on the last window of phase 4's frames, the
 whole `local_ba` call and `ba.solve_ba` alone (graph replays); it runs on
-an earlier tree the same way. `--rounding loop|mono-vi` is the rounding
+an earlier tree the same way. `--rounding loop|mono-vi|one-ulp` is the rounding
 tracer (`utils/rounding.py`): where two builds of rot3, or the two-view's
 two eigenvector routes, make phase 6a's or phase 11's runs part, and how
-far they grow apart.
+far they grow apart; `one-ulp` runs phases 7, 12 and 14b under graphs as
+chip_smoke.py does and once more one ulp off, and says whether each
+outcome is robust or re-rolled.
 
 Needs a CUDA device. The chrome trace of pass 1 is written under `build/`
 and deleted once read (it runs to ~100 MB).
@@ -1171,10 +1173,10 @@ def main(argv=None) -> int:
                     help="instead: the busy share of a window of fused visual and of fused stereo-inertial frames")
     ap.add_argument("--ba-cost", action="store_true",
                     help="instead: the device time of the visual path's windowed BA (local_ba, solve_ba)")
-    ap.add_argument("--rounding", choices=("loop", "mono-vi"),
+    ap.add_argument("--rounding", choices=("loop", "mono-vi", "one-ulp"),
                     help="instead: the rounding tracer (utils/rounding.py): phase 6a's frames under this tree's "
-                         "rot3 and each of --variants, or phase 11's under both two-view routes, and where the runs "
-                         "part")
+                         "rot3 and each of --variants, or phase 11's under both two-view routes, or (one-ulp) "
+                         "phases 7, 12 and 14b under graphs plain and one ulp off, and where the runs part")
     ap.add_argument("--variants", metavar="DIR", help="with --rounding loop: a directory of rot3 sources (*.cu)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

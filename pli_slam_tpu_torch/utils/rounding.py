@@ -1,7 +1,7 @@
 """Where two builds of the port part on the same frames: the rounding tracer.
 
 Run from the repository root, on a GPU (through `utils/profile.py`):
-  python3 -m pli_slam_tpu_torch.utils.profile --rounding loop|mono-vi [--variants DIR]
+  python3 -m pli_slam_tpu_torch.utils.profile --rounding loop|mono-vi|one-ulp [--variants DIR]
 
 `loop` runs chip_smoke.py phase 6a's frames (`profile.loop_frames`) up to
 the planted closure (N_FRAMES_LOOP frames) in a
@@ -27,6 +27,13 @@ twice: the two-view's smallest eigenvectors through svd_small's kernel
 eagerly on the card); with the same records (mono frames run on the host
 path: tracking, keyframes, windowed BA, the two-view's hypotheses and
 winner) and the IMU initialization's record.
+
+`one-ulp` (`main_ulp`) runs chip_smoke.py's phases 7, 12 and 14b under
+CUDA graphs, each twice in one process: as the phase runs it and with the
+pose one ulp toward zero after frame 1, recording after each frame what a
+graph run lets the host read (pose, keyframes, local map, state); it
+prints both ATEs, where the runs part, and whether the outcome is robust
+(keyframes within KF_ROBUST_M, ATE within ATE_ROBUST) or re-rolled.
 
 The records of every run are written to `chiprun_out/rounding/<mode>_<run>.pkl.gz`.
 It runs on an earlier tree too: copy this file and profile.py over that
@@ -211,7 +218,7 @@ def _named(events, name):
     return [v for k, v in events if k == name]
 
 
-DISCRETE = ("matches", "n_in", "decision", "ba_decisions", "local_pt")
+DISCRETE = ("matches", "n_in", "decision", "ba_decisions", "local_pt", "frame")
 
 
 def compare(a: list, b: list) -> dict:
@@ -393,10 +400,130 @@ def trace_mono_vi(dev, route: str, frames_data) -> dict:
                          for r in tracker.imu_init_log], s=time.perf_counter() - t0)
 
 
+ULP_PHASES = ("7", "12", "14b")
+N_BENCH_FLAGSHIP = 76  # chip_smoke.py's 14b: bench.py's flagship run through the IMU initialization
+KF_ROBUST_M = 1e-3  # a one-ulp run is robust when its keyframes stay within this of the plain run's
+ATE_ROBUST = 0.10  # and its ATE within this share of the plain run's
+
+
+def ulp_data(dev, phase: str) -> tuple:
+    """The frames and configuration of chip_smoke.py's phase 7 (RGB-D through
+    `System.track_rgbd`), 12 (RGB-D-inertial, `Tracker.process_rgbd(imu=)`)
+    or 14b (bench.py's flagship run, `scripts.bench.run_flagship`, on phase
+    6a's frames)."""
+    from pli_slam_tpu_torch.utils import profile, synthetic
+
+    if phase == "7":
+        cfg, cam = profile.rgbd_config(), profile.rgbd_camera()
+        return cfg, cam, list(synthetic.make_sequence(cam, profile.N_FRAMES_RGBD, dev, fps=cfg.fps, with_depth=True))
+    if phase == "12":
+        return profile.slice6_frames("rgbd_vi", dev)
+    return profile.flagship_config(), profile.slice_camera(), profile.loop_frames(dev)[3][:N_BENCH_FLAGSHIP]
+
+
+def trace_phase(dev, phase: str, data, nudge_after: int | None = None) -> dict:
+    """One of `ULP_PHASES` as chip_smoke.py runs it, under CUDA graphs (the
+    default on a GPU), with `profile.nudge_pose` after frame `nudge_after`.
+    Each frame records what `Recorder.end` reads (pose, keyframes, local
+    map) and the tracker's state and keyframe count after it; the stage
+    wrappers of the eager tracer are not installed (a graph runs them once,
+    at its capture). Returns the records, the ATE as the phase computes it,
+    the keyframes and the frame the IMU initialized (phases 12 and 14b)."""
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.system import System
+    from pli_slam_tpu_torch.utils import profile, synthetic
+    from pli_slam_tpu_torch.utils import trajectory as tio
+
+    cfg, cam, frames = data
+    rec, imu_at = Recorder(), None
+    t0 = time.perf_counter()
+    if phase == "7":
+        sysm = System(cam, cfg, device=dev)
+        tracker = sysm.tracker
+        tracker.streaming = True
+        step = lambda fr: sysm.track_rgbd(fr["img_l"], fr["depth"], fr["t"])  # noqa: E731
+    else:
+        tracker = Tracker(cam, cfg, dev)
+        if phase == "12":
+            step = lambda fr: tracker.process_rgbd(fr["img_l"], fr["depth"], fr["t"], imu=fr["imu"])  # noqa: E731
+        else:
+            tracker.streaming = True
+            step = lambda fr: tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])  # noqa: E731
+    for i, fr in enumerate(frames):
+        rec.begin(i)
+        step(fr)
+        if i == nudge_after:
+            profile.nudge_pose(tracker)
+        rec.add("frame", (str(tracker.state), tracker.n_kf, bool(tracker.imu_ready)))
+        rec.end(tracker)
+        if imu_at is None and tracker.imu_ready:
+            imu_at = i
+    gt = np.stack([fr["p_w"] for fr in frames])
+    if phase == "7":
+        sysm.shutdown()
+        ate = tio.ate_rmse(np.stack([p for _, _, p in tracker.trajectory]), gt)
+    elif phase == "12":
+        tracker.finalize()
+        ate = synthetic.ate_rmse(*profile.tracked_positions(tracker, frames))
+    else:
+        tracker.finalize()
+        ate = synthetic.ate_rmse(tracker.positions(), gt)
+    profile._sync(dev)
+    return dict(events=rec.events, ate=float(ate), n_kf=tracker.n_kf, imu_at=imu_at, s=time.perf_counter() - t0)
+
+
+def ulp_verdict(plain: dict, nudged: dict, cmp: dict) -> dict:
+    """Robust when the keyframes stay within KF_ROBUST_M of each other over
+    the run and the ATEs within ATE_ROBUST of the plain one; else
+    re-rolled. Also the largest keyframe and camera distances and the
+    first frame the keyframes lie more than KF_ROBUST_M apart."""
+    kf = [r["kf"] for r in cmp["rows"] if r["kf"] == r["kf"]]
+    cam = [r["cam"] for r in cmp["rows"] if r["cam"] == r["cam"]]
+    far = next((r["frame"] for r in cmp["rows"] if r["kf"] == r["kf"] and r["kf"] > KF_ROBUST_M), None)
+    kf_max = max(kf, default=0.0)
+    robust = kf_max <= KF_ROBUST_M and abs(nudged["ate"] - plain["ate"]) <= ATE_ROBUST * plain["ate"]
+    return dict(kf_max=kf_max, cam_max=max(cam, default=0.0), kf_far_at=far,
+                verdict="robust" if robust else "re-rolled")
+
+
+def main_ulp(dev, smi: str) -> int:
+    """`--rounding one-ulp`: chip_smoke.py's phases 7, 12 and 14b each run
+    twice under graphs in this process, as the phase runs it and with the
+    pose one ulp toward zero after frame 1 (6a's one-ulp run): both ATEs,
+    where the runs part (`compare`) and the verdict (`ulp_verdict`)."""
+    summary = []
+    for phase in ULP_PHASES:
+        data = ulp_data(dev, phase)
+        runs = {}
+        for name, nudge in (("plain", None), ("nudged", 1)):
+            runs[name] = trace_phase(dev, phase, data, nudge_after=nudge)
+            gc.collect()  # the run's tracker, before the next run
+            torch.cuda.synchronize(dev)
+            save(f"ulp_{phase}_{name}", runs[name])
+        a, b = runs["plain"], runs["nudged"]
+        cmp = compare(a["events"], b["events"])
+        v = ulp_verdict(a, b, cmp)
+        for name, r in runs.items():
+            print(f"rounding one-ulp phase {phase} {name}: {len(r['events'])} frames in {r['s']:.1f} s, ATE "
+                  f"{r['ate']:.4f} m, {r['n_kf']} keyframes, IMU initialized at frame {r['imu_at']} [{smi}]",
+                  flush=True)
+        print_comparison(f"one-ulp phase {phase} plain vs nudged", cmp, a["events"], b["events"])
+        line = (f"phase {phase}: ATE {a['ate']:.4f} / {b['ate']:.4f} m, keyframes {a['n_kf']} / {b['n_kf']}, IMU at "
+                f"{a['imu_at']} / {b['imu_at']}, keyframes at most {v['kf_max'] * 1e3:.4f} mm apart (first over "
+                f"{KF_ROBUST_M * 1e3:g} mm at frame {v['kf_far_at']}), cameras at most {v['cam_max'] * 1e3:.4f} mm, "
+                f"first record parting by frame {cmp['first_by']}: {v['verdict']}")
+        summary.append(line)
+        print(f"rounding one-ulp {line} [{smi}]", flush=True)
+    print("rounding one-ulp summary: " + " | ".join(summary) + f" [{smi}]", flush=True)
+    return 0
+
+
 def main(dev, mode: str, variants: str | None) -> int:
     from pli_slam_tpu_torch.utils import profile
 
     smi = nvidia_smi()
+    if mode == "one-ulp":
+        return main_ulp(dev, smi)
     if mode == "loop":
         data = profile.loop_frames(dev)
         srcs = [("shipped", None)] + [(p.stem, p) for p in sorted(Path(variants).glob("*.cu"))] if variants else \
