@@ -23,7 +23,10 @@ _cache: dict = {}
 def device_const(key, device, make: Callable[[], object]) -> torch.Tensor:
     """The tensor `make()` (an array, list or tensor) on `device`, built on
     the first call for (`key`, device) and cached. Under a tracing mode
-    (make_fx) the constant is built as a real tensor, outside the trace."""
+    (make_fx) or a function transform (`ops.autodiff.jacfwd`'s jvp, vmap)
+    the constant is built as a plain tensor, outside the trace or the
+    transform: built inside a jvp it would be cached as the transform's
+    wrapper, which has no storage of its own."""
     device = torch.device(device) if device is not None else torch.empty(0).device  # the default device
     k = (key, device.type, device.index)
     t = _cache.get(k)
@@ -31,7 +34,7 @@ def device_const(key, device, make: Callable[[], object]) -> torch.Tensor:
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"constant {key!r} is first needed inside a CUDA graph capture: "
                                "run the captured function once eagerly before capturing it")
-        with _disable_current_modes():
+        with _disable_current_modes(), torch._C._DisableFuncTorch():
             t = torch.as_tensor(make(), device=device)
         _cache[k] = t
     return t

@@ -4,7 +4,7 @@ Run from the repository root:
   python3 -m pli_slam_tpu_torch.utils.profile [--out DIR] [--vi | --vi-drift N | --spread rgbd|mono|loop|flagship
                                               | --first-closure | --nondet rgbd|mono|flagship | --stages
                                               | --init-split | --busy
-                                              | --ba-cost | --rounding loop|mono-vi|one-ulp [--variants DIR]]
+                                              | --ba-cost | --rounding loop|mono-vi|one-ulp|vi [--variants DIR]]
 
 It drives the slice configuration (`slice_config()`: SlamConfig.euroc_stereo()
 with loop closing off, 752x480, on `slice_camera()`) over the 40-frame
@@ -64,13 +64,19 @@ construction time; it runs on an earlier tree given this profile.py
 (`git archive` the parent into `build/parent`, copy this file over its
 own, run both in one call). `--ba-cost` gives the device time of the
 visual path's windowed BA on the last window of phase 4's frames, the
-whole `local_ba` call and `ba.solve_ba` alone (graph replays); it runs on
-an earlier tree the same way. `--rounding loop|mono-vi|one-ulp` is the rounding
+whole `local_ba` call and `ba.solve_ba` alone (graph replays), then the
+visual-inertial BA's with its reduced system in float32 and in float64
+over the fused step's window and the widest full-inertial-BA window on
+phase 5's map (`vi_ba_cost`); it runs on an earlier tree the same way
+(the visual part only). `--rounding loop|mono-vi|one-ulp` is the rounding
 tracer (`utils/rounding.py`): where two builds of rot3, or the two-view's
 two eigenvector routes, make phase 6a's or phase 11's runs part, and how
-far they grow apart; `one-ulp` runs phases 7, 12 and 14b under graphs as
+far they grow apart; `one-ulp` runs phases 5, 7, 12 and 14b under graphs as
 chip_smoke.py does and once more one ulp off, and says whether each
-outcome is robust or re-rolled.
+outcome is robust or re-rolled (the inertial phases with the
+visual-inertial BA's reduced system in float32 and as shipped); `vi` runs
+phases 5, 12 and 14b so eagerly, recorded stage by stage, and says where
+the runs first part by more than a millimetre.
 
 Needs a CUDA device. The chrome trace of pass 1 is written under `build/`
 and deleted once read (it runs to ~100 MB).
@@ -817,6 +823,7 @@ def main_ba_cost(dev) -> int:
     from pli_slam_tpu_torch.frontend import step as step_mod
     from pli_slam_tpu_torch.frontend.tracker import Tracker
     from pli_slam_tpu_torch.solve import ba as ba_mod
+    from pli_slam_tpu_torch.solve import vi_ba as vib
     from pli_slam_tpu_torch.utils import synthetic
     from pli_slam_tpu_torch.utils.kernel_bench import graph_ms
 
@@ -849,7 +856,51 @@ def main_ba_cost(dev) -> int:
           f"{prob.lns.shape[0]} lines, {int(prob.po_mask.sum())} point and {int(prob.lo_mask.sum())} line "
           f"observations, {n_iter} iterations a stage; device ms a call (CUDA graph, events): local_ba "
           f"{body_ms:.4f}, solve_ba {solve_ms:.4f}", flush=True)
+    if hasattr(vib, "reduced_system"):  # an earlier tree's VI BA has one precision
+        vi_ba_cost(dev)
     return 0
+
+
+def vi_ba_cost(dev) -> None:
+    """The visual-inertial BA's device time with its reduced system in
+    float32 (the reference's) and in float64 (the port's on CUDA): phase 5's
+    frames (`slice_config_vi()`, N_FRAMES_VI) in an eager tracker, then, on
+    its final map, `step.vi_ba_window` (the chain gathered, `local_inertial_ba`:
+    the window's problem, `solve_vi_ba`, the write-back) over the fused
+    step's window (the newest `local_ba_window` keyframes) and over the
+    widest full-inertial-BA window (`Tracker._FIBA_CAPS[-1]` slots, padded
+    with the newest keyframe as `_fiba_schedule` pads a smaller map), each
+    captured in a CUDA graph and replayed between CUDA events, the two
+    precisions in turns (32, 64, 64, 32)."""
+    from pli_slam_tpu_torch.frontend import step as step_mod
+    from pli_slam_tpu_torch.frontend.tracker import Tracker
+    from pli_slam_tpu_torch.utils import rounding
+    from pli_slam_tpu_torch.utils.kernel_bench import graph_ms
+
+    cfg, cam = slice_config_vi(), slice_camera()
+    frames = vi_frames(cam, cfg, N_FRAMES_VI, dev)
+    tracker = Tracker(cam, cfg, dev, cuda_graphs=False)
+    for fr in frames:
+        tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=fr["imu"])
+    _sync(dev)
+    n, W, cap = tracker.n_kf, cfg.opt.local_ba_window, Tracker._FIBA_CAPS[-1]
+    fused = np.minimum(max(n - W, 0) + np.arange(W), n - 1)  # as the fused step pads a short map
+    full = np.clip(np.arange(cap), 0, n - 1)  # as _fiba_schedule pads a map of at most `cap` keyframes
+    windows = {f"fused step's window ({W} slots)": (fused, (np.arange(W) < max(cfg.opt.local_ba_fixed, 1))
+                                                     | np.r_[False, fused[1:] <= fused[:-1]]),
+               f"full inertial BA window ({cap} slots over {n} keyframes)": (full, np.r_[True, full[1:] <= full[:-1]])}
+    for name, (window, fixed) in windows.items():
+        args = (cam, cfg, tracker.kstore, tracker.pstore, tracker.lstore, tracker._pints,
+                torch.as_tensor(window, dtype=torch.int32, device=dev), torch.as_tensor(fixed, device=dev),
+                tracker.gravity_w, tracker.ext)
+        ms = {torch.float32: [], torch.float64: []}
+        for dt in (torch.float32, torch.float64, torch.float64, torch.float32):
+            with rounding.vi_precision(dt):
+                ms[dt].append(graph_ms(lambda: step_mod.vi_ba_window(*args), launches=5, replays=10))
+        print(f"profile[ba-cost]: VI BA over the {name}, {cfg.opt.local_ba_iters} iterations, on phase 5's map "
+              f"after {N_FRAMES_VI} frames; device ms a call (CUDA graph, events), in turns: float32 "
+              f"{ms[torch.float32][0]:.4f} / {ms[torch.float32][1]:.4f}, float64 {ms[torch.float64][0]:.4f} / "
+              f"{ms[torch.float64][1]:.4f}", flush=True)
 
 
 def main_vi_drift(dev, n_frames: int) -> int:
@@ -1172,11 +1223,13 @@ def main(argv=None) -> int:
     ap.add_argument("--busy", action="store_true",
                     help="instead: the busy share of a window of fused visual and of fused stereo-inertial frames")
     ap.add_argument("--ba-cost", action="store_true",
-                    help="instead: the device time of the visual path's windowed BA (local_ba, solve_ba)")
-    ap.add_argument("--rounding", choices=("loop", "mono-vi", "one-ulp"),
+                    help="instead: the device time of the visual path's windowed BA (local_ba, solve_ba) and "
+                         "of the visual-inertial BA in float32 and float64")
+    ap.add_argument("--rounding", choices=("loop", "mono-vi", "one-ulp", "vi"),
                     help="instead: the rounding tracer (utils/rounding.py): phase 6a's frames under this tree's "
                          "rot3 and each of --variants, or phase 11's under both two-view routes, or (one-ulp) "
-                         "phases 7, 12 and 14b under graphs plain and one ulp off, and where the runs part")
+                         "phases 5, 7, 12 and 14b under graphs plain and one ulp off, or (vi) phases 5, 12 and "
+                         "14b so eagerly, recorded stage by stage, and where the runs part")
     ap.add_argument("--variants", metavar="DIR", help="with --rounding loop: a directory of rot3 sources (*.cu)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
