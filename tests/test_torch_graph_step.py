@@ -3,32 +3,43 @@
 frontend.step cuts each fused step at its one device->host read into T
 (build, prediction, tracking) and K (the keyframe branch); on a GPU
 frontend.graphs captures T and K as CUDA graphs and replays them every
-frame. What the CPU can show of that:
+frame. What the CPU can show of that, for each step:
 
 - (a) T, the keyframe decision on the device and K, composed eagerly
   (the program frontend.graphs.FusedStep captures), with the keyframe
   counters chained as device tensors from frame to frame, against the
-  reference's jitted `make_step_visual` and `make_step_vi` on the same
-  FrameData, each frame from the reference's state: keyframes made at n_kf
-  0 (KF0 through `insert_keyframe` with device counters), 1 and 2 (no
-  windowed BA), 3 and 4 (windowed BA), and frames without one; the
-  stereo-inertial step (visual-inertial BA) in test_torch_graph_step_vi.py,
-  a file of its own so that the two reference runs go to two workers. The reference runs its
-  accelerator branch (Pallas in interpret mode), as in test_torch_step.
-  Tolerances are test_torch_step's and test_torch_tracker_vi's (README's
-  parity table): stats, matches, counters and bookkeeping exact, poses 1e-4
-  (2e-4 inertial) off windowed BA and BA's float32 bounds on it.
+  reference's jitted step on the same FrameData, each frame from the
+  reference's state. The reference runs its accelerator branch (Pallas in
+  interpret mode), as in test_torch_step. Tolerances are test_torch_step's
+  and test_torch_tracker_vi's (README's parity table): stats, matches,
+  counters and bookkeeping exact, poses 1e-4 (2e-4 inertial) off windowed
+  BA and BA's float32 bounds on it.
 - (b) capturability: `make_fx(segment, tracing_mode="fake")` traces T and
-  K of both steps, and T with each frame builder the fused step runs
-  (stereo, rectified stereo, RGB-D, KB8 fisheye stereo). A `.item()`,
-  `.tolist()`, `bool(tensor)`, an index by a 0-d tensor or an op whose
-  output size depends on data fails it; so does a constant uploaded from
-  the host inside a segment (an `aten.lift_fresh_copy` node, or a tensor
-  baked into the trace that is not one of ops.consts' per-device constants:
-  on a GPU that copy would wait for the host during capture).
+  K, and T with each frame builder the fused step runs (stereo, rectified
+  stereo, RGB-D, KB8 fisheye stereo). A `.item()`, `.tolist()`,
+  `bool(tensor)`, an index by a 0-d tensor or an op whose output size
+  depends on data fails it; so does a constant uploaded from the host
+  inside a segment (an `aten.lift_fresh_copy` node, or a tensor baked into
+  the trace that is not one of ops.consts' per-device constants: on a GPU
+  that copy would wait for the host during capture).
 - (c) no frozen values: a segment traced in real mode at one frame and
   replayed on the next frame's inputs (another n_kf, stamp, pose, stores
   and matches) equals the eager segment on those inputs exactly.
+
+(b) and (c) check the port alone: their frames are snapshots of the port's
+own CPU tracker (`own_fused_frames`), no reference's. Where each lies:
+the visual step's (a) in test_torch_step.py (`test_visual_segments_parity`,
+`test_kf0_with_device_counters`), its (b) in test_torch_one_program.py
+(the program's trace, K with and without windowed BA), its (c) and the
+frame builders in test_torch_graph_visual.py; the stereo-inertial step's (a) in
+test_torch_tracker_vi.py (`test_vi_segments_parity`, on that file's one
+reference run), its (b) here, its (c) in test_torch_graph_step_vi.py. Each
+trace of the stereo-inertial step takes one to three minutes under the
+whole suite, so the two lie in two files. pytest-xdist 3.8's `--dist
+loadfile` starts the files with the most tests first, so each shares its
+file with short tests where it can (the verify skill's budget rule): this
+one also holds the graph runner's bookkeeping and the closest-rotation
+method.
 
 What it cannot show: that CUDA accepts the capture (a cuSOLVER call that
 reads its status on the host traces fine here), the kernels inside the
@@ -36,32 +47,25 @@ graphs, and graph against eager on the card. chip_smoke.py phase 15 does
 that on the H100.
 """
 
+import contextlib
+import copy
 import dataclasses
-from functools import partial
 
-import jax
 import numpy as np
 import pytest
 import torch
+from torch.fx.experimental import proxy_tensor
 from torch.fx.experimental.proxy_tensor import make_fx
 from test_torch_small_kernels import rot3_method
-from test_torch_step import _ba_objective, _cfg, _torch_state, assert_state_close, np_tree, port_cfg
 
-from pli_slam_tpu.frontend import tracker as jtr
-from pli_slam_tpu.frontend.frame import make_build_frame
-from pli_slam_tpu.ops.camera import Camera as JCamera
-from pli_slam_tpu.ops.pallas import hamming as jham
-from pli_slam_tpu.utils import synthetic as jsyn
-from pli_slam_tpu.worldmap import stores as jst
-from pli_slam_tpu.worldmap import vocab as jvoc
-from pli_slam_tpu_torch.frontend import frame as tframe
 from pli_slam_tpu_torch.frontend import graphs
 from pli_slam_tpu_torch.frontend import step as tstep
-from pli_slam_tpu_torch.ops import consts, rectify
+from pli_slam_tpu_torch.frontend.tracker import Tracker
+from pli_slam_tpu_torch.ops import consts
 from pli_slam_tpu_torch.ops.camera import Camera as TCamera
 from pli_slam_tpu_torch.ops.kernels import hamming as tham
 from pli_slam_tpu_torch.ops.kernels import rot3
-from pli_slam_tpu_torch.utils import convert
+from pli_slam_tpu_torch.utils import synthetic
 
 torch.set_num_threads(1)
 N_VIS = 10  # KF0 + 9 visual steps
@@ -74,175 +78,6 @@ def _segments_step(segs, inputs, state):
     to take the branch). Returns (state, out, carry, need_kf)."""
     s, out, carry, need_kf = tstep.run_segments(segs, inputs, state)
     return s, out, carry, bool(need_kf)
-
-
-@pytest.fixture(scope="module")
-def ref():
-    """The reference's visual steps over one sequence, each recorded with
-    the state it started from: KF0 and N_VIS - 1 steps (a keyframe every
-    second frame)."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jax, "default_backend", lambda: "tpu")
-    mp.setattr(jham, "gated_match_pallas", partial(jham.gated_match_pallas, interpret=True))
-    try:
-        cfg = _cfg()
-        jcam = JCamera.pinhole(fx=120.0, fy=120.0, cx=64.0, cy=48.0, bf=0.11 * 120.0, width=128, height=96)
-        tcam = convert.camera(np_tree(jcam))
-        raw = list(jsyn.make_sequence(jcam, N_VIS, fps=cfg.fps, traj=jsyn.Trajectory(**TRAJ), room_half=2.55))
-        build = make_build_frame(jcam, cfg)
-        fds = [np_tree(build(fr["img_l"], fr["img_r"])) for fr in raw]
-        m, K = cfg.map, cfg.map.max_keyframes
-        empty = (jst.PointStore.empty(m.max_points), jst.LineStore.empty(m.max_lines),
-                 jst.KeyFrameStore.empty(K, cfg.orb.n_features, cfg.lines.n_lines))
-        n, nl = fds[0].feats.uv.shape[0], fds[0].lines.angle.shape[0]
-        eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
-        kf0_args = (fds[0], eye, zero, 0.0, np.full(n, -1, np.int32), np.zeros(n, bool), np.full(nl, -1, np.int32),
-                    np.zeros(nl, bool), 0)
-        ps, ls, ks, _ = jax.jit(partial(jtr.insert_keyframe, jcam, cfg))(*kf0_args, *empty)
-        voc_j = (jvoc.Vocabulary(seed=17), jvoc.Vocabulary(seed=23))
-        js = dict(R=eye, t=zero, R_prev=eye, t_prev=zero, vel=np.zeros(6, np.float32), has_vel=False, n_kf=1, fs=0,
-                  last=int((fds[0].stereo_ok & fds[0].feats.valid).sum()), ps=ps, ls=ls, ks=ks,
-                  db=jvoc.BowDatabase.empty(K, voc_j[0].n_words), view=jtr._empty_kf_views(cfg),
-                  local=jtr._local_map_ids(cfg, ks, ps, 0))
-        jvis = jtr.make_step_visual(jcam, cfg, *voc_j, lambda fd: fd)
-        visual = []
-        for k in range(1, N_VIS):
-            jo = jvis((fds[k],), k / cfg.fps, js["R"], js["t"], js["R_prev"], js["t_prev"], js["vel"], js["has_vel"],
-                      js["n_kf"], js["fs"], js["last"], True, js["ps"], js["ls"], js["ks"], js["db"], js["view"],
-                      js["local"])
-            visual.append((k, dict(js), np_tree(jo)))
-            js.update(R=jo[0], t=jo[1], R_prev=jo[2], t_prev=jo[3], vel=jo[4], has_vel=jo[5], ps=jo[6], ls=jo[7],
-                      ks=jo[8], db=jo[9], view=jo[10], local=jo[11], n_kf=jo[16][0], fs=jo[16][1], last=jo[16][2])
-
-        yield dict(cfg=cfg, jcam=jcam, tcam=tcam, raw=raw, fds=fds, voc=voc_j, kf0=(kf0_args, empty), visual=visual)
-    finally:
-        mp.undo()
-
-
-def _voc(r):
-    return tuple(convert.vocabulary(v) for v in r["voc"])
-
-
-def _visual_io(r, k, js):
-    """The port's (inputs, state, n_kf, fs) of visual step k from the reference's state `js`."""
-    ts = _torch_state(js)
-    state = dict(R=ts["R"], t=ts["t"], R_prev=ts["R_prev"], t_prev=ts["t_prev"], vel_xi=ts["vel"],
-                 has_vel=ts["has_vel"], n_kf=tstep._dev_int(ts["n_kf"], "cpu"), fs=tstep._dev_int(ts["fs"], "cpu"),
-                 last=tstep._dev_int(ts["last"], "cpu"), pstore=ts["ps"], lstore=ts["ls"], kstore=ts["ks"],
-                 bow_db=ts["db"], kf_view=ts["view"], local_pt=ts["local"])
-    inputs = tstep.scalar_inputs(dict(img=(convert.frame_data(r["fds"][k]),), stamp=k / r["cfg"].fps, allow=True),
-                                 "cpu")
-    return inputs, state, ts["n_kf"], ts["fs"]
-
-
-def _visual_segments(r, build=lambda fd: fd):
-    return tstep.visual_segments(r["tcam"], port_cfg(r["cfg"]), *_voc(r), build)
-
-
-# ---------------------------------------------------------------------------
-# (a) T + K against the reference's jitted steps
-# ---------------------------------------------------------------------------
-
-
-def test_kf0_with_device_counters(ref):
-    """KF0 (n_kf 0) through `insert_keyframe` with the slot and the stamp
-    as device scalars, as the fused steps pass them."""
-    args, empty = ref["kf0"]
-    jout = jax.jit(partial(jtr.insert_keyframe, ref["jcam"], ref["cfg"]))(*args, *empty)
-    T = torch.as_tensor
-    tout = tstep.insert_keyframe(ref["tcam"], port_cfg(ref["cfg"]), convert.frame_data(args[0]), T(args[1]), T(args[2]),
-                                 torch.zeros(()), *(T(a) for a in args[4:8]), torch.zeros((), dtype=torch.int32),
-                                 *(conv(np_tree(e)) for conv, e in zip((convert.point_store, convert.line_store,
-                                                                        convert.keyframe_store), empty)))
-    for a, b, name in zip(tout[:3], jout[:3], ("pstore", "lstore", "kstore")):
-        assert_state_close(a, b, f"KF0 {name}")
-    assert int(tout[3]) == int(jout[3])
-
-
-def _assert_ba_frame(to, jo, label, kf_slot):
-    """A keyframe frame with windowed BA, held as test_torch_step's
-    `_assert_after_ba` holds one (same bounds) except for what follows the
-    window's older keyframes: on this map, from the fourth keyframe on,
-    BA's float32 solve leaves one of them 1.3e-2 / 2.1e-2 rad from the
-    reference's (frames 6 / 8) and moves landmarks by up to 5.6% / 14% of
-    their distance. The port before the step was cut into segments gave
-    the same numbers to the last digit on these frames, so this is BA's
-    float32 conditioning on the tiny map, not the cut. The older keyframes'
-    poses are held by the BA objective (`_ba_objective`, at the call site),
-    the landmarks by the 90% bound alone; the new keyframe's pose, which
-    tracking continues from, keeps the 5e-3 bound."""
-    np.testing.assert_allclose(to[0].numpy(), jo[0], atol=5e-3, err_msg=f"{label} R")
-    np.testing.assert_allclose(to[1].numpy(), jo[1], atol=5e-3, err_msg=f"{label} t")
-    a = {k: convert.to_numpy(x) for k, x in zip(("p", "l", "k"), to[6:9])}
-    b = {k: convert.to_numpy(x) for k, x in zip(("p", "l", "k"), jo[6:9])}
-    for fam in ("p", "l"):
-        for f in a[fam]:
-            if f == "x":
-                v = b[fam]["valid"]
-                rel = np.abs(a[fam][f] - b[fam][f]).max(-1)[v] / np.linalg.norm(b[fam][f][v], axis=-1)
-                assert np.quantile(rel, 0.9) < 0.03, (label, np.quantile(rel, [0.9, 1.0]))
-            elif f != "seg":
-                np.testing.assert_array_equal(a[fam][f], b[fam][f], err_msg=f"{label} {fam}.{f}")
-    for f in a["k"]:
-        if f in ("R", "t"):
-            np.testing.assert_allclose(a["k"][f][kf_slot], b["k"][f][kf_slot], atol=5e-3, err_msg=f"{label} new KF {f}")
-        elif f in ("obs_pt", "obs_ln"):
-            assert (a["k"][f] != b["k"][f]).mean() <= 0.01, (label, f)
-        elif a["k"][f].dtype.kind == "f":
-            np.testing.assert_allclose(a["k"][f], b["k"][f], rtol=1e-5, atol=1e-4, err_msg=f"{label} kstore.{f}")
-        else:
-            np.testing.assert_array_equal(a["k"][f], b["k"][f], err_msg=f"{label} kstore.{f}")
-    lt, lj = to[11].numpy(), np.asarray(jo[11])
-    assert len(np.intersect1d(lt[lt >= 0], lj[lj >= 0])) >= 0.99 * (lj >= 0).sum()
-
-
-def test_visual_segments_parity(ref):
-    """Every visual step, the program composed eagerly (T, the decision on
-    the device, K) from the reference's state but with the keyframe
-    counters chained as device tensors from the port's previous frame,
-    never passed from the host (as the reference's streaming mode chains
-    its `counters`): stats, matches, counters, velocity, view ring, BoW
-    database exactly or as test_torch_step holds them; poses and stores
-    tightly off windowed BA and by what BA decides on it."""
-    segs = _visual_segments(ref)
-    made, chained = [], None
-    for k, js, jo in ref["visual"]:
-        inputs, state, n_kf, fs = _visual_io(ref, k, js)
-        if chained is not None:
-            state.update(chained)
-        s, out, c, need_kf = _segments_step(segs, inputs, state)
-        chained = {name: s[name] for name in ("n_kf", "fs", "last")}
-        assert all(isinstance(v, torch.Tensor) for v in chained.values())
-        label = f"frame {k}"
-        stats = jo[17]
-        assert need_kf == bool(stats[jtr.ST_KF_CREATED] > 0), label
-        np.testing.assert_array_equal(out["stats"].numpy(), stats, err_msg=f"{label} stats")
-        for name, i in (("pt_idx", 12), ("pt_in", 13), ("ln_idx", 14), ("ln_in", 15)):
-            np.testing.assert_array_equal(c[name].numpy(), jo[i], err_msg=f"{label} {name}")
-        assert [int(s[n]) for n in ("n_kf", "fs", "last")] == [int(x) for x in jo[16]], label
-        assert int(out["ref"]) == int(jo[18][0])
-        np.testing.assert_allclose(s["vel_xi"].numpy(), jo[4], atol=1e-4, err_msg=f"{label} vel")
-        for a, b in zip(s["kf_view"], jo[10]):
-            np.testing.assert_array_equal(a.numpy(), b)
-        assert_state_close(s["bow_db"], jo[9], f"{label} bow_db")
-        # the positions test_torch_step's helpers read in make_step_visual's result
-        to = (s["R"], s["t"], None, None, None, None, s["pstore"], s["lstore"], s["kstore"], None, None, s["local_pt"])
-        if need_kf:
-            made.append(n_kf)
-        if need_kf and n_kf + 1 >= 3:
-            _assert_ba_frame(to, jo, label, n_kf)
-            cost_j = _ba_objective(ref["cfg"], ref["tcam"], jo, (convert.point_store(jo[6]), convert.line_store(jo[7]),
-                                                                 convert.keyframe_store(jo[8])), n_kf)
-            assert _ba_objective(ref["cfg"], ref["tcam"], jo, to[6:9], n_kf) <= 1.1 * cost_j + 1.0, label
-        else:
-            np.testing.assert_allclose(s["R"].numpy(), jo[0], atol=1e-4, err_msg=f"{label} R")
-            np.testing.assert_allclose(s["t"].numpy(), jo[1], atol=1e-4, err_msg=f"{label} t")
-            np.testing.assert_allclose(out["rel_R"].numpy(), jo[18][1], atol=1e-4)
-            np.testing.assert_allclose(out["rel_t"].numpy(), jo[18][2], atol=1e-4)
-            for a, b, name in zip(to[6:9], jo[6:9], ("pstore", "lstore", "kstore")):
-                assert_state_close(a, b, f"{label} {name}")
-            np.testing.assert_array_equal(s["local_pt"].numpy(), jo[11])
-    assert made == [1, 2, 3, 4], made  # K without BA twice, with BA twice, and frames without a keyframe
 
 
 # ---------------------------------------------------------------------------
@@ -287,11 +122,33 @@ def _fake_trace(fn, tree, outside=()):
     return gm
 
 
+@contextlib.contextmanager
+def _one_fake_mode():
+    """make_fx in real mode gives every op's output a new FakeTensorMode for
+    the node's metadata (`proxy_tensor.extract_val`, which looks the class up
+    in its module: torch 2.13), and each one walks the Python stack when it is
+    built: about half of a segment's trace time. One mode for the whole trace
+    records the same graph. Fails if the trace never asked for a mode, so a
+    torch that builds it elsewhere shows here rather than as a slow trace."""
+    shared = proxy_tensor.FakeTensorMode(allow_fallback_kernels=True)
+    asked = []
+
+    def one(**kw):
+        asked.append(kw)
+        return shared
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(proxy_tensor, "FakeTensorMode", one)
+        yield
+    assert asked, f"torch {torch.__version__}: make_fx built its metadata without proxy_tensor.FakeTensorMode"
+
+
 def _assert_replay_exact(fn, tree_a, tree_b, label):
     """Trace `fn` in real mode on `tree_a`, run the trace on `tree_b`'s
     leaves, and hold it to `fn(*tree_b)` bit for bit."""
     flat, leaves = _flat(fn, tree_a)
-    gm = make_fx(flat, tracing_mode="real")(*leaves)
+    with _one_fake_mode():
+        gm = make_fx(flat, tracing_mode="real")(*leaves)
     flat_b, leaves_b = _flat(fn, tree_b)
     got, want = gm(*leaves_b), flat_b(*leaves_b)
     assert len(got) == len(want)
@@ -299,13 +156,40 @@ def _assert_replay_exact(fn, tree_a, tree_b, label):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True, msg=lambda m: f"{label} output {i}: {m}")
 
 
-def _ba_keyframe_frames(r):
-    """(segments, [(inputs, state)] of the visual steps that made a keyframe
-    with windowed BA, (inputs, state) of the last visual step)."""
-    frames = [_visual_io(r, k, js)[:2] for k, js, jo in r["visual"]
-              if jo[17][jtr.ST_KF_CREATED] > 0 and jo[17][jtr.ST_NKF] >= 3]
-    k, js, _ = r["visual"][-1]
-    return _visual_segments(r), frames, _visual_io(r, k, js)[:2]
+def own_fused_frames(tracker, frames, built=True):
+    """The port's own CPU tracker run over `frames` (make_sequence's dicts)
+    until one of its fused frames has made a keyframe with windowed BA and
+    another fused frame has followed it. Returns the (inputs, state) that
+    each of the two started from, as the tracker's fused step handed them to
+    its segments (the images in `img`, for `tracker._fused_step().segs`),
+    or with the frame built (FrameData in `img`, for segments built with
+    `lambda fd: fd`) if `built`. The one way the tests snapshot the port's
+    own tracker for a trace."""
+    fused, seen = tracker._fused_step(), []
+    run = tstep.run_segments
+
+    def recording(segs, inputs, state):
+        result = run(segs, inputs, state)
+        if segs is fused.segs:
+            with_ba = bool(result[3]) and int(state["n_kf"]) + 1 >= 3
+            seen.append((copy.deepcopy((inputs, state)), with_ba))
+        return result
+
+    def picked():
+        ba = [i for i, (_, with_ba) in enumerate(seen) if with_ba]
+        return [seen[ba[0]][0], seen[ba[0] + 1][0]] if ba and len(seen) > ba[0] + 1 else None
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tstep, "run_segments", recording)
+        for fr in frames:
+            imu = {"gyro": fr["imu_gyro"], "acc": fr["imu_acc"], "stamps": fr["imu_stamps"]} if tracker.use_imu \
+                else None
+            tracker.process(fr["img_l"], fr["img_r"], fr["t"], imu=imu)
+            if picked():
+                break
+    assert picked(), f"{len(seen)} fused frames, none a keyframe with windowed BA followed by another"
+    return [({**inputs, "img": (tracker.build_frame(*inputs["img"]),)} if built else inputs, state)
+            for inputs, state in picked()]
 
 
 def _segment_trees(segs, inputs, state):
@@ -314,60 +198,49 @@ def _segment_trees(segs, inputs, state):
     return (inputs, state), (inputs, {**state, **new}, carry)
 
 
-def check_segments_trace(segs, frames):
-    """T and K trace with make_fx(tracing_mode="fake"): nothing in them reads
-    a device value on the host or uploads a host constant."""
-    t_tree, k_tree = _segment_trees(segs, *frames[0])
-    assert len(_fake_trace(segs.track, t_tree).graph.nodes) > 1000
-    keyframe = lambda i, s, c: segs.keyframe(i, s, c, True)  # noqa: E731
-    assert len(_fake_trace(keyframe, k_tree).graph.nodes) > 1000
+def check_segments_trace(segs, frame, without_ba=False):
+    """T and K trace with make_fx(tracing_mode="fake") on `frame`'s (inputs,
+    state): nothing in them reads a device value on the host or uploads a
+    host constant. K with windowed BA, and also without it if `without_ba`
+    (the two bodies of the fused program's IF nodes), each traced on T's
+    outputs as the program hands them over. Returns the nodes traced."""
+    t_tree, k_tree = _segment_trees(segs, *frame)
+    nodes = [len(_fake_trace(segs.track, t_tree).graph.nodes)]
+    for ba in (True, False)[:1 + without_ba]:
+        nodes.append(len(_fake_trace(lambda i, s, c: segs.keyframe(i, s, c, ba), k_tree).graph.nodes))
+    assert nodes[0] > 1000 and nodes[1] > 1000, nodes
+    return sum(nodes)
 
 
-@pytest.mark.parametrize("step", ["visual"])
-def test_segments_trace_in_fake_mode(ref, step):
-    """(b) for the visual step (the stereo-inertial one: test_torch_graph_step_vi)."""
-    segs, frames, _ = _ba_keyframe_frames(ref)
-    check_segments_trace(segs, frames)
+@pytest.fixture(scope="module")
+def own_vi():
+    """(segments without the frame build, the (inputs, state) of the port's
+    own CPU stereo-inertial tracker at its first fused keyframe with
+    visual-inertial BA, those of the fused frame after it: another n_kf and
+    stamp), over test_torch_tracker_vi's scene and settings (the IMU
+    initialized at frame 20). No reference runs."""
+    import test_torch_tracker_vi as tvi  # it imports this module
+
+    cfg = tvi.port_cfg(tvi._cfg(init_min_kfs=5))
+    cam = TCamera.pinhole(fx=120.0, fy=120.0, cx=64.0, cy=48.0, bf=13.2, width=128, height=96)  # tvi._cams()'s
+    tracker = Tracker(cam, cfg, "cpu")
+    frames = synthetic.make_sequence(cam, tvi.N_FRAMES, "cpu", fps=cfg.fps, traj=synthetic.Trajectory(**tvi.TRAJ),
+                                     room_half=2.55)
+    first, later = own_fused_frames(tracker, frames)
+    assert tracker.imu_ready and bool(first[0]["wide"])  # after the initialization, in the widened window
+    return tstep.vi_segments(cam, cfg, tracker.voc_pt, tracker.voc_ln, lambda fd: fd), first, later
 
 
-@pytest.mark.parametrize("builder", ["stereo", "rectified", "rgbd", "fisheye"])
-def test_frame_builders_trace_in_fake_mode(ref, builder):
-    """Each frame builder a fused step runs (phases 4-6, 14 stereo; rectified
-    EuRoC pairs; 7 RGB-D; 10 KB8 fisheye) traces as part of T."""
-    pcfg = port_cfg(ref["cfg"])
-    tcam = ref["tcam"]
-    fr = ref["raw"][1]
-    img_l, img_r = torch.as_tensor(np.asarray(fr["img_l"])), torch.as_tensor(np.asarray(fr["img_r"]))
-    outside = ()
-    if builder == "stereo":
-        build, args = partial(tframe.build_frame, tcam, pcfg), (img_l, img_r)
-    elif builder == "rectified":
-        K = np.array([[tcam.fx, 0, tcam.cx], [0, tcam.fy, tcam.cy], [0, 0, 1]], np.float64)
-        D = np.array([-0.28, 0.074, 2e-4, 2e-5, 0.0])
-        P = np.concatenate([K, np.zeros((3, 1))], axis=1)
-        rect = rectify.StereoRectifier.from_kdrp(K, D, np.eye(3), P, K, D, np.eye(3), P, tcam.width, tcam.height,
-                                                 "cpu")
-        build, args, outside = lambda a, b: tframe.build_frame(tcam, pcfg, *rect(a, b)), (img_l, img_r), \
-            graphs.tree_leaves(rect)
-    elif builder == "rgbd":
-        build, args = partial(tframe.build_frame_rgbd, tcam, pcfg), (img_l, torch.full_like(img_l, 2.0))
-    else:
-        kb = TCamera.kannala_brandt8(fx=tcam.fx, fy=tcam.fy, cx=tcam.cx, cy=tcam.cy, k=(0.01, -0.005, 0.001, 0.0),
-                                     bf=tcam.bf, width=tcam.width, height=tcam.height)
-        T_rl = torch.eye(4)
-        T_rl[0, 3] = -0.11
-        R_rl, t_rl = T_rl[:3, :3], T_rl[:3, 3]
-        build, args, outside = partial(tframe.build_frame_fisheye_stereo, kb, kb, pcfg, R_rl, t_rl), (img_l, img_r), \
-            (R_rl, t_rl)
-    build(*args)  # the eager run fills the constant cache, as the warm-up before a capture does
-    _fake_trace(build, args, outside)
-    flat, leaves = _flat(build, args)
-    make_fx(flat, tracing_mode="real")(*leaves)  # fails on a host read that the fake trace skips
+@pytest.mark.parametrize("step", ["vi"])
+def test_segments_trace_in_fake_mode(own_vi, step):
+    """(b) for the stereo-inertial step (the visual one: test_torch_one_program.py's program trace)."""
+    segs, first, _ = own_vi
+    check_segments_trace(segs, first)
 
 
 def check_replay_on_later_frame(segs, first, last, step):
     """(c) T and K traced in real mode at a keyframe with windowed BA and run
-    on the last recorded frame's inputs (another n_kf, stamp, pose, stores
+    on a later fused frame's inputs (another n_kf, stamp, pose, stores
     and matches; K runs there as it would on a keyframe) equal the eager
     segments exactly; the real-mode trace also fails on any host read a
     fake trace skips (`one_hot`'s range check did). Before the keyframe counters and the stamp became device inputs
@@ -380,13 +253,6 @@ def check_replay_on_later_frame(segs, first, last, step):
     _assert_replay_exact(segs.track, t_a, t_b, f"{step} T")
     keyframe = lambda i, s, c: segs.keyframe(i, s, c, True)  # noqa: E731
     _assert_replay_exact(keyframe, k_a, k_b, f"{step} K")
-
-
-@pytest.mark.parametrize("step", ["visual"])
-def test_replay_on_next_frame_equals_eager(ref, step):
-    """(c) for the visual step (the stereo-inertial one: test_torch_graph_step_vi)."""
-    segs, frames, last = _ba_keyframe_frames(ref)
-    check_replay_on_later_frame(segs, frames[0], last, step)
 
 
 # ---------------------------------------------------------------------------

@@ -1,111 +1,79 @@
-"""The stereo-inertial fused step cut for CUDA graphs, on the CPU: as
-test_torch_graph_step.py holds the visual step, (a) T, the device
-decision and K (the counters chained on the device) against the
-reference's jitted `make_step_vi` on every fused frame of
-test_torch_tracker_vi's reference run (IMU initialization at frame 20,
-keyframes with visual-inertial BA, the widened window), (b) T and K traced
-with make_fx in fake mode, (c) a real-mode trace taken at a keyframe with
-windowed BA replayed on the run's last fused frame, equal to eager bit for
-bit. The run's reference tracker is re-run here (module fixtures are per
-file)."""
+"""The stereo-inertial path's checks that need no reference tracker run:
 
+- (c) of test_torch_graph_step.py for its fused step: T and K traced in
+  real mode at the port's first fused keyframe with visual-inertial BA and
+  replayed on the fused frame after it (another n_kf and stamp), equal to
+  eager bit for bit. Its frames are snapshots of the port's own CPU
+  stereo-inertial tracker over test_torch_tracker_vi's scene and settings
+  (test_torch_graph_step's `own_vi`, run again here: module fixtures are
+  per file). The same step's (a), against the reference's `make_step_vi`,
+  is test_torch_tracker_vi.py's `test_vi_segments_parity`, on that file's
+  one reference run; its (b), the fake-mode trace, is in
+  test_torch_graph_step.py.
+- the host pieces that need no run: `_fiba_schedule` against the
+  reference's, and the sensors the port builds with the IMU on.
+
+They share a file because pytest-xdist 3.8's `--dist loadfile` starts the
+files with the most tests first: alone, the replay (one to three minutes
+under the whole suite) would start last and end the run (the verify
+skill's budget rule).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
-import test_torch_tracker_vi as tvi
-from test_torch_graph_step import _segments_step, check_replay_on_later_frame, check_segments_trace
+from test_torch_graph_step import check_replay_on_later_frame
+from test_torch_graph_step import own_vi  # noqa: F401  (the fixture)
+from test_torch_tracker_vi import _cams, _cfg, port_cfg
 
 from pli_slam_tpu.frontend import tracker as jtr
-from pli_slam_tpu_torch.frontend import step as tstep
-from pli_slam_tpu_torch.utils import convert
+from pli_slam_tpu_torch.frontend.tracker import Tracker
 
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def vi_run():
-    """test_torch_tracker_vi's reference run (stereo-inertial, IMU
-    initialization at frame 20, then fused frames), recorded with the state
-    each fused frame started from; the port's own free run is left out."""
-    mp = tvi._accelerator_branch()
-    try:
-        cfg = tvi._cfg(init_min_kfs=5)
-        jt, _, rec = tvi._run_both(cfg, tvi.N_FRAMES, record=True, free_run=False)
-        yield cfg, jt, rec
-    finally:
-        mp.undo()
-
-
-def _vi_io(fz):
-    """The port's (inputs, state, n_kf, fs) of a recorded fused frame of the reference run."""
-    st = fz["state"]
-    state = {k: st[k] for k in ("R", "t", "v_w", "bg", "ba", "gravity_w", "preint_acc", "ext", "pstore", "lstore",
-                                "kstore", "bow_db", "kf_view", "local_pt", "pints")}
-    state.update(R_prev=st["R"], t_prev=st["t"], n_kf=tstep._dev_int(st["n_kf"], "cpu"),
-                 fs=tstep._dev_int(st["frames_since_kf"], "cpu"), last=tstep._dev_int(st["last_kf_inliers"], "cpu"))
-    inputs = tstep.scalar_inputs(dict(img=(convert.frame_data(fz["frame"]),), imu=fz["imu"], stamp=fz["stamp"],
-                                       allow=True, wide=fz["wide"]), "cpu")
-    return inputs, state, st["n_kf"], st["frames_since_kf"]
-
-
-def _vi_segments(vi_run):
-    cfg, jt, _ = vi_run
-    return tstep.vi_segments(tvi._cams()[1], tvi.port_cfg(cfg), convert.vocabulary(jt.voc_pt),
-                             convert.vocabulary(jt.voc_ln), lambda fd: fd)
-
-
-def _ba_keyframe_frames(vi_run):
-    """(segments, [(inputs, state)] of the fused frames that made a keyframe
-    with windowed BA, (inputs, state) of the last fused frame)."""
-    fused = vi_run[2]["fused"]
-    frames = [_vi_io(fz)[:2] for fz in fused
-              if fz["out"][20][jtr.ST_KF_CREATED] > 0 and fz["out"][20][jtr.ST_NKF] >= 3]
-    return _vi_segments(vi_run), frames, _vi_io(fused[-1])[:2]
-
-
-def test_vi_segments_parity(vi_run, monkeypatch):
-    """Every fused stereo-inertial frame of the reference run (keyframes with
-    visual-inertial BA among them, and the widened window after the IMU
-    initialization), replayed by the program (T, the decision on the device,
-    K) from the reference's state, the keyframe counters chained as device
-    tensors from the port's previous fused frame, and held as
-    test_torch_tracker_vi holds make_step_vi."""
-    cfg, jt, rec = vi_run
-    segs = _vi_segments(vi_run)
-    chained = {}  # the keyframe counters the port's previous fused frame left, as device tensors
-
-    def step(img_args, imu_args, stamp, R, t, v_w, bg, ba, gravity_w, preint_acc, ext, n_kf, fs, last, allow_mapping,
-             wide, pstore, lstore, kstore, bow_db, kf_view, local_pt, pints):
-        assert allow_mapping
-        counters = dict(chained) or {k: tstep._dev_int(v, "cpu") for k, v in (("n_kf", n_kf), ("fs", fs),
-                                                                            ("last", last))}
-        # the program reads none of them on the host; the test holds the chain to the reference's counters
-        assert [int(v) for v in counters.values()] == [int(n_kf), int(fs), int(last)], stamp
-        state = dict(R=R, t=t, R_prev=R, t_prev=t, v_w=v_w, bg=bg, ba=ba, gravity_w=gravity_w, preint_acc=preint_acc,
-                     ext=ext, **counters, pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db,
-                     kf_view=kf_view, local_pt=local_pt, pints=pints)
-        inputs = tstep.scalar_inputs(dict(img=tuple(img_args), imu=imu_args, stamp=stamp, allow=allow_mapping,
-                                          wide=wide), "cpu")
-        s, out, c, _ = _segments_step(segs, inputs, state)
-        chained.update(n_kf=s["n_kf"], fs=s["fs"], last=s["last"])
-        return (s["R"], s["t"], s["R_prev"], s["t_prev"], s["v_w"], s["bg"], s["ba"], s["preint_acc"], s["pstore"],
-                s["lstore"], s["kstore"], s["bow_db"], s["kf_view"], s["local_pt"], s["pints"], c["pt_idx"],
-                c["pt_in"], c["ln_idx"], c["ln_in"], (s["n_kf"], s["fs"], s["last"]), out["stats"],
-                (out["ref"], out["rel_R"], out["rel_t"]))
-
-    monkeypatch.setattr(tstep, "make_step_vi", lambda *a: step)
-    assert len(tvi._check_fused_replay(cfg, jt, rec)) >= 1  # the keyframe branch with VI-BA was compared
-    assert any(fz["wide"] for fz in rec["fused"]) and not all(fz["wide"] for fz in rec["fused"])
-
-
 @pytest.mark.parametrize("step", ["vi"])
-def test_segments_trace_in_fake_mode(vi_run, step):
-    """(b) for the stereo-inertial step."""
-    segs, frames, _ = _ba_keyframe_frames(vi_run)
-    check_segments_trace(segs, frames)
-
-
-@pytest.mark.parametrize("step", ["vi"])
-def test_replay_on_next_frame_equals_eager(vi_run, step):
+def test_replay_on_next_frame_equals_eager(own_vi, step):  # noqa: F811
     """(c) for the stereo-inertial step."""
-    segs, frames, last = _ba_keyframe_frames(vi_run)
-    check_replay_on_later_frame(segs, frames[0], last, step)
+    segs, first, later = own_vi
+    check_replay_on_later_frame(segs, first, later, step)
+
+
+def test_sensors_not_ported_raise():
+    """No sensor of the reference is left unported: the inertial variants of
+    mono and RGB-D build with the IMU on (tests/test_torch_mono_inertial.py,
+    tests/test_torch_rgbd_inertial.py), their visual ones without it; a
+    sensor the reference does not know is a ValueError."""
+    _, tcam = _cams()
+    for sensor in ("mono_imu", "rgbd_imu"):
+        tr = Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu")
+        assert tr.use_imu and (tr.is_mono, tr.is_rgbd) == (sensor == "mono_imu", sensor == "rgbd_imu")
+    for sensor in ("mono", "rgbd"):
+        assert not Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu").use_imu
+    with pytest.raises(ValueError, match="sensor"):
+        Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor="lidar"), "cpu")
+
+
+@pytest.mark.parametrize("n_kf", [2, 3, 8, 9, 20, 32, 33, 70])
+def test_fiba_schedule_equal(n_kf):
+    cfg = _cfg(5)
+    jcam, tcam = _cams()
+    jt, tt = jtr.Tracker(jcam, cfg), Tracker(tcam, port_cfg(cfg), "cpu")
+    assert tt._fiba_schedule() == []  # no gravity yet
+    jt.n_kf = tt.n_kf = n_kf
+    jt.gravity_w, tt.gravity_w = jnp.asarray([0.0, 0.0, -9.81]), torch.tensor([0.0, 0.0, -9.81])
+    sj, st_ = jt._fiba_schedule(), tt._fiba_schedule()
+    assert len(st_) == len(sj)
+    for (wj, fj), (wt, ft) in zip(sj, st_):
+        np.testing.assert_array_equal(wt, wj)
+        np.testing.assert_array_equal(ft, fj)
+    if n_kf < 3:
+        assert st_ == []
+    elif n_kf <= 32:
+        assert len(st_) == 1 and len(st_[0][0]) == next(c for c in (8, 16, 32) if c >= n_kf)
+    else:
+        assert len(st_) >= 4 and all(len(w) == 32 for w, _ in st_)  # two passes of overlapping windows
+        assert set(np.concatenate([w for w, _ in st_])) == set(range(n_kf))

@@ -71,7 +71,9 @@ def _pair_and_wait(mod):
         sync.imu.push(0.96 + 0.01 * k, [0, 0, k], [0, 0, 9.8])
     blocked = sync.next_frame(timeout=0.1)  # the IMU (0.99) does not reach the frame (1.00)
     sync.imu.push(1.01, [0, 0, 9], [0, 0, 9.8])
-    return blocked, sync.next_frame(timeout=2.0), sync
+    item = sync.next_frame(timeout=2.0)
+    assert item is not None, f"{mod.__name__}: no stereo pair with its IMU within 2 s"
+    return blocked, item, sync
 
 
 def test_livefeed_sync_pairs_and_waits_for_imu():
@@ -91,7 +93,8 @@ def test_livefeed_sync_no_imu_mode():
         sync.left.push(2.0, "L")
         sync.right.push(2.0, "R")
         item = sync.next_frame(timeout=0.5)
-        assert item is not None and item["imu"] is None
+        assert item is not None, f"{mod.__name__}: no stereo pair within 0.5 s"
+        assert item["imu"] is None
 
 
 def test_livefeed_timeout_and_stop():
@@ -99,7 +102,9 @@ def test_livefeed_timeout_and_stop():
         sync = mod.StereoInertialSync()
         assert sync.next_frame(timeout=0.05) is None
         sync.stop()
+        t0 = time.monotonic()
         assert sync.next_frame(timeout=5.0) is None
+        assert time.monotonic() - t0 < 5.0, f"{mod.__name__}: a stopped feed waited out its limit"
 
 
 def test_image_queue_keeps_the_newest():

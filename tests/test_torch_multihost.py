@@ -17,18 +17,29 @@ from pli_slam_tpu_torch.parallel import launch
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# seconds each wait may take: about three times the longest measured under the whole suite (4-6 s), and no
+# less than 30 s for a wait that starts Python processes (each imports torch)
+LIMIT = 30.0
+# a child's own limit on its collectives, counted from its process group's start: below LIMIT, counted from its
+# start, so that a hung collective ends the child, which then names it, before the wait for the child ends
+RANK_LIMIT = 20.0
 
 
 def test_two_process_distributed_ba_converges(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "pli_slam_tpu_torch.scripts.run_multihost_ba", "--init-method",
-           f"file://{tmp_path / 'rdv'}", "--world-size", "2", "--cpu", "--timeout", "60"]
+           f"file://{tmp_path / 'rdv'}", "--world-size", "2", "--cpu", "--timeout", f"{RANK_LIMIT:.0f}"]
     procs = [subprocess.Popen(cmd + ["--rank", str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
                               text=True, cwd=REPO) for r in range(2)]
     outs = []
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120)[0])
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=LIMIT)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                pytest.fail(f"rank {r} of the two run_multihost_ba processes did not exit within {LIMIT:.0f} s; "
+                            f"its output:\n{p.communicate()[0][-3000:]}")
     finally:
         for p in procs:
             p.kill()
@@ -66,14 +77,14 @@ def _sleeping_rank(rank, group, device):
 
 
 def test_run_ranks_returns_in_rank_order():
-    assert launch.run_ranks(_sum_rank, 3, "gloo", torch.device("cpu"), 60.0, args=(2.0,)) == [12.0, 12.0, 12.0]
+    assert launch.run_ranks(_sum_rank, 3, "gloo", torch.device("cpu"), LIMIT, args=(2.0,)) == [12.0, 12.0, 12.0]
 
 
 def test_a_failed_rank_fails_the_caller():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 gives up"):
-        launch.run_ranks(_failing_rank, 2, "gloo", torch.device("cpu"), 60.0)
-    assert time.monotonic() - t0 < 50.0  # the waiting rank is killed, not waited for
+        launch.run_ranks(_failing_rank, 2, "gloo", torch.device("cpu"), LIMIT)
+    assert time.monotonic() - t0 < 25.0  # the waiting rank is killed, not waited for
 
 
 def test_a_hung_group_times_out():

@@ -15,7 +15,10 @@ test_torch_graph_step.py's and test_torch_graph_step_vi.py's (a)):
   float32 expression at a ratio where the two differ (0.6: n_in 15, last
   25);
 - (c) `make_fx(tracing_mode="fake")` of the decision and of the whole
-  program (T, the decision, both K variants): no host read inside;
+  program (T with the frame build, K with and without windowed BA), at
+  the port's own first fused keyframe with windowed BA
+  (`own_fused_frames`): no host read inside; for the visual step this is
+  test_torch_graph_step.py's (b);
 - (d) FusedStep's bookkeeping on stand-in graphs (a capture that runs the
   program, a branch that runs a body when its predicate holds), driven by
   a Tracker: one capture per fused step, at construction; one replay a
@@ -34,7 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_graph_step import _fake_trace
+from test_torch_graph_step import _fake_trace, check_segments_trace, own_fused_frames
 from test_torch_stages import CAM, TRAJ, _vi_cfg, stand_in_capture
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -122,42 +125,37 @@ def test_device_decision_rounds_as_the_reference_at_ratio_06():
 # ---------------------------------------------------------------------------
 
 
-def _tracker_state(tracker):
-    """The visual step's state of a tracker, the counters as device tensors."""
-    state = {k: getattr(tracker, a) for k, a in Tracker._VISUAL_STATE.items()}
-    return {**state, **{k: tstep._dev_int(v, "cpu") for k, v in (
-        ("n_kf", tracker.n_kf), ("fs", tracker.frames_since_kf), ("last", tracker.last_kf_inliers))}}
-
-
 @pytest.fixture(scope="module")
 def program_args(frames):
-    """(segments, inputs, state) of a frame of a tiny stereo run with four keyframes made."""
+    """(segments, inputs, state) of the port's first fused keyframe with
+    windowed BA in a tiny stereo run, as its fused step handed them over
+    (the images in the inputs: T builds the frame)."""
     tracker = Tracker(CAM, _cfg(), "cpu")
-    for fr in frames[:9]:
-        tracker.process(fr["img_l"], fr["img_r"], fr["t"])
-    assert tracker.n_kf >= 4
-    fr = frames[9]
-    inputs = tstep.scalar_inputs(dict(img=(fr["img_l"], fr["img_r"]), stamp=fr["t"], allow=True), "cpu")
-    return tracker._step.segs, inputs, _tracker_state(tracker)
+    first, _ = own_fused_frames(tracker, frames, built=False)
+    return (tracker._fused_step().segs, *first)
 
 
-def _whole_program(segs, inputs, state):
-    """What FusedStep captures, both K variants run (the IF nodes decide at a replay)."""
-    new, out, carry = segs.track(inputs, state)
-    state = {**state, **new}
+def _predicates(segs, inputs, state, carry):
+    """The decision and the IF nodes' predicates FusedStep derives from it."""
     need = segs.decide(inputs, state, carry)
     n_kf2 = state["n_kf"] + 1
-    return out, need & (n_kf2 >= 3), need & (n_kf2 < 3), [segs.keyframe(inputs, state, carry, ba)
-                                                          for ba in (True, False)]
+    return need & (n_kf2 >= 3), need & (n_kf2 < 3)
 
 
-def test_decision_and_program_trace_in_fake_mode(program_args):
+@pytest.mark.parametrize("traced", ["decision", "program"])
+def test_decision_and_program_trace_in_fake_mode(program_args, traced):
+    """What FusedStep captures, traced in fake mode a part at a time, each
+    on the outputs of the parts before it: the decision with the IF nodes'
+    predicates (the reference's float32 ratio comparison in it); T with the
+    frame build and K with and without windowed BA (test_torch_graph_step.py's
+    (b) for the visual step)."""
     segs, inputs, state = program_args
-    new, _, carry = segs.track(inputs, state)
-    after = {**state, **new}
-    gm = _fake_trace(lambda i, s, c: segs.decide(i, s, c), (inputs, after, carry))
-    assert any("lt" in str(n.target) for n in gm.graph.nodes)  # the float32 ratio comparison is in the trace
-    assert len(_fake_trace(partial(_whole_program, segs), (inputs, state)).graph.nodes) > 2000
+    if traced == "decision":
+        new, _, carry = segs.track(inputs, state)
+        gm = _fake_trace(partial(_predicates, segs), (inputs, {**state, **new}, carry))
+        assert any("lt" in str(n.target) for n in gm.graph.nodes)
+    else:
+        assert check_segments_trace(segs, (inputs, state), without_ba=True) > 2000
 
 
 # ---------------------------------------------------------------------------

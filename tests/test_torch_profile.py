@@ -1,14 +1,20 @@
 """The profiling module's configuration and trace arithmetic (the profile
-itself needs a GPU; see pli_slam_tpu_torch/utils/profile.py)."""
+itself needs a GPU; see pli_slam_tpu_torch/utils/profile.py), and its
+closure runners (chip_smoke.py's phases 6a and 14a) on the CPU at
+test_torch_flagship.py's size and scene."""
 
 import dataclasses
 import json
 
+import numpy as np
 import pytest
 import torch
+from test_torch_flagship import INIT_FRAME, PLANT_GAP, TC, TRAJ, _flagship_tiny_cfg, port_cfg
 
+from pli_slam_tpu.utils.config import SlamConfig as JSlamConfig
 from pli_slam_tpu_torch import SlamConfig
 from pli_slam_tpu_torch.utils import profile
+from pli_slam_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(1)
 
@@ -73,3 +79,44 @@ def test_main_refuses_without_a_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         profile.main(["--out", str(tmp_path)])
+
+
+def test_inertial_loop_run_tiny():
+    """`utils.profile.inertial_loop_run` (chip_smoke.py's phase 14a) on the
+    CPU at the test's size: the IMU initializes, the planted closure verifies
+    with it, queues only "fiba" chunks, keeps every keyframe's gravity
+    direction, and the queue drains."""
+    cfg = _flagship_tiny_cfg()
+    traj = tsyn.Trajectory(**TRAJ)
+    frames = list(tsyn.make_sequence(TC, INIT_FRAME + 10, "cpu", fps=cfg.fps, traj=traj, room_half=2.55,
+                                     imu_noise=tsyn.ImuNoiseModel.euroc()))
+    for fr in frames:
+        fr["imu"] = profile.imu_batch(fr)
+    r = profile.inertial_loop_run(cfg, TC, traj, frames, "cpu", n_before=3, n_after=3, min_gap=PLANT_GAP)
+    tr, p = r["tracker"], r["planted"]
+    assert r["init"]["frame"] == INIT_FRAME and r["init"]["record"]["accepted"]
+    assert r["natural"] == 0 and p["closed"] and p["imu_ready"] and set(p["queued"]) == {"fiba"}
+    assert p["gravity_deg"] < 1e-3 and p["z_deg"] < 1e-3 and p["kf_after"] < p["kf_before"] + 0.05
+    assert p["gravity_excess_deg"] < 1e-3 and p["gravity_pred_deg"] < 1e-3
+    assert len(r["t_fiba"]) == len(p["queued"]) and not tr._deferred_ba
+    assert r["n_frames"] == INIT_FRAME + 3 + 1 + 3 and np.all(np.isfinite(r["est"]))
+    assert r["est"].shape == (r["n_frames"], 3) and r["ate"] < 0.2
+
+
+def test_loop_run_tiny(monkeypatch):
+    """`utils.profile.loop_run` (chip_smoke.py's phase 6a, which shares
+    `_ClosureRun` with phase 14a's runner) on the CPU at the test's size,
+    visual, loop closing on with the planted pair PLANT_GAP keyframes
+    apart, 24 frames before the plant: the planted closure verifies, queues
+    "gba" chunks, and the remaining frames and the drain run them all."""
+    monkeypatch.setattr(profile, "N_FRAMES_LOOP", 24)
+    base = port_cfg(JSlamConfig.tiny_test())  # the reference's, as test_torch_flagship builds its own
+    cfg = dataclasses.replace(base, loop=dataclasses.replace(base.loop, min_kf_gap=PLANT_GAP))
+    traj = tsyn.Trajectory(**TRAJ)
+    frames = list(tsyn.make_sequence(TC, 30, "cpu", fps=cfg.fps, traj=traj, room_half=2.55))
+    r = profile.loop_run(cfg, TC, traj, frames, "cpu")
+    tr, p = r["tracker"], r["planted"]
+    assert r["natural"] == 0 and p["closed"] and p["kf_cur"] - p["kf_loop"] >= PLANT_GAP
+    assert r["n_queued"] >= 1 and len(r["t_gba"]) == r["n_queued"] and not tr._deferred_ba
+    assert len(r["kf_errs"]) == r["n_queued"] and len(r["t_loop"]) == 1 and r["loop_frames"] == []
+    assert r["ate_run"] < 0.2 and r["est"].shape == (30, 3) and np.all(np.isfinite(r["est"])) and r["ate"] < 0.2

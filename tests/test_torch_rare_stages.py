@@ -702,7 +702,7 @@ def svd_host(tmp_path_factory):
     src.write_text(f'#include "{Path(svd_small._SRC)}"\n')
     so = out / "libsvd_host.so"
     subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so),
-                    str(src)], check=True, capture_output=True)
+                    str(src)], check=True, capture_output=True, timeout=30)
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.svd_small_host.argtypes = [vp, vp, vp, vp, ci, ci, vp]

@@ -302,7 +302,7 @@ def host(tmp_path_factory):
         cpp, so = out / f"{name}_host.cpp", out / f"lib{name}_host.so"
         cpp.write_text(f'#include "{Path(src)}"\n')
         subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so),
-                        str(cpp)], check=True, capture_output=True)
+                        str(cpp)], check=True, capture_output=True, timeout=30)
         libs[name] = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     libs["rot3"].rot3_host.argtypes = [vp, vp, ci, vp]

@@ -17,6 +17,10 @@ decisions exact; poses 1e-4; landmark positions 1e-3 m (GN in float32
 through another LAPACK path); BoW histograms 0.05 (LSH word bits at
 float rounding of 0, see worldmap.vocab). A frame that runs windowed BA
 is held to looser, stated bounds (`_assert_after_ba`).
+
+The end of the file holds the same step cut for CUDA graphs (T, the device
+decision, K: test_torch_graph_step.py's (a)) against the reference's
+`make_step_visual` over a 10-frame run of its own.
 """
 
 import dataclasses
@@ -27,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_graph_step import N_VIS, TRAJ, _segments_step
 
 from pli_slam_tpu.frontend import tracker as jtr
 from pli_slam_tpu.frontend.frame import make_build_frame
@@ -314,3 +319,176 @@ def test_window_helpers_parity(env):
         tout = tstep._compact_ids(torch.as_tensor(obs), torch.as_tensor(mask), 2048, cap)
         for a, b in zip(tout, jout):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# The step cut for CUDA graphs (test_torch_graph_step.py's (a)): T, the
+# device decision and K, composed eagerly with the keyframe counters chained
+# as device tensors, against the reference's jitted `make_step_visual` over
+# its own 10-frame run (`ref`), each frame from the reference's state
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's visual steps over one sequence, each recorded with
+    the state it started from: KF0 and N_VIS - 1 steps (a keyframe every
+    second frame)."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax, "default_backend", lambda: "tpu")
+    mp.setattr(jham, "gated_match_pallas", partial(jham.gated_match_pallas, interpret=True))
+    try:
+        cfg = _cfg()
+        jcam = JCamera.pinhole(fx=120.0, fy=120.0, cx=64.0, cy=48.0, bf=0.11 * 120.0, width=128, height=96)
+        tcam = convert.camera(np_tree(jcam))
+        raw = list(jsyn.make_sequence(jcam, N_VIS, fps=cfg.fps, traj=jsyn.Trajectory(**TRAJ), room_half=2.55))
+        build = make_build_frame(jcam, cfg)
+        fds = [np_tree(build(fr["img_l"], fr["img_r"])) for fr in raw]
+        m, K = cfg.map, cfg.map.max_keyframes
+        empty = (jst.PointStore.empty(m.max_points), jst.LineStore.empty(m.max_lines),
+                 jst.KeyFrameStore.empty(K, cfg.orb.n_features, cfg.lines.n_lines))
+        n, nl = fds[0].feats.uv.shape[0], fds[0].lines.angle.shape[0]
+        eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        kf0_args = (fds[0], eye, zero, 0.0, np.full(n, -1, np.int32), np.zeros(n, bool), np.full(nl, -1, np.int32),
+                    np.zeros(nl, bool), 0)
+        kf0_out = jax.jit(partial(jtr.insert_keyframe, jcam, cfg))(*kf0_args, *empty)
+        ps, ls, ks, _ = kf0_out
+        voc_j = (jvoc.Vocabulary(seed=17), jvoc.Vocabulary(seed=23))
+        js = dict(R=eye, t=zero, R_prev=eye, t_prev=zero, vel=np.zeros(6, np.float32), has_vel=False, n_kf=1, fs=0,
+                  last=int((fds[0].stereo_ok & fds[0].feats.valid).sum()), ps=ps, ls=ls, ks=ks,
+                  db=jvoc.BowDatabase.empty(K, voc_j[0].n_words), view=jtr._empty_kf_views(cfg),
+                  local=jtr._local_map_ids(cfg, ks, ps, 0))
+        jvis = jtr.make_step_visual(jcam, cfg, *voc_j, lambda fd: fd)
+        visual = []
+        for k in range(1, N_VIS):
+            jo = jvis((fds[k],), k / cfg.fps, js["R"], js["t"], js["R_prev"], js["t_prev"], js["vel"], js["has_vel"],
+                      js["n_kf"], js["fs"], js["last"], True, js["ps"], js["ls"], js["ks"], js["db"], js["view"],
+                      js["local"])
+            visual.append((k, dict(js), np_tree(jo)))
+            js.update(R=jo[0], t=jo[1], R_prev=jo[2], t_prev=jo[3], vel=jo[4], has_vel=jo[5], ps=jo[6], ls=jo[7],
+                      ks=jo[8], db=jo[9], view=jo[10], local=jo[11], n_kf=jo[16][0], fs=jo[16][1], last=jo[16][2])
+
+        yield dict(cfg=cfg, jcam=jcam, tcam=tcam, fds=fds, voc=voc_j, kf0=(kf0_args, empty, kf0_out), visual=visual)
+    finally:
+        mp.undo()
+
+
+def _voc(r):
+    return tuple(convert.vocabulary(v) for v in r["voc"])
+
+
+def _visual_io(r, k, js):
+    """The port's (inputs, state, n_kf, fs) of visual step k from the reference's state `js`."""
+    ts = _torch_state(js)
+    state = dict(R=ts["R"], t=ts["t"], R_prev=ts["R_prev"], t_prev=ts["t_prev"], vel_xi=ts["vel"],
+                 has_vel=ts["has_vel"], n_kf=tstep._dev_int(ts["n_kf"], "cpu"), fs=tstep._dev_int(ts["fs"], "cpu"),
+                 last=tstep._dev_int(ts["last"], "cpu"), pstore=ts["ps"], lstore=ts["ls"], kstore=ts["ks"],
+                 bow_db=ts["db"], kf_view=ts["view"], local_pt=ts["local"])
+    inputs = tstep.scalar_inputs(dict(img=(convert.frame_data(r["fds"][k]),), stamp=k / r["cfg"].fps, allow=True),
+                                 "cpu")
+    return inputs, state, ts["n_kf"], ts["fs"]
+
+
+def _visual_segments(r, build=lambda fd: fd):
+    return tstep.visual_segments(r["tcam"], port_cfg(r["cfg"]), *_voc(r), build)
+
+
+def test_kf0_with_device_counters(ref):
+    """KF0 (n_kf 0) through `insert_keyframe` with the slot and the stamp
+    as device scalars, as the fused steps pass them, against the reference's
+    KF0 that the `ref` fixture made (the same jitted call)."""
+    args, empty, jout = ref["kf0"]
+    T = torch.as_tensor
+    tout = tstep.insert_keyframe(ref["tcam"], port_cfg(ref["cfg"]), convert.frame_data(args[0]), T(args[1]), T(args[2]),
+                                 torch.zeros(()), *(T(a) for a in args[4:8]), torch.zeros((), dtype=torch.int32),
+                                 *(conv(np_tree(e)) for conv, e in zip((convert.point_store, convert.line_store,
+                                                                        convert.keyframe_store), empty)))
+    for a, b, name in zip(tout[:3], jout[:3], ("pstore", "lstore", "kstore")):
+        assert_state_close(a, b, f"KF0 {name}")
+    assert int(tout[3]) == int(jout[3])
+
+
+def _assert_ba_frame(to, jo, label, kf_slot):
+    """A keyframe frame with windowed BA, held as test_torch_step's
+    `_assert_after_ba` holds one (same bounds) except for what follows the
+    window's older keyframes: on this map, from the fourth keyframe on,
+    BA's float32 solve leaves one of them 1.3e-2 / 2.1e-2 rad from the
+    reference's (frames 6 / 8) and moves landmarks by up to 5.6% / 14% of
+    their distance. The port before the step was cut into segments gave
+    the same numbers to the last digit on these frames, so this is BA's
+    float32 conditioning on the tiny map, not the cut. The older keyframes'
+    poses are held by the BA objective (`_ba_objective`, at the call site),
+    the landmarks by the 90% bound alone; the new keyframe's pose, which
+    tracking continues from, keeps the 5e-3 bound."""
+    np.testing.assert_allclose(to[0].numpy(), jo[0], atol=5e-3, err_msg=f"{label} R")
+    np.testing.assert_allclose(to[1].numpy(), jo[1], atol=5e-3, err_msg=f"{label} t")
+    a = {k: convert.to_numpy(x) for k, x in zip(("p", "l", "k"), to[6:9])}
+    b = {k: convert.to_numpy(x) for k, x in zip(("p", "l", "k"), jo[6:9])}
+    for fam in ("p", "l"):
+        for f in a[fam]:
+            if f == "x":
+                v = b[fam]["valid"]
+                rel = np.abs(a[fam][f] - b[fam][f]).max(-1)[v] / np.linalg.norm(b[fam][f][v], axis=-1)
+                assert np.quantile(rel, 0.9) < 0.03, (label, np.quantile(rel, [0.9, 1.0]))
+            elif f != "seg":
+                np.testing.assert_array_equal(a[fam][f], b[fam][f], err_msg=f"{label} {fam}.{f}")
+    for f in a["k"]:
+        if f in ("R", "t"):
+            np.testing.assert_allclose(a["k"][f][kf_slot], b["k"][f][kf_slot], atol=5e-3, err_msg=f"{label} new KF {f}")
+        elif f in ("obs_pt", "obs_ln"):
+            assert (a["k"][f] != b["k"][f]).mean() <= 0.01, (label, f)
+        elif a["k"][f].dtype.kind == "f":
+            np.testing.assert_allclose(a["k"][f], b["k"][f], rtol=1e-5, atol=1e-4, err_msg=f"{label} kstore.{f}")
+        else:
+            np.testing.assert_array_equal(a["k"][f], b["k"][f], err_msg=f"{label} kstore.{f}")
+    lt, lj = to[11].numpy(), np.asarray(jo[11])
+    assert len(np.intersect1d(lt[lt >= 0], lj[lj >= 0])) >= 0.99 * (lj >= 0).sum()
+
+
+def test_visual_segments_parity(ref):
+    """Every visual step, the program composed eagerly (T, the decision on
+    the device, K) from the reference's state but with the keyframe
+    counters chained as device tensors from the port's previous frame,
+    never passed from the host (as the reference's streaming mode chains
+    its `counters`): stats, matches, counters, velocity, view ring, BoW
+    database exactly or as test_torch_step holds them; poses and stores
+    tightly off windowed BA and by what BA decides on it."""
+    segs = _visual_segments(ref)
+    made, chained = [], None
+    for k, js, jo in ref["visual"]:
+        inputs, state, n_kf, fs = _visual_io(ref, k, js)
+        if chained is not None:
+            state.update(chained)
+        s, out, c, need_kf = _segments_step(segs, inputs, state)
+        chained = {name: s[name] for name in ("n_kf", "fs", "last")}
+        assert all(isinstance(v, torch.Tensor) for v in chained.values())
+        label = f"frame {k}"
+        stats = jo[17]
+        assert need_kf == bool(stats[jtr.ST_KF_CREATED] > 0), label
+        np.testing.assert_array_equal(out["stats"].numpy(), stats, err_msg=f"{label} stats")
+        for name, i in (("pt_idx", 12), ("pt_in", 13), ("ln_idx", 14), ("ln_in", 15)):
+            np.testing.assert_array_equal(c[name].numpy(), jo[i], err_msg=f"{label} {name}")
+        assert [int(s[n]) for n in ("n_kf", "fs", "last")] == [int(x) for x in jo[16]], label
+        assert int(out["ref"]) == int(jo[18][0])
+        np.testing.assert_allclose(s["vel_xi"].numpy(), jo[4], atol=1e-4, err_msg=f"{label} vel")
+        for a, b in zip(s["kf_view"], jo[10]):
+            np.testing.assert_array_equal(a.numpy(), b)
+        assert_state_close(s["bow_db"], jo[9], f"{label} bow_db")
+        # the positions test_torch_step's helpers read in make_step_visual's result
+        to = (s["R"], s["t"], None, None, None, None, s["pstore"], s["lstore"], s["kstore"], None, None, s["local_pt"])
+        if need_kf:
+            made.append(n_kf)
+        if need_kf and n_kf + 1 >= 3:
+            _assert_ba_frame(to, jo, label, n_kf)
+            cost_j = _ba_objective(ref["cfg"], ref["tcam"], jo, (convert.point_store(jo[6]), convert.line_store(jo[7]),
+                                                                 convert.keyframe_store(jo[8])), n_kf)
+            assert _ba_objective(ref["cfg"], ref["tcam"], jo, to[6:9], n_kf) <= 1.1 * cost_j + 1.0, label
+        else:
+            np.testing.assert_allclose(s["R"].numpy(), jo[0], atol=1e-4, err_msg=f"{label} R")
+            np.testing.assert_allclose(s["t"].numpy(), jo[1], atol=1e-4, err_msg=f"{label} t")
+            np.testing.assert_allclose(out["rel_R"].numpy(), jo[18][1], atol=1e-4)
+            np.testing.assert_allclose(out["rel_t"].numpy(), jo[18][2], atol=1e-4)
+            for a, b, name in zip(to[6:9], jo[6:9], ("pstore", "lstore", "kstore")):
+                assert_state_close(a, b, f"{label} {name}")
+            np.testing.assert_array_equal(s["local_pt"].numpy(), jo[11])
+    assert made == [1, 2, 3, 4], made  # K without BA twice, with BA twice, and frames without a keyframe

@@ -1,7 +1,8 @@
 """The port's stereo-inertial path against the reference's: the device
 stages (`track_step_inertial`, `local_inertial_ba`, `make_step_vi`) from
 identical state, both `Tracker`s over the same images and IMU batches, and
-the host pieces (`_imu_batch_arrays`, `_fiba_schedule`, the deferred queue).
+the host pieces (`_imu_batch_arrays`, the deferred queue; `_fiba_schedule`
+in test_torch_graph_step_vi.py).
 
 Scene and settings are those of tests/test_tracker_inertial.py:
 `SlamConfig.tiny_test()` with `sensor="stereo_imu"`, `init_time_sec=1.0`,
@@ -16,11 +17,14 @@ BA (test_torch_step) has moved the two runs' keyframe decisions apart, and
 the file runs in about two minutes. The 70-frame run with the default 10
 is the `slow` test.
 
-One reference run (`ref_run`) feeds every comparison: before each of its
+One reference run (`ref_run`) feeds every comparison here (the checks of
+this path that need none are in test_torch_graph_step_vi.py): before each of its
 fused stereo-inertial frames the state is carried across with
 `utils.convert.inertial_state`, the port's `make_step_vi` runs that one
 frame from it on the reference's own FrameData, and its outputs are held
-against what the reference's step returned.
+against what the reference's step returned; so is the program that
+frontend.graphs captures from the same step cut into segments
+(`test_vi_segments_parity`). No other file runs this reference tracker.
 
 Tolerances:
 - the packed IMU batch, `_fiba_schedule`, stats counters, match ids and
@@ -72,6 +76,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_graph_step import _segments_step
 
 from pli_slam_tpu.frontend import tracker as jtr
 from pli_slam_tpu.ops import imu as jimu
@@ -270,21 +275,6 @@ def test_whole_slice_imu_init_and_fused_vi(ref_run):
     np.testing.assert_allclose(tt._pints.data.dt[1:tt.n_kf].numpy(), gaps, atol=1e-3)
 
 
-def test_sensors_not_ported_raise():
-    """No sensor of the reference is left unported: the inertial variants of
-    mono and RGB-D build with the IMU on (tests/test_torch_mono_inertial.py,
-    tests/test_torch_rgbd_inertial.py), their visual ones without it; a
-    sensor the reference does not know is a ValueError."""
-    _, tcam = _cams()
-    for sensor in ("mono_imu", "rgbd_imu"):
-        tr = Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu")
-        assert tr.use_imu and (tr.is_mono, tr.is_rgbd) == (sensor == "mono_imu", sensor == "rgbd_imu")
-    for sensor in ("mono", "rgbd"):
-        assert not Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor=sensor), "cpu").use_imu
-    with pytest.raises(ValueError, match="sensor"):
-        Tracker(tcam, dataclasses.replace(port_cfg(_cfg(5)), sensor="lidar"), "cpu")
-
-
 def test_host_path_lockstep(ref_run):
     """Every host-orchestrated frame of the reference run (initialization,
     tracking against the whole point store, host-side keyframes with their
@@ -364,6 +354,43 @@ def test_make_step_vi_parity(ref_run):
     frames (insertion, chain factor, VI-BA, BoW, view ring, local map) by
     what they decide and by BA's float32 bounds."""
     cfg, jt, _, rec = ref_run
+    assert len(_check_fused_replay(cfg, jt, rec)) >= 1  # the keyframe branch with VI-BA was compared
+    assert any(fz["wide"] for fz in rec["fused"]) and not all(fz["wide"] for fz in rec["fused"])
+
+
+def test_vi_segments_parity(ref_run, monkeypatch):
+    """Every fused stereo-inertial frame of the reference run (keyframes with
+    visual-inertial BA among them, and the widened window after the IMU
+    initialization), replayed by the program that frontend.graphs captures
+    (T, the decision on the device, K; test_torch_graph_step.py's (a)) from
+    the reference's state, the keyframe counters chained as device tensors
+    from the port's previous fused frame, and held as
+    test_make_step_vi_parity holds make_step_vi."""
+    cfg, jt, _, rec = ref_run
+    segs = tstep.vi_segments(_cams()[1], port_cfg(cfg), convert.vocabulary(jt.voc_pt),
+                             convert.vocabulary(jt.voc_ln), lambda fd: fd)
+    chained = {}  # the keyframe counters the port's previous fused frame left, as device tensors
+
+    def step(img_args, imu_args, stamp, R, t, v_w, bg, ba, gravity_w, preint_acc, ext, n_kf, fs, last, allow_mapping,
+             wide, pstore, lstore, kstore, bow_db, kf_view, local_pt, pints):
+        assert allow_mapping
+        counters = dict(chained) or {k: tstep._dev_int(v, "cpu") for k, v in (("n_kf", n_kf), ("fs", fs),
+                                                                            ("last", last))}
+        # the program reads none of them on the host; the test holds the chain to the reference's counters
+        assert [int(v) for v in counters.values()] == [int(n_kf), int(fs), int(last)], stamp
+        state = dict(R=R, t=t, R_prev=R, t_prev=t, v_w=v_w, bg=bg, ba=ba, gravity_w=gravity_w, preint_acc=preint_acc,
+                     ext=ext, **counters, pstore=pstore, lstore=lstore, kstore=kstore, bow_db=bow_db,
+                     kf_view=kf_view, local_pt=local_pt, pints=pints)
+        inputs = tstep.scalar_inputs(dict(img=tuple(img_args), imu=imu_args, stamp=stamp, allow=allow_mapping,
+                                          wide=wide), "cpu")
+        s, out, c, _ = _segments_step(segs, inputs, state)
+        chained.update(n_kf=s["n_kf"], fs=s["fs"], last=s["last"])
+        return (s["R"], s["t"], s["R_prev"], s["t_prev"], s["v_w"], s["bg"], s["ba"], s["preint_acc"], s["pstore"],
+                s["lstore"], s["kstore"], s["bow_db"], s["kf_view"], s["local_pt"], s["pints"], c["pt_idx"],
+                c["pt_in"], c["ln_idx"], c["ln_in"], (s["n_kf"], s["fs"], s["last"]), out["stats"],
+                (out["ref"], out["rel_R"], out["rel_t"]))
+
+    monkeypatch.setattr(tstep, "make_step_vi", lambda *a: step)
     assert len(_check_fused_replay(cfg, jt, rec)) >= 1  # the keyframe branch with VI-BA was compared
     assert any(fz["wide"] for fz in rec["fused"]) and not all(fz["wide"] for fz in rec["fused"])
 
@@ -449,18 +476,24 @@ def _inertial_inputs(cfg, fz):
     return p, prev, jinr.BodyState(R_wb=Rp, p_w=pp, v_w=vp, bg=bg, ba=ba), ext
 
 
+@pytest.fixture(scope="module")
+def jit_track_step_inertial(ref_run):
+    """The reference's `track_step_inertial` jitted once for both windows
+    (`wide` is a traced argument): the second case reuses the executable."""
+    return jax.jit(partial(jtr.track_step_inertial, _cams()[0], ref_run[0]))
+
+
 @pytest.mark.parametrize("wide", [False, True], ids=["nominal_window", "wide_window"])
-def test_track_step_inertial_parity(ref_run, wide):
+def test_track_step_inertial_parity(ref_run, jit_track_step_inertial, wide):
     cfg, jt, _, rec = ref_run
-    jcam, tcam = _cams()
+    _, tcam = _cams()
     fz = rec["fused"][2]
     s = fz["state"]
     p, prev, init, ext = _inertial_inputs(cfg, fz)
     jps, jls = _jax_store(type(jt.pstore), s["pstore"]), _jax_store(type(jt.lstore), s["lstore"])
     local = jnp.asarray(s["local_pt"].numpy())
     g = jnp.asarray(s["gravity_w"].numpy())
-    jo = jax.jit(partial(jtr.track_step_inertial, jcam, cfg))(fz["frame"], p, prev, init, g, ext, jps, jls, local,
-                                                              jnp.asarray(wide))
+    jo = jit_track_step_inertial(fz["frame"], p, prev, init, g, ext, jps, jls, local, jnp.asarray(wide))
     to = tstep.track_step_inertial(tcam, port_cfg(cfg), convert.frame_data(fz["frame"]),
                                    convert.preintegrated(np_tree(p)), convert.body_state(np_tree(prev)),
                                    convert.body_state(np_tree(init)), s["gravity_w"], s["ext"], s["pstore"],
@@ -639,28 +672,6 @@ def test_imu_batch_arrays_carry_the_boundary_sample(ref_run):
         assert a.dtype == {np.dtype("float32"): torch.float32, np.dtype("bool"): torch.bool}[np.asarray(b).dtype]
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert tt._last_imu_raw[0] == jt._last_imu_raw[0]
-
-
-@pytest.mark.parametrize("n_kf", [2, 3, 8, 9, 20, 32, 33, 70])
-def test_fiba_schedule_equal(n_kf):
-    cfg = _cfg(5)
-    jcam, tcam = _cams()
-    jt, tt = jtr.Tracker(jcam, cfg), Tracker(tcam, port_cfg(cfg), "cpu")
-    assert tt._fiba_schedule() == []  # no gravity yet
-    jt.n_kf = tt.n_kf = n_kf
-    jt.gravity_w, tt.gravity_w = jnp.asarray([0.0, 0.0, -9.81]), torch.tensor([0.0, 0.0, -9.81])
-    sj, st_ = jt._fiba_schedule(), tt._fiba_schedule()
-    assert len(st_) == len(sj)
-    for (wj, fj), (wt, ft) in zip(sj, st_):
-        np.testing.assert_array_equal(wt, wj)
-        np.testing.assert_array_equal(ft, fj)
-    if n_kf < 3:
-        assert st_ == []
-    elif n_kf <= 32:
-        assert len(st_) == 1 and len(st_[0][0]) == next(c for c in (8, 16, 32) if c >= n_kf)
-    else:
-        assert len(st_) >= 4 and all(len(w) == 32 for w, _ in st_)  # two passes of overlapping windows
-        assert set(np.concatenate([w for w, _ in st_])) == set(range(n_kf))
 
 
 def test_deferred_fiba_queue_drains_one_chunk_per_frame(ref_run):
